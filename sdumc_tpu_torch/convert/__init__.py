@@ -1,0 +1,3 @@
+from sdumc_tpu_torch.convert.checkpoint import (  # noqa: F401
+    load_reference_checkpoint, load_reference_state_dict)
+from sdumc_tpu_torch.convert.from_flax import state_dict_from_flax  # noqa: F401
