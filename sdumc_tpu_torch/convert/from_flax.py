@@ -1,10 +1,12 @@
 """Flax params of the JAX package -> the port's state_dict.
 
-The inverse of the reference-key table in
-``sdumc_tpu/convert/torch_to_jax.py``, kept here as the port's own copy.
-The port names its submodules after the reference torch state_dict, so the
-keys produced here are the reference keys, and Dense ``kernel`` [in, out]
-transposes to Linear ``weight`` [out, in].
+For the fusion net, the inverse of the reference-key table in
+``sdumc_tpu/convert/torch_to_jax.py``, kept here as the port's own copy;
+for WavLM, the inverse of ``sdumc_tpu/convert/hf_wavlm.py``. The port names
+its submodules after the reference torch (or HF) state_dict, so the keys
+produced here are those keys: Dense ``kernel`` [in, out] transposes to
+Linear ``weight`` [out, in], a Flax conv kernel [k, in/groups, out] to a
+torch Conv1d weight [out, in/groups, k].
 """
 
 from __future__ import annotations
@@ -80,6 +82,68 @@ def state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
             raise KeyError(f"no port key for flax param {'/'.join(path)}")
         arr = np.array(value, dtype=np.float32)
         if path[-1] == "kernel" and arr.ndim == 2:
+            arr = arr.T
+        out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+_WAVLM_TOP = {
+    "feature_ln": "feature_projection.layer_norm",
+    "feature_projection": "feature_projection.projection",
+    "pos_conv_embed": "encoder.pos_conv_embed.conv",
+    "encoder_ln": "encoder.layer_norm",
+}
+_WAVLM_LAYER = {
+    "layer_norm": "layer_norm", "final_layer_norm": "final_layer_norm",
+    "intermediate_dense": "feed_forward.intermediate_dense",
+    "output_dense": "feed_forward.output_dense",
+}
+_WAVLM_ATTN = {"q_proj", "k_proj", "v_proj", "out_proj", "gru_rel_pos_linear"}
+
+
+def wavlm_key_for(path: Tuple[str, ...]) -> Optional[str]:
+    """The port's WavLMModel key of one Flax param path, or None."""
+    name, leaf = path[0], path[-1]
+    if name == "feature_extractor":
+        sub = path[1]
+        if len(path) == 2:                       # conv_{i}_kernel / conv_{i}_bias
+            _, i, kind = sub.split("_")
+            return f"feature_extractor.conv_layers.{i}.conv.{_LEAF[kind]}"
+        if len(path) == 3 and leaf in _NORM_LEAF and (sub.startswith("ln_") or sub == "gn_0"):
+            i = sub.split("_")[1]
+            return f"feature_extractor.conv_layers.{i}.layer_norm.{_NORM_LEAF[leaf]}"
+        return None
+    if name in _WAVLM_TOP and len(path) == 2:
+        table = _NORM_LEAF if name.endswith("_ln") else _LEAF
+        return f"{_WAVLM_TOP[name]}.{table[leaf]}" if leaf in table else None
+    if name.startswith("layers_"):
+        pre = f"encoder.layers.{int(name.split('_')[1])}"
+        if path[1] == "attention":
+            if path[2:] == ("gru_rel_pos_const",):
+                return f"{pre}.attention.gru_rel_pos_const"
+            if path[2:] == ("rel_attn_embed",):
+                return f"{pre}.attention.rel_attn_embed.weight"
+            if len(path) == 4 and path[2] in _WAVLM_ATTN and leaf in _LEAF:
+                return f"{pre}.attention.{path[2]}.{_LEAF[leaf]}"
+            return None
+        if len(path) == 3 and path[1] in _WAVLM_LAYER:
+            table = _NORM_LEAF if path[1].endswith("layer_norm") else _LEAF
+            return f"{pre}.{_WAVLM_LAYER[path[1]]}.{table[leaf]}" if leaf in table else None
+    return None
+
+
+def wavlm_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """The JAX WavLMModel's params (a nested dict of arrays) as the port's
+    state_dict. Raises on a param path it does not know."""
+    out = {}
+    for path, value in _leaves(params):
+        key = wavlm_key_for(path)
+        if key is None:
+            raise KeyError(f"no port key for flax param {'/'.join(path)}")
+        arr = np.array(value, dtype=np.float32)
+        if arr.ndim == 3 and path[-1].endswith("kernel"):    # conv [k, in/g, out]
+            arr = arr.transpose(2, 1, 0)
+        elif arr.ndim == 2 and path[-1] == "kernel":         # dense [in, out]
             arr = arr.T
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out

@@ -1,0 +1,321 @@
+"""WavLM audio encoder (wavlm-large), the audio feature extractor.
+
+The port of ``sdumc_tpu/models/wavlm.py``. The reference runs HF
+``WavLMModel`` per wav file and saves hidden state -5, [T, 1024]
+(feature_extraction/audio/extract_transformers_embedding.py:29-111,125):
+
+  raw wav [B, S] -> 7 temporal convs (layer norm + gelu) -> [B, T, 512]
+  -> feature projection (LN + Linear to 1024)
+  -> grouped positional conv embedding (kernel 128, 16 groups, weight norm
+     folded at conversion)
+  -> 24 pre-LN transformer layers with WavLM's T5-style bucketed relative
+     position bias, shared across layers and gated per layer ("gru_rel_pos")
+  -> final LayerNorm; hidden-state taps per layer.
+
+Submodules carry HF's state_dict names, so an HF checkpoint loads as a
+state dict (``convert/hf_wavlm.py``); only the positional conv's weight norm
+is folded into ``encoder.pos_conv_embed.conv.weight``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sdumc_tpu_torch.ops.kernels.flash_wavlm import (
+    NEG, bias_diag_for, flash_gated_attention, relative_position_buckets)
+
+
+@dataclasses.dataclass(frozen=True)
+class WavLMConfig:
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    conv_dim: Tuple[int, ...] = (512,) * 7
+    conv_kernel: Tuple[int, ...] = (10, 3, 3, 3, 3, 2, 2)
+    conv_stride: Tuple[int, ...] = (5, 2, 2, 2, 2, 2, 2)
+    conv_bias: bool = True
+    feat_extract_norm: str = "layer"      # wavlm-large; "group" = base models
+    do_stable_layer_norm: bool = True     # pre-LN; False = post-LN
+    num_conv_pos_embeddings: int = 128
+    num_conv_pos_embedding_groups: int = 16
+    num_buckets: int = 320
+    max_bucket_distance: int = 800
+    layer_norm_eps: float = 1e-5
+    dtype: Any = torch.float32
+    # False = plain MHA (wav2vec2 / HuBERT: the same trunk without the gated
+    # relative position bias)
+    use_rel_pos_bias: bool = True
+    # "einsum" materialises [B, H, T, T] scores and bias; "flash" runs the
+    # hand-written kernel on the card (its plain version on the CPU); "auto"
+    # is the kernel whenever the tensors are on CUDA and einsum on the CPU.
+    # "ring" (sequence-parallel) is not ported and raises.
+    attention_impl: str = "auto"
+    # TPU knobs of the JAX package, kept so that configs and recipes carry
+    # over; the port reads none of them (its kernel has fixed 64-row tiles
+    # and "auto" does not depend on the clip length).
+    flash_min_frames: int = 1280
+    flash_score_budget: int = 8 << 30
+    flash_block: int = 0
+    flash_head_block: int = 8
+    flash_exp_base2: bool = False
+    ring_axis: str = "data"
+
+    @staticmethod
+    def tiny(**kw) -> "WavLMConfig":
+        base = dict(hidden_size=32, num_layers=2, num_heads=4,
+                    intermediate_size=64, conv_dim=(16, 16, 16),
+                    conv_kernel=(10, 3, 2), conv_stride=(5, 2, 2),
+                    num_conv_pos_embeddings=16,
+                    num_conv_pos_embedding_groups=4,
+                    num_buckets=40, max_bucket_distance=100)
+        base.update(kw)
+        return WavLMConfig(**base)
+
+    def output_length(self, n_samples: int) -> int:
+        t = n_samples
+        for k, s in zip(self.conv_kernel, self.conv_stride):
+            t = (t - k) // s + 1
+        return t
+
+
+def resolve_attention_impl(impl: str, device: torch.device) -> str:
+    if impl == "auto":
+        return "flash" if device.type == "cuda" else "einsum"
+    if impl == "ring":
+        raise NotImplementedError(
+            "attention_impl='ring' (sequence-parallel WavLM) is not ported; "
+            "see ROADMAP queue 1, the multi-device item")
+    if impl not in ("einsum", "flash"):
+        raise ValueError(f"unknown attention_impl {impl!r}")
+    return impl
+
+
+class ConvLayer(nn.Module):
+    """One temporal conv of the feature encoder, with its norm and gelu."""
+
+    def __init__(self, cfg: WavLMConfig, i: int):
+        super().__init__()
+        in_dim = 1 if i == 0 else cfg.conv_dim[i - 1]
+        dim = cfg.conv_dim[i]
+        self.conv = nn.Conv1d(in_dim, dim, cfg.conv_kernel[i],
+                              stride=cfg.conv_stride[i], bias=cfg.conv_bias)
+        if cfg.feat_extract_norm == "layer":
+            self.layer_norm = nn.LayerNorm(dim, eps=cfg.layer_norm_eps)
+        elif i == 0:   # "group": GroupNorm(groups = channels) on the first conv
+            self.layer_norm = nn.GroupNorm(dim, dim, eps=1e-5)
+        else:
+            self.layer_norm = None
+
+    def forward(self, x):                          # [B, C, S]
+        x = self.conv(x)
+        if isinstance(self.layer_norm, nn.LayerNorm):
+            x = self.layer_norm(x.transpose(1, 2)).transpose(1, 2)
+        elif self.layer_norm is not None:
+            x = self.layer_norm(x)
+        return F.gelu(x)
+
+
+class FeatureEncoder(nn.Module):
+    """Temporal conv stack: raw wav [B, S] -> frame features [B, T, C]."""
+
+    def __init__(self, cfg: WavLMConfig):
+        super().__init__()
+        self.conv_layers = nn.ModuleList(ConvLayer(cfg, i) for i in range(len(cfg.conv_dim)))
+
+    def forward(self, wav):
+        x = wav[:, None, :]
+        for layer in self.conv_layers:
+            x = layer(x)
+        return x.transpose(1, 2)
+
+
+class FeatureProjection(nn.Module):
+    def __init__(self, cfg: WavLMConfig):
+        super().__init__()
+        self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
+        self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+
+    def forward(self, feats):
+        return self.projection(self.layer_norm(feats))
+
+
+class PositionalConvEmbedding(nn.Module):
+    """Grouped conv positional embedding; the weight norm is folded into
+    ``conv.weight`` at conversion."""
+
+    def __init__(self, cfg: WavLMConfig):
+        super().__init__()
+        k = cfg.num_conv_pos_embeddings
+        self.conv = nn.Conv1d(cfg.hidden_size, cfg.hidden_size, k, padding=k // 2,
+                              groups=cfg.num_conv_pos_embedding_groups)
+        self.trim = k % 2 == 0                     # HF's SamePad
+
+    def forward(self, x):                          # [B, T, D]
+        out = self.conv(x.transpose(1, 2))
+        if self.trim:
+            out = out[:, :, :-1]
+        return F.gelu(out).transpose(1, 2)
+
+
+class WavLMAttention(nn.Module):
+    """Self-attention with the shared bucketed relative position bias and the
+    per-layer gru_rel_pos gate (HF WavLMAttention)."""
+
+    def __init__(self, cfg: WavLMConfig, has_relative_position_bias: bool):
+        super().__init__()
+        self.cfg = cfg
+        D, H = cfg.hidden_size, cfg.num_heads
+        self.q_proj = nn.Linear(D, D)
+        self.k_proj = nn.Linear(D, D)
+        self.v_proj = nn.Linear(D, D)
+        self.out_proj = nn.Linear(D, D)
+        if cfg.use_rel_pos_bias:
+            self.gru_rel_pos_linear = nn.Linear(D // H, 8)
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, H, 1, 1))
+            if has_relative_position_bias:
+                self.rel_attn_embed = nn.Embedding(cfg.num_buckets, H)
+
+    def forward(self, x, position_bias=None, pad_mask=None):
+        """x [B, T, D], pad_mask [B, T] bool (True attends). Returns (out,
+        position_bias): the einsum path carries the [H, T, T] bias across
+        layers, the kernel path its [H, 2T - 1] diagonal form."""
+        cfg = self.cfg
+        B, T, D = x.shape
+        H = cfg.num_heads
+        hd = D // H
+        q = self.q_proj(x).view(B, T, H, hd)
+        k = self.k_proj(x).view(B, T, H, hd)
+        v = self.v_proj(x).view(B, T, H, hd)
+
+        if not cfg.use_rel_pos_bias:               # wav2vec2 / HuBERT
+            scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(hd)
+            if pad_mask is not None:
+                scores = scores.masked_fill(~pad_mask[:, None, None, :], NEG)
+            probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+            out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, D)
+            return self.out_proj(out), None
+
+        impl = resolve_attention_impl(cfg.attention_impl, x.device)
+        if position_bias is None:                  # layer 0: built once per forward
+            rel_embed = self.rel_attn_embed.weight
+            if impl == "einsum":
+                buckets = relative_position_buckets(T, T, cfg.num_buckets, cfg.max_bucket_distance)
+                position_bias = rel_embed[buckets.to(x.device, torch.long)].permute(2, 0, 1)
+            else:
+                position_bias = bias_diag_for(rel_embed, T, cfg.num_buckets,
+                                              cfg.max_bucket_distance)
+
+        gated = x.view(B, T, H, hd).transpose(1, 2)                        # [B, H, T, hd]
+        proj = self.gru_rel_pos_linear(gated).view(B, H, T, 2, 4).sum(-1)  # [B, H, T, 2]
+        gate_a, gate_b = torch.sigmoid(proj).chunk(2, dim=-1)              # [B, H, T, 1]
+        gate_out = gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0
+
+        if impl == "flash":
+            out = flash_gated_attention(
+                q, k, v, gate_out[..., 0].contiguous(), None, pad_mask, position_bias,
+                num_buckets=cfg.num_buckets, max_distance=cfg.max_bucket_distance)
+            return self.out_proj(out.reshape(B, T, D)), position_bias
+
+        scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(hd)
+        scores = scores + gate_out * position_bias[None]
+        if pad_mask is not None:
+            scores = scores.masked_fill(~pad_mask[:, None, None, :], NEG)
+        probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
+        out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, D)
+        return self.out_proj(out), position_bias
+
+
+class FeedForward(nn.Module):
+    def __init__(self, cfg: WavLMConfig):
+        super().__init__()
+        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+
+    def forward(self, h):
+        return self.output_dense(F.gelu(self.intermediate_dense(h)))
+
+
+class EncoderLayer(nn.Module):
+    """Pre-LN ("stable layer norm", wavlm-large) or post-LN per config."""
+
+    def __init__(self, cfg: WavLMConfig, has_relative_position_bias: bool):
+        super().__init__()
+        self.stable = cfg.do_stable_layer_norm
+        self.attention = WavLMAttention(cfg, has_relative_position_bias)
+        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.feed_forward = FeedForward(cfg)
+        self.final_layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+
+    def forward(self, x, position_bias=None, pad_mask=None):
+        if self.stable:
+            h, position_bias = self.attention(self.layer_norm(x), position_bias, pad_mask)
+            x = x + h
+            x = x + self.feed_forward(self.final_layer_norm(x))
+        else:
+            h, position_bias = self.attention(x, position_bias, pad_mask)
+            x = self.layer_norm(x + h)
+            x = self.final_layer_norm(x + self.feed_forward(x))
+        return x, position_bias
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: WavLMConfig):
+        super().__init__()
+        self.pos_conv_embed = PositionalConvEmbedding(cfg)
+        self.layer_norm = nn.LayerNorm(cfg.hidden_size, eps=cfg.layer_norm_eps)
+        self.layers = nn.ModuleList(
+            EncoderLayer(cfg, has_relative_position_bias=(i == 0))
+            for i in range(cfg.num_layers))
+
+
+class WavLMModel(nn.Module):
+    def __init__(self, cfg: WavLMConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.feature_extractor = FeatureEncoder(cfg)
+        self.feature_projection = FeatureProjection(cfg)
+        self.encoder = Encoder(cfg)
+
+    def prologue(self, wav, pad_mask: Optional[torch.Tensor] = None):
+        """Everything before the transformer stack. ``pad_mask`` is the
+        frame-level [B, T] bool mask (True = real frame); padded frames are
+        zeroed before the positional conv, as HF does."""
+        x = self.feature_projection(self.feature_extractor(wav))
+        if pad_mask is not None:
+            x = x.masked_fill(~pad_mask[:, :, None], 0.0)
+        x = x + self.encoder.pos_conv_embed(x)
+        if not self.cfg.do_stable_layer_norm:
+            x = self.encoder.layer_norm(x)
+        return x
+
+    def encoder_stack(self, x, frame_mask: Optional[torch.Tensor] = None,
+                      output_hidden_states: bool = False):
+        """The transformer layers (+ final LN for pre-LN variants)."""
+        hidden_states = [x] if output_hidden_states else None
+        position_bias = None
+        for layer in self.encoder.layers:
+            x, position_bias = layer(x, position_bias, frame_mask)
+            if output_hidden_states:
+                hidden_states.append(x)
+        if self.cfg.do_stable_layer_norm:
+            x = self.encoder.layer_norm(x)
+            if output_hidden_states:
+                hidden_states[-1] = x
+        return x, (tuple(hidden_states) if output_hidden_states else None)
+
+    def forward(self, wav, pad_mask: Optional[torch.Tensor] = None,
+                output_hidden_states: bool = False):
+        """wav [B, S] (zero-mean / unit-var per clip). Returns
+        last_hidden_state [B, T, D] and, if asked, hidden_states (num_layers
+        + 1 taps, HF's convention: entry 0 is the post-pos-conv input, the
+        last is post-final-LN)."""
+        x = self.prologue(wav, pad_mask)
+        x, hidden_states = self.encoder_stack(x, pad_mask, output_hidden_states)
+        return {"last_hidden_state": x, "hidden_states": hidden_states}

@@ -22,7 +22,7 @@ from typing import Dict, Iterable
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
-SOURCES = {"fused_cross": "csrc/fused_cross.cu"}
+SOURCES = {"fused_cross": "csrc/fused_cross.cu", "flash_wavlm": "csrc/flash_wavlm.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -24,7 +24,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from sdumc_tpu_torch.ops.kernels import build
+from sdumc_tpu_torch.ops.kernels import build, check_operand
 from sdumc_tpu_torch.ops.masking import mask_time_scores
 
 # Kernel launches by query count (7: CrossAttention, 1: FRA2UTTNew pool).
@@ -88,17 +88,6 @@ def _splits(device: torch.device, B: int, T: int) -> int:
     return max(1, min(_sm_count[idx] // B, math.ceil(T / _TILE_T)))
 
 
-def _check(name, t, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got {tuple(t.shape)}")
-    if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
-
-
 def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
     """Run the kernel on the card. ``q`` is [B, Q, D], or [Q, D] shared by
     every row when ``q_batched`` is False."""
@@ -116,10 +105,10 @@ def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
         raise ValueError(f"the kernel takes D = {KERNEL_D} (the fusion net's "
                          f"width) and 1 <= Q <= 8, got D={D}, Q={Q}")
     dev = x.device
-    _check("x", x, (B, T, D), dev)
-    _check("q", q, (B, Q, D) if q_batched else (Q, D), dev)
-    _check("weight", weight, (D, D), dev)
-    _check("bias", bias, (D,), dev)
+    check_operand("x", x, (B, T, D), dev)
+    check_operand("q", q, (B, Q, D) if q_batched else (Q, D), dev)
+    check_operand("weight", weight, (D, D), dev)
+    check_operand("bias", bias, (D,), dev)
 
     tmax_ptr, tmax_scalar = None, T
     if isinstance(t_max, torch.Tensor):

@@ -1,5 +1,6 @@
 """sdumc_tpu_torch stands alone: importing every one of its modules pulls in
-neither JAX (jax, flax, optax) nor anything of the JAX package sdumc_tpu,
+neither JAX (jax, flax, optax), nor anything of the JAX package sdumc_tpu,
+nor transformers (its HF loaders read the checkpoint files themselves),
 and its sources name none of them in an import."""
 
 import ast
@@ -9,7 +10,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "sdumc_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sdumc_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sdumc_tpu", "transformers")
 
 _PROBE = """
 import importlib, pkgutil, sys
