@@ -1,7 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (sdumc_tpu_torch) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase, as below
+    python3 chip_smoke.py --ab OTHER      # phases 2-3 only, for this checkout's
+                                          # kernels and OTHER's (the root of
+                                          # another checkout), in turns
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. environment: the card's name and power limit, then the kernel build
@@ -9,12 +12,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
   2. the fusion kernel against its plain PyTorch version on the card, at the
      shapes of the inference path's first dual batch (B = 64 rows, D = 256,
      the audio / text / video buckets), once with mixed per-row t_max and
-     once with the batch's own lengths, which are also timed beside the
-     plain version and the bound;
+     once with the batch's own lengths, which are also timed (CUDA events,
+     and device time per call from torch.profiler) beside the plain version
+     and the bound;
   3. the WavLM attention kernel against its plain version at wavlm-large's
      H = 16, hd = 64, for a 5-s bucket batch (B = 8, T = 249) and the 60-s
-     clip (B = 1, T = 2999), with mixed key masks, timed beside the plain
-     version, the bound and one scaled_dot_product_attention call;
+     clip (B = 1, T = 2999), with mixed key masks, timed the same way beside
+     the plain version, the bound and one scaled_dot_product_attention call;
   4. the inference path: ``sdumc_tpu_torch.cli.infer.main`` on the
      synthetic store at the full published width (1024/4096/1024 -> 256,
      batch 32, dual view, seeded weights), with every launch counter set to
@@ -26,10 +30,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      counters around it, every saved feature checked for shape and
      finiteness, and one short clip held against the plain path on the CPU.
   6. a second (warm) extraction of the same wavs under torch.profiler:
-     device time by kernel and the device's busy share of the host-clock
+     device time by kernel and by family (attention kernel, convolutions,
+     GEMMs, copies, the rest) and the device's busy share of the host-clock
      window.
 The second-to-last line is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX or sdumc_tpu.
+
+A bound is the least time the card could take for the call: the larger of
+its bytes (each input read once, the output written once) at the HBM rate
+and its operations at the rate of the units the kernel runs them on. Both
+kernels run their matrix products on the tensor cores in the 3xTF32 split
+(three TF32 passes, f32-grade results), so those flops count three times at
+the TF32 rate; the fusion kernel's scores and weighted sum are f32 FMA and
+count once at the f32 rate. The f32 bound (every flop at the f32 rate, the
+bound of the earlier FFMA kernels) is printed beside it.
 """
 
 from __future__ import annotations
@@ -44,8 +58,10 @@ import tempfile
 import time
 import wave
 
-# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit)
+# H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12      # TF32 on the tensor cores
+TF32_PASSES = 3               # the 3xTF32 split: hi.hi + hi.lo + lo.hi
 PEAK_HBM_BYTES = 3.35e12      # bytes/s
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5   # f32 reassociation over <= 2048 frames
 MODEL_RTOL, MODEL_ATOL = 1e-3, 1e-4     # f32 reassociation through the whole net
@@ -63,6 +79,13 @@ FLASH_H, FLASH_HD = 16, 64             # wavlm-large's heads
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5    # f32, summed in another order over <= 3000 keys
 FEAT_RTOL, FEAT_ATOL = 1e-3, 1e-3      # f32 reassociation through 20 of 24 layers
 N_CLIPS, LONG_CLIP_S = 16, 60.0
+# (family, name fragments) of the extraction's device kernels, matched in order
+EXTRACTION_FAMILIES = (
+    ("flash_wavlm kernel", ("flash_wavlm",)),
+    ("cuDNN convolutions", ("conv", "fprop", "dgrad", "wgrad")),
+    ("cuBLAS GEMMs", ("gemm", "cutlass", "sm80_xmma", "sm90_xmma")),
+    ("memory copies", ("memcpy", "memset")),
+)
 
 
 def main_path_config():
@@ -97,18 +120,42 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, names, calls: int = 20) -> float:
+    """Device time per call of the kernels whose names contain one of
+    `names`, from torch.profiler over `calls` warm calls: the kernel time
+    without the wrapper's host overhead (NaN if no trace holds them)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):          # a trace now and then comes back without kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA and any(n in e.key for n in names))
+        if total > 0:
+            return total / 1e3 / calls
+    return math.nan
+
+
 def bound_ms(q_count: int, t_valid, shared_query: bool):
-    """Least time for one call, as (bytes_ms, operations_ms): each input
-    read once (x only up to each row's t_max) and the output written once,
-    over the HBM rate; f32 work of the key projection (2 D^2 per valid
-    frame), bias + tanh (2 D), scores and weighted sum (4 Q D), over the
-    f32 rate."""
+    """Least time for one call, as {"bytes", "operations", "f32"} in ms:
+    each input read once (x only up to each row's t_max) and the output
+    written once, over the HBM rate; the key projection (2 D^2 per valid
+    frame) in 3xTF32 over the TF32 rate plus bias + tanh (2 D), scores and
+    weighted sum (4 Q D) over the f32 rate; and every flop over the f32
+    rate, the earlier bound."""
     n = int(sum(t_valid))
     rows = len(t_valid)
     q_bytes = (1 if shared_query else rows) * q_count * D * 4
     nbytes = q_bytes + n * D * 4 + D * D * 4 + D * 4 + rows * 4 + rows * q_count * D * 4
-    flops = n * (2 * D * D + 2 * D + 4 * q_count * D)
-    return 1e3 * nbytes / PEAK_HBM_BYTES, 1e3 * flops / PEAK_F32_FLOPS
+    mma, ffma = n * 2 * D * D, n * (2 * D + 4 * q_count * D)
+    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES,
+            "operations": 1e3 * (TF32_PASSES * mma / PEAK_TF32_FLOPS + ffma / PEAK_F32_FLOPS),
+            "f32": 1e3 * (mma + ffma) / PEAK_F32_FLOPS}
 
 
 def main_path_lengths(cfg):
@@ -136,7 +183,8 @@ def kernel_phase(torch, fused_cross, fused_pool, lengths):
     gen = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
     totals = {q: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-                  "bytes_ms": 0.0, "operations_ms": 0.0} for q in REPLACES}
+                  "bytes_ms": 0.0, "operations_ms": 0.0, "f32_bound_ms": 0.0,
+                  "device_ms": 0.0, "calls": {}} for q in REPLACES}
     print(f"kernel vs plain (B={B_DUAL}, D={D}; tolerance rtol={KERNEL_RTOL} "
           f"atol={KERNEL_ATOL}: f32 reassociation over <= 2048 frames)")
     for modality, (T, t_main) in lengths.items():
@@ -176,19 +224,25 @@ def kernel_phase(torch, fused_cross, fused_pool, lengths):
                             f"{REPLACES[q_count][0]} at T={T}: max abs err {errs[-1]} "
                             f"outside rtol={KERNEL_RTOL} atol={KERNEL_ATOL}")
                 ms, plain_ms = time_ms(lambda: kern(t_main)), time_ms(lambda: plain(t_main))
-            bytes_ms, ops_ms = bound_ms(q_count, t_valid, q_count == 1)
-            bnd = max(bytes_ms, ops_ms)
+                dev_ms = device_ms(torch, lambda: kern(t_main), ("cross_",))
+            bnd = bound_ms(q_count, t_valid, q_count == 1)
             tot = totals[q_count]
-            tot["bytes_ms"] += bytes_ms
-            tot["operations_ms"] += ops_ms
+            tot["bytes_ms"] += bnd["bytes"]
+            tot["operations_ms"] += bnd["operations"]
+            tot["f32_bound_ms"] += bnd["f32"]
             tot["ms"] += ms
+            tot["device_ms"] += dev_ms
             tot["plain_ms"] += plain_ms
-            tot["bound_ms"] += bnd
+            tot["bound_ms"] += max(bnd["bytes"], bnd["operations"])
             tot["max_abs_err"] = max(tot["max_abs_err"], *errs)
+            tot["calls"][modality] = ms
             print(f"  {REPLACES[q_count][0]:11s} {modality:5s} T={T:4d} "
                   f"t_max={sorted(set(t_valid))} frames={sum(t_valid)} "
                   f"max_abs_err mixed={errs[0]!r} main={errs[1]!r} "
-                  f"kernel_ms={ms!r} plain_ms={plain_ms!r} bound_ms={bnd!r}")
+                  f"kernel_ms={ms!r} device_ms={dev_ms!r} plain_ms={plain_ms!r} "
+                  f"bound_ms={max(bnd['bytes'], bnd['operations'])!r} "
+                  f"(bytes {bnd['bytes']!r}, operations {bnd['operations']!r}; "
+                  f"f32 bound {bnd['f32']!r})")
     return totals
 
 
@@ -209,14 +263,18 @@ def read_counts() -> dict:
 
 
 def flash_bound_ms(B, T, n_valid, num_buckets=320):
-    """Least time for one call, as (bytes_ms, operations_ms): q, k, v, the
-    gate, rel_embed and kvalid read once and out written once, over the HBM
-    rate; QK^T and PV (4 hd flops per query and valid key) over the f32
-    rate. Keys that a row masks need no work, so only valid keys count."""
+    """Least time for one call, as {"bytes", "operations", "f32"} in ms: q,
+    k, v, the gate, rel_embed and kvalid read once and out written once,
+    over the HBM rate; QK^T and PV (4 hd flops per query and valid key) in
+    3xTF32 over the TF32 rate; and the same flops over the f32 rate, the
+    earlier bound. Keys that a row masks need no work, so only valid keys
+    count."""
     H, hd = FLASH_H, FLASH_HD
     nbytes = 4 * (4 * B * T * H * hd + B * H * T + num_buckets * H + B * T)
     flops = 4 * H * hd * T * int(sum(n_valid))
-    return 1e3 * nbytes / PEAK_HBM_BYTES, 1e3 * flops / PEAK_F32_FLOPS
+    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES,
+            "operations": 1e3 * TF32_PASSES * flops / PEAK_TF32_FLOPS,
+            "f32": 1e3 * flops / PEAK_F32_FLOPS}
 
 
 def flash_phase(torch, flash_wavlm):
@@ -228,7 +286,8 @@ def flash_phase(torch, flash_wavlm):
     dev = torch.device("cuda")
     kw = dict(num_buckets=320, max_distance=800)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "bytes_ms": 0.0, "operations_ms": 0.0, "max_abs_err": 0.0}
+           "bytes_ms": 0.0, "operations_ms": 0.0, "f32_bound_ms": 0.0, "max_abs_err": 0.0,
+           "device_ms": 0.0, "calls": {}}
     print(f"flash_wavlm vs plain (H={FLASH_H}, hd={FLASH_HD}; tolerance rtol={FLASH_RTOL} "
           f"atol={FLASH_ATOL}: f32, summed in another order over <= 3000 keys)")
     for B, T in FLASH_SHAPES:
@@ -252,8 +311,11 @@ def flash_phase(torch, flash_wavlm):
             # timed at the slice's shape: the first B rows (B = 1: the full row)
             args = [t[:B].contiguous() for t in (q, k, v, gate)]
             mask_b = kvalid[:B].contiguous()
-            ms = time_ms(lambda: flash_wavlm.flash_gated_attention(
-                *args, None, mask_b, diag, **kw))
+            def kern():
+                return flash_wavlm.flash_gated_attention(*args, None, mask_b, diag, **kw)
+
+            ms = time_ms(kern)
+            dev_ms = device_ms(torch, kern, ("flash_wavlm",))
             plain_ms = time_ms(lambda: flash_wavlm.flash_gated_attention_plain(
                 *args, None, mask_b, diag, **kw))
             # SDPA on the same function: heads-first q/k/v and a materialised
@@ -265,16 +327,20 @@ def flash_phase(torch, flash_wavlm):
                 qh, kh, vh, attn_mask=attn_mask))
             lib_err = (F.scaled_dot_product_attention(qh, kh, vh, attn_mask=attn_mask)
                        .transpose(1, 2) - ref[:B]).abs().max().item()
-        bytes_ms, ops_ms = flash_bound_ms(B, T, lengths[:B].tolist())
-        bnd = max(bytes_ms, ops_ms)
+        bnd = flash_bound_ms(B, T, lengths[:B].tolist())
+        least = max(bnd["bytes"], bnd["operations"])
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
-                         ("bound_ms", bnd), ("bytes_ms", bytes_ms), ("operations_ms", ops_ms)):
+                         ("bound_ms", least), ("bytes_ms", bnd["bytes"]),
+                         ("operations_ms", bnd["operations"]), ("f32_bound_ms", bnd["f32"]),
+                         ("device_ms", dev_ms)):
             tot[key] += val
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        tot["calls"][f"B={B} T={T}"] = ms
         print(f"  flash_wavlm B={B} T={T} valid keys={lengths[:B].tolist() if B > 1 else T} "
-              f"max_abs_err={err!r} (checked at B={rows}) kernel_ms={ms!r} plain_ms={plain_ms!r} "
-              f"sdpa_ms={lib_ms!r} (sdpa max abs diff {lib_err!r}) bound_ms={bnd!r} "
-              f"(bytes {bytes_ms!r}, operations {ops_ms!r})")
+              f"max_abs_err={err!r} (checked at B={rows}) kernel_ms={ms!r} device_ms={dev_ms!r} "
+              f"plain_ms={plain_ms!r} sdpa_ms={lib_ms!r} (sdpa max abs diff {lib_err!r}) "
+              f"bound_ms={least!r} (bytes {bnd['bytes']!r}, operations {bnd['operations']!r}; "
+              f"f32 bound {bnd['f32']!r})")
     return tot
 
 
@@ -426,6 +492,16 @@ def profile_extraction(torch, model_dir: str, audio_dir: str, top: int = 15):
     for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d} calls "
               f"{e.self_device_time_total / 1e6 / busy:7.2%}  {e.key[:90]}")
+    families = {}
+    for e in kernels:
+        name = e.key.lower()
+        family = next((f for f, keys in EXTRACTION_FAMILIES if any(k in name for k in keys)),
+                      "elementwise, norms and the rest")
+        ms, calls = families.get(family, (0.0, 0))
+        families[family] = (ms + e.self_device_time_total / 1e3, calls + e.count)
+    print("device time by family:")
+    for family, (ms, calls) in sorted(families.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms:10.3f} ms {calls:6d} calls {ms / 1e3 / busy:7.2%}  {family}")
 
 
 def extraction_phase(torch, flash_wavlm):
@@ -482,13 +558,65 @@ def extraction_phase(torch, flash_wavlm):
     return counts
 
 
+def kernels_only(torch, root: str, lengths: dict) -> dict:
+    """Phases 2-3 with the kernels of the checkout at `root`, built from its
+    own sources into its own build/kernels/; per-kernel totals."""
+    sys.path.insert(0, os.path.abspath(root))
+    from sdumc_tpu_torch.ops.kernels import build, flash_wavlm, fused_cross, fused_pool
+
+    build.build()
+    totals = kernel_phase(torch, fused_cross, fused_pool, lengths)
+    return {REPLACES[7][0]: totals[7], REPLACES[1][0]: totals[1],
+            FLASH["name"]: flash_phase(torch, flash_wavlm)}
+
+
+def ab_phase(other: str) -> None:
+    """Phases 2-3 for OTHER's kernels and this checkout's, each in its own
+    process, in the order OTHER, this, this, OTHER, on one card; the inputs
+    and the timing are this script's in every run."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    lengths = json.dumps(main_path_lengths(main_path_config()), default=int)
+    runs = []
+    for label, root in (("other", other), ("this", here), ("this", here), ("other", other)):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--kernels-from", root,
+                               "--lengths", lengths], capture_output=True, text=True, timeout=1200)
+        print(f"=== {label}: {os.path.abspath(root)} (exit {proc.returncode})")
+        print(proc.stdout.rstrip())
+        if proc.returncode:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise RuntimeError(f"the kernel phases failed for {root}")
+        runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
+    for name in (REPLACES[7][0], REPLACES[1][0], FLASH["name"]):
+        for key in ("ms", "device_ms"):
+            print(f"{name:12s} {key:9s} " + "  ".join(
+                f"{label}={res[name][key]!r}" for label, res in runs))
+        for call in runs[0][1][name]["calls"]:
+            print(f"{name:12s} {call:12s} " + "  ".join(
+                f"{label}={res[name]['calls'][call]!r}" for label, res in runs))
+    print(json.dumps({"ab": [{"run": label, **res} for label, res in runs]}))
+
+
 def main() -> int:
     import torch
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--ab", metavar="OTHER", help="time phases 2-3 against OTHER's kernels")
+    parser.add_argument("--kernels-from", help=argparse.SUPPRESS)
+    parser.add_argument("--lengths", help=argparse.SUPPRESS)
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.kernels_from:
+        lengths = {m: tuple(v) for m, v in json.loads(args.lengths).items()}
+        print(json.dumps(kernels_only(torch, args.kernels_from, lengths)))
+        return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.ab:
+        print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        ab_phase(args.ab)
+        print(card_line())
+        return 0
     from sdumc_tpu_torch.ops.kernels import build, flash_wavlm, fused_cross, fused_pool
 
     card = card_line()
@@ -531,6 +659,11 @@ def main() -> int:
           "mask gate * bias + keymask, built outside the timed region. "
           "Launches are counted on each kernel's own path (cli.infer, "
           "cli.extract audio)")
+    for name, tot in ((REPLACES[7][0], totals[7]), (REPLACES[1][0], totals[1]),
+                      (FLASH["name"], flash)):
+        print(f"{name}: kernel_ms={tot['ms']!r} device_ms={tot['device_ms']!r} "
+              f"bound_ms={tot['bound_ms']!r} ({tot['ms'] and tot['bound_ms'] / tot['ms']:.1%} "
+              f"of it) f32_bound_ms={tot['f32_bound_ms']!r}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

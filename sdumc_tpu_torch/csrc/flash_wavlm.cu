@@ -16,40 +16,84 @@
 // ones column on v for the row sum, heads packed per grid step) exist only
 // for Mosaic and are not carried over.
 //
-// What bounds it on an H100: 4 * B * H * T^2 * hd flops of QK^T and PV in
-// true f32 (the extraction path is checkpoint-exact, so no TF32), against
-// about 4 * B * T * H * hd * 4 bytes of q, k, v and out: at T = 2999 that is
-// 36.8 GFLOP (0.55 ms at 67 TFLOP/s) against 49 MB (0.015 ms at 3.35 TB/s),
-// so it is bound by f32 FMA throughput on the CUDA cores. The design:
-//  * One block of 256 threads per (b, h, 64-query tile); a loop over 64-key
-//    tiles keeps the [T, T] scores out of device memory (online max, rescale
-//    and sum, as flash attention does). At B = 1, T = 2999, H = 16 that is
-//    752 blocks for 132 SMs.
-//  * Scores and P.V are 4 x 4 register tiles per thread, fed by float4 shared
-//    loads from rows padded by 4 floats (conflict-free across a quarter warp).
-//  * The next key tile is fetched with cp.async while the softmax and P.V of
-//    the current one run, and the next value tile while the next scores run.
+// What bounds it on an H100: 4 * B * H * T^2 * hd flops of QK^T and PV, at
+// T = 2999 36.8 GFLOP against 49 MB of q, k, v and out. Both products run on
+// the tensor cores in the 3xTF32 split of tf32x3.cuh (three TF32 passes, f32
+// accumulate, f32-grade results; the precision is fixed and does not follow
+// torch's allow_tf32), so the least time is 3 x 36.8 GFLOP at 495 TFLOP/s =
+// 0.22 ms, against 0.015 ms for the bytes: bound by tensor-core throughput.
+// mma.sync reaches 674 of the 1024 TF32 MACs an SM can do per clock
+// (bench/mma_rate.py), and the f32 softmax, the hi / lo splits and the
+// staging share the warps' instruction slots with it. The design, flash-attention-2
+// style:
+//  * One block of 4 warps per (b, h, 64-query tile); each warp owns 16 query
+//    rows, keeps its q rows as A fragments (hi and lo, split once per block)
+//    and its S and O accumulators in registers; the row max and row sum of
+//    the online softmax are reduced across the 4 lanes of a quad. A loop over
+//    64-key tiles keeps the [T, T] scores out of device memory.
+//  * Each k and v tile lands raw (cp.async) and is split into hi and lo once
+//    per block, into buffers that interleave the two parts so that one
+//    16-byte load gives a lane a whole B fragment; no MMA repeats the split.
+//    The next tile's raw copy is in flight during the current tile's
+//    products, with two barriers per tile. (Splitting each fragment as it is
+//    loaded instead, with no split pass, measured slower: each warp then
+//    repeats the splits, and they cost more instruction slots than the pass's
+//    shared-memory traffic.)
+//  * The MMA's k index t reads element 2t of its 8-wide step and t + 4 reads
+//    2t + 1 (tf32x3.cuh): the scores' accumulators are then P.V's A fragment
+//    as they stand, with no shuffle and no round trip through shared memory.
+//  * P.V of each tile sums into a fresh accumulator that is added to O in
+//    f32: the tensor cores' accumulation rounds toward zero, and one running
+//    sum over 3000 keys drifted by about 1e-4 relative.
+//  * 104 KB of shared memory and 253 registers a thread: 2 blocks (8 warps)
+//    share an SM.
 //  * The ragged edge is masked in the kernel: key rows past T are zero-filled
-//    and weigh exactly zero, query rows past T are not stored; nothing is
-//    padded on the host. A masked key adds NEG, so a row whose first tiles
-//    are all masked carries m = -1e30 until a valid key arrives, and the
-//    rescale exp(m_old - m_new) then wipes what it summed. A row with no
-//    valid key averages v over all T keys, as the plain version does.
+//    and carry -inf, so they weigh exactly zero; query rows past T are not
+//    stored; nothing is padded on the host. A masked key adds NEG, so a row
+//    whose first tiles are all masked carries m = -1e30 until a valid key
+//    arrives, and the rescale exp(m_old - m_new) then wipes what it summed. A
+//    row with no valid key averages v over all T keys, as the plain version
+//    does.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // 16 x 16 threads, each a 4 x 4 tile of 64 x 64
-constexpr int kTile = 64;       // query and key rows per tile
-constexpr int kPS = kTile + 16; // row stride of P: two rows a warp writes are 16 banks apart
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 16 * kWarps;  // query rows per block, 16 per warp
+constexpr int kKeys = 64;           // keys per tile
+constexpr int kNT = kKeys / 8;      // 8-key steps of a tile
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kTile == kKeys, "the bias window spans one 64 x 64 tile pair");
 
+// Shared memory of a block, in floats. The raw f32 k and v tiles land in
+// [64][HD + 4] buffers (cp.async); the split pass writes their hi and lo
+// parts interleaved, so that one 16-byte load gives a lane its whole B
+// fragment (hi and lo of both elements):
+//   k: row u, element pair p (2p, 2p + 1) at u * KS + 4p:
+//      hi(2p), hi(2p + 1), lo(2p), lo(2p + 1)
+//   v: key pair p (2p, 2p + 1), column c at p * VS + 4c:
+//      hi(2p, c), hi(2p + 1, c), lo(2p, c), lo(2p + 1, c)
+// KS = 2 HD + 16 and VS = 4 HD + 8 put the 8 lanes of a quarter warp on 32
+// distinct banks.
 template <int HD>
-constexpr size_t smem_floats() {
-  return (size_t)3 * kTile * (HD + 4) + kTile * kPS + 2 * kTile + kTile;
-}
+struct Layout {
+  static constexpr int RS = HD + 4;
+  static constexpr int KS = 2 * HD + 16;
+  static constexpr int VS = 4 * HD + 8;
+  static constexpr int kRawK = 0;
+  static constexpr int kRawV = kRawK + kKeys * RS;
+  static constexpr int kSplitK = kRawV + kKeys * RS;
+  static constexpr int kSplitV = kSplitK + kKeys * KS;
+  static constexpr int kWin = kSplitV + kKeys / 2 * VS;   // [128] bias window * log2 e, offset col - row + 63
+  static constexpr int kMask = kWin + 2 * kKeys;       // [64]  key term: 0, NEG * log2 e, or -inf past T
+  static constexpr size_t floats = (size_t)kMask + kKeys;
+};
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -58,26 +102,76 @@ __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// Rows t0 .. t0 + 63 of one head into a [64][HD + 4] shared tile; rows at or
-// past T are zero-filled.
+// Rows t0 .. t0 + 63 of k and v for one head into the raw buffers; rows at or
+// past T are zero-filled. One cp.async group. Thread tid copies float4 column
+// tid % kC of rows tid / kC + kRows m, so every offset but the row is fixed.
 template <int HD>
-__device__ __forceinline__ void load_tile(float* dst, const float* src, int t0, int T,
-                                          size_t row_stride, int tid) {
-  constexpr int kC = HD / 4;
+__device__ __forceinline__ void load_raw(float* smem, const float* k, const float* v, int t0,
+                                         int T, size_t row_stride, int tid) {
+  using L = Layout<HD>;
+  constexpr int kC = HD / 4, kRows = kThreads / kC;
+  static_assert(kThreads % kC == 0 && kKeys % kRows == 0, "whole rows per pass");
+  const int r0 = tid / kC, c = tid % kC;
+  const size_t src = (size_t)(t0 + r0) * row_stride + 4 * c;
+  float* dk = smem + L::kRawK + r0 * L::RS + 4 * c;
+  float* dv = smem + L::kRawV + r0 * L::RS + 4 * c;
+  const int left = T - t0 - r0;
 #pragma unroll
-  for (int i = tid; i < kTile * kC; i += kThreads) {
-    const int r = i / kC, c = i % kC;
-    float* d = dst + r * (HD + 4) + 4 * c;
-    if (t0 + r < T)
-      cp_async16(d, src + (size_t)(t0 + r) * row_stride + 4 * c);
-    else
-      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int m = 0; m < kKeys / kRows; ++m) {
+    if (kRows * m < left) {
+      cp_async16(dk + m * kRows * L::RS, k + src + (size_t)m * kRows * row_stride);
+      cp_async16(dv + m * kRows * L::RS, v + src + (size_t)m * kRows * row_stride);
+    } else {
+      *reinterpret_cast<float4*>(dk + m * kRows * L::RS) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<float4*>(dv + m * kRows * L::RS) = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
+  cp_async_commit();
+}
+
+// The raw k and v tiles split into their interleaved hi / lo buffers, with the
+// same fixed column per thread as load_raw.
+template <int HD>
+__device__ __forceinline__ void split_tiles(float* smem, int tid) {
+  using L = Layout<HD>;
+  constexpr int kC = HD / 4, kRows = kThreads / kC;
+  const int r0 = tid / kC, c = tid % kC;
+  const float* sk = smem + L::kRawK + r0 * L::RS + 4 * c;
+  float* dk = smem + L::kSplitK + r0 * L::KS + 8 * c;
+#pragma unroll
+  for (int m = 0; m < kKeys / kRows; ++m) {
+    float4 lo;
+    const float4 hi = tf32x3::split4(*reinterpret_cast<const float4*>(sk + m * kRows * L::RS), lo);
+    float* d = dk + m * kRows * L::KS;
+    *reinterpret_cast<float4*>(d) = make_float4(hi.x, hi.y, lo.x, lo.y);
+    *reinterpret_cast<float4*>(d + 4) = make_float4(hi.z, hi.w, lo.z, lo.w);
+  }
+  // v: thread tid takes key pairs tid / kC + kRows m
+  const float* sv = smem + L::kRawV + 2 * r0 * L::RS + 4 * c;
+  float* dv = smem + L::kSplitV + r0 * L::VS + 16 * c;
+#pragma unroll
+  for (int m = 0; m < kKeys / 2 / kRows; ++m) {
+    const float* src = sv + 2 * m * kRows * L::RS;
+    float4 lo0, lo1;
+    const float4 hi0 = tf32x3::split4(*reinterpret_cast<const float4*>(src), lo0);
+    const float4 hi1 = tf32x3::split4(*reinterpret_cast<const float4*>(src + L::RS), lo1);
+    float* d = dv + m * kRows * L::VS;
+    *reinterpret_cast<float4*>(d) = make_float4(hi0.x, hi1.x, lo0.x, lo1.x);
+    *reinterpret_cast<float4*>(d + 4) = make_float4(hi0.y, hi1.y, lo0.y, lo1.y);
+    *reinterpret_cast<float4*>(d + 8) = make_float4(hi0.z, hi1.z, lo0.z, lo1.z);
+    *reinterpret_cast<float4*>(d + 12) = make_float4(hi0.w, hi1.w, lo0.w, lo1.w);
+  }
+}
+
+// 2^x on the SFU (relative error about 2^-22); flushes results below 2^-126 to 0.
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 template <int HD>
@@ -87,21 +181,19 @@ flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ bias_diag,
                    const float* __restrict__ kvalid, float* __restrict__ out,
                    int T, int H, float scale) {
-  static_assert(HD == 16 || HD == 64, "16 threads share a row of out");
-  constexpr int kS = HD + 4;       // row stride of the q, k and v tiles
-  constexpr int kCPT = HD / 16;    // columns of out per thread
+  static_assert(HD % 16 == 0 && HD <= 64, "8-wide steps, whole float4 rows");
+  using L = Layout<HD>;
+  constexpr int kK = HD / 8;          // 8-wide steps of q . k; 8-column tiles of out
 
   extern __shared__ __align__(16) float smem[];
-  float* q_s = smem;               // [64][kS]
-  float* k_s = q_s + kTile * kS;   // [64][kS]
-  float* v_s = k_s + kTile * kS;   // [64][kS]
-  float* p_s = v_s + kTile * kS;   // [64][kPS]  probabilities of this tile pair
-  float* w_s = p_s + kTile * kPS;  // [128]      bias window, offset col - row + 63
-  float* n_s = w_s + 2 * kTile;    // [64]       key mask term, 0 or NEG
+  const float* ks = smem + L::kSplitK;
+  const float* vs = smem + L::kSplitV;
+  float* w_s = smem + L::kWin;
+  float* n_s = smem + L::kMask;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;         // score columns tx + 16c, out columns kCPT tx + cc
-  const int ty = tid >> 4;         // rows ty + 16r
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -110,165 +202,155 @@ flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* diag = bias_diag + (size_t)h * (2 * T - 1);
   const float* kv = kvalid ? kvalid + (size_t)b * T : nullptr;
 
-  float g[4];
+  // this lane's two query rows: r0 (= fragment row g) and r1 (= g + 8)
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  const bool in0 = q0 + r0 < T, in1 = q0 + r1 < T;
+
+  load_raw<HD>(smem, k + head, v + head, 0, T, row_stride, tid);
+
+  // q . k's A fragments, split once: step kk, k index t <-> element 8kk + 2t
+  uint32_t qh[kK][4], ql[kK][4];
+  {
+    const float* qa = q + head + (size_t)(in0 ? q0 + r0 : 0) * row_stride + 2 * t;
+    const float* qb = q + head + (size_t)(in1 ? q0 + r1 : 0) * row_stride + 2 * t;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = q0 + ty + 16 * r;
-    g[r] = t < T ? gate[((size_t)b * H + h) * T + t] : 0.f;
+    for (int kk = 0; kk < kK; ++kk) {
+      const float2 x0 = in0 ? *reinterpret_cast<const float2*>(qa + 8 * kk) : make_float2(0.f, 0.f);
+      const float2 x1 = in1 ? *reinterpret_cast<const float2*>(qb + 8 * kk) : make_float2(0.f, 0.f);
+      tf32x3::split_a(x0, x1, qh[kk], ql[kk]);
+    }
   }
+  const float* gate_row = gate + ((size_t)b * H + h) * T + q0;
+  const float g0 = in0 ? gate_row[r0] : 0.f;
+  const float g1 = in1 ? gate_row[r1] : 0.f;
+  const float sl = scale * kLog2e;    // scores are kept in log2 units
 
-  load_tile<HD>(q_s, q + head, q0, T, row_stride, tid);
-  load_tile<HD>(k_s, k + head, 0, T, row_stride, tid);
-  cp_async_commit();
-  load_tile<HD>(v_s, v + head, 0, T, row_stride, tid);
-  cp_async_commit();
-
-  float m[4], l[4], o[4][kCPT];
+  float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows r0, r1
+  float l0 = 0.f, l1 = 0.f;               // running sum over this lane's columns
+  float o[kK][4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
+  for (int n = 0; n < kK; ++n)
 #pragma unroll
-    for (int c = 0; c < kCPT; ++c) o[r][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
 
-  const int nk = (T + kTile - 1) / kTile;
+  const int nk = (T + kKeys - 1) / kKeys;
   for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    const bool more = kt + 1 < nk;
-
-    // this pair's key mask and bias window; their last readers finished
-    // before the previous tile's barriers
-    if (tid < kTile) {
+    const int k0 = kt * kKeys;
+    cp_async_wait_all();               // this tile's raw k and v landed
+    __syncthreads();                   // ... for every thread; the split buffers are free
+    split_tiles<HD>(smem, tid);
+    if (tid < kKeys) {
       const int u = k0 + tid;
-      n_s[tid] = (u < T && kv && !(kv[u] > 0.f)) ? kNeg : 0.f;
-    } else if (tid < 3 * kTile) {
-      const int i = tid - kTile;                  // 0 .. 127
-      const long long d = (long long)k0 - q0 + T - 1 - (kTile - 1) + i;
-      w_s[i] = (i < 2 * kTile - 1 && d >= 0 && d <= 2LL * T - 2) ? diag[d] : 0.f;
-    }
-    cp_async_wait<1>();          // q and this key tile landed; v may be in flight
-    __syncthreads();
-
-    float s[4][4];
+      n_s[tid] = u >= T ? -INFINITY : (kv && !(kv[u] > 0.f)) ? kNeg * kLog2e : 0.f;
+    } else {
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) s[r][c] = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < HD; i += 4) {
-      float4 qv[4], kv4[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        qv[r] = *reinterpret_cast<const float4*>(q_s + (ty + 16 * r) * kS + i);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        kv4[c] = *reinterpret_cast<const float4*>(k_s + (tx + 16 * c) * kS + i);
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          float a = s[r][c];
-          a = fmaf(qv[r].x, kv4[c].x, a);
-          a = fmaf(qv[r].y, kv4[c].y, a);
-          a = fmaf(qv[r].z, kv4[c].z, a);
-          a = fmaf(qv[r].w, kv4[c].w, a);
-          s[r][c] = a;
-        }
-    }
-
-    // scale, gated bias, key mask; online softmax per row across 16 lanes
-    float alpha[4];
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = ty + 16 * r;
-      float mt = -INFINITY;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int col = tx + 16 * c;
-        const float val = s[r][c] * scale + g[r] * w_s[col - row + kTile - 1] + n_s[col];
-        s[r][c] = val;
-        if (k0 + col < T) mt = fmaxf(mt, val);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, off));
-      const float m_new = fmaxf(m[r], mt);   // finite: key k0 < T is in every tile
-      alpha[r] = expf(m[r] - m_new);
-      float ps = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = (k0 + tx + 16 * c < T) ? expf(s[r][c] - m_new) : 0.f;
-        s[r][c] = p;
-        ps += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l[r] = l[r] * alpha[r] + ps;
-      m[r] = m_new;
-    }
-    __syncthreads();             // every reader of k_s, w_s and n_s is done
-
-    if (more) {
-      load_tile<HD>(k_s, k + head, k0 + kTile, T, row_stride, tid);
-      cp_async_commit();
-    }
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) p_s[(ty + 16 * r) * kPS + tx + 16 * c] = s[r][c];
-    if (more)
-      cp_async_wait<1>();        // this value tile landed; the next key tile may not
-    else
-      cp_async_wait<0>();
-    __syncthreads();
-
-    // o = alpha * o + P . V over this tile's 64 keys
-#pragma unroll
-    for (int r = 0; r < 4; ++r)
-#pragma unroll
-      for (int c = 0; c < kCPT; ++c) o[r][c] *= alpha[r];
-#pragma unroll 2
-    for (int j = 0; j < kTile; j += 4) {
-      float4 pr[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pr[r] = *reinterpret_cast<const float4*>(p_s + (ty + 16 * r) * kPS + j);
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        float vr[kCPT];
-        const float* vrow = v_s + (j + jj) * kS + kCPT * tx;
-        if constexpr (kCPT == 4) {
-          const float4 t4 = *reinterpret_cast<const float4*>(vrow);
-          vr[0] = t4.x; vr[1] = t4.y; vr[2] = t4.z; vr[3] = t4.w;
-        } else {
-#pragma unroll
-          for (int c = 0; c < kCPT; ++c) vr[c] = vrow[c];
-        }
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float pw = jj == 0 ? pr[r].x : jj == 1 ? pr[r].y : jj == 2 ? pr[r].z : pr[r].w;
-#pragma unroll
-          for (int c = 0; c < kCPT; ++c) o[r][c] = fmaf(pw, vr[c], o[r][c]);
-        }
+      for (int e = 0; e < 2; ++e) {
+        const int c = tid - kKeys + e * kKeys;     // 0 .. 127
+        const long long d = (long long)k0 - q0 + T - 1 - (kKeys - 1) + c;
+        w_s[c] = (c < 2 * kKeys - 1 && d >= 0 && d <= 2LL * T - 2) ? diag[d] * kLog2e : 0.f;
       }
     }
-    __syncthreads();             // every reader of v_s and p_s is done
+    __syncthreads();                   // split tiles, mask and window in place; raw buffers free
+    if (kt + 1 < nk) load_raw<HD>(smem, k + head, v + head, k0 + kKeys, T, row_stride, tid);
 
-    if (more) {
-      load_tile<HD>(v_s, v + head, k0 + kTile, T, row_stride, tid);
-      cp_async_commit();
+    // S = Q K^T: s[j] covers keys 8j .. 8j + 7 (c0, c1: row r0, keys 8j + 2t, + 1)
+    float s[kNT][4];
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kK; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const uint4 f = *reinterpret_cast<const uint4*>(ks + (8 * j + g) * L::KS + 16 * kk + 4 * t);
+        tf32x3::mma3(s[j], qh[kk], ql[kk], f.x, f.y, f.z, f.w);
+      }
+    }
+
+    // scale, gated bias, key term; online softmax across the quad's 64
+    // columns. Keys past T carry -inf: they weigh 0 and never set the max.
+    float mt0 = -INFINITY, mt1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const float nm = n_s[col];
+        s[j][e] = fmaf(s[j][e], sl, fmaf(g0, w_s[col - r0 + kKeys - 1], nm));
+        s[j][2 + e] = fmaf(s[j][2 + e], sl, fmaf(g1, w_s[col - r1 + kKeys - 1], nm));
+        mt0 = fmaxf(mt0, s[j][e]);
+        mt1 = fmaxf(mt1, s[j][2 + e]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, off));
+      mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, off));
+    }
+    const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);  // finite: key k0 < T
+    const float alpha0 = exp2_ftz(m0 - mn0), alpha1 = exp2_ftz(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[j][e] = exp2_ftz(s[j][e] - mn0);
+        s[j][2 + e] = exp2_ftz(s[j][2 + e] - mn1);
+        ps0 += s[j][e];
+        ps1 += s[j][2 + e];
+      }
+    }
+    l0 = fmaf(l0, alpha0, ps0);
+    l1 = fmaf(l1, alpha1, ps1);
+
+    // P V of this tile: step j's A fragment is s[j] itself (keys 8j + 2t,
+    // 8j + 2t + 1). It sums into a fresh accumulator, and o = alpha o + pv
+    // in f32: the tensor cores' accumulation rounds toward zero, so a
+    // running sum over all T keys would drift by about 1e-4 at T = 3000.
+    float pv[kK][4];
+#pragma unroll
+    for (int n = 0; n < kK; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      uint32_t ph[4], pl[4];
+      tf32x3::split_a(make_float2(s[j][0], s[j][1]), make_float2(s[j][2], s[j][3]), ph, pl);
+#pragma unroll
+      for (int n = 0; n < kK; ++n) {
+        const uint4 f = *reinterpret_cast<const uint4*>(vs + (4 * j + t) * L::VS + 4 * (8 * n + g));
+        tf32x3::mma3(pv[n], ph, pl, f.x, f.y, f.z, f.w);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kK; ++n) {
+      o[n][0] = fmaf(o[n][0], alpha0, pv[n][0]);
+      o[n][1] = fmaf(o[n][1], alpha0, pv[n][1]);
+      o[n][2] = fmaf(o[n][2], alpha1, pv[n][2]);
+      o[n][3] = fmaf(o[n][3], alpha1, pv[n][3]);
     }
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = q0 + ty + 16 * r;
-    if (t >= T) continue;
-    float* dst = out + head + (size_t)t * row_stride + kCPT * tx;
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // o[n]: columns 8n + 2t, 8n + 2t + 1 of rows r0 (c0, c1) and r1 (c2, c3)
+  if (in0) {
+    float* dst = out + head + (size_t)(q0 + r0) * row_stride + 2 * t;
 #pragma unroll
-    for (int c = 0; c < kCPT; ++c) dst[c] = o[r][c] / l[r];
+    for (int n = 0; n < kK; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][0] / l0, o[n][1] / l0);
+  }
+  if (in1) {
+    float* dst = out + head + (size_t)(q0 + r1) * row_stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kK; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2] / l1, o[n][3] / l1);
   }
 }
 
@@ -276,9 +358,13 @@ template <int HD>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* gate,
                    const float* bias_diag, const float* kvalid, float* out,
                    int B, int T, int H, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats<HD>();
+  const size_t smem = sizeof(float) * Layout<HD>::floats;
   cudaError_t err = cudaFuncSetAttribute(
       flash_wavlm_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(flash_wavlm_kernel<HD>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kTile - 1) / kTile, H, B);
   flash_wavlm_kernel<HD><<<grid, kThreads, smem, stream>>>(

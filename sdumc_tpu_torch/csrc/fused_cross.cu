@@ -14,47 +14,70 @@
 // softmax over all-equal masked scores is then uniform over all T frames,
 // which the kernel reproduces with zero scores over all T.
 //
-// What bounds it on an H100: the key projection, 2*D*D flops per valid frame
-// in true f32 (no TF32: the fusion net's checkpoint-parity path), against
-// 4*D bytes of x read once: at D = 256 that is 128 flop per byte, far above
-// the f32 ridge (67 TFLOP/s over 3.35 TB/s = 20 flop/byte). So it is bound
-// by f32 FMA throughput on the CUDA cores. The design:
-//  * k never reaches device memory. A 64-frame tile of x sits in shared
-//    memory; W (256 KB, more than a block's shared memory) streams through in
-//    64-row chunks, and each chunk's [64, 64] block of k is folded into the
-//    partial scores before the chunk's buffer is reused.
-//  * The W chunks are double-buffered with cp.async: the next chunk (or the
-//    next tile's first one) is in flight while the current one feeds the
-//    FMAs, so the L2 latency is hidden behind the projection.
-//  * The projection uses a 4x4 register tile per thread with float4 shared
-//    loads (rows padded by 4 floats so the two rows a warp reads sit in
-//    different banks). D is a compile-time 256 (the fusion net's width), so
-//    every loop unrolls and all of a tile's loads are issued at once.
-//  * Per-row t_max: tiles past it are never loaded; the last partial tile
-//    masks its rows before the running max, so no tile yields NaN.
-//  * Q = 1 and Q = 7 are below any MMA tile, so the scores and the weighted
-//    sum are plain FMA loops; Q = 7 is padded to 8 with zero queries.
-//  * One block per row gives only B blocks on 132 SMs, so time is split over
-//    `nsplit` blocks per row; a second small kernel merges the per-split
-//    (max, sum, accumulator) triples, as flash-decoding does.
+// What bounds it on an H100: the key projection, 2 * D * D flops per valid
+// frame against 4 * D bytes of x read once: at D = 256, 128 flop per byte.
+// The projection runs on the tensor cores in the 3xTF32 split of tf32x3.cuh
+// (three TF32 passes, f32 accumulate, f32-grade keys; the precision is fixed
+// and does not follow torch's allow_tf32), so its least time is 3 x 2 D^2
+// flops per frame at 495 TFLOP/s; the scores and the weighted sum (4 Q D
+// flops per frame, Q = 7 padded to 8, or 1: below any MMA tile) stay f32 FMA
+// on the CUDA cores beside it. The design:
+//  * One block of 8 warps per (row, 64-frame tile): a row's tiles run on as
+//    many blocks, so the 64-row dual batch fills the 132 SMs several times
+//    over; blocks past the row's t_max exit at once. A second small kernel
+//    merges the per-tile (max, sum, accumulator) triples, as flash-decoding
+//    does, over the tiles that the row's t_max keeps.
+//  * W (256 KB) is split into hi and lo once per call, by a first small
+//    kernel, into a layout that interleaves the two parts: one 16-byte load
+//    then gives a lane its whole B fragment, and the main loop splits only
+//    the x fragments it loads.
+//  * The [64, 256] block of k = x W^T is computed in 16 stages of 16 input
+//    features; each stage's x columns and split W columns (38 KB) stream
+//    through a 2-stage cp.async ring, so the next stage's loads fly while
+//    this one's MMAs run. Warp w owns frames 32 (w % 2) .. + 31 and key
+//    columns 64 (w / 2) .. + 63: two 16-row by eight 8-column accumulators.
+//    W's pairs are swizzled by row parity so that a quarter warp's loads
+//    fall on distinct banks.
+//  * k never reaches device memory: tanh, the bias and the partial scores
+//    over a warp's 64 columns are taken from the accumulators, summed across
+//    the quad and then across the 4 column warps in shared memory.
+//  * While the scores are taken, the f32 x tile is staged again into the
+//    ring's 64 KB for the weighted sum, one column per thread.
+//  * 84 KB of shared memory and at most 128 registers a thread let 2 blocks
+//    share an SM.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps; the 4x4 tiles cover 64 x 64
-constexpr int kD = 256;        // feature width; one accumulator column per thread
-constexpr int kBT = 64;        // frames per time tile
-constexpr int kJC = 64;        // rows of W per streamed chunk
-constexpr int kChunks = kD / kJC;
-constexpr int kXS = kD + 4;    // padded row stride of the x and W tiles
-constexpr int kKS = kJC + 1;   // row stride of the k block (odd: no conflicts)
-constexpr int kD4 = kD / 4;
+constexpr int kThreads = 256;          // 8 warps: 2 (frames) x 4 (key columns)
+constexpr int kD = 256;                // feature width; one accumulator column per thread
+constexpr int kBT = 64;                // frames per tile
+constexpr int kKC = 16;                // input features per pipeline stage: two 8-wide steps
+constexpr int kCS = kKC + 8;           // row stride of a stage's x: a quarter warp's float2
+                                       // loads (4 rows g, elements 2t) hit 32 banks
+constexpr int kWS = 2 * kKC;           // row stride of a stage's split W: 8 pairs of 4 floats
+constexpr int kChunks = kD / kKC;
+constexpr int kStages = 2;
+constexpr int kXC = kBT * kCS;         // floats of a stage's x columns [64][kCS]
+constexpr int kStage = kXC + kD * kWS; // ... and split W columns [256][kWS]
+constexpr int kColWarps = 4;           // warps that share a frame, over the key columns
+constexpr int kQG = 4;                 // queries per pass over a warp's keys
+
+// The ring holds the stages during the projection, then the x tile [64][256]
+// and the score scratch of the epilogue.
+template <int QP>
+__host__ __device__ constexpr int ring_floats() {
+  return kStages * kStage > kBT * kD + (kColWarps + 1) * QP * kBT
+             ? kStages * kStage : kBT * kD + (kColWarps + 1) * QP * kBT;
+}
 
 template <int QP>
 constexpr size_t smem_floats() {
-  return (size_t)kBT * kXS + 2 * kJC * kXS + kBT * kKS + QP * kD + QP * kBT + 3 * QP;
+  return (size_t)ring_floats<QP>() + QP * kD + 3 * QP;
 }
 
 __device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
@@ -69,22 +92,52 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// One 64-row chunk of W into a shared buffer: 16 float4 per thread.
-__device__ __forceinline__ void load_w_chunk(float* w_buf, const float* w, int j0,
-                                             int tid) {
-#pragma unroll
-  for (int k = 0; k < kJC * kD4 / kThreads; ++k) {
-    const int i = tid + k * kThreads;
-    const int r = i / kD4, c = i % kD4;
-    cp_async16(w_buf + r * kXS + 4 * c, w + (size_t)(j0 + r) * kD + 4 * c);
+// W split once per call: w_split[j][4p .. 4p + 3] = hi(w[j][2p]),
+// hi(w[j][2p + 1]), lo(w[j][2p]), lo(w[j][2p + 1]), one lane's whole B
+// fragment of an 8-wide step. One block per row j, one thread per pair p.
+__global__ void __launch_bounds__(kD / 2)
+split_w_kernel(const float* __restrict__ w, float* __restrict__ w_split) {
+  const int j = blockIdx.x, p = threadIdx.x;
+  const float2 a = *reinterpret_cast<const float2*>(w + (size_t)j * kD + 2 * p);
+  uint32_t h0, l0, h1, l1;
+  tf32x3::split(a.x, h0, l0);
+  tf32x3::split(a.y, h1, l1);
+  *reinterpret_cast<uint4*>(w_split + (size_t)j * 2 * kD + 4 * p) = make_uint4(h0, h1, l0, l1);
+}
+
+// Frames t0 .. t0 + 63 of x and every row of the split W, input features
+// 16c .. 16c + 15, into one ring stage; frames past `rows` are zero-filled.
+// In the stage, W row j's 8 pairs sit with pair q at q ^ 4 (j & 1), so the
+// two rows a quarter warp reads fall on distinct banks.
+__device__ __forceinline__ void load_stage(float* stage, const float* xb, const float* w_split,
+                                           int t0, int rows, int c, int tid) {
+  {
+    const int r = tid >> 2, q4 = tid & 3;
+    float* dst = stage + r * kCS + 4 * q4;
+    if (r < rows)
+      cp_async16(dst, xb + (size_t)(t0 + r) * kD + kKC * c + 4 * q4);
+    else
+      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
   }
+  const int j0 = tid >> 3, q = tid & 7;
+  float* ws = stage + kXC + j0 * kWS + 4 * (q ^ ((j0 & 1) << 2));
+  const float* src = w_split + (size_t)j0 * 2 * kD + 2 * kKC * c + 4 * q;
+#pragma unroll
+  for (int m = 0; m < kD / (kThreads / 8); ++m)
+    cp_async16(ws + m * (kThreads / 8) * kWS, src + (size_t)m * (kThreads / 8) * 2 * kD);
+}
+
+// 64-frame tiles of a row with this t_max (all T frames when t_max <= 0).
+__device__ __forceinline__ int row_tiles(int tm, int T) {
+  const int n_valid = tm <= 0 ? T : min(tm, T);
+  return (n_valid + kBT - 1) / kBT;
 }
 
 template <int QP>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 2)
 cross_partial_kernel(const float* __restrict__ q, long long q_bstride,
                      const float* __restrict__ x,
-                     const float* __restrict__ w,
+                     const float* __restrict__ w_split,
                      const float* __restrict__ bias,
                      const int* __restrict__ tmax, int tmax_scalar,
                      int Q, int T, int nsplit, float scale,
@@ -93,30 +146,34 @@ cross_partial_kernel(const float* __restrict__ q, long long q_bstride,
   static_assert(kBT == 64, "the softmax pass gives each lane two frames");
   static_assert(QP <= kThreads / 32, "one warp per query");
   static_assert(kD == kThreads, "one accumulator column per thread");
-  // score pairs (q, t), pair = q * kBT + t: thread tid owns tid + p * kThreads
-  constexpr int kPairs = (QP * kBT + kThreads - 1) / kThreads;
-  constexpr int kQStep = kThreads / kBT;
+  static_assert(kKC == 16, "a stage is two 8-wide steps");
 
-  extern __shared__ __align__(16) float smem[];
-  float* x_s = smem;                     // [kBT][kXS]      time tile of x
-  float* w_s = x_s + kBT * kXS;          // 2 x [kJC][kXS]  chunks of W rows
-  float* k_s = w_s + 2 * kJC * kXS;      // [kBT][kKS]      tanh(x W^T + b)
-  float* q_s = k_s + kBT * kKS;          // [QP][kD]        queries, zero-padded
-  float* s_s = q_s + QP * kD;            // [QP][kBT]       scores, then weights
-  float* m_s = s_s + QP * kBT;           // [QP] running max
-  float* l_s = m_s + QP;                 // [QP] running sum
-  float* a_s = l_s + QP;                 // [QP] rescale of this tile
-
-  const int tid = threadIdx.x;
   const int split = blockIdx.x;
   const int b = blockIdx.y;
   const int tm = tmax ? tmax[b] : tmax_scalar;
   const bool uniform = tm <= 0;
   const int n_valid = uniform ? T : min(tm, T);
-  const int ntiles = (n_valid + kBT - 1) / kBT;
+  const int ntiles = row_tiles(tm, T);
   const int per_split = (ntiles + nsplit - 1) / nsplit;
   const int tile_begin = split * per_split;
+  if (tile_begin >= ntiles) return;    // past this row's t_max: no partial
   const int tile_end = min(ntiles, tile_begin + per_split);
+
+  extern __shared__ __align__(16) float smem[];
+  float* ring = smem;                    // kStages x [x: 64][kCS] [W: 256][kWS], then:
+  float* sp_s = ring + kBT * kD;         //   x tile [64][256]; [4][QP][kBT] scores over
+  float* s_s = sp_s + kColWarps * QP * kBT;  // each column warp's keys; [QP][kBT] scores
+  float* q_s = ring + ring_floats<QP>(); // [QP][kD]       queries, zero-padded
+  float* m_s = q_s + QP * kD;            // [QP] running max
+  float* l_s = m_s + QP;                 // [QP] running sum
+  float* a_s = l_s + QP;                 // [QP] rescale of this tile
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = 32 * (warp & 1);        // this warp's frames wm .. wm + 31
+  const int wc = warp >> 1;              // ... and key columns 64 wc .. 64 wc + 63
+  const int wn = 64 * wc;
 
   const float* xb = x + (size_t)b * T * kD;
   const float* qb = q + (size_t)b * q_bstride;
@@ -125,114 +182,134 @@ cross_partial_kernel(const float* __restrict__ q, long long q_bstride,
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
   }
-  float acc[QP];
+  float acc_out[QP];
 #pragma unroll
-  for (int j = 0; j < QP; ++j) acc[j] = 0.f;
-
-  const int tx = tid & 15;   // k columns tx + 16c
-  const int ty = tid >> 4;   // k rows ty + 16r
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int t_own = tid % kBT;   // frame of this thread's score pairs
-  const int q_own = tid / kBT;   // first query of this thread's score pairs
-
-  if (!uniform && tile_begin < tile_end) {
-    load_w_chunk(w_s, w, 0, tid);
-    cp_async_commit();
-  }
+  for (int j = 0; j < QP; ++j) acc_out[j] = 0.f;
 
   for (int tile = tile_begin; tile < tile_end; ++tile) {
     const int t0 = tile * kBT;
     const int rows = min(kBT, n_valid - t0);
-    __syncthreads();  // the previous tile's readers of x_s and s_s are done
+    __syncthreads();  // the previous tile's readers of the ring and s_s are done
+
+    // acc[mi][ni]: frames wm + 16 mi + (g, g + 8), columns wn + 8 ni + (2t, 2t + 1)
+    float acc[2][8][4];
 #pragma unroll
-    for (int k = 0; k < kBT * kD4 / kThreads; ++k) {
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+    if (!uniform) {
+      load_stage(ring, xb, w_split, t0, rows, 0, tid);
+      cp_async_commit();
+      static_assert(kChunks % kStages == 0, "unrolled by the ring's stages");
+#pragma unroll 2
+      for (int c = 0; c < kChunks; ++c) {
+        cp_async_wait<0>();
+        __syncthreads();  // stage c landed for everyone; stage c - 1's readers are done
+        if (c + 1 < kChunks)
+          load_stage(ring + ((c + 1) % kStages) * kStage, xb, w_split, t0, rows, c + 1, tid);
+        cp_async_commit();
+
+        const float* xs = ring + (c % kStages) * kStage;
+        const float* ws = xs + kXC;
+#pragma unroll
+        for (int s = 0; s < 2; ++s) {
+          uint32_t ah[2][4], al[2][4];   // [m tile][fragment] of step s
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            const float* xr = xs + (wm + 16 * mi + g) * kCS + 8 * s + 2 * t;
+            tf32x3::split_a(*reinterpret_cast<const float2*>(xr),
+                            *reinterpret_cast<const float2*>(xr + 8 * kCS), ah[mi], al[mi]);
+          }
+          // pair 4s + t of W row wn + 8 ni + g (the row's parity is g's)
+          const float* wr = ws + (wn + g) * kWS + 4 * ((4 * s + t) ^ ((g & 1) << 2));
+#pragma unroll
+          for (int ni = 0; ni < 8; ++ni) {
+            const uint4 f = *reinterpret_cast<const uint4*>(wr + 8 * ni * kWS);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+              tf32x3::mma3(acc[mi][ni], ah[mi], al[mi], f.x, f.y, f.z, f.w);
+          }
+        }
+      }
+      __syncthreads();  // every warp is done with the ring
+    }
+
+    // stage the f32 x tile again for the weighted sum; it lands during the scores
+#pragma unroll
+    for (int k = 0; k < kBT * kD / 4 / kThreads; ++k) {
       const int i = tid + k * kThreads;
-      const int r = i / kD4, c = i % kD4;
-      float* dst = x_s + r * kXS + 4 * c;
+      const int r = i / (kD / 4), c4 = i % (kD / 4);
+      float* dst = ring + r * kD + 4 * c4;
       if (r < rows)
-        cp_async16(dst, xb + (size_t)(t0 + r) * kD + 4 * c);
+        cp_async16(dst, xb + (size_t)(t0 + r) * kD + 4 * c4);
       else
         *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
     }
     cp_async_commit();
 
-    float sc[kPairs];
-#pragma unroll
-    for (int p = 0; p < kPairs; ++p) sc[p] = 0.f;
-
     if (uniform) {
-      cp_async_wait<0>();
+      for (int i = tid; i < QP * kBT; i += kThreads) s_s[i] = 0.f;
     } else {
-#pragma unroll 1
-      for (int chunk = 0; chunk < kChunks; ++chunk) {
-        // prefetch the next chunk (or the next tile's first) into the other
-        // buffer; its last reader finished before the previous barrier
-        const bool more = chunk + 1 < kChunks || tile + 1 < tile_end;
-        if (more) {
-          const int next = (chunk + 1) % kChunks;
-          load_w_chunk(w_s + ((chunk + 1) & 1) * kJC * kXS, w, next * kJC, tid);
-          cp_async_commit();
-          cp_async_wait<1>();
-        } else {
-          cp_async_wait<0>();
-        }
-        __syncthreads();  // this chunk (and the x tile) landed for everyone
-
-        const float* wb = w_s + (chunk & 1) * kJC * kXS;
-        float kacc[4][4];
+      // k = tanh(acc + bias) in place: acc[mi][ni] = k at frames wm + 16 mi
+      // + (g, g + 8), columns wn + 8 ni + (2t, 2t + 1)
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
+      for (int ni = 0; ni < 8; ++ni) {
+        const float2 bj = *reinterpret_cast<const float2*>(bias + wn + 8 * ni + 2 * t);
 #pragma unroll
-          for (int c = 0; c < 4; ++c) kacc[r][c] = 0.f;
-#pragma unroll 4
-        for (int i = 0; i < kD; i += 4) {
-          float4 xv[4], wv[4];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            xv[r] = *reinterpret_cast<const float4*>(x_s + (ty + 16 * r) * kXS + i);
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            wv[c] = *reinterpret_cast<const float4*>(wb + (tx + 16 * c) * kXS + i);
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-#pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              float a = kacc[r][c];
-              a = fmaf(xv[r].x, wv[c].x, a);
-              a = fmaf(xv[r].y, wv[c].y, a);
-              a = fmaf(xv[r].z, wv[c].z, a);
-              a = fmaf(xv[r].w, wv[c].w, a);
-              kacc[r][c] = a;
-            }
-        }
-        const int j0 = chunk * kJC;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float bj = bias[j0 + tx + 16 * c];
-#pragma unroll
-          for (int r = 0; r < 4; ++r)
-            k_s[(ty + 16 * r) * kKS + tx + 16 * c] = tanhf(kacc[r][c] + bj);
-        }
-        __syncthreads();
-
-        // partial scores over this chunk's columns for the pairs
-        // (q_own + p * kQStep, t_own), which share their frame and its k row
-        const float* kr = k_s + t_own * kKS;
-#pragma unroll 16
-        for (int j = 0; j < kJC; ++j) {
-          const float kv = kr[j];
-#pragma unroll
-          for (int p = 0; p < kPairs; ++p)
-            if (q_own + p * kQStep < QP)
-              sc[p] = fmaf(q_s[(q_own + p * kQStep) * kD + j0 + j], kv, sc[p]);
+        for (int mi = 0; mi < 2; ++mi) {
+          acc[mi][ni][0] = tanhf(acc[mi][ni][0] + bj.x);
+          acc[mi][ni][1] = tanhf(acc[mi][ni][1] + bj.y);
+          acc[mi][ni][2] = tanhf(acc[mi][ni][2] + bj.x);
+          acc[mi][ni][3] = tanhf(acc[mi][ni][3] + bj.y);
         }
       }
-    }
+      // partial scores of this lane's 4 frames over its 16 columns, kQG
+      // queries at a time, summed across the quad, then across the column warps
 #pragma unroll
-    for (int p = 0; p < kPairs; ++p) {
-      const int pair = tid + p * kThreads;
-      if (pair < QP * kBT) s_s[pair] = scale * sc[p];
+      for (int j0 = 0; j0 < QP; j0 += kQG) {
+        constexpr int kG = QP < kQG ? QP : kQG;
+        float sp[kG][2][2];
+#pragma unroll
+        for (int j = 0; j < kG; ++j)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) sp[j][mi][0] = sp[j][mi][1] = 0.f;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+#pragma unroll
+          for (int j = 0; j < kG; ++j) {
+            const float2 qv =
+                *reinterpret_cast<const float2*>(q_s + (j0 + j) * kD + wn + 8 * ni + 2 * t);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh)
+                sp[j][mi][hh] = fmaf(qv.x, acc[mi][ni][2 * hh],
+                                     fmaf(qv.y, acc[mi][ni][2 * hh + 1], sp[j][mi][hh]));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kG; ++j)
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              float v = sp[j][mi][hh];
+              v += __shfl_xor_sync(0xffffffffu, v, 1);
+              v += __shfl_xor_sync(0xffffffffu, v, 2);
+              if (j % 4 == t)
+                sp_s[(wc * QP + j0 + j) * kBT + wm + 16 * mi + 8 * hh + g] = v;
+            }
+      }
+      __syncthreads();
+      for (int i = tid; i < QP * kBT; i += kThreads) {
+        float v = 0.f;
+#pragma unroll
+        for (int c = 0; c < kColWarps; ++c) v += sp_s[c * QP * kBT + i];
+        s_s[i] = scale * v;
+      }
     }
     __syncthreads();
 
@@ -264,77 +341,87 @@ cross_partial_kernel(const float* __restrict__ q, long long q_bstride,
         m_s[warp] = m_new;
       }
     }
-    __syncthreads();
+    cp_async_wait<0>();
+    __syncthreads();  // the x tile landed; weights and rescales are in place
 
-    // acc[q][d] = alpha[q] * acc[q][d] + sum_t p[q][t] * x[t][d], d = tid;
+    // acc_out[q][d] = alpha[q] * acc_out[q][d] + sum_t p[q][t] * x[t][d], d = tid;
     // four frames at a time: weights and x rows past `rows` are zero
 #pragma unroll
-    for (int j = 0; j < QP; ++j) acc[j] *= a_s[j];
-    for (int t = 0; t < rows; t += 4) {
-      const float x0 = x_s[t * kXS + tid], x1 = x_s[(t + 1) * kXS + tid];
-      const float x2 = x_s[(t + 2) * kXS + tid], x3 = x_s[(t + 3) * kXS + tid];
+    for (int j = 0; j < QP; ++j) acc_out[j] *= a_s[j];
+    for (int r = 0; r < rows; r += 4) {
+      const float x0 = ring[r * kD + tid], x1 = ring[(r + 1) * kD + tid];
+      const float x2 = ring[(r + 2) * kD + tid], x3 = ring[(r + 3) * kD + tid];
 #pragma unroll
       for (int j = 0; j < QP; ++j) {
-        const float4 pw = *reinterpret_cast<const float4*>(s_s + j * kBT + t);
-        acc[j] = fmaf(pw.x, x0, fmaf(pw.y, x1, fmaf(pw.z, x2, fmaf(pw.w, x3, acc[j]))));
+        const float4 pw = *reinterpret_cast<const float4*>(s_s + j * kBT + r);
+        acc_out[j] = fmaf(pw.x, x0, fmaf(pw.y, x1, fmaf(pw.z, x2, fmaf(pw.w, x3, acc_out[j]))));
       }
     }
   }
 
-  __syncthreads();  // the statistics are final (and initialised, if no tile)
+  __syncthreads();  // the statistics are final
   const size_t base = ((size_t)b * nsplit + split) * QP;
   if (tid < QP) {
     m_part[base + tid] = m_s[tid];
     l_part[base + tid] = l_s[tid];
   }
 #pragma unroll
-  for (int j = 0; j < QP; ++j) acc_part[(base + j) * kD + tid] = acc[j];
+  for (int j = 0; j < QP; ++j) acc_part[(base + j) * kD + tid] = acc_out[j];
 }
 
-// out[b, q, d] = sum_s e^(m_s - M) acc_s[d] / sum_s e^(m_s - M) l_s.
-// Split 0 always holds a tile, so M is finite; empty splits carry
-// m = -inf and weigh zero.
+// out[b, q, d] = sum_s e^(m_s - M) acc_s[d] / sum_s e^(m_s - M) l_s, over
+// the splits that hold a tile of row b (split 0 always does).
 template <int QP>
 __global__ void __launch_bounds__(kThreads)
 cross_combine_kernel(const float* __restrict__ m_part,
                      const float* __restrict__ l_part,
                      const float* __restrict__ acc_part,
-                     float* __restrict__ out, int Q, int nsplit) {
+                     const int* __restrict__ tmax, int tmax_scalar,
+                     float* __restrict__ out, int Q, int T, int nsplit) {
   const int b = blockIdx.x;
+  const int j = blockIdx.y;
   const int d = threadIdx.x;
-  const size_t base = (size_t)b * nsplit * QP;
-  for (int j = 0; j < Q; ++j) {
-    float m = -INFINITY;
-    for (int s = 0; s < nsplit; ++s) m = fmaxf(m, m_part[base + s * QP + j]);
-    float l = 0.f, a = 0.f;
-    for (int s = 0; s < nsplit; ++s) {
-      const size_t row = base + s * QP + j;
-      const float e = expf(m_part[row] - m);
-      l = fmaf(e, l_part[row], l);
-      a = fmaf(e, acc_part[row * kD + d], a);
-    }
-    out[((size_t)b * Q + j) * kD + d] = a / l;
+  const int ntiles = row_tiles(tmax ? tmax[b] : tmax_scalar, T);
+  const int per_split = (ntiles + nsplit - 1) / nsplit;
+  const int nact = (ntiles + per_split - 1) / per_split;
+  const size_t base = (size_t)b * nsplit * QP + j;
+  float m = -INFINITY;
+  for (int s = 0; s < nact; ++s) m = fmaxf(m, m_part[base + s * QP]);
+  float l = 0.f, a = 0.f;
+  for (int s = 0; s < nact; ++s) {
+    const size_t row = base + s * QP;
+    const float e = expf(m_part[row] - m);
+    l = fmaf(e, l_part[row], l);
+    a = fmaf(e, acc_part[row * kD + d], a);
   }
+  out[((size_t)b * Q + j) * kD + d] = a / l;
 }
 
 template <int QP>
 cudaError_t launch(const float* q, long long q_bstride, const float* x,
                    const float* w, const float* bias, const int* tmax,
                    int tmax_scalar, float* out, float* m_part, float* l_part,
-                   float* acc_part, int B, int Q, int T, int nsplit,
+                   float* acc_part, float* w_split, int B, int Q, int T, int nsplit,
                    float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<QP>();
   cudaError_t err = cudaFuncSetAttribute(
       cross_partial_kernel<QP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cross_partial_kernel<QP>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  split_w_kernel<<<kD, kD / 2, 0, stream>>>(w, w_split);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   cross_partial_kernel<QP><<<dim3(nsplit, B), kThreads, smem, stream>>>(
-      q, q_bstride, x, w, bias, tmax, tmax_scalar, Q, T, nsplit, scale,
+      q, q_bstride, x, w_split, bias, tmax, tmax_scalar, Q, T, nsplit, scale,
       m_part, l_part, acc_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cross_combine_kernel<QP><<<B, kThreads, 0, stream>>>(
-      m_part, l_part, acc_part, out, Q, nsplit);
+  cross_combine_kernel<QP><<<dim3(B, Q), kThreads, 0, stream>>>(
+      m_part, l_part, acc_part, tmax, tmax_scalar, out, Q, T, nsplit);
   return cudaGetLastError();
 }
 
@@ -347,20 +434,21 @@ extern "C" {
 // broadcasts one query set); x [B, T, D], w [D, D], bias [D], out [B, Q, D]
 // are contiguous f32 with D = 256; tmax is an int32 [B] array, or NULL to
 // use tmax_scalar for every row. m_part/l_part hold B*nsplit*QP floats and
-// acc_part B*nsplit*QP*D, with QP = 1 for Q = 1 and 8 otherwise.
+// acc_part B*nsplit*QP*D, with QP = 1 for Q = 1 and 8 otherwise; w_split
+// holds 2*D*D floats (W's hi and lo parts, written here).
 int sdumc_fused_cross(const float* q, long long q_bstride, const float* x,
                       const float* w, const float* bias, const int* tmax,
                       int tmax_scalar, float* out, float* m_part,
-                      float* l_part, float* acc_part, int B, int Q, int T,
-                      int D, int nsplit, float scale, void* stream) {
-  if (B < 1 || T < 1 || Q < 1 || Q > 8 || D != kD || nsplit < 1)
+                      float* l_part, float* acc_part, float* w_split, int B, int Q,
+                      int T, int D, int nsplit, float scale, void* stream) {
+  if (B < 1 || T < 1 || Q < 1 || Q > 8 || D != kD || nsplit < 1 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Q == 1)
     return (int)launch<1>(q, q_bstride, x, w, bias, tmax, tmax_scalar, out,
-                          m_part, l_part, acc_part, B, Q, T, nsplit, scale, s);
+                          m_part, l_part, acc_part, w_split, B, Q, T, nsplit, scale, s);
   return (int)launch<8>(q, q_bstride, x, w, bias, tmax, tmax_scalar, out,
-                        m_part, l_part, acc_part, B, Q, T, nsplit, scale, s);
+                        m_part, l_part, acc_part, w_split, B, Q, T, nsplit, scale, s);
 }
 
 const char* sdumc_cuda_error_string(int err) {

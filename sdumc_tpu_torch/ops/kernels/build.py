@@ -3,8 +3,9 @@
 Each source under ``sdumc_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface, which
 ``ctypes`` loads. The build happens at first use, into ``build/kernels/``
-at the root of the checkout; the file name carries a hash of the source and
-the flags, so an edited source is rebuilt and a stale library never loads.
+at the root of the checkout; the file name carries a hash of the source,
+of every header under ``csrc/`` (``*.cuh``) and of the flags, so an edited
+source or header is rebuilt and a stale library never loads.
 ``build()`` compiles several sources at once, one ``nvcc`` process each.
 """
 
@@ -38,8 +39,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = PACKAGE_DIR / SOURCES[name]
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1((PACKAGE_DIR / SOURCES[name]).read_bytes())
+    for header in sorted((PACKAGE_DIR / "csrc").glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -72,7 +72,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.sdumc_fused_cross
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, i, p, p, p, p,
+        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, i, p, p, p, p, p,
                        i, i, i, i, i, ctypes.c_float, p]
         fn.restype = ctypes.c_int
         lib.sdumc_cuda_error_string.argtypes = [i]
@@ -80,12 +80,18 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def splits_for(sm_count: int, B: int, T: int) -> int:
+    """Blocks per row along time: one per 64-frame tile, so that B rows fill
+    the card's SMs several times over, up to 16 blocks per SM in all (which
+    bounds the partials); each block takes an equal run of a row's tiles."""
+    return max(1, min(math.ceil(T / _TILE_T), math.ceil(16 * sm_count / B)))
+
+
 def _splits(device: torch.device, B: int, T: int) -> int:
-    """Blocks per row along time, so that B rows fill the card's SMs."""
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _sm_count:
         _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return max(1, min(_sm_count[idx] // B, math.ceil(T / _TILE_T)))
+    return splits_for(_sm_count[idx], B, T)
 
 
 def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
@@ -131,6 +137,7 @@ def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
     m_part = torch.empty(B * nsplit * qp, dtype=torch.float32, device=dev)
     l_part = torch.empty_like(m_part)
     acc_part = torch.empty(B * nsplit * qp * D, dtype=torch.float32, device=dev)
+    w_split = torch.empty(2 * D * D, dtype=torch.float32, device=dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -138,7 +145,8 @@ def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
             q.data_ptr(), Q * D if q_batched else 0, x.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), tmax_ptr, tmax_scalar,
             out.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
-            acc_part.data_ptr(), B, Q, T, D, nsplit, float(softmax_scale),
+            acc_part.data_ptr(), w_split.data_ptr(), B, Q, T, D, nsplit,
+            float(softmax_scale),
             stream)
     if err:
         raise RuntimeError("fused_cross kernel launch failed: "

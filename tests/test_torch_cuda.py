@@ -8,10 +8,16 @@ only the port's dependencies exist:
 
 Tolerance rtol 1e-4 / atol 1e-5: f32 in both, summed in another order over
 up to a few hundred frames (the fusion kernel) or a thousand keys (the
-WavLM attention kernel). The tiny WavLM model on the card runs the
+WavLM attention kernel). The kernels' products run on the tensor cores in
+the 3xTF32 split; the float64 checks at the full shapes (wavlm-large's
+T = 2999 clip, the fusion kernel's 64-row dual batch) hold them to f32
+grade at the same tolerance, which a single TF32 pass (about 1e-3 relative
+on the scores) would not meet. The tiny WavLM model on the card runs the
 attention kernel's hd = 16 instance (hidden 64, 4 heads); wavlm-large's
 hd = 64 instance is tested directly.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -37,7 +43,7 @@ def _inputs(B, T, Q, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 63, 64, 200, 300])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 200, 300])
 @pytest.mark.parametrize("tmax", ["rows", None, 37, 0])
 def test_kernel_matches_plain(cuda, T, tmax):
     B = 6
@@ -52,6 +58,31 @@ def test_kernel_matches_plain(cuda, T, tmax):
         got = fused_pool.fused_attention_pool(x, w, b, c, tmax)
         ref = fused_pool.fused_attention_pool_plain(x, w, b, c, tmax)
         torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [1, 7])
+def test_kernel_matches_float64_at_full_shape(cuda, Q):
+    """The fusion kernel at the dual batch's shape (B = 64, D = 256, the
+    2048-frame audio bucket) with mixed per-row t_max, against the plain
+    version in float64 on the CPU."""
+    B, T = 64, 2048
+    x, w, b, q, c = _inputs(B, T, Q, seed=5)
+    if Q == 1:
+        q = c.expand(B, 1, D)
+    rows = np.random.default_rng(6).integers(1, T + 1, size=B)
+    rows[:6] = [T, T - 37, 1, 0, T + 5, 64]
+    tmax = torch.from_numpy(rows.astype(np.int32))
+    ref = fused_cross.fused_cross_attention_plain(q.double(), x.double(), w.double(),
+                                                  b.double(), tmax.long())
+    with torch.inference_mode():
+        args = [t.to(cuda) for t in (x, w, b, tmax)]
+        if Q == 1:
+            got = fused_pool.fused_attention_pool(args[0], args[1], args[2], c.to(cuda),
+                                                  args[3])[:, None]
+        else:
+            got = fused_cross.fused_cross_attention(q.to(cuda), *args)
+    torch.testing.assert_close(got.cpu().double(), ref, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.cuda
@@ -119,10 +150,10 @@ def _flash_inputs(B, T, H, hd, mask, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 63, 64, 65, 249, 1000])
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129, 249, 1000])
 @pytest.mark.parametrize("mask", ["prefix", "scattered"])
 def test_flash_kernel_matches_plain(cuda, T, mask):
-    hd = 16 if T == 65 else 64
+    hd = 16 if T in (65, 129) else 64
     args = [t.to(cuda) for t in _flash_inputs(3, T, 4, hd, mask)]
     kw = dict(num_buckets=NB, max_distance=MD)
     with torch.inference_mode():
@@ -137,6 +168,39 @@ def test_flash_kernel_matches_plain(cuda, T, mask):
         got = flash_wavlm.flash_gated_attention(*args[:5], none, **kw)
         ref = flash_wavlm.flash_gated_attention_plain(*args[:5], none, **kw)
         torch.testing.assert_close(got, ref, rtol=RTOL, atol=ATOL)
+
+
+def _flash_float64(q, k, v, gate, bias_diag, kvalid):
+    """The attention in float64 on the CPU, softmax included."""
+    q, k, v, gate, bias_diag = (t.double() for t in (q, k, v, gate, bias_diag))
+    T, hd = q.shape[1], q.shape[3]
+    scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(hd)
+    scores = scores + gate[..., None] * flash_wavlm.dense_bias(bias_diag, T)[None]
+    if kvalid is not None:
+        scores = scores.masked_fill(~(kvalid[:, None, None, :] > 0), flash_wavlm.NEG)
+    return torch.einsum("bhts,bshd->bthd", torch.softmax(scores, dim=-1), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+def test_flash_kernel_matches_float64_at_wavlm_large(cuda, masked):
+    """wavlm-large's heads (H = 16, hd = 64) over the 60-s clip (T = 2999),
+    all keys valid or the last 1000 masked, against float64 on the CPU."""
+    B, T, H, hd, nb, md = 1, 2999, 16, 64, 320, 800
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, T, H, hd)).astype(np.float32))
+               for _ in range(3))
+    gate = torch.from_numpy((1.0 + rng.uniform(size=(B, H, T))).astype(np.float32))
+    rel = torch.from_numpy(rng.normal(size=(nb, H)).astype(np.float32))
+    kvalid = (torch.arange(T) < T - 1000).float()[None] if masked else None
+    diag = flash_wavlm.bias_diag_for(rel, T, nb, md)
+    ref = _flash_float64(q, k, v, gate, diag, kvalid)
+    with torch.inference_mode():
+        got = flash_wavlm.flash_gated_attention(
+            *(t.to(cuda) for t in (q, k, v, gate)), None,
+            None if kvalid is None else kvalid.to(cuda), diag.to(cuda),
+            num_buckets=nb, max_distance=md)
+    torch.testing.assert_close(got.cpu().double(), ref, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.cuda
