@@ -14,7 +14,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      the audio / text / video buckets), once with mixed per-row t_max and
      once with the batch's own lengths, which are also timed (CUDA events,
      and device time per call from torch.profiler) beside the plain version
-     and the bound;
+     and the bound; and the gradient through the kernel's autograd.Function
+     (its recomputing backward) against the plain version's, with the mixed
+     t_max (a check of its wiring: the recompute is the plain version);
   3. the WavLM attention kernel against its plain version at wavlm-large's
      H = 16, hd = 64, for a 5-s bucket batch (B = 8, T = 249) and the 60-s
      clip (B = 1, T = 2999), with mixed key masks, timed the same way beside
@@ -28,11 +30,24 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ...])`` with its defaults on a seeded wavlm-large HF-format directory
      and 17 seeded wavs (16 of 2-24 s and one of 60 s), with the launch
      counters around it, every saved feature checked for shape and
-     finiteness, and one short clip held against the plain path on the CPU.
+     finiteness, and one short clip held against the plain path on the CPU;
   6. a second (warm) extraction of the same wavs under torch.profiler:
      device time by kernel and by family (attention kernel, convolutions,
      GEMMs, copies, the rest) and the device's busy share of the host-clock
-     window.
+     window;
+  7. the training path: ``sdumc_tpu_torch.cli.train.main`` on the synthetic
+     store for two epochs at the inference path's width and batch (live
+     dropouts, seeded weights), with the launch counters set to 0 before and
+     read after it (3 launches per Q for each train, eval and test batch),
+     every logged loss finite, and its best_full.pt through cli.infer
+     --checkpoint reproducing the recorded test MAE;
+  8. one train step with dropout off from the same seeded weights on the
+     first train batch, card against CPU: the loss and every gradient; then
+     the card's step again with TF32 allowed in torch's matmuls, which the
+     gradient check must refuse (it shows the check can see TF32);
+  9. a warm train step on the card, timed with CUDA events over 10 steps,
+     then device time by family (fusion kernel, GEMMs, optimizer, copies,
+     the rest) of 3 steps under torch.profiler, with the idle share.
 The second-to-last line is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX or sdumc_tpu.
 
@@ -79,6 +94,21 @@ FLASH_H, FLASH_HD = 16, 64             # wavlm-large's heads
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5    # f32, summed in another order over <= 3000 keys
 FEAT_RTOL, FEAT_ATOL = 1e-3, 1e-3      # f32 reassociation through 20 of 24 layers
 N_CLIPS, LONG_CLIP_S = 16, 60.0
+TRAIN_EPOCHS = 2
+TRAIN_ARGV = MAIN_ARGV + ["--epochs", str(TRAIN_EPOCHS)]
+# one train step, card vs CPU: per parameter, max abs diff of the gradients
+# <= GRAD_RTOL * max |grad| + GRAD_ATOL (f32 reassociation through the net
+# and its backward, about 1e-6 of max |grad|; one TF32 product in the step
+# gives about 1e-4 and fails it); the losses to STEP_LOSS_RTOL
+GRAD_RTOL, GRAD_ATOL, STEP_LOSS_RTOL = 1e-5, 1e-6, 1e-4
+CKPT_MAE_RTOL = 1e-6     # best_full.pt through cli.infer: the same kernels on the same batches
+TIMED_STEPS, PROFILED_STEPS = 10, 3
+TRAIN_FAMILIES = (
+    ("fusion kernel (forward)", ("cross_partial", "cross_combine", "split_w")),
+    ("cuBLAS GEMMs (forward and backward)", ("gemm", "cutlass", "sm80_xmma", "sm90_xmma")),
+    ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
+    ("memory copies", ("memcpy", "memset")),
+)
 # (family, name fragments) of the extraction's device kernels, matched in order
 EXTRACTION_FAMILIES = (
     ("flash_wavlm kernel", ("flash_wavlm",)),
@@ -175,7 +205,7 @@ def main_path_lengths(cfg):
             "video": (batch.video.shape[1], tv)}
 
 
-def kernel_phase(torch, fused_cross, fused_pool, lengths):
+def kernel_phase(torch, fused_cross, fused_pool, lengths, grads: bool = True):
     """Each kernel vs its plain version on the card: for correctness with
     mixed per-row t_max (= T, not a tile multiple, 1, 0, > T), then timed at
     the main path's lengths. Returns per-Q totals over the three modality
@@ -184,7 +214,7 @@ def kernel_phase(torch, fused_cross, fused_pool, lengths):
     dev = torch.device("cuda")
     totals = {q: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
                   "bytes_ms": 0.0, "operations_ms": 0.0, "f32_bound_ms": 0.0,
-                  "device_ms": 0.0, "calls": {}} for q in REPLACES}
+                  "device_ms": 0.0, "grad_max_abs_err": 0.0, "calls": {}} for q in REPLACES}
     print(f"kernel vs plain (B={B_DUAL}, D={D}; tolerance rtol={KERNEL_RTOL} "
           f"atol={KERNEL_ATOL}: f32 reassociation over <= 2048 frames)")
     for modality, (T, t_main) in lengths.items():
@@ -202,17 +232,30 @@ def kernel_phase(torch, fused_cross, fused_pool, lengths):
             t_valid = [t_main] * B_DUAL
         for q_count in REPLACES:
             if q_count == 7:
-                def kern(t):
-                    return fused_cross.fused_cross_attention(query, x, w, b, t)
+                first = query
 
-                def plain(t):
-                    return fused_cross.fused_cross_attention_plain(query, x, w, b, t)
+                def kern_of(q, x, w, b, t):
+                    return fused_cross.fused_cross_attention(q, x, w, b, t)
+
+                def plain_of(q, x, w, b, t):
+                    return fused_cross.fused_cross_attention_plain(q, x, w, b, t)
             else:
-                def kern(t):
-                    return fused_pool.fused_attention_pool(x, w, b, context, t)
+                first = context
 
-                def plain(t):
-                    return fused_pool.fused_attention_pool_plain(x, w, b, context, t)
+                def kern_of(c, x, w, b, t):
+                    return fused_pool.fused_attention_pool(x, w, b, c, t)
+
+                def plain_of(c, x, w, b, t):
+                    return fused_pool.fused_attention_pool_plain(x, w, b, c, t)
+
+            def kern(t, kern_of=kern_of, first=first):
+                return kern_of(first, x, w, b, t)
+
+            def plain(t, plain_of=plain_of, first=first):
+                return plain_of(first, x, w, b, t)
+
+            grad_err = gradient_check(torch, REPLACES[q_count][0], modality, kern_of, plain_of,
+                                      [first, x, w, b], mixed) if grads else math.nan
             with torch.inference_mode():
                 errs = []
                 for t in (mixed, t_main):
@@ -235,15 +278,43 @@ def kernel_phase(torch, fused_cross, fused_pool, lengths):
             tot["plain_ms"] += plain_ms
             tot["bound_ms"] += max(bnd["bytes"], bnd["operations"])
             tot["max_abs_err"] = max(tot["max_abs_err"], *errs)
+            if grads:
+                tot["grad_max_abs_err"] = max(tot["grad_max_abs_err"], grad_err)
             tot["calls"][modality] = ms
             print(f"  {REPLACES[q_count][0]:11s} {modality:5s} T={T:4d} "
                   f"t_max={sorted(set(t_valid))} frames={sum(t_valid)} "
-                  f"max_abs_err mixed={errs[0]!r} main={errs[1]!r} "
+                  f"max_abs_err mixed={errs[0]!r} main={errs[1]!r} grad={grad_err!r} "
                   f"kernel_ms={ms!r} device_ms={dev_ms!r} plain_ms={plain_ms!r} "
                   f"bound_ms={max(bnd['bytes'], bnd['operations'])!r} "
                   f"(bytes {bnd['bytes']!r}, operations {bnd['operations']!r}; "
                   f"f32 bound {bnd['f32']!r})")
     return totals
+
+
+def gradient_check(torch, name, modality, kern_of, plain_of, inputs, t_max) -> float:
+    """The gradient through the kernel's autograd.Function (the recomputing
+    backward) against autograd through the plain version, both on the card:
+    d(first input), dx, dW, db of <out, g> for a seeded g. The backward
+    recomputes the plain version on its saved inputs, so this checks the
+    wiring (what is saved, the shared context's sum over rows, t_max as a
+    tensor) and reads 0 when it is right. Returns the largest abs
+    difference; raises outside the kernel tolerance."""
+    gen = torch.Generator().manual_seed(2)
+    grads = []
+    for fn in (kern_of, plain_of):
+        leaves = [t.detach().clone().requires_grad_() for t in inputs]
+        out = fn(*leaves, t_max)
+        g = torch.randn(out.shape, generator=gen.manual_seed(2)).to(out.device)
+        grads.append(torch.autograd.grad(out, leaves, g))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for label, got, ref in zip(("dq", "dx", "dW", "db"), *grads):
+        err = (got - ref).abs().max().item()
+        worst = max(worst, err)
+        if not torch.allclose(got, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
+            raise AssertionError(f"{name} {modality} gradient {label}: max abs err {err!r} "
+                                 f"outside rtol={KERNEL_RTOL} atol={KERNEL_ATOL}")
+    return worst
 
 
 def reset_counts():
@@ -468,7 +539,6 @@ def profile_extraction(torch, model_dir: str, audio_dir: str, top: int = 15):
     device time by kernel, and the device's busy share of the window."""
     import glob
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sdumc_tpu_torch.convert.hf_wavlm import load_hf_wavlm
@@ -484,24 +554,41 @@ def profile_extraction(torch, model_dir: str, audio_dir: str, top: int = 15):
         extract_audio_features(model, cfg, wavs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+    print_device_time(prof, wall, "profiled extraction (warm, same wavs)", EXTRACTION_FAMILIES,
+                      "elementwise, norms and the rest", top)
+
+
+def print_device_time(prof, wall: float, title: str, families_by_name, rest: str,
+                      top: int = 15) -> dict:
+    """Device time by kernel and by family of a torch.profiler run, and the
+    device's idle share of the host-clock window `wall` (s); returns
+    {family: ms}."""
+    from torch.autograd import DeviceType
+
+    # device-side user annotations (Optimizer.step#Adam.step) span kernels
+    # that are counted on their own
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                      and not getattr(e, "is_user_annotation", False)
+                      and not e.key.startswith("Optimizer.")),
                      key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    print(f"profiled extraction (warm, same wavs): {wall!r} s host clock, device busy "
-          f"{busy!r} s, idle share {1 - busy / wall!r}; device time by kernel:")
+    if busy <= 0:
+        raise AssertionError(f"{title}: the profiler saw no device time")
+    print(f"{title}: {wall!r} s host clock, device busy {busy!r} s, idle share "
+          f"{1 - busy / wall!r}; device time by kernel:")
     for e in kernels[:top]:
         print(f"  {e.self_device_time_total / 1e3:10.3f} ms {e.count:6d} calls "
               f"{e.self_device_time_total / 1e6 / busy:7.2%}  {e.key[:90]}")
     families = {}
     for e in kernels:
         name = e.key.lower()
-        family = next((f for f, keys in EXTRACTION_FAMILIES if any(k in name for k in keys)),
-                      "elementwise, norms and the rest")
+        family = next((f for f, keys in families_by_name if any(k in name for k in keys)), rest)
         ms, calls = families.get(family, (0.0, 0))
         families[family] = (ms + e.self_device_time_total / 1e3, calls + e.count)
     print("device time by family:")
     for family, (ms, calls) in sorted(families.items(), key=lambda kv: -kv[1][0]):
         print(f"  {ms:10.3f} ms {calls:6d} calls {ms / 1e3 / busy:7.2%}  {family}")
+    return {family: ms for family, (ms, _) in families.items()}
 
 
 def extraction_phase(torch, flash_wavlm):
@@ -558,6 +645,169 @@ def extraction_phase(torch, flash_wavlm):
     return counts
 
 
+def training_phase(torch, fused_cross):
+    """cli.train --synthetic for TRAIN_EPOCHS epochs at full width, with the
+    launch counters around it; its best_full.pt through cli.infer."""
+    from sdumc_tpu_torch.cli import infer, train
+    from sdumc_tpu_torch.data.pipeline import get_loaders
+
+    cfg = main_path_config()
+    bs = cfg.data.batch_size
+    train_ds, val_ds, test_ds = get_loaders(cfg.data.dataset, cfg.data, cfg.paths, synthetic=True)
+    per_epoch = len(train_ds) // bs + math.ceil(len(val_ds) / bs) + math.ceil(len(test_ds) / bs)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        t0 = time.perf_counter()
+        result = train.main(TRAIN_ARGV + ["--checkpoint_dir", tmp, "--save_root", tmp])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        launches = dict(fused_cross.LAUNCHES)
+        for q_count in REPLACES:
+            want = 3 * TRAIN_EPOCHS * per_epoch
+            if launches.get(q_count, 0) != want:
+                raise AssertionError(
+                    f"{REPLACES[q_count][0]}: {launches.get(q_count, 0)} launches on the training "
+                    f"path, expected 3 x {TRAIN_EPOCHS} epochs x {per_epoch} batches = {want}")
+        for h in result["history"]:
+            values = [h["train_loss"], h["train_mse_full"], h["train_mse_missing"],
+                      h["eval_mse_full"], h["test"]["full"]["mae"], h["test"]["missing"]["mae"]]
+            if not all(map(math.isfinite, values)):
+                raise AssertionError(f"non-finite training log: {h}")
+            print(f"  epoch {h['epoch'] + 1}: train_loss={h['train_loss']!r} "
+                  f"train_mse_full={h['train_mse_full']!r} test_mae_full="
+                  f"{h['test']['full']['mae']!r} test_mae_missing={h['test']['missing']['mae']!r} "
+                  f"{h['clips_per_sec']!r} clips/s host clock (collation and copies included)")
+        print(f"training path: {TRAIN_EPOCHS} epochs of {len(train_ds) // bs} steps at batch {bs} "
+              f"(+ eval {len(val_ds)} and test {len(test_ds)} clips per epoch), {seconds!r} s "
+              f"host clock (data generation, model init and checkpoints included); "
+              f"launches {counts}")
+
+        out = infer.main(MAIN_ARGV + ["--checkpoint", os.path.join(tmp, "best_full.pt")])
+        mae, best = out["full"]["mae"], result["best_full"]["mae"]
+        print(f"best_full.pt (epoch {result['best_full']['epoch'] + 1}) through cli.infer: test MAE "
+              f"{mae!r}, the loop recorded {best!r} (tolerance rtol={CKPT_MAE_RTOL}: the same "
+              f"kernels on the same batches)")
+        if abs(mae - best) > CKPT_MAE_RTOL * abs(best):
+            raise AssertionError("the best checkpoint does not reproduce its MAE")
+    return launches
+
+
+def first_train_batch(cfg, train_ds):
+    from sdumc_tpu_torch.data.pipeline import BatchIterator
+
+    return next(iter(BatchIterator(train_ds, cfg.data.batch_size, shuffle=True,
+                                   seed=cfg.data.shuffle_seed, epoch=0,
+                                   buckets=cfg.data.length_buckets, prefetch=0,
+                                   drop_remainder=True)))
+
+
+def make_step(torch, cfg, model):
+    from sdumc_tpu_torch.train.state import create_train_state
+    from sdumc_tpu_torch.train.step import make_train_step
+
+    state = create_train_state(model, cfg.train, 8)
+    return make_train_step(state, cfg.loss, cfg.train.seed)
+
+
+def step_parity_phase(torch):
+    """One train step (dual-view loss, backward, Adam) with dropout off from
+    the same seeded weights on the first train batch: card against CPU."""
+    import dataclasses
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.data.pipeline import get_loaders
+    from sdumc_tpu_torch.models import get_model
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    cfg = main_path_config()
+    set_matmul_precision(cfg.model.matmul_precision)
+    train_ds, _, _ = get_loaders(cfg.data.dataset, cfg.data, cfg.paths, synthetic=True)
+    batch = first_train_batch(cfg, train_ds)
+    mcfg = dataclasses.replace(cfg.model, input_dims=train_ds.input_dims()[:3],
+                               dropout=0.0, attn_dropout=0.0)
+
+    def run(dev):
+        model = get_model(mcfg, torch.Generator().manual_seed(cfg.train.seed)).to(dev)
+        metrics = make_step(torch, cfg, model)(batch_to_device_dict(batch, dev))
+        return (metrics["loss"].item(),
+                {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None})
+
+    def worst_ratio(g_ref, g):
+        if g_ref.keys() != g.keys():
+            raise AssertionError("card and CPU steps give gradients to different parameters")
+        return max(((g[k] - ref).abs().max().item() / (GRAD_RTOL * ref.abs().max().item()
+                                                        + GRAD_ATOL), k)
+                   for k, ref in g_ref.items())
+
+    (loss_cpu, g_cpu), (loss_card, g_card) = run("cpu"), run("cuda")
+    worst, worst_key = worst_ratio(g_cpu, g_card)
+    print(f"one train step, card vs CPU (T = {batch.audio.shape[1]} / {batch.text.shape[1]} / "
+          f"{batch.video.shape[1]}, dropout off): loss {loss_card!r} vs {loss_cpu!r} (rtol "
+          f"{STEP_LOSS_RTOL}); {len(g_cpu)} gradients, worst max-abs-diff / (GRAD_RTOL max|grad| "
+          f"+ GRAD_ATOL) = {worst!r} at {worst_key} (GRAD_RTOL={GRAD_RTOL}, GRAD_ATOL={GRAD_ATOL}: "
+          f"f32 reassociation through the net and its backward; must be <= 1)")
+    if abs(loss_card - loss_cpu) > STEP_LOSS_RTOL * abs(loss_cpu) or worst > 1.0:
+        raise AssertionError("card and CPU train steps disagree")
+
+    # control: the same card step with TF32 allowed must fail the check
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        loss_tf32, g_tf32 = run("cuda")
+    finally:
+        set_matmul_precision(cfg.model.matmul_precision)
+    tf32_worst, tf32_key = worst_ratio(g_cpu, g_tf32)
+    print(f"control, the card step with torch.backends.cuda.matmul.allow_tf32 = True: loss "
+          f"{loss_tf32!r}, worst ratio {tf32_worst!r} at {tf32_key} (must be > 1)")
+    if tf32_worst <= 1.0:
+        raise AssertionError("the gradient check does not see TF32 in the train step")
+
+
+def step_timing_phase(torch):
+    """A warm train step (the live dropouts) on the card's copy of the first
+    train batch: CUDA events over TIMED_STEPS steps, peak memory, then
+    device time by family of PROFILED_STEPS steps under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdumc_tpu_torch.cli.common import build_model, set_matmul_precision
+    from sdumc_tpu_torch.data.pipeline import get_loaders
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    cfg = main_path_config()
+    set_matmul_precision(cfg.model.matmul_precision)
+    bs = cfg.data.batch_size
+    train_ds, _, _ = get_loaders(cfg.data.dataset, cfg.data, cfg.paths, synthetic=True)
+    batch = first_train_batch(cfg, train_ds)
+    model = build_model(cfg, train_ds.input_dims(), torch.device("cuda"))
+    step = make_step(torch, cfg, model)
+    d = batch_to_device_dict(batch, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: step(d), iters=TIMED_STEPS, warmup=3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"warm train step (batch {bs}, dual view = {2 * bs} rows, T = {batch.audio.shape[1]} / "
+          f"{max(batch.text.shape[1], batch.feat4.shape[1])} / {batch.video.shape[1]}, batch "
+          f"on the card): {ms!r} ms per step over {TIMED_STEPS} steps (CUDA events), "
+          f"{bs / ms * 1e3!r} clips/s; peak device memory {peak!r} GiB")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILED_STEPS):
+            step(d)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_device_time(prof, wall, f"profiled train steps ({PROFILED_STEPS}, warm)", TRAIN_FAMILIES,
+                      "elementwise, softmax and reductions (the plain backward, losses)")
+    host_ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)
+    launches = sum(e.count for e in host_ops if "LaunchKernel" in e.key)
+    print(f"host side: {launches / PROFILED_STEPS!r} kernel launches per step; host ops by "
+          f"self time:")
+    for e in host_ops[:8]:
+        print(f"  {e.self_cpu_time_total / 1e3 / PROFILED_STEPS:10.3f} ms per step "
+              f"{e.count // PROFILED_STEPS:6d} calls  {e.key[:80]}")
+    return ms
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3 with the kernels of the checkout at `root`, built from its
     own sources into its own build/kernels/; per-kernel totals."""
@@ -565,7 +815,7 @@ def kernels_only(torch, root: str, lengths: dict) -> dict:
     from sdumc_tpu_torch.ops.kernels import build, flash_wavlm, fused_cross, fused_pool
 
     build.build()
-    totals = kernel_phase(torch, fused_cross, fused_pool, lengths)
+    totals = kernel_phase(torch, fused_cross, fused_pool, lengths, grads=False)
     return {REPLACES[7][0]: totals[7], REPLACES[1][0]: totals[1],
             FLASH["name"]: flash_phase(torch, flash_wavlm)}
 
@@ -629,8 +879,11 @@ def main() -> int:
 
     totals = kernel_phase(torch, fused_cross, fused_pool, main_path_lengths(main_path_config()))
     flash = flash_phase(torch, flash_wavlm)
-    launches = main_path_phase(torch, fused_cross)
+    infer_launches = main_path_phase(torch, fused_cross)
     extract_counts = extraction_phase(torch, flash_wavlm)
+    launches = training_phase(torch, fused_cross)
+    step_parity_phase(torch)
+    step_timing_phase(torch)
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():
@@ -657,11 +910,14 @@ def main() -> int:
           "times are the sum of one call at each of its two shapes above; its "
           "library_ms is scaled_dot_product_attention with a materialised f32 "
           "mask gate * bias + keymask, built outside the timed region. "
-          "Launches are counted on each kernel's own path (cli.infer, "
-          "cli.extract audio)")
+          "Launches are counted on each kernel's own path: cli.train for "
+          "fused_cross / fused_pool (cli.infer: "
+          f"{ {REPLACES[q][0]: n for q, n in infer_launches.items()} }), cli.extract audio "
+          "for flash_wavlm; max_abs_err is the forward's against the plain version")
     for name, tot in ((REPLACES[7][0], totals[7]), (REPLACES[1][0], totals[1]),
                       (FLASH["name"], flash)):
         print(f"{name}: kernel_ms={tot['ms']!r} device_ms={tot['device_ms']!r} "
+              f"grad_max_abs_err={tot.get('grad_max_abs_err')!r} "
               f"bound_ms={tot['bound_ms']!r} ({tot['ms'] and tot['bound_ms'] / tot['ms']:.1%} "
               f"of it) f32_bound_ms={tot['f32_bound_ms']!r}")
     print(card)

@@ -1,8 +1,9 @@
 """Shared CLI argument plumbing.
 
 Flag names mirror the reference's argparse surface (and the JAX package's
-CLI), so shell recipes port by changing only the module name. The port adds
-``--device``.
+CLI), so shell recipes port by changing only the module name: the loss
+weights and ``--lr/--l2/--epochs/--seed`` fill LossConfig and TrainConfig.
+The port adds ``--device``.
 """
 
 from __future__ import annotations
@@ -11,7 +12,8 @@ import argparse
 
 import torch
 
-from sdumc_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig, PathsConfig
+from sdumc_tpu_torch.core.config import (DataConfig, ExperimentConfig, LossConfig, ModelConfig,
+                                         PathsConfig, TrainConfig)
 
 
 def add_reference_args(p: argparse.ArgumentParser) -> None:
@@ -95,13 +97,28 @@ def args_to_config(args) -> ExperimentConfig:
             feature_dtype=args.feature_dtype,
             batch_size=args.batch_size,
             debug=args.debug,
+            shuffle_seed=args.seed,
         ),
         model=ModelConfig(
             name=args.model,
             layers=tuple(int(x) for x in args.layers.split(",")),
             matmul_precision=args.matmul_precision,
         ),
-        seed=args.seed,
+        loss=LossConfig(
+            full_mse_w=args.full_mse_loss_w,
+            missing_mse_w=args.missing_mse_loss_w,
+            text_feat_w=args.text_feat_loss_w,
+            text_query_feat_w=args.text_query_feat_loss_w,
+            features_w=args.features_loss_w,
+            rnc_w=args.rnc_loss_w,
+        ),
+        train=TrainConfig(
+            lr=args.lr,
+            l2=args.l2,
+            epochs=args.epochs,
+            seed=args.seed,
+            checkpoint_dir=args.checkpoint_dir,
+        ),
     )
 
 
@@ -132,10 +149,11 @@ def build_model(cfg: ExperimentConfig, input_dims, device, checkpoint=None):
     from sdumc_tpu_torch.models import get_model
 
     mcfg = dataclasses.replace(cfg.model, input_dims=tuple(input_dims[:3]))
-    model = get_model(mcfg, torch.Generator().manual_seed(cfg.seed))
+    model = get_model(mcfg, torch.Generator().manual_seed(cfg.train.seed))
     if checkpoint:
         if not checkpoint.endswith(".pt"):
-            raise ValueError(f"--checkpoint takes a reference .pt file, got {checkpoint}")
+            raise ValueError(f"--checkpoint takes a reference .pt file, got {checkpoint} "
+                             "(an Orbax directory needs orbax, which imports JAX)")
         from sdumc_tpu_torch.convert import load_reference_checkpoint
 
         report = load_reference_checkpoint(checkpoint, model)

@@ -2,7 +2,7 @@
 points fill from flags and never mutate afterwards.
 
 This is the port's own copy of the parts of ``sdumc_tpu/core/config.py``
-that the inference path reads.
+that the inference and training paths read.
 """
 
 from __future__ import annotations
@@ -60,6 +60,7 @@ class DataConfig:
     length_buckets: Tuple[int, ...] = (64, 128, 256, 512, 1024, 2048, 4096)
     # only float32 so far; the bf16 feature streams are not ported yet
     feature_dtype: str = "float32"
+    shuffle_seed: int = 100          # train batches shuffle with (shuffle_seed, epoch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,8 +89,36 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Loss mixing weights (the canonical ICASSP recipe's)."""
+
+    full_mse_w: float = 0.5
+    missing_mse_w: float = 0.5
+    text_feat_w: float = 0.0
+    text_query_feat_w: float = 0.0
+    features_w: float = 0.13
+    rnc_w: float = 0.5
+    rnc_temperature: float = 2.0
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule and checkpoints."""
+
+    lr: float = 1e-4
+    l2: float = 1e-5                 # torch-Adam L2 (decay added to the gradient)
+    epochs: int = 25
+    warmup_epochs: int = 5
+    decay_gamma: float = 0.9
+    decay_stepsize: int = 10
+    seed: int = 100                  # weight init and the train step's random stream
+    checkpoint_dir: str = "./saved/ckpt"
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     paths: PathsConfig = dataclasses.field(default_factory=PathsConfig.from_env)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
-    seed: int = 100                  # weight init
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)

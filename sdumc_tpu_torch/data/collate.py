@@ -64,6 +64,9 @@ class Batch:
     emos: np.ndarray     # [B]
     vals: np.ndarray     # [B]
     names: List[str]
+    # the page-locked torch tensors that own audio/text/video/feat4 when the
+    # batch was collated into them (BatchIterator pin_memory), else empty
+    pinned: tuple = ()
 
     @property
     def size(self) -> int:

@@ -20,10 +20,23 @@ from sdumc_tpu_torch.data.feature_store import NpyDirSource, SyntheticSource, st
 from sdumc_tpu_torch.data.labels import read_names_labels
 
 
-def _pinned_zeros(shape) -> np.ndarray:
+def _make_pinned_batch(*args, **kw) -> Batch:
+    """make_batch into page-locked buffers; the Batch keeps the torch tensors
+    that own them, so that a copy to a card reads from memory that torch's
+    host allocator tracks (a numpy view seen through torch.from_numpy is
+    not tracked, and could be handed out again while the copy still reads
+    it)."""
     import torch
 
-    return torch.zeros(shape, dtype=torch.float32, pin_memory=True).numpy()
+    owners = []
+
+    def alloc(shape):
+        owners.append(torch.zeros(shape, dtype=torch.float32, pin_memory=True))
+        return owners[-1].numpy()
+
+    batch = make_batch(*args, alloc=alloc, **kw)
+    batch.pinned = tuple(owners)
+    return batch
 
 
 class MoseiDataset:
@@ -66,9 +79,12 @@ class BatchIterator:
         buckets: Sequence[int] = (64, 128, 256, 512, 1024, 2048, 4096),
         prefetch: int = 4,
         pin_memory: bool = False,
+        drop_remainder: bool = False,
     ):
         """``pin_memory`` collates the padded features into page-locked
-        memory, so copies to a card run asynchronously (needs CUDA)."""
+        memory, so copies to a card run asynchronously (needs CUDA);
+        ``drop_remainder`` drops a last batch smaller than `batch_size`
+        (the train passes)."""
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -77,6 +93,7 @@ class BatchIterator:
         self.buckets = tuple(buckets)
         self.prefetch = prefetch
         self.pin_memory = pin_memory
+        self.drop_remainder = drop_remainder
 
     def _order(self) -> np.ndarray:
         idx = np.arange(len(self.ds))
@@ -88,6 +105,8 @@ class BatchIterator:
         idx = self._order()
         for s in range(0, len(idx), self.bs):
             chunk = idx[s : s + self.bs]
+            if self.drop_remainder and len(chunk) < self.bs:
+                return
             feats, emos, vals, names = [], [], [], []
             for i in chunk:
                 f, e, v, n = self.ds.example(int(i))
@@ -95,7 +114,7 @@ class BatchIterator:
                 emos.append(e)
                 vals.append(v)
                 names.append(n)
-            yield make_batch(
+            yield (_make_pinned_batch if self.pin_memory else make_batch)(
                 [f["audio"] for f in feats],
                 [f["text"] for f in feats],
                 [f["video"] for f in feats],
@@ -104,7 +123,6 @@ class BatchIterator:
                 np.array(vals),
                 names,
                 buckets=self.buckets,
-                **({"alloc": _pinned_zeros} if self.pin_memory else {}),
             )
 
     def __iter__(self) -> Iterator[Batch]:

@@ -11,7 +11,13 @@ attention into the prediction head.
 Submodule names follow the reference torch state_dict, so a released
 ``.pt`` loads as it is (convert/checkpoint.py). The six frame-attention ops
 (3 pools, 3 cross attentions) run through the fused kernel on the card and
-through its plain version on the CPU (ops/kernels/).
+through its plain version on the CPU (ops/kernels/); their gradient
+recomputes the plain version.
+
+In training mode the dropouts sit where the JAX model puts them: frame
+dropout on the frame stream before each of the six ops, dropout on the
+pooled vectors, on the cross-attention outputs and after every MLP ReLU.
+They draw from the generator that ``models.layers.use_generator`` sets.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ from torch import nn
 
 from sdumc_tpu_torch.core.config import ModelConfig
 from sdumc_tpu_torch.core.registry import MODELS
-from sdumc_tpu_torch.models.layers import MLP, FrameDropout, Linear
+from sdumc_tpu_torch.models.layers import MLP, Dropout, FrameDropout, Linear
 from sdumc_tpu_torch.models.residual_ae import ResidualAE
 from sdumc_tpu_torch.ops.kernels.fused_cross import fused_cross_attention
 from sdumc_tpu_torch.ops.kernels.fused_pool import fused_attention_pool
@@ -47,7 +53,7 @@ class FRA2UTTNew(nn.Module):
         self.attention_context_vector = nn.Parameter(
             _xavier_normal_vector(dim, generator))
         self.frame_dropout = FrameDropout(dropout)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x, t_max=None):
         x = self.frame_dropout(x)
@@ -68,7 +74,7 @@ class CrossAttention(nn.Module):
         self.query_proj = Linear(dim, dim, generator)
         self.input_proj = Linear(dim, dim, generator)
         self.frame_dropout = FrameDropout(dropout)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
     def forward(self, query, x, t_max=None):
         x = self.frame_dropout(x)

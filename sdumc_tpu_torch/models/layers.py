@@ -4,7 +4,8 @@ Both weight and bias draw from U(-1/sqrt(fan_in), 1/sqrt(fan_in)), which is
 what torch's ``kaiming_uniform_(a=sqrt(5))`` reduces to; the draws come
 from an explicit ``torch.Generator`` so a seed fixes the weights.
 Modules are built on the CPU and moved to their device afterwards, so one
-seed gives the same weights on every device.
+seed gives the same weights on every device. The dropouts draw from an
+explicit generator too (``use_generator``).
 """
 
 from __future__ import annotations
@@ -32,23 +33,65 @@ class Linear(nn.Linear):
             self.bias.uniform_(-bound, bound, generator=generator)
 
 
-class FrameDropout(nn.Module):
-    """Dropout on the [B, T, d] frame streams: the identity in eval.
-
-    The training form (rate quantised to k/256, kept values scaled by
-    1/(1 - k/256)) is not ported yet, so a training forward raises rather
-    than silently using another dropout."""
+class _RandomDrop(nn.Module):
+    """Dropout whose draws come from an explicit ``torch.Generator``, never
+    from torch's global stream: the train step seeds one generator per step
+    from (seed, step) and hands it to every such module of the model
+    (``use_generator``), so a resumed run draws the same masks. The
+    identity in eval mode and at rate 0."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x):
-        if self.training and self.rate > 0:
-            raise NotImplementedError(
-                "FrameDropout's training form is not ported yet; call "
-                "model.eval() for inference")
-        return x
+        if not self.training or self.rate <= 0:
+            return x
+        if self.rate >= 1:
+            return x * 0.0                  # zeros, with a zero (finite) gradient
+        if self.generator is None:
+            raise RuntimeError("dropout in training mode draws from the train step's "
+                               "generator; set one with models.layers.use_generator")
+        keep, keep_p = self._keep(x)
+        return torch.where(keep, x * (1.0 / keep_p), 0.0)
+
+    def _keep(self, x):
+        """(bool keep mask shaped like x, probability of keeping)."""
+        u = torch.rand(x.shape, generator=self.generator, device=x.device)
+        return u >= self.rate, 1.0 - self.rate
+
+
+class Dropout(_RandomDrop):
+    """nn.Dropout's semantics (keep with probability 1 - rate, scale kept
+    values by 1 / (1 - rate)) on the explicit generator. Parameterless, so
+    it takes nn.Dropout's place without moving state_dict keys."""
+
+
+class FrameDropout(_RandomDrop):
+    """Dropout on the [B, T, d] frame streams, drawn as one byte per value.
+
+    The rate is quantised to k/256 with k = round(rate * 256): a value is
+    kept where its random byte is >= k and scaled by 1 / (1 - k/256), the
+    exact keep probability, so the expectation is unbiased. The live rate
+    0.5 is exact (k = 128). A rate in (0, 1/512), where k would be 0, drops
+    at its exact rate through a float draw instead of becoming the
+    identity; rate 1 gives zeros with a zero gradient."""
+
+    def _keep(self, x):
+        k = int(round(self.rate * 256))
+        if k == 0 or k >= 256:
+            return super()._keep(x)
+        bits = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+        bits.random_(generator=self.generator)
+        return bits >= k, 1.0 - k / 256.0
+
+
+def use_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
+    """Point every dropout of `model` at `generator`."""
+    for m in model.modules():
+        if isinstance(m, _RandomDrop):
+            m.generator = generator
 
 
 def MLP(in_dim: int, layer_dims: Sequence[int], dropout: float = 0.3,
@@ -57,6 +100,6 @@ def MLP(in_dim: int, layer_dims: Sequence[int], dropout: float = 0.3,
     indices 0, 3, 6, ... as in the reference state_dict."""
     mods = []
     for dim in layer_dims:
-        mods += [Linear(in_dim, dim, generator), nn.ReLU(), nn.Dropout(dropout)]
+        mods += [Linear(in_dim, dim, generator), nn.ReLU(), Dropout(dropout)]
         in_dim = dim
     return nn.Sequential(*mods)

@@ -18,7 +18,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from sdumc_tpu_torch.models.layers import Linear
+from sdumc_tpu_torch.models.layers import Dropout, Linear
 
 
 class ResidualAE(nn.Module):
@@ -37,12 +37,12 @@ class ResidualAE(nn.Module):
             for i, dim in enumerate(layers):
                 enc.append(Linear(d_in, dim, generator))
                 if i < len(layers) - 1:
-                    enc += [nn.LeakyReLU(0.01), nn.Dropout(dropout)]
+                    enc += [nn.LeakyReLU(0.01), Dropout(dropout)]
                 d_in = dim
             dec = []
             for i, dim in enumerate(list(reversed(list(layers)))[1:] + [input_dim]):
                 if i > 0:
-                    dec += [nn.ReLU(), nn.Dropout(dropout)]
+                    dec += [nn.ReLU(), Dropout(dropout)]
                 dec.append(Linear(d_in, dim, generator))
                 d_in = dim
             setattr(self, f"encoder_{blk}", nn.Sequential(*enc))

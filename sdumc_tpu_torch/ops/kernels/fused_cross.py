@@ -11,8 +11,14 @@ The query projection stays outside, in plain torch, as in the JAX package.
 The kernel (``csrc/fused_cross.cu``) owns the key projection, the masked
 online softmax and the weighted sum; its header says what bounds it on an
 H100 and how the design answers. A tensor on the CPU takes the plain version
-below; a tensor on the card takes the kernel or raises. Forward only: the
-recomputing backward comes with the training path.
+below; a tensor on the card takes the kernel or raises.
+
+The gradient is the JAX package's: its ``custom_vjp`` recomputes the
+forward through the einsum formulation and differentiates that, so no
+backward kernel exists there either. Here ``Recomputed`` saves the
+kernel's inputs, and its backward runs the plain version under
+``torch.enable_grad()`` and takes ``torch.autograd.grad`` of it (cuBLAS
+products and elementwise ops on the card; launch counts are unchanged).
 """
 
 from __future__ import annotations
@@ -64,6 +70,42 @@ def fused_cross_attention(q, x, weight, bias, t_max=None,
                                            softmax_scale)
     if q.dim() != 3:
         raise ValueError(f"q must be [B, Q, D], got {tuple(q.shape)}")
+    return Recomputed.apply(_kernel, fused_cross_attention_plain, q, x, weight, bias,
+                            t_max, softmax_scale)
+
+
+class Recomputed(torch.autograd.Function):
+    """``kernel``'s forward, and a backward that recomputes ``plain`` on the
+    saved inputs and differentiates it. Both functions take
+    ``(q, x, weight, bias, t_max, softmax_scale)``; ``q`` may be the pool's
+    shared context, whose gradient autograd then sums over the rows."""
+
+    @staticmethod
+    def forward(ctx, kernel, plain, q, x, weight, bias, t_max, softmax_scale):
+        ctx.plain, ctx.softmax_scale = plain, softmax_scale
+        if isinstance(t_max, torch.Tensor):
+            ctx.save_for_backward(q, x, weight, bias, t_max)
+        else:
+            ctx.save_for_backward(q, x, weight, bias)
+            ctx.t_max = t_max
+        return kernel(q, x, weight, bias, t_max, softmax_scale)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        q, x, weight, bias, *t_max = ctx.saved_tensors
+        t_max = t_max[0] if t_max else ctx.t_max
+        needs = ctx.needs_input_grad[2:6]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip((q, x, weight, bias), needs)]
+            out = ctx.plain(*inputs, t_max, ctx.softmax_scale)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
+        return (None, None, *(next(grads) if need else None for need in needs), None, None)
+
+
+def _kernel(q, x, weight, bias, t_max, softmax_scale):
     return launch(q, x, weight, bias, t_max, softmax_scale, q_batched=True)
 
 
@@ -101,10 +143,6 @@ def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
         raise ValueError(f"the fused kernel runs on a CUDA device, x is on {x.device}")
     if x.dim() != 3:
         raise ValueError(f"x must be [B, T, D], got {tuple(x.shape)}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (q, x, weight, bias)):
-        raise RuntimeError("the fused kernel is forward-only; run it under "
-                           "torch.inference_mode() or torch.no_grad()")
     B, T, D = x.shape
     Q = q.shape[-2]
     if D != KERNEL_D or not 1 <= Q <= 8:

@@ -11,7 +11,9 @@ context vector as the single query:
 On the card this is ``csrc/fused_cross.cu`` instantiated for one query, with
 the context vector shared by every row (no broadcast copy). The launch
 counts under ``fused_cross.LAUNCHES[1]``. A tensor on the CPU takes the plain
-version.
+version. The gradient recomputes the plain version, as for the Q = 7 case
+(``fused_cross.Recomputed``); the shared context's gradient is summed over
+the rows.
 """
 
 from __future__ import annotations
@@ -38,6 +40,14 @@ def fused_attention_pool(x, weight, bias, context, t_max=None,
     if x.device.type == "cpu":
         return fused_attention_pool_plain(x, weight, bias, context, t_max,
                                           softmax_scale)
-    out = fused_cross.launch(context.reshape(1, -1), x, weight, bias, t_max,
-                             softmax_scale, q_batched=False)
-    return out[:, 0]
+    return fused_cross.Recomputed.apply(_kernel, _plain, context, x, weight, bias,
+                                        t_max, softmax_scale)
+
+
+def _kernel(context, x, weight, bias, t_max, softmax_scale):
+    return fused_cross.launch(context.reshape(1, -1), x, weight, bias, t_max,
+                              softmax_scale, q_batched=False)[:, 0]
+
+
+def _plain(context, x, weight, bias, t_max, softmax_scale):
+    return fused_attention_pool_plain(x, weight, bias, context, t_max, softmax_scale)

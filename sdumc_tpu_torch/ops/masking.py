@@ -30,11 +30,13 @@ def mask_time_scores(scores: torch.Tensor, t_max, axis: int = 1) -> torch.Tensor
     if t_max is None:
         return scores
     length = scores.shape[axis]
-    t = torch.as_tensor(t_max, device=scores.device)
     positions = torch.arange(length, device=scores.device)
     shape = [1] * scores.ndim
     shape[axis] = length
-    if t.ndim == 0:
+    # a host int is compared as it is: a tensor made of it on a card would
+    # be a copy that waits for the stream
+    t = t_max if isinstance(t_max, torch.Tensor) else int(t_max)
+    if not isinstance(t, torch.Tensor) or t.ndim == 0:
         mask = (positions < t).reshape(shape)
     else:
         if t.ndim != 1 or axis == 0:

@@ -1,12 +1,24 @@
-"""Eval pass over one split: both views, predictions and metrics.
+"""The epoch loop: train, eval and test passes, best-MAE selection,
+checkpoints, resume and preemption.
 
-The single-process eval half of ``sdumc_tpu/train/loop.py``; the epoch
-loop, checkpoints and the multi-process gather are not ported yet.
+The single-process ``sdumc_tpu/train/loop.py`` (its multi-host data
+parallelism is not ported). Per epoch: the train pass, accumulating its
+metrics on the device and reading them back once; an eval and a test pass
+over both views; the best test MAE per view (``<=``) saved as
+``best_full.pt`` / ``best_missing.pt``; a resumable ``latest.pt``; one log
+line. Checkpoints are torch files in the reference's format,
+``{'epoch', 'state_dict', 'optimizer'}``, so ``cli.infer --checkpoint``
+reads the best ones; ``latest.pt`` also holds the step, the schedule and
+the two bests.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import signal
+import time
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -14,7 +26,8 @@ import torch
 from sdumc_tpu_torch.core.config import ExperimentConfig
 from sdumc_tpu_torch.core.metrics import eval_mosei_metric
 from sdumc_tpu_torch.data.pipeline import BatchIterator, MoseiDataset
-from sdumc_tpu_torch.train.step import batch_to_device_dict
+from sdumc_tpu_torch.train.state import TrainState, create_train_state
+from sdumc_tpu_torch.train.step import batch_to_device_dict, make_eval_step, make_train_step
 
 
 def _pad_partial(batch, bs):
@@ -48,9 +61,7 @@ def run_eval(eval_step, dataset: MoseiDataset, cfg: ExperimentConfig,
     preds_full, preds_missing, labels, names = [], [], [], []
     for batch in it:
         padded, n = _pad_partial(batch, cfg.data.batch_size)
-        d = batch_to_device_dict(padded, device)
-        v0, v1 = eval_step(d)
-        # reading back waits for this batch, so its host buffers are free
+        v0, v1 = eval_step(batch_to_device_dict(padded, device))
         preds_full.append(v0[:n].cpu().numpy())
         preds_missing.append(v1[:n].cpu().numpy())
         labels.append(batch.vals)
@@ -68,3 +79,160 @@ def run_eval(eval_step, dataset: MoseiDataset, cfg: ExperimentConfig,
         "metric_full": eval_mosei_metric(preds_full, labels, names),
         "metric_missing": eval_mosei_metric(preds_missing, labels, names),
     }
+
+
+class PreemptionGuard:
+    """SIGTERM watcher for preemptible machines: the epoch loop polls
+    ``fired`` once per step; on a signal it saves the epoch-boundary state
+    as a resumable ``latest.pt`` and returns, and ``--resume`` redoes the
+    interrupted epoch. The previous handler is chained; installation is
+    skipped off the main thread."""
+
+    def __init__(self, signals=(signal.SIGTERM,)):
+        self.fired = False
+        for sig in signals:
+            try:
+                prev = signal.getsignal(sig)
+
+                def handler(signum, frame, _prev=prev):
+                    self.fired = True
+                    if callable(_prev):
+                        _prev(signum, frame)
+
+                signal.signal(sig, handler)
+            except ValueError:  # not the main thread
+                pass
+
+
+def _to_host(obj):
+    """A copy of a (nested) state dict with every tensor on the CPU."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _snapshot(state: TrainState) -> Dict:
+    return {"state_dict": _to_host(state.model.state_dict()),
+            "optimizer": _to_host(state.optimizer.state_dict()),
+            "scheduler": state.scheduler.state_dict(), "step": state.step}
+
+
+def _restore(state: TrainState, blob: Dict) -> None:
+    state.model.load_state_dict(blob["state_dict"])
+    state.optimizer.load_state_dict(blob["optimizer"])
+    state.scheduler.load_state_dict(blob["scheduler"])
+    state.step = int(blob["step"])
+
+
+def _best(metric: Dict, epoch: int) -> Dict:
+    return {**{k: float(v) for k, v in metric.items()}, "epoch": epoch}
+
+
+def train(cfg: ExperimentConfig, model, train_ds: MoseiDataset, eval_ds: MoseiDataset,
+          test_ds: MoseiDataset, device="cpu", log=print, resume_from: Optional[str] = None,
+          preemption_guard=None) -> Dict:
+    """Train `model` (already on `device`) for ``cfg.train.epochs``; returns
+    {"state", "best_full", "best_missing", "history"} (and "preempted")."""
+    device = torch.device(device)
+    guard = preemption_guard if preemption_guard is not None else PreemptionGuard()
+    bs = cfg.data.batch_size
+    state = create_train_state(model, cfg.train, max(len(train_ds) // bs, 1))
+    train_step = make_train_step(state, cfg.loss, cfg.train.seed)
+    eval_step = make_eval_step(model)
+
+    best_full = {"mae": float("inf")}
+    best_missing = {"mae": float("inf")}
+    history = []
+    start_epoch = 0
+    if resume_from:
+        blob = load_checkpoint_full(resume_from, state)
+        start_epoch = blob["epoch"] + 1
+        best_full, best_missing = blob["best_full"], blob["best_missing"]
+        log(f"resumed from {resume_from} at epoch {start_epoch}")
+
+    for epoch in range(start_epoch, cfg.train.epochs):
+        # epoch-boundary snapshot on the host: what a preemption mid-epoch
+        # saves, so that the resumed run replays this epoch exactly
+        boundary = _snapshot(state)
+        t0 = time.time()
+        it = BatchIterator(train_ds, bs, shuffle=True, seed=cfg.data.shuffle_seed,
+                           epoch=epoch, buckets=cfg.data.length_buckets,
+                           pin_memory=device.type == "cuda", drop_remainder=True)
+        acc, n_clips, n_steps = None, 0, 0
+        for batch in it:
+            metrics = train_step(batch_to_device_dict(batch, device))
+            acc = metrics if acc is None else {k: acc[k] + v for k, v in metrics.items()}
+            n_clips += batch.size
+            n_steps += 1
+            if guard.fired:
+                break
+        if guard.fired:
+            _restore(state, boundary)
+            save_checkpoint(cfg, state, "latest", epoch - 1, best_full, best_missing)
+            log(f"preemption signal: saved resumable checkpoint, "
+                f"epoch {epoch} will be redone on --resume")
+            return {"state": state, "best_full": best_full, "best_missing": best_missing,
+                    "history": history, "preempted": True}
+        # the one read-back of the epoch's train metrics
+        sums = dict(zip(acc, torch.stack(list(acc.values())).tolist())) if acc else {}
+        train_time = time.time() - t0
+        cnt = max(sums.get("count", 0.0), 1.0)
+        train_mse_full = sums.get("sq_err_full", 0.0) / cnt
+        train_mse_missing = sums.get("sq_err_missing", 0.0) / cnt
+
+        eval_results = run_eval(eval_step, eval_ds, cfg, device)
+        test_results = run_eval(eval_step, test_ds, cfg, device)
+        tr_full, tr_missing = test_results["metric_full"], test_results["metric_missing"]
+        if tr_full["mae"] <= best_full["mae"]:
+            best_full = _best(tr_full, epoch)
+            save_checkpoint(cfg, state, "best_full", epoch)
+        if tr_missing["mae"] <= best_missing["mae"]:
+            best_missing = _best(tr_missing, epoch)
+            save_checkpoint(cfg, state, "best_missing", epoch)
+        save_checkpoint(cfg, state, "latest", epoch, best_full, best_missing)
+
+        clips_per_sec = n_clips / max(train_time, 1e-9)
+        log(f"epoch:{epoch + 1}; train_val_mse_full:{train_mse_full:.4f}; "
+            f"train_val_mse_missing:{train_mse_missing:.4f}; "
+            f"test_mae_full:{tr_full['mae']:.4f}; test_mae_missing:{tr_missing['mae']:.4f}; "
+            f"{clips_per_sec:.1f} clips/s")
+        history.append({
+            "epoch": epoch,
+            "train_loss": sums.get("loss", 0.0) / max(n_steps, 1),
+            "train_mse_full": train_mse_full,
+            "train_mse_missing": train_mse_missing,
+            "eval_mse_full": eval_results["val_mse_full"],
+            "test": {"full": tr_full, "missing": tr_missing},
+            "clips_per_sec": clips_per_sec,
+        })
+    return {"state": state, "best_full": best_full, "best_missing": best_missing,
+            "history": history}
+
+
+def save_checkpoint(cfg: ExperimentConfig, state: TrainState, tag: str, epoch: int,
+                    best_full: Optional[Dict] = None, best_missing: Optional[Dict] = None) -> str:
+    """``{checkpoint_dir}/{tag}.pt`` in the reference's format ({'epoch',
+    'state_dict', 'optimizer'}, tensors on the CPU); ``latest`` also holds
+    the step, the schedule and the bests, for ``--resume``."""
+    blob = {"epoch": int(epoch), **_snapshot(state)}
+    if tag != "latest":
+        del blob["scheduler"], blob["step"]
+    else:
+        blob["best_full"], blob["best_missing"] = best_full, best_missing
+    os.makedirs(cfg.train.checkpoint_dir, exist_ok=True)
+    path = os.path.join(cfg.train.checkpoint_dir, f"{tag}.pt")
+    torch.save(blob, path)
+    return path
+
+
+def load_checkpoint_full(path: str, state: TrainState) -> Dict:
+    """Restore a ``latest.pt`` into `state` (weights, Adam moments, schedule
+    and step); returns {"epoch", "best_full", "best_missing"}."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    _restore(state, blob)
+    return {"epoch": int(blob["epoch"]), "best_full": blob["best_full"],
+            "best_missing": blob["best_missing"]}

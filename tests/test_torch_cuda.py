@@ -14,7 +14,10 @@ T = 2999 clip, the fusion kernel's 64-row dual batch) hold them to f32
 grade at the same tolerance, which a single TF32 pass (about 1e-3 relative
 on the scores) would not meet. The tiny WavLM model on the card runs the
 attention kernel's hd = 16 instance (hidden 64, 4 heads); wavlm-large's
-hd = 64 instance is tested directly.
+hd = 64 instance is tested directly. The fusion kernel's gradient (its
+autograd.Function, which recomputes the plain version) is held against
+autograd through the plain version on the card, and against float64 at
+the full shape; a tiny fusion train step on the card against the CPU.
 """
 
 import math
@@ -100,9 +103,96 @@ def test_launches_count_and_wrapper_checks(cuda):
         with pytest.raises(ValueError):   # the kernel takes D = 256 only
             fused_cross.fused_cross_attention(q[..., :96].contiguous(), x[..., :96].contiguous(),
                                               w[:96, :96].contiguous(), b[:96].contiguous())
-    with pytest.raises(RuntimeError, match="forward-only"):
-        fused_cross.fused_cross_attention(q, x, w.requires_grad_(), b)
-    assert fused_cross.LAUNCHES == {1: 1, 7: 1}
+    # with a gradient: one forward launch each, the backward launches none
+    w.requires_grad_()
+    fused_cross.fused_cross_attention(q, x, w, b, 10).sum().backward()
+    fused_pool.fused_attention_pool(x, w, b, c, 10).sum().backward()
+    assert fused_cross.LAUNCHES == {1: 2, 7: 2}
+    assert w.grad is not None and torch.isfinite(w.grad).all()
+
+
+def _grads(fn, inputs, g):
+    """fn's output and the gradients of <output, g> w.r.t. every input."""
+    inputs = [t.detach().clone().requires_grad_() for t in inputs]
+    out = fn(*inputs)
+    return out, torch.autograd.grad(out, inputs, g)
+
+
+def _kernel_and_plain(Q, tmax):
+    """(kernel path, plain path) as functions of (q or context, x, w, b)."""
+    if Q == 1:
+        return (lambda c, x, w, b: fused_pool.fused_attention_pool(x, w, b, c, tmax),
+                lambda c, x, w, b: fused_pool.fused_attention_pool_plain(x, w, b, c, tmax))
+    return (lambda q, x, w, b: fused_cross.fused_cross_attention(q, x, w, b, tmax),
+            lambda q, x, w, b: fused_cross.fused_cross_attention_plain(q, x, w, b, tmax))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [7, 1])
+def test_kernel_gradient_matches_plain(cuda, Q):
+    """The wiring of the kernel's autograd.Function: its backward recomputes
+    the plain version on the saved inputs, so against autograd through the
+    plain version on the card it differs only if an input is saved or
+    routed wrongly. Per-row t_max (a saved tensor, incl. 0 and > T) and an
+    int t_max (kept on the context); the pool's shared context summed over
+    the rows; a gradient for one input only (needs_input_grad)."""
+    B, T = 6, 129
+    x, w, b, q, c = (t.to(cuda) for t in _inputs(B, T, Q))
+    rows = torch.tensor([T, T - 5, 1, 0, T + 3, 65], dtype=torch.int32, device=cuda)
+    g = torch.randn((B, D) if Q == 1 else (B, Q, D), generator=torch.Generator().manual_seed(3)).to(cuda)
+    for tmax in (rows, 37):
+        kern, plain = _kernel_and_plain(Q, tmax)
+        inputs = [c if Q == 1 else q, x, w, b]
+        out, got = _grads(kern, inputs, g)
+        ref_out, ref = _grads(plain, inputs, g)
+        torch.testing.assert_close(out, ref_out, rtol=RTOL, atol=ATOL)
+        for name, a, r in zip(("dq", "dx", "dW", "db"), got, ref):
+            torch.testing.assert_close(a, r, rtol=RTOL, atol=ATOL, msg=name)
+        wl = w.detach().clone().requires_grad_()
+        (dw,) = torch.autograd.grad(kern(inputs[0], x, wl, b), wl, g)
+        torch.testing.assert_close(dw, ref[2], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_pinned_batches_copy_from_their_own_buffers(cuda):
+    """BatchIterator(pin_memory=True) collates into page-locked tensors that
+    the Batch keeps; batch_to_device_dict copies from them."""
+    from sdumc_tpu_torch.data.feature_store import SyntheticSource
+    from sdumc_tpu_torch.data.pipeline import BatchIterator, MoseiDataset
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    sources = {k: SyntheticSource(k, d, 3, 40) for k, d in
+               (("audio", 8), ("text", 16), ("video", 8), ("feat4", 16))}
+    ds = MoseiDataset([f"c{i}" for i in range(5)], [{"val": 0.5}] * 5, sources)
+    for batch in BatchIterator(ds, 4, shuffle=False, pin_memory=True, prefetch=2):
+        assert len(batch.pinned) == 4 and all(t.is_pinned() for t in batch.pinned)
+        d = batch_to_device_dict(batch, cuda)
+        for name, owner in zip(("audio", "text", "video", "feat4"), batch.pinned):
+            assert owner.data_ptr() == getattr(batch, name).ctypes.data
+            np.testing.assert_array_equal(d[name].cpu().numpy(), getattr(batch, name))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q", [7, 1])
+def test_kernel_gradient_matches_float64_at_full_shape(cuda, Q):
+    """The gradient at the dual batch's shape (B = 64, D = 256, the
+    2048-frame audio bucket, mixed per-row t_max incl. 0 and > T) against
+    the plain version in float64 on the CPU. Tolerance per tensor: max abs
+    diff <= 1e-4 max |ref| + 1e-6 (f32 sums over up to B T = 131072 terms)."""
+    B, T = 64, 2048
+    x, w, b, q, c = _inputs(B, T, Q, seed=8)
+    rows = np.random.default_rng(9).integers(1, T + 1, size=B)
+    rows[:5] = [T, T - 37, 1, 0, T + 5]
+    tmax = torch.from_numpy(rows.astype(np.int32))
+    g = torch.randn((B, D) if Q == 1 else (B, Q, D), generator=torch.Generator().manual_seed(1))
+    inputs = [c if Q == 1 else q, x, w, b]
+    kern, _ = _kernel_and_plain(Q, tmax.to(cuda))
+    _, plain = _kernel_and_plain(Q, tmax.long())
+    _, got = _grads(kern, [t.to(cuda) for t in inputs], g.to(cuda))
+    _, ref = _grads(plain, [t.double() for t in inputs], g.double())
+    for name, a, r in zip(("dq", "dx", "dW", "db"), got, ref):
+        err = (a.cpu().double() - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item() + 1e-6, (name, err, r.abs().max().item())
 
 
 @pytest.mark.cuda
@@ -124,6 +214,55 @@ def test_fusion_dual_view_on_card_matches_cpu(cuda):
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-5)
     for key in ("features", "rnc", "text_feat", "text_query_feat"):
         torch.testing.assert_close(aux[key].cpu(), ref_aux[key], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fusion_train_step_on_card_matches_cpu(cuda):
+    """One dual-view loss and backward (dropout off, gradients flowing):
+    card (kernels, recomputing backward) vs CPU (plain). Loss rtol 1e-4;
+    each gradient max abs diff <= 1e-5 max |grad| + 1e-6 (f32 reassociation
+    through the net and its backward; a TF32 product would miss it). Then a train step with dropout on:
+    six forward launches per step, a finite loss."""
+    import copy
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.core.config import LossConfig, ModelConfig, TrainConfig
+    from sdumc_tpu_torch.models.fusion import SDUMCFusion
+    from sdumc_tpu_torch.train.state import create_train_state
+    from sdumc_tpu_torch.train.step import dual_view_loss, make_train_step
+
+    set_matmul_precision("highest")
+    dims = (32, 64, 32)
+    model = SDUMCFusion(ModelConfig(input_dims=dims), torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.normal(size=(3, n, d)).astype(np.float32))
+             for k, n, d in (("audio", 70, dims[0]), ("text", 20, dims[1]),
+                             ("video", 40, dims[2]), ("feat4", 12, dims[1]))}
+    batch["vals"] = torch.from_numpy(rng.uniform(-3, 3, size=3).astype(np.float32))
+    batch["t_max"] = (65, 17, 33, 12)
+    loss_cfg = LossConfig(text_feat_w=0.1, text_query_feat_w=0.7)
+    card = copy.deepcopy(model).to(cuda).eval()
+    model.eval()
+    ref, _ = dual_view_loss(model, batch, loss_cfg)
+    ref.backward()
+    fused_cross.reset_launches()
+    got, _ = dual_view_loss(card, {k: v.to(cuda) if torch.is_tensor(v) else v
+                                   for k, v in batch.items()}, loss_cfg)
+    got.backward()
+    assert fused_cross.LAUNCHES == {1: 3, 7: 3}
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=0)
+    for (name, p), pc in zip(model.named_parameters(), card.parameters()):
+        if p.grad is None:
+            assert pc.grad is None, name
+            continue
+        err = (pc.grad.cpu() - p.grad).abs().max().item()
+        assert err <= 1e-5 * p.grad.abs().max().item() + 1e-6, (name, err)
+
+    state = create_train_state(card, TrainConfig(), 4)
+    step = make_train_step(state, loss_cfg, seed=0)
+    fused_cross.reset_launches()
+    metrics = step({k: v.to(cuda) if torch.is_tensor(v) else v for k, v in batch.items()})
+    assert fused_cross.LAUNCHES == {1: 3, 7: 3} and torch.isfinite(metrics["loss"])
 
 
 NB, MD = 40, 100     # the tiny bucket config of the CPU tests
