@@ -47,7 +47,27 @@ Phases, each fatal on failure (non-zero exit, no result line):
      gradient check must refuse (it shows the check can see TF32);
   9. a warm train step on the card, timed with CUDA events over 10 steps,
      then device time by family (fusion kernel, GEMMs, optimizer, copies,
-     the rest) of 3 steps under torch.profiler, with the idle share.
+     the rest) of 3 steps under torch.profiler, with the idle share;
+ 10. the feat4 decoder at Vicuna-7B width (vocab 32000, hidden 4096, 32
+     heads, FFN 11008) cut to 2 layers, f32, TF32 off, seeded weights, card
+     against CPU: full-sequence logits and tap sum, then a beam-4 decode of
+     16 tokens of 2 clips of different prompt lengths in one bucket (tokens
+     equal, taps to a tolerance, the smallest gap between the 4th and 5th
+     candidate score printed);
+ 11. the feat4 path: ``sdumc_tpu_torch.cli.extract.main(["feat4", ...])``
+     with its defaults (bf16, beam 4, --gen_batch 4, 200 new tokens) on a
+     seeded 2-layer Vicuna in HF's format (two fp16 shards with their index,
+     a hand-written tokenizer.json), a seeded projector and phase 5's
+     features (17 clips, one of 60 s), with the launch counters around it
+     (the decode runs no kernel of the port), every output checked, and one
+     4-clip chunk against its clips decoded alone;
+ 12. Vicuna-7B at full depth (32 layers, bf16, seeded on the card) through
+     Feat4Extractor.extract_many on the same features: host-clock rate and
+     peak memory, a chunk's ms per decode step (CUDA events) beside its
+     weight-and-KV-stream bound, device time by family, idle share and host
+     launches per step from torch.profiler, then 32-step runs of the same
+     chunk with --quant int8, --quant w8a8 and --kv_quant int8, timed, and
+     their taps' shift from bf16's.
 The second-to-last line is {"kernels": [...]}, the last line
 {"ok": true, "device": {...}}. Imports nothing of JAX or sdumc_tpu.
 
@@ -107,6 +127,31 @@ TRAIN_FAMILIES = (
     ("fusion kernel (forward)", ("cross_partial", "cross_combine", "split_w")),
     ("cuBLAS GEMMs (forward and backward)", ("gemm", "cutlass", "sm80_xmma", "sm90_xmma")),
     ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
+    ("memory copies", ("memcpy", "memset")),
+)
+# feat4 (phases 10-12): Vicuna-7B-v1.5's published widths (its config.json)
+VICUNA = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008, num_heads=32,
+              rope_theta=10000.0, rms_eps=1e-5)
+DEVICE = "cuda"
+VICUNA_LAYERS, CLI_LAYERS = 32, 2      # phase 12 at full depth; phases 10-11 cut to 2 layers
+BEAMS, GEN_BATCH, MAX_NEW = 4, 4, 200  # the feat4 CLI's defaults
+TAP_LAYERS = (-4, -3, -2, -1)
+PARITY_STEPS = 16
+# card vs CPU at f32 with TF32 off: reassociation through 2 layers and the
+# 32000-way lm_head (values up to about 5)
+LLAMA_RTOL, LLAMA_ATOL = 1e-4, 1e-4
+# a chunk against its clips decoded alone, bf16: the same GEMM shapes in
+# both, so equal to the bit is expected; the bound is a few bf16 ulps of a tap
+BF16_RTOL, BF16_ATOL = 1e-2, 1e-2
+QUANT_STEPS, PROFILE_FROM, PROFILED_DECODE_STEPS = 32, 0, 8
+PEAK_BF16_FLOPS = 989e12      # bf16 on the tensor cores, dense
+DECODE_FAMILIES = (
+    ("cuBLAS GEMMs (projections, MLP, lm_head, attention products)",
+     ("gemm", "nvjet", "cutlass", "xmma", "gemv", "splitk")),
+    ("softmax and log_softmax", ("softmax",)),
+    ("argmax sweeps (exact_topk)", ("argmax",)),
+    ("index gathers and scatters (cache reorder, top-k, taps, embedding)",
+     ("index", "gather", "scatter")),
     ("memory copies", ("memcpy", "memset")),
 )
 # (family, name fragments) of the extraction's device kernels, matched in order
@@ -591,58 +636,59 @@ def print_device_time(prof, wall: float, title: str, families_by_name, rest: str
     return {family: ms for family, (ms, _) in families.items()}
 
 
-def extraction_phase(torch, flash_wavlm):
-    """cli.extract audio at wavlm-large's full width on the card."""
+def extraction_phase(torch, flash_wavlm, tmp: str):
+    """cli.extract audio at wavlm-large's full width on the card; its
+    features stay in `tmp` for the feat4 phases. Returns (launch counts,
+    the features' directory)."""
     import numpy as np
 
     from sdumc_tpu_torch.cli import extract
     from sdumc_tpu_torch.convert.hf_wavlm import load_hf_wavlm
     from sdumc_tpu_torch.extract.audio import extract_audio_features, plan_batches, read_wav
 
-    with tempfile.TemporaryDirectory() as tmp:
-        model_dir, audio_dir, save_dir = (os.path.join(tmp, n) for n in ("model", "wavs", "out"))
-        cfg = write_wavlm_dir(torch, model_dir)
-        clips = write_wavs(audio_dir)
-        names = sorted(clips)
-        n_batches = len(plan_batches(cfg, [clips[n] for n in names], 8))
+    model_dir, audio_dir, save_dir = (os.path.join(tmp, n) for n in ("model", "wavs", "out"))
+    cfg = write_wavlm_dir(torch, model_dir)
+    clips = write_wavs(audio_dir)
+    names = sorted(clips)
+    n_batches = len(plan_batches(cfg, [clips[n] for n in names], 8))
 
-        reset_counts()
-        out = extract.main(["audio", "--model_dir", model_dir, "--audio_dir", audio_dir,
-                            "--save_dir", save_dir])
-        torch.cuda.synchronize()
-        counts = read_counts()
-        if out["batches"] != n_batches or counts[FLASH["name"]] != cfg.num_layers * n_batches:
-            raise AssertionError(f"flash_wavlm: {counts[FLASH['name']]} launches in "
-                                 f"{out['batches']} batches, expected {cfg.num_layers} x "
-                                 f"{n_batches}")
-        if not out["save_dir"].endswith("wavlm-large-FRA_-5"):
-            raise AssertionError(f"output directory {out['save_dir']}")
-        for name in names:
-            feat = np.load(os.path.join(out["save_dir"], f"{name}.npy"))
-            want = (cfg.output_length(clips[name]), cfg.hidden_size)
-            if feat.shape != want or not np.isfinite(feat).all():
-                raise AssertionError(f"{name}: shape {feat.shape} (want {want}) or non-finite")
-        print(f"extraction path: {out['clips']} clips ({out['audio_seconds']!r} s of audio, "
-              f"longest T={cfg.output_length(max(clips.values()))} frames) in {out['batches']} "
-              f"batches, {out['seconds']!r} s host clock (weights on the card; wav reading "
-              f"included, weight loading and wav writing excluded): "
-              f"{out['audio_seconds'] / out['seconds']!r} audio s per s host clock; "
-              f"launches {counts}")
+    reset_counts()
+    out = extract.main(["audio", "--model_dir", model_dir, "--audio_dir", audio_dir,
+                        "--save_dir", save_dir])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if out["batches"] != n_batches or counts[FLASH["name"]] != cfg.num_layers * n_batches:
+        raise AssertionError(f"flash_wavlm: {counts[FLASH['name']]} launches in "
+                             f"{out['batches']} batches, expected {cfg.num_layers} x "
+                             f"{n_batches}")
+    if not out["save_dir"].endswith("wavlm-large-FRA_-5"):
+        raise AssertionError(f"output directory {out['save_dir']}")
+    for name in names:
+        feat = np.load(os.path.join(out["save_dir"], f"{name}.npy"))
+        want = (cfg.output_length(clips[name]), cfg.hidden_size)
+        if feat.shape != want or not np.isfinite(feat).all():
+            raise AssertionError(f"{name}: shape {feat.shape} (want {want}) or non-finite")
+    print(f"extraction path: {out['clips']} clips ({out['audio_seconds']!r} s of audio, "
+          f"longest T={cfg.output_length(max(clips.values()))} frames) in {out['batches']} "
+          f"batches, {out['seconds']!r} s host clock (weights on the card; wav reading "
+          f"included, weight loading and wav writing excluded): "
+          f"{out['audio_seconds'] / out['seconds']!r} audio s per s host clock; "
+          f"launches {counts}")
 
-        # the shortest clip: card features vs the same weights' plain path on the CPU
-        short = min(names, key=clips.get)
-        _, cpu_model = load_hf_wavlm(model_dir)
-        wav = read_wav(os.path.join(audio_dir, f"{short}.wav"))
-        ref = extract_audio_features(cpu_model, cfg, [wav], device="cpu")[0]
-        got = np.load(os.path.join(out["save_dir"], f"{short}.npy"))
-        err = float(np.abs(got - ref).max())
-        print(f"{short} ({clips[short] / 16000!r} s): card vs CPU plain max abs diff {err!r}, "
-              f"max |feature| {float(np.abs(ref).max())!r} (tolerance rtol={FEAT_RTOL} "
-              f"atol={FEAT_ATOL}: f32 reassociation through 20 of 24 layers)")
-        if not np.allclose(got, ref, rtol=FEAT_RTOL, atol=FEAT_ATOL):
-            raise AssertionError(f"{short}: card and CPU features disagree")
-        profile_extraction(torch, model_dir, audio_dir)
-    return counts
+    # the shortest clip: card features vs the same weights' plain path on the CPU
+    short = min(names, key=clips.get)
+    _, cpu_model = load_hf_wavlm(model_dir)
+    wav = read_wav(os.path.join(audio_dir, f"{short}.wav"))
+    ref = extract_audio_features(cpu_model, cfg, [wav], device="cpu")[0]
+    got = np.load(os.path.join(out["save_dir"], f"{short}.npy"))
+    err = float(np.abs(got - ref).max())
+    print(f"{short} ({clips[short] / 16000!r} s): card vs CPU plain max abs diff {err!r}, "
+          f"max |feature| {float(np.abs(ref).max())!r} (tolerance rtol={FEAT_RTOL} "
+          f"atol={FEAT_ATOL}: f32 reassociation through 20 of 24 layers)")
+    if not np.allclose(got, ref, rtol=FEAT_RTOL, atol=FEAT_ATOL):
+        raise AssertionError(f"{short}: card and CPU features disagree")
+    profile_extraction(torch, model_dir, audio_dir)
+    return counts, out["save_dir"]
 
 
 def training_phase(torch, fused_cross):
@@ -808,6 +854,443 @@ def step_timing_phase(torch):
     return ms
 
 
+# ---------------------------------------------------------------- feat4 (phases 10-12)
+
+def feat4_config(torch, num_layers: int, **kw):
+    """Vicuna-7B-v1.5's published widths (lmsys/vicuna-7b-v1.5 config.json)
+    at `num_layers` layers."""
+    from sdumc_tpu_torch.models.llama import LlamaConfig
+
+    return LlamaConfig(**VICUNA, num_layers=num_layers, **kw)
+
+
+def beam_chunk(torch, model, cfg, prompts, lens, max_new, **kw):
+    from sdumc_tpu_torch.models.generation import beam_generate_batched
+
+    with torch.inference_mode():
+        return beam_generate_batched(model, prompts, cfg, embed_fn=model.model.embed_tokens,
+                                     prompt_len=lens, num_beams=BEAMS, max_new_tokens=max_new,
+                                     eos_id=2, **kw)
+
+
+def llama_parity_phase(torch):
+    """Phase 10: the decoder at Vicuna-7B width (2 layers, f32, TF32 off,
+    seeded weights), card against CPU: full-sequence logits and tap sum of
+    one prompt, then a beam-4 decode of 2 clips of different lengths in one
+    bucket."""
+    import copy
+
+    import numpy as np
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.models.llama import LlamaForCausalLM, init_weights
+
+    set_matmul_precision("highest")
+    cfg = feat4_config(torch, CLI_LAYERS, dtype=torch.float32)
+    cpu_model = init_weights(LlamaForCausalLM(cfg), seed=0).eval()
+    card_model = copy.deepcopy(cpu_model).to(DEVICE)
+    rng = np.random.default_rng(10)
+    bucket, lens = 64, [41, 57]
+    prompts = np.zeros((2, bucket, cfg.hidden_size), np.float32)
+    for c, n in enumerate(lens):
+        prompts[c, bucket - n:] = 0.5 * rng.standard_normal((n, cfg.hidden_size))
+    prompts = torch.from_numpy(prompts)
+    outs = {}
+    for dev, model in (("cpu", cpu_model), (DEVICE, card_model)):
+        with torch.inference_mode():
+            full = model(inputs_embeds=prompts[1:, bucket - lens[1]:].to(dev),
+                         tap_sum_layers=TAP_LAYERS)
+        trace = {}
+        beam = beam_chunk(torch, model, cfg, prompts.to(dev), lens, PARITY_STEPS, trace=trace)
+        outs[dev] = ({k: full[k].cpu() for k in ("logits", "tap_sum")},
+                     {k: v.cpu() for k, v in beam.items()}, trace["gap"].cpu())
+    (full_cpu, beam_cpu, gap_cpu), (full_card, beam_card, gap_card) = outs["cpu"], outs[DEVICE]
+    print(f"decoder at Vicuna-7B width (vocab {cfg.vocab_size}, hidden {cfg.hidden_size}, "
+          f"{cfg.num_heads} heads, FFN {cfg.intermediate_size}, {cfg.num_layers} layers, f32, TF32 "
+          f"off), card vs CPU (tolerance rtol={LLAMA_RTOL} atol={LLAMA_ATOL}: f32 reassociation "
+          f"through the layers and the {cfg.vocab_size}-way lm_head):")
+    for key in ("logits", "tap_sum"):
+        err = (full_card[key] - full_cpu[key]).abs().max().item()
+        print(f"  full sequence ({lens[1]} positions) {key}: max abs diff {err!r}, max |value| "
+              f"{full_cpu[key].abs().max().item()!r}")
+        if not torch.allclose(full_card[key], full_cpu[key], rtol=LLAMA_RTOL, atol=LLAMA_ATOL):
+            raise AssertionError(f"full-sequence {key}: card and CPU disagree")
+    same = torch.equal(beam_card["tokens"], beam_cpu["tokens"]) and torch.equal(
+        beam_card["n_steps"], beam_cpu["n_steps"])
+    err = (beam_card["taps"] - beam_cpu["taps"]).abs().max().item()
+    print(f"  beam-{BEAMS} decode, 2 clips (prompt lengths {lens} in bucket {bucket}), "
+          f"{PARITY_STEPS} steps: tokens equal {same}, taps max abs diff {err!r} (max |tap| "
+          f"{beam_cpu['taps'].abs().max().item()!r}); smallest gap between the {BEAMS}th and "
+          f"{BEAMS + 1}th candidate score over the run: card {gap_card.tolist()}, CPU "
+          f"{gap_cpu.tolist()}")
+    print(f"  tokens (card) {beam_card['tokens'][:, :PARITY_STEPS].tolist()}")
+    if not same:
+        print(f"  tokens (CPU)  {beam_cpu['tokens'][:, :PARITY_STEPS].tolist()}")
+        raise AssertionError("beam decode: card and CPU tokens differ")
+    if not torch.allclose(beam_card["taps"], beam_cpu["taps"], rtol=LLAMA_RTOL, atol=LLAMA_ATOL):
+        raise AssertionError("beam decode: card and CPU taps disagree")
+
+
+def prompt_vocab(prompt: str):
+    """A small LLaMA-style tokenizer.json vocabulary covering `prompt`:
+    <unk>/<s>/</s>, every character, and each word built up left to right
+    from its first character (merge ranks in that order)."""
+    space = "▁"
+    vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
+    words = [space + w for w in prompt.split()] + [space]
+    for ch in sorted(set("".join(words))):
+        vocab.setdefault(ch, 100 + len(vocab))
+    merges = []
+    for w in words:
+        for n in range(2, len(w) + 1):
+            if w[:n] not in vocab:
+                vocab[w[:n]] = 100 + len(vocab)
+                merges.append(f"{w[:n - 1]} {w[n - 1]}")
+    return vocab, merges
+
+
+def write_vicuna_dir(torch, path: str, num_layers: int, seed: int = 1):
+    """A seeded Vicuna-7B-v1.5 in HF's format at `num_layers` layers:
+    config.json with HF's key names; fp16 weights at the published shapes,
+    normal(0, 0.02) as HF's init draws them, norms 1, in two shards
+    pytorch_model-0000k-of-00002.bin with pytorch_model.bin.index.json;
+    tokenizer_config.json and a hand-written tokenizer.json (BPE with byte
+    fallback) that covers the ASR prompt."""
+    from sdumc_tpu_torch.extract.llm4wav import DEFAULT_PROMPT
+    from sdumc_tpu_torch.models.llama import LlamaForCausalLM
+
+    cfg = feat4_config(torch, num_layers)
+    config = {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+              "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+              "intermediate_size": cfg.intermediate_size, "num_hidden_layers": num_layers,
+              "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_heads,
+              "rms_norm_eps": cfg.rms_eps, "rope_theta": cfg.rope_theta,
+              "max_position_embeddings": cfg.max_position_embeddings, "bos_token_id": 1,
+              "eos_token_id": 2, "pad_token_id": 0, "tie_word_embeddings": False,
+              "torch_dtype": "float16", "hidden_act": "silu"}
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+    with torch.device("meta"):
+        shapes = {k: t.shape for k, t in LlamaForCausalLM(cfg).state_dict().items()}
+    gen = torch.Generator().manual_seed(seed)
+    names = [f"pytorch_model-0000{i}-of-00002.bin" for i in (1, 2)]
+    shards, weight_map, total = ({}, {}), {}, 0
+    for key, shape in shapes.items():
+        t = (torch.ones(shape) if key.endswith("norm.weight")
+             else 0.02 * torch.randn(shape, generator=gen)).half()
+        i = 0 if key.startswith("model.embed_tokens") or key.startswith("model.layers.0.") else 1
+        shards[i][key] = t
+        weight_map[key] = names[i]
+        total += t.numel() * 2
+    for name, shard in zip(names, shards):
+        torch.save(shard, os.path.join(path, name))
+    with open(os.path.join(path, "pytorch_model.bin.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    vocab, merges = prompt_vocab(DEFAULT_PROMPT)
+    space = "▁"
+    spec = {"version": "1.0", "truncation": None, "padding": None,
+            "added_tokens": [{"id": i, "content": t, "single_word": False, "lstrip": False,
+                              "rstrip": False, "normalized": False, "special": True}
+                             for t, i in (("<unk>", 0), ("<s>", 1), ("</s>", 2))],
+            "normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "Prepend", "prepend": space},
+                {"type": "Replace", "pattern": {"String": " "}, "content": space}]},
+            "pre_tokenizer": None, "post_processor": None, "decoder": None,
+            "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": True, "byte_fallback": True, "vocab": vocab, "merges": merges}}
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"add_bos_token": True, "add_eos_token": False, "bos_token": "<s>",
+                   "eos_token": "</s>", "unk_token": "<unk>"}, f)
+    return total
+
+
+def write_projector(torch, path: str, seed: int = 2):
+    """A seeded EncoderProjectorConcat (5 x 1024 -> 2048 -> 4096) saved as the
+    released checkpoint is, keys prefixed ``encoder_projector.``."""
+    from sdumc_tpu_torch.extract.projector import EncoderProjectorConcat
+
+    torch.manual_seed(seed)
+    proj = EncoderProjectorConcat()
+    torch.save({"encoder_projector." + k: v for k, v in proj.state_dict().items()}, path)
+
+
+def feat4_cli_phase(torch, tmp: str, feats_dir: str):
+    """Phase 11: ``cli.extract feat4`` with its defaults (the card, bf16,
+    beam 4, --gen_batch 4, --max_new_tokens 200) on a seeded 2-layer Vicuna
+    in HF's format and the WavLM features of phase 5; every output checked;
+    one 4-clip chunk against the same clips decoded alone."""
+    import glob
+
+    import numpy as np
+
+    from sdumc_tpu_torch.cli import extract
+    from sdumc_tpu_torch.convert.hf_llama import load_hf_llama
+    from sdumc_tpu_torch.convert.llama_tokenizer import LlamaTokenizer
+    from sdumc_tpu_torch.extract.llm4wav import Feat4Extractor
+    from sdumc_tpu_torch.extract.projector import load_projector
+
+    llm_dir, proj_path, save_dir = (os.path.join(tmp, n) for n in ("vicuna", "proj.pt", "feat4"))
+    t0 = time.perf_counter()
+    nbytes = write_vicuna_dir(torch, llm_dir, CLI_LAYERS)
+    write_projector(torch, proj_path)
+    print(f"seeded Vicuna-7B-v1.5 widths at {CLI_LAYERS} layers in HF's format "
+          f"({nbytes / 1e9!r} GB fp16 in 2 shards) and a projector in "
+          f"{time.perf_counter() - t0!r} s")
+    files = sorted(glob.glob(os.path.join(feats_dir, "*.npy")))
+    reset_counts()
+    out = extract.main(["feat4", "--llm_dir", llm_dir, "--projector_path", proj_path,
+                        "--wavlm_dir", feats_dir, "--save_dir", save_dir, "--device", DEVICE])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if out["clips"] != len(files):
+        raise AssertionError(f"feat4: {out['clips']} of {len(files)} clips extracted")
+    steps = []
+    for path in files:
+        taps = np.load(os.path.join(save_dir, os.path.basename(path)))
+        if (taps.ndim != 2 or taps.shape[1] != VICUNA["hidden_size"]
+                or not 1 <= len(taps) <= MAX_NEW or taps.dtype != np.float32
+                or not np.isfinite(taps).all()):
+            raise AssertionError(f"{path}: taps {taps.shape} {taps.dtype} or non-finite")
+        steps.append(len(taps))
+    print(f"feat4 path (cli.extract feat4, defaults): {out['clips']} clips, {out['steps']} taps "
+          f"rows (steps per clip {sorted(set(steps))}), {out['seconds']!r} s host clock "
+          f"(weights loaded before it), {out['steps'] / out['seconds']!r} clip-tokens/s; "
+          f"launches of the port's kernels on this path {counts} (the decode runs cuBLAS "
+          f"and PyTorch's own kernels only)")
+
+    # one 4-clip chunk (the CLI's first) against each of its clips alone
+    # (a chunk of one, filled by repeating it, as a tail chunk is)
+    _, model = load_hf_llama(llm_dir, device=DEVICE)
+    ex = Feat4Extractor(model, load_projector(proj_path, device=DEVICE),
+                        LlamaTokenizer.from_dir(llm_dir), gen_batch=GEN_BATCH)
+    pending = sorted(((ex.prompt_len_for(np.load(p, mmap_mode="r").shape[0]), p) for p in files))
+    bucket_of = lambda n: next((b for b in ex.prompt_buckets if n <= b), n)  # noqa: E731
+    first = [p for n, p in pending if bucket_of(n) == bucket_of(pending[0][0])][:GEN_BATCH]
+    feats = [np.load(p) for p in first]
+    chunk = ex.extract_many(feats)
+    worst, same = 0.0, True
+    for path, f, got in zip(first, feats, chunk):
+        solo = ex.extract_many([f])[0]
+        same &= bool(np.array_equal(got["tokens"], solo["tokens"])) and \
+            got["taps"].shape == solo["taps"].shape
+        if got["taps"].shape == solo["taps"].shape:
+            worst = max(worst, float(np.abs(got["taps"] - solo["taps"]).max()))
+            if not np.allclose(got["taps"], solo["taps"], rtol=BF16_RTOL, atol=BF16_ATOL):
+                same = False
+    cli_worst = max(float(np.abs(np.load(os.path.join(save_dir, os.path.basename(p)))
+                                 - got["taps"]).max()) for p, got in zip(first, chunk))
+    print(f"one {len(first)}-clip chunk (prompt bucket {bucket_of(pending[0][0])}) against each "
+          f"clip alone: tokens and step counts equal {same}, taps max abs diff {worst!r}; the "
+          f"CLI's saved taps of the same clips (decoded in its own chunks) max abs diff "
+          f"{cli_worst!r} (tolerance rtol={BF16_RTOL} atol={BF16_ATOL}: bf16, the same GEMM "
+          f"shapes in all)")
+    if not same or not cli_worst <= BF16_ATOL + BF16_RTOL * max(
+            float(np.abs(g["taps"]).max()) for g in chunk):
+        raise AssertionError("feat4: a chunk and its clips decoded alone disagree")
+    del model, ex
+    torch.cuda.empty_cache()
+    return llm_dir, proj_path
+
+
+def weight_bytes(model) -> int:
+    """Bytes a decode step streams for the weights: every Linear (codes and
+    scales) and norm; not the embedding (a gather of one row per beam)."""
+    return sum(t.numel() * t.element_size() for n, t in
+               list(model.named_parameters()) + list(model.named_buffers())
+               if "embed_tokens" not in n)
+
+
+def decode_bound_ms(cfg, wbytes: int, C: int, P: int, steps: int) -> float:
+    """Least time of one decode step, averaged over `steps` steps: the
+    larger of the bytes (the weights and the KV cache each read once: the
+    prompt part per clip, the generated part per beam up to the step; k and
+    v, with their f32 scales under int8-KV) at the HBM rate, and the
+    operations (2 per weight and row, C x BEAMS rows) at the bf16
+    tensor-core rate, which is far below."""
+    per_slot = 2 * cfg.num_layers * cfg.kv_heads * (
+        cfg.head_dim * (1 if cfg.kv_quant else 2) + (4 if cfg.kv_quant else 0))
+    kv = per_slot * (C * P + C * BEAMS * (steps - 1) / 2)
+    n_weights = cfg.num_layers * (4 * cfg.hidden_size ** 2 + 3 * cfg.hidden_size
+                                  * cfg.intermediate_size) + cfg.hidden_size * cfg.vocab_size
+    return 1e3 * max((wbytes + kv) / PEAK_HBM_BYTES,
+                     2 * n_weights * C * BEAMS / PEAK_BF16_FLOPS)
+
+
+def time_decode(torch, model, cfg, prompts, lens, steps: int):
+    """(ms per decode step by CUDA events, the run's outputs): a run of
+    `steps` new tokens minus a run of 1 (the prefill and the first
+    selection), over the steps-1 decode forwards."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    beam_chunk(torch, model, cfg, prompts, lens, 2)             # warm
+    torch.cuda.synchronize()
+    ev[0].record()
+    beam_chunk(torch, model, cfg, prompts, lens, 1)
+    ev[1].record()
+    ev[2].record()
+    out = beam_chunk(torch, model, cfg, prompts, lens, steps)
+    ev[3].record()
+    torch.cuda.synchronize()
+    n = int(out["n_steps"].max())
+    return (ev[2].elapsed_time(ev[3]) - ev[0].elapsed_time(ev[1])) / max(n - 1, 1), out
+
+
+def profile_decode(torch, model, cfg, prompts, lens, first: int = PROFILE_FROM,
+                   steps: int = PROFILED_DECODE_STEPS):
+    """Device time by family, host launches and the idle share of decode
+    steps first+1 .. first+steps: two profiled runs (first + 1 and first +
+    steps + 1 new tokens) and their difference, so the prefill and the
+    earlier steps drop out. The profiler records every op of both runs,
+    so a late window (first of about 100) takes minutes; the default is
+    the first steps, with the generated cache nearly empty."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    runs = []
+    for n in (first + 1, first + steps + 1):
+        beam_chunk(torch, model, cfg, prompts, lens, n)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            beam_chunk(torch, model, cfg, prompts, lens, n)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        fams, busy = {}, 0.0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
+                continue
+            name = e.key.lower()
+            fam = next((f for f, keys in DECODE_FAMILIES if any(k in name for k in keys)),
+                       "elementwise and reductions (norms, rope, casts, attention math)")
+            fams[fam] = fams.get(fam, 0.0) + e.self_device_time_total / 1e3
+            busy += e.self_device_time_total / 1e6
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU and "LaunchKernel" in e.key)
+        runs.append((fams, busy, wall, launches))
+    (f1, b1, w1, l1), (f2, b2, w2, l2) = runs
+    per = {k: (f2.get(k, 0.0) - f1.get(k, 0.0)) / steps for k in set(f1) | set(f2)}
+    total = sum(per.values())
+    if total <= 0:
+        print("  profiled decode: the trace held no device time (not measured)")
+        return
+    print(f"  profiled decode (steps {first + 1}-{first + steps}, the difference of a "
+          f"{first + steps + 1}-token and a {first + 1}-token run): device {total!r} ms per "
+          f"step, idle share "
+          f"{1 - (b2 - b1) / (w2 - w1)!r}, {(l2 - l1) / steps!r} host kernel launches per step; "
+          f"device time per step by family:")
+    for fam, ms in sorted(per.items(), key=lambda kv: -kv[1]):
+        print(f"    {ms:9.4f} ms {ms / total:7.2%}  {fam}")
+
+
+def full_depth_phase(torch, llm_dir: str, proj_path: str, feats_dir: str):
+    """Phase 12: Vicuna-7B at 32 layers in bf16 (seeded on the card) through
+    Feat4Extractor.extract_many on phase 5's features at --gen_batch 4; a
+    timed and profiled chunk; then one chunk of 32 steps with int8, w8a8
+    and int8-KV, each against bf16."""
+    import dataclasses
+    import glob
+
+    import numpy as np
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.convert.llama_tokenizer import LlamaTokenizer
+    from sdumc_tpu_torch.extract.llm4wav import Feat4Extractor
+    from sdumc_tpu_torch.extract.projector import load_projector
+    from sdumc_tpu_torch.models.llama import LlamaForCausalLM, init_weights, model_from_state_dict
+    from sdumc_tpu_torch.ops.quant import quantize_params
+
+    set_matmul_precision("highest")
+    cfg = feat4_config(torch, VICUNA_LAYERS)
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    model = init_weights(model.to_empty(device=DEVICE), seed=3).eval()
+    torch.cuda.synchronize()
+    wbytes = weight_bytes(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"Vicuna-7B-v1.5 at full depth ({cfg.num_layers} layers, bf16, {n_params} parameters, "
+          f"{wbytes / 1e9!r} GB streamed per step), seeded on the card in "
+          f"{time.perf_counter() - t0!r} s")
+    ex = Feat4Extractor(model, load_projector(proj_path, device=DEVICE),
+                        LlamaTokenizer.from_dir(llm_dir), max_new_tokens=MAX_NEW,
+                        gen_batch=GEN_BATCH)
+    files = sorted(glob.glob(os.path.join(feats_dir, "*.npy")))
+    feats = [np.load(p) for p in files]
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = ex.extract_many(feats)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_tok = sum(len(r["taps"]) for r in results)
+    for path, r in zip(files, results):
+        if r["taps"].shape[1] != cfg.hidden_size or not np.isfinite(r["taps"]).all():
+            raise AssertionError(f"{path}: taps {r['taps'].shape} or non-finite")
+    per_clip = sorted({len(r["taps"]) for r in results})
+    print(f"full depth, Feat4Extractor.extract_many on {len(feats)} clips at --gen_batch "
+          f"{GEN_BATCH}: {n_tok} taps rows (steps per clip {per_clip}), {seconds!r} s host "
+          f"clock, {n_tok / seconds!r} clip-tokens/s; peak device memory {peak!r} GiB")
+
+    # the timed chunk: the first GEN_BATCH clips of the 256 bucket (else the largest full one)
+    lens_all = [ex.prompt_len_for(len(f)) for f in feats]
+    buckets = [next((b for b in ex.prompt_buckets if n <= b), n) for n in lens_all]
+    bucket = 256 if buckets.count(256) >= GEN_BATCH else max(
+        b for b in set(buckets) if buckets.count(b) >= GEN_BATCH)
+    pick = [i for i, b in enumerate(buckets) if b == bucket][:GEN_BATCH]
+    prompts = torch.stack([ex._padded_prompt(feats[i], bucket) for i in pick])
+    lens = [lens_all[i] for i in pick]
+    ms, out = time_decode(torch, model, cfg, prompts, lens, MAX_NEW)
+    steps = int(out["n_steps"].max())
+    bound = decode_bound_ms(cfg, wbytes, GEN_BATCH, bucket, steps)
+    print(f"  timed chunk ({GEN_BATCH} clips, prompt bucket {bucket}, {steps} steps): {ms!r} ms "
+          f"per decode step (CUDA events), {GEN_BATCH * 1e3 / ms!r} clip-tokens/s; bound "
+          f"{bound!r} ms per step (weights {wbytes / 1e9!r} GB + the KV cache at "
+          f"{PEAK_HBM_BYTES / 1e12} TB/s), {bound / ms:.1%} of it")
+    profile_decode(torch, model, cfg, prompts, lens)
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm()).item()
+
+    def forward_taps(m):       # teacher-forced: one forward over the chunk's real prompts
+        with torch.inference_mode():
+            return torch.cat([m(inputs_embeds=prompts[c:c + 1, bucket - n:],
+                                tap_sum_layers=TAP_LAYERS)["tap_sum"][0]
+                              for c, n in enumerate(lens)])
+
+    ref_ms, ref = time_decode(torch, model, cfg, prompts, lens, QUANT_STEPS)
+    ref_fwd = forward_taps(model)
+    print(f"  bf16, {QUANT_STEPS} steps on the same chunk: {ref_ms!r} ms per step")
+    for quant, kv_quant in (("int8", None), ("w8a8", None), (None, "int8")):
+        qcfg = dataclasses.replace(cfg, quant=quant, kv_quant=kv_quant)
+        sd = dict(model.state_dict())
+        qmodel = model_from_state_dict(qcfg, quantize_params(sd, quant) if quant else sd)
+        qms, qout = time_decode(torch, qmodel, qcfg, prompts, lens, QUANT_STEPS)
+        qbytes = weight_bytes(qmodel)
+        n = int(qout["n_steps"].min())
+        shifts = (rel(forward_taps(qmodel), ref_fwd),
+                  rel(qout["taps"][:, 0], ref["taps"][:, 0]),
+                  rel(qout["taps"][:, :n], ref["taps"][:, :n]))
+        same = torch.equal(qout["tokens"][:, :n], ref["tokens"][:, :n])
+        if not all(map(math.isfinite, shifts)):
+            raise AssertionError(f"{quant or kv_quant}: non-finite taps")
+        print(f"  --quant {quant} --kv_quant {kv_quant}: {qms!r} ms per step (CUDA events, "
+              f"{QUANT_STEPS} steps), bound "
+              f"{decode_bound_ms(qcfg, qbytes, GEN_BATCH, bucket, QUANT_STEPS)!r} ms "
+              f"({qbytes / 1e9!r} GB of weights); taps' relative shift from bf16's "
+              f"(||delta|| / ||bf16||): {shifts[0]!r} in a teacher-forced forward over the "
+              f"prompts (the cache plays no part there), {shifts[1]!r} at the first decode "
+              f"step, {shifts[2]!r} over {n} decode steps (best hypotheses equal {same}; "
+              f"beams that part make the taps part)")
+        del qmodel, sd
+        torch.cuda.empty_cache()
+    del model, ex
+    torch.cuda.empty_cache()
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3 with the kernels of the checkout at `root`, built from its
     own sources into its own build/kernels/; per-kernel totals."""
@@ -880,10 +1363,14 @@ def main() -> int:
     totals = kernel_phase(torch, fused_cross, fused_pool, main_path_lengths(main_path_config()))
     flash = flash_phase(torch, flash_wavlm)
     infer_launches = main_path_phase(torch, fused_cross)
-    extract_counts = extraction_phase(torch, flash_wavlm)
-    launches = training_phase(torch, fused_cross)
-    step_parity_phase(torch)
-    step_timing_phase(torch)
+    with tempfile.TemporaryDirectory() as work:
+        extract_counts, feats_dir = extraction_phase(torch, flash_wavlm, work)
+        launches = training_phase(torch, fused_cross)
+        step_parity_phase(torch)
+        step_timing_phase(torch)
+        llama_parity_phase(torch)
+        llm_dir, proj_path = feat4_cli_phase(torch, work, feats_dir)
+        full_depth_phase(torch, llm_dir, proj_path, feats_dir)
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():

@@ -1,12 +1,14 @@
 """Feature-extraction entry point of the port (stage L1).
 
     python -m sdumc_tpu_torch.cli.extract audio --model_dir ... --audio_dir ... --save_dir ...
+    python -m sdumc_tpu_torch.cli.extract feat4 --llm_dir ... --projector_path ... \
+        --wavlm_dir ... --save_dir ...
 
-Only the ``audio`` stage (WavLM, extract/audio.py) is ported. The JAX
-package's other stages are still to port (ROADMAP queue 1): ``text``
-(text families), ``feat4`` (feat4 decode), ``visual``, ``vision`` and
-``manet_train`` (visual), ``asr`` (ASR) and ``pack`` (bf16 streams and the
-int8 store).
+Two stages are ported: ``audio`` (WavLM, extract/audio.py) and ``feat4``
+(the Vicuna pseudo-text decode, extract/llm4wav.py). The JAX package's
+other stages are still to port (ROADMAP queue 1): ``text`` (text
+families), ``visual``, ``vision`` and ``manet_train`` (visual), ``asr``
+(ASR) and ``pack`` (bf16 streams and the int8 store).
 """
 
 from __future__ import annotations
@@ -15,7 +17,6 @@ import sys
 
 NOT_PORTED = {
     "text": "text families",
-    "feat4": "feat4 decode",
     "visual": "visual",
     "vision": "visual",
     "manet_train": "visual",
@@ -34,6 +35,10 @@ def main(argv=None):
     stage, rest = argv[0], argv[1:]
     if stage == "audio":
         from sdumc_tpu_torch.extract.audio import main as run
+
+        return run(rest)
+    if stage == "feat4":
+        from sdumc_tpu_torch.extract.llm4wav import main as run
 
         return run(rest)
     print(__doc__)

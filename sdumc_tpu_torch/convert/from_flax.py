@@ -2,7 +2,8 @@
 
 For the fusion net, the inverse of the reference-key table in
 ``sdumc_tpu/convert/torch_to_jax.py``, kept here as the port's own copy;
-for WavLM, the inverse of ``sdumc_tpu/convert/hf_wavlm.py``. The port names
+for WavLM and LLaMA, the inverses of ``sdumc_tpu/convert/hf_wavlm.py`` and
+``sdumc_tpu/convert/hf_llama.py``. The port names
 its submodules after the reference torch (or HF) state_dict, so the keys
 produced here are those keys: Dense ``kernel`` [in, out] transposes to
 Linear ``weight`` [out, in], a Flax conv kernel [k, in/groups, out] to a
@@ -146,4 +147,47 @@ def wavlm_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
         elif arr.ndim == 2 and path[-1] == "kernel":         # dense [in, out]
             arr = arr.T
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+_LLAMA_LEAF = {"kernel": "weight", "kernel_q": "weight_q", "kernel_scale": "weight_scale",
+               "scale": "weight", "embedding": "weight"}
+
+
+def _llama_leaf(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, torch.Tensor]:
+    """The port key and tensor of one unstacked JAX LLaMA leaf (path below
+    ``model``'s layer or at the top)."""
+    leaf = path[-1]
+    if leaf not in _LLAMA_LEAF:
+        raise KeyError(f"no port key for flax param {'/'.join(path)}")
+    if leaf in ("kernel", "kernel_q"):          # Dense [in, out] -> Linear [out, in]
+        arr = arr.T
+    dtype = np.int8 if leaf == "kernel_q" else np.float32
+    return ".".join(path[:-1] + (_LLAMA_LEAF[leaf],)), torch.from_numpy(
+        np.array(arr, dtype=dtype, order="C"))
+
+
+def llama_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """The JAX LlamaForCausalLM's params as the port's (HF-named) state dict.
+    Takes both of JAX's layouts, unrolled ``layers_{i}`` and the stacked
+    ``layers`` of ``stack_scan_layers`` (leading [L] axis), and the quantized
+    tree of ``ops.quant.quantize_params`` (``kernel_q`` int8 /
+    ``kernel_scale``). Raises on a param path it does not know."""
+    out = {}
+    for path, value in _leaves(params):
+        arr = np.asarray(value)
+        if path[0] == "model" and path[1].startswith("layers_"):
+            pre = ("model", "layers", path[1].split("_")[1])
+            key, t = _llama_leaf(pre + path[2:], arr)
+            out[key] = t
+        elif path[0] == "model" and path[1] == "layers":
+            for i in range(arr.shape[0]):
+                key, t = _llama_leaf(("model", "layers", str(i)) + path[2:], arr[i])
+                out[key] = t
+        elif path in (("model", "embed_tokens", "embedding"), ("model", "norm", "scale")) \
+                or path[0] == "lm_head":
+            key, t = _llama_leaf(path, arr)
+            out[key] = t
+        else:
+            raise KeyError(f"no port key for flax param {'/'.join(path)}")
     return out

@@ -17,7 +17,10 @@ attention kernel's hd = 16 instance (hidden 64, 4 heads); wavlm-large's
 hd = 64 instance is tested directly. The fusion kernel's gradient (its
 autograd.Function, which recomputes the plain version) is held against
 autograd through the plain version on the card, and against float64 at
-the full shape; a tiny fusion train step on the card against the CPU.
+the full shape; a tiny fusion train step on the card against the CPU. The
+feat4 decode (no kernel of the port) is held to the CPU too: exact_topk's
+tie order, the padded int8 product, a tiny decode, and a --gen_batch chunk
+against its clips alone.
 """
 
 import math
@@ -394,3 +397,107 @@ def test_tiny_wavlm_on_card_matches_cpu(cuda, stable):
     for i, (g, r) in enumerate(zip(got, ref)):
         torch.testing.assert_close(torch.where(keep, g.cpu(), 0.0), torch.where(keep, r, 0.0),
                                    rtol=1e-4, atol=1e-4, msg=f"hidden_states[{i}]")
+
+
+# ---------------------------------------------------------------- feat4 decode on the card
+# (no kernel of the port: cuBLAS and PyTorch's own kernels; the tie order of
+# exact_topk, the padded int8 product and per-clip independence on CUDA)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((4, 128000), 8), ((2, 33), 5), ((3, 64), 1)])
+def test_exact_topk_ties_on_card(cuda, shape, k):
+    """Ties to the lowest index on CUDA too (torch.topk promises no order):
+    duplicated leaders and a run of equal values at the top, equal to the
+    CPU's result bit for bit."""
+    from sdumc_tpu_torch.models.generation import exact_topk
+
+    x = np.random.default_rng(0).normal(size=shape).astype(np.float32)
+    x[:, 1] = x[:, 0]
+    x[:, 5:9] = x.max(axis=-1, keepdims=True)
+    want_v, want_i = exact_topk(torch.from_numpy(x), k)
+    got_v, got_i = exact_topk(torch.from_numpy(x).to(cuda), k)
+    assert torch.equal(got_i.cpu(), want_i) and torch.equal(got_v.cpu(), want_v)
+    assert got_i[0, :min(k, 4)].tolist() == [5, 6, 7, 8][:min(k, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 16, 17, 40])
+def test_int8_matmul_on_card_is_the_integer_product(cuda, M):
+    """torch._int_mm with the rows zero-padded where M <= 16 (decode at
+    --gen_batch 4 has 16 rows): equal to the CPU's exact product."""
+    from sdumc_tpu_torch.ops.quant import int8_matmul
+
+    rng = np.random.default_rng(M)
+    a = torch.from_numpy(rng.integers(-127, 128, size=(M, 64), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, size=(48, 64), dtype=np.int8))
+    got = int8_matmul(a.to(cuda), w.to(cuda))
+    assert got.dtype == torch.int32 and got.shape == (M, 48)
+    assert torch.equal(got.cpu(), int8_matmul(a, w))
+
+
+def _tiny_llama(seed=0, **kw):
+    from sdumc_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_weights
+
+    cfg = LlamaConfig.tiny(num_layers=2, vocab_size=96, hidden_size=48, intermediate_size=96, **kw)
+    return cfg, init_weights(LlamaForCausalLM(cfg), seed=seed, std=0.2).eval()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,kv_quant", [(None, None), ("int8", None), ("w8a8", "int8")])
+def test_tiny_decode_on_card_matches_cpu(cuda, quant, kv_quant):
+    """A tiny beam-4 decode of 2 clips (f32, TF32 off) on the card against
+    the CPU: tokens equal, taps to 1e-4; with int8 weights (w8a8: the padded
+    int32 product) and the int8 KV cache too."""
+    import copy
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.models.generation import beam_generate_batched
+    from sdumc_tpu_torch.models.llama import model_from_state_dict
+    from sdumc_tpu_torch.ops.quant import quantize_params
+
+    set_matmul_precision("highest")
+    cfg, model = _tiny_llama()
+    if quant or kv_quant:
+        import dataclasses
+
+        cfg = dataclasses.replace(cfg, quant=quant, kv_quant=kv_quant)
+        sd = dict(model.state_dict())
+        model = model_from_state_dict(cfg, quantize_params(sd, quant) if quant else sd)
+    rng = np.random.default_rng(1)
+    pe = torch.from_numpy((rng.normal(size=(2, 12, 48)) * 0.5).astype(np.float32))
+    pe[1, :4] = 0.0
+    outs = []
+    for m, dev in ((model, "cpu"), (copy.deepcopy(model).to(cuda), cuda)):
+        with torch.inference_mode():
+            out = beam_generate_batched(m, pe.to(dev), cfg, embed_fn=m.model.embed_tokens,
+                                        prompt_len=[12, 8], num_beams=4, max_new_tokens=10)
+        outs.append({k: v.cpu() for k, v in out.items()})
+    cpu, card = outs
+    for key in ("tokens", "n_tokens", "n_steps"):
+        assert torch.equal(card[key], cpu[key]), key
+    torch.testing.assert_close(card["taps"], cpu["taps"], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gen_batch_chunk_matches_solo_on_card(cuda, dtype):
+    """Feat4Extractor at --gen_batch 4 on the card: a chunk of 4 clips of one
+    prompt bucket gives each clip what it gets alone (a chunk of one, filled
+    by repeating it, the same GEMM shapes): tokens equal, taps equal."""
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.extract.llm4wav import Feat4Extractor
+    from sdumc_tpu_torch.extract.projector import EncoderProjectorConcat
+
+    set_matmul_precision("highest")
+    cfg, model = _tiny_llama(seed=1, dtype=dtype)
+    model.to(cuda)
+    torch.manual_seed(2)
+    proj = EncoderProjectorConcat(5, 16, 32, 48).to(cuda).eval()
+    ex = Feat4Extractor(model, proj, None, max_new_tokens=12, prompt_buckets=(64,), gen_batch=4)
+    rng = np.random.default_rng(3)
+    feats = [rng.normal(size=(t, 16)).astype(np.float32) for t in (60, 150, 200, 300)]
+    chunk = ex.extract_many(feats)
+    for f, got in zip(feats, chunk):
+        solo = ex.extract_many([f])[0]
+        np.testing.assert_array_equal(got["tokens"], solo["tokens"])
+        np.testing.assert_array_equal(got["taps"], solo["taps"])
