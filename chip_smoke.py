@@ -67,9 +67,33 @@ Phases, each fatal on failure (non-zero exit, no result line):
      weight-and-KV-stream bound, device time by family, idle share and host
      launches per step from torch.profiler, then 32-step runs of the same
      chunk with --quant int8, --quant w8a8 and --kv_quant int8, timed, and
-     their taps' shift from bf16's.
-The second-to-last line is {"kernels": [...]}, the last line
-{"ok": true, "device": {...}}. Imports nothing of JAX or sdumc_tpu.
+     their taps' shift from bf16's;
+ 13. the text path: ``sdumc_tpu_torch.cli.extract.main(["text", ...])`` with
+     its defaults (bf16, FRAME, taps -4..-1, batch 16) on phase 11's 2-layer
+     Vicuna directory (its tokenizer.json has LLaMA's decoder, the 256 byte
+     tokens and a vocabulary covering the probe and the transcripts) and 64
+     seeded MOSEI-like transcripts (3-60 words, one of about 200 tokens, one
+     empty, one with a non-ASCII word): every output's shape and
+     finiteness, then one batch through the f32 trunk, card against CPU;
+ 14. the text stage at full depth (32 layers, bf16, seeded on the card)
+     through extract_text_features with --layer_ids -3 and -4..-1:
+     sentences/s by the host clock, peak memory, ms per batch by CUDA events
+     beside its bound, device time by family and the idle share;
+ 15. the visual path: ``cli.extract visual`` with its defaults (batch 32,
+     FRAME) on a seeded MANet .pth in the reference's format and 12 clips of
+     30-300 OpenFace-style 112x112 24-bit BMP frames: shapes and
+     finiteness, one clip's first batch card against CPU and a control run
+     with cuDNN's TF32 allowed that the check must refuse; a warm second
+     run (frames/s, decode-and-resize time apart), a warm run of the 3
+     shortest clips under torch.profiler (device time by family, idle
+     share) and the f32 bound from the MACs of every conv;
+ 16. the MANet trainer: ``cli.extract manet_train`` for one epoch (3 steps
+     at batch 128, full width) on a seeded 7-class ImageFolder of 100x100
+     BMPs, finite losses; one step card against CPU in float64 (loss and
+     every gradient); ms per step by CUDA events.
+Each phase prints its seconds. The second-to-last line is {"kernels":
+[...]}, the last line {"ok": true, "device": {...}}. Imports nothing of JAX
+or sdumc_tpu.
 
 A bound is the least time the card could take for the call: the larger of
 its bytes (each input read once, the output written once) at the HBM rate
@@ -87,6 +111,7 @@ import argparse
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import tempfile
@@ -159,6 +184,42 @@ EXTRACTION_FAMILIES = (
     ("flash_wavlm kernel", ("flash_wavlm",)),
     ("cuDNN convolutions", ("conv", "fprop", "dgrad", "wgrad")),
     ("cuBLAS GEMMs", ("gemm", "cutlass", "sm80_xmma", "sm90_xmma")),
+    ("memory copies", ("memcpy", "memset")),
+)
+# text and visual (phases 13-16)
+TEXT_BATCH, TEXT_TAPS = 16, ((-3,), (-4, -3, -2, -1))
+N_TRANSCRIPTS, LONG_WORDS = 64, 199
+PROBE = "today is a good day"                # extract/text.py find_token_span's probe
+MOSEI_WORDS = (
+    "i think the movie was really good and you know it had a lot of great acting but "
+    "um the story was kind of slow at times so overall i would say it is okay not the "
+    "best film i have seen this year my friends liked it more than me because they love "
+    "action and there were some amazing scenes with cars and music that made me feel happy "
+    "sad angry excited bored honestly it could have been better if the director cut about "
+    "twenty minutes from the middle part where nothing really happens").split()
+NON_ASCII = "the café scene was très good"
+VISUAL_CLIPS, VISUAL_FRAMES, FACE = 12, (30, 300), 112   # OpenFace's aligned crops
+PROFILED_CLIPS = 3
+# card vs CPU on a clip (f32, TF32 off): allclose at MODEL_RTOL / MODEL_ATOL and
+# max |diff| <= VISUAL_REL * max |embedding|; f32 reassociation through about
+# 20 convolutions gives about 1e-6 of the largest value, one TF32 conv about 1e-3
+VISUAL_REL = 1e-4
+MANET_CLASSES, TRAIN_PER_CLASS, TEST_PER_CLASS, RAF = 7, 55, 4, 100   # RAF-DB's 100x100 crops
+MANET_BATCH, PARITY_BATCH, TIMED_TRAIN_STEPS = 128, 8, 5
+# one MANet train step card vs CPU in float64: f32 steps part by up to 4e-3 of
+# the largest gradient from rounding order alone (BatchNorm in training mode
+# cancels), too loose to tell a fault; float64 parts at about 1e-12
+MANET_GRAD_REL, MANET_LOSS_RTOL = 1e-8, 1e-10
+TEXT_FAMILIES = (
+    ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma", "gemv", "splitk")),
+    ("softmax", ("softmax",)),
+    ("memory copies", ("memcpy", "memset")),
+)
+VISUAL_FAMILIES = (
+    ("cuDNN convolutions", ("conv", "fprop", "dgrad", "wgrad", "winograd", "implicit")),
+    ("pooling", ("pool",)),
+    ("BatchNorm, elementwise and reductions", ("batch_norm", "bn_", "elementwise", "vectorized",
+                                               "unrolled", "reduce")),
     ("memory copies", ("memcpy", "memset")),
 )
 
@@ -931,20 +992,23 @@ def llama_parity_phase(torch):
         raise AssertionError("beam decode: card and CPU taps disagree")
 
 
-def prompt_vocab(prompt: str):
-    """A small LLaMA-style tokenizer.json vocabulary covering `prompt`:
-    <unk>/<s>/</s>, every character, and each word built up left to right
-    from its first character (merge ranks in that order)."""
+def llama_vocab(words):
+    """A small LLaMA-style tokenizer.json vocabulary covering `words`:
+    <unk>/<s>/</s>, the byte tokens <0x00>-<0xFF> (ids 3-258, as LLaMA's),
+    every character of the words, and each word built up left to right
+    from its first character (merge ranks in that order). Any other
+    character falls back to its UTF-8 bytes."""
     space = "▁"
     vocab = {"<unk>": 0, "<s>": 1, "</s>": 2}
-    words = [space + w for w in prompt.split()] + [space]
-    for ch in sorted(set("".join(words))):
-        vocab.setdefault(ch, 100 + len(vocab))
+    vocab.update({f"<0x{b:02X}>": 3 + b for b in range(256)})
+    pieces = [space + w for w in dict.fromkeys(words)] + [space]
+    for ch in sorted(set("".join(pieces))):
+        vocab.setdefault(ch, len(vocab))
     merges = []
-    for w in words:
+    for w in pieces:
         for n in range(2, len(w) + 1):
             if w[:n] not in vocab:
-                vocab[w[:n]] = 100 + len(vocab)
+                vocab[w[:n]] = len(vocab)
                 merges.append(f"{w[:n - 1]} {w[n - 1]}")
     return vocab, merges
 
@@ -955,7 +1019,8 @@ def write_vicuna_dir(torch, path: str, num_layers: int, seed: int = 1):
     normal(0, 0.02) as HF's init draws them, norms 1, in two shards
     pytorch_model-0000k-of-00002.bin with pytorch_model.bin.index.json;
     tokenizer_config.json and a hand-written tokenizer.json (BPE with byte
-    fallback) that covers the ASR prompt."""
+    fallback, LLaMA's normalizer and decoder) that covers the ASR prompt,
+    the text stage's probe and the transcripts' words."""
     from sdumc_tpu_torch.extract.llm4wav import DEFAULT_PROMPT
     from sdumc_tpu_torch.models.llama import LlamaForCausalLM
 
@@ -987,7 +1052,7 @@ def write_vicuna_dir(torch, path: str, num_layers: int, seed: int = 1):
         torch.save(shard, os.path.join(path, name))
     with open(os.path.join(path, "pytorch_model.bin.index.json"), "w") as f:
         json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
-    vocab, merges = prompt_vocab(DEFAULT_PROMPT)
+    vocab, merges = llama_vocab(DEFAULT_PROMPT.split() + PROBE.split() + MOSEI_WORDS)
     space = "▁"
     spec = {"version": "1.0", "truncation": None, "padding": None,
             "added_tokens": [{"id": i, "content": t, "single_word": False, "lstrip": False,
@@ -996,7 +1061,11 @@ def write_vicuna_dir(torch, path: str, num_layers: int, seed: int = 1):
             "normalizer": {"type": "Sequence", "normalizers": [
                 {"type": "Prepend", "prepend": space},
                 {"type": "Replace", "pattern": {"String": " "}, "content": space}]},
-            "pre_tokenizer": None, "post_processor": None, "decoder": None,
+            "pre_tokenizer": None, "post_processor": None,
+            "decoder": {"type": "Sequence", "decoders": [
+                {"type": "Replace", "pattern": {"String": space}, "content": " "},
+                {"type": "ByteFallback"}, {"type": "Fuse"},
+                {"type": "Strip", "content": " ", "start": 1, "stop": 0}]},
             "model": {"type": "BPE", "dropout": None, "unk_token": "<unk>",
                       "continuing_subword_prefix": None, "end_of_word_suffix": None,
                       "fuse_unk": True, "byte_fallback": True, "vocab": vocab, "merges": merges}}
@@ -1291,6 +1360,403 @@ def full_depth_phase(torch, llm_dir: str, proj_path: str, feats_dir: str):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- text and visual (phases 13-16)
+
+def transcripts(seed: int = 4):
+    """N_TRANSCRIPTS seeded MOSEI-like transcripts [(name, sentence)]: 3-60
+    words drawn from MOSEI_WORDS, one of LONG_WORDS words (about 200
+    tokens), one empty and one with non-ASCII words."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    rows = [" ".join(rng.choice(MOSEI_WORDS, size=int(rng.integers(3, 61))))
+            for _ in range(N_TRANSCRIPTS - 3)]
+    rows += [" ".join(rng.choice(MOSEI_WORDS, size=LONG_WORDS)), "", NON_ASCII]
+    return [(f"utt_{i:03d}", s) for i, s in enumerate(rows)]
+
+
+def text_cli_phase(torch, tmp: str, llm_dir: str):
+    """Phase 13: ``cli.extract text`` with its defaults on phase 11's
+    2-layer Vicuna directory; every output checked; the 16 shortest
+    transcripts (one batch of one bucket) through the f32 trunk, card
+    against CPU. Returns the transcripts."""
+    import csv
+
+    import numpy as np
+
+    from sdumc_tpu_torch.cli import extract
+    from sdumc_tpu_torch.convert.hf_llama import load_hf_llama_trunk
+    from sdumc_tpu_torch.convert.llama_tokenizer import LlamaTokenizer
+    from sdumc_tpu_torch.extract.text import extract_text_features, find_token_span
+
+    rows = transcripts()
+    csv_path, save_dir = os.path.join(tmp, "transcripts.csv"), os.path.join(tmp, "text")
+    with open(csv_path, "w", newline="", encoding="utf-8") as f:
+        writer = csv.writer(f)
+        writer.writerow(["name", "sentence"])
+        writer.writerows(rows)
+    tok = LlamaTokenizer.from_dir(llm_dir)
+    start, end = find_token_span(tok)
+    hidden = VICUNA["hidden_size"]
+    reset_counts()
+    out = extract.main(["text", "--model_dir", llm_dir, "--trans_path", csv_path,
+                        "--save_dir", save_dir])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    n_tok = {name: len(tok(s)["input_ids"]) if s.strip() else 0 for name, s in rows}
+    for name, _ in rows:
+        feat = np.load(os.path.join(save_dir, f"{name}.npy"))
+        n = n_tok[name]
+        want = (n - start + end, hidden) if n else (1, hidden)
+        if (feat.shape != want or feat.dtype != np.float32 or not np.isfinite(feat).all()
+                or (not n and feat.any())):
+            raise AssertionError(f"{name}: {feat.shape} {feat.dtype} (want {want}) or non-finite")
+    ids = tok(NON_ASCII)["input_ids"]
+    if tok.decode(ids[start:]) != NON_ASCII:
+        raise AssertionError(f"decode of {NON_ASCII!r}: {tok.decode(ids[start:])!r}")
+    print(f"text path (cli.extract text, defaults: bf16, FRAME, taps -4..-1, batch {TEXT_BATCH}): "
+          f"{out['rows']} transcripts, {sum(n_tok.values())} tokens (longest {max(n_tok.values())}"
+          f"), probe span ({start}, {end}), {out['seconds']!r} s host clock (weights loaded "
+          f"before it), {out['rows'] / out['seconds']!r} sentences/s; launches of the port's "
+          f"kernels {counts} (the text stage runs cuBLAS and PyTorch's own kernels only); "
+          f"{NON_ASCII!r} is {len(ids)} tokens, decoded back exactly")
+
+    short = sorted((n_tok[name], s) for name, s in rows if n_tok[name])[:TEXT_BATCH]
+    sents = [s for _, s in short]
+    feats = {}
+    for dev in ("cpu", DEVICE):
+        _, trunk = load_hf_llama_trunk(llm_dir, device=dev, dtype=torch.float32)
+        feats[dev] = extract_text_features(trunk, tok, sents)
+        del trunk
+    err = max(float(np.abs(g - r).max()) for g, r in zip(feats[DEVICE], feats["cpu"]))
+    top = max(float(np.abs(r).max()) for r in feats["cpu"])
+    print(f"one batch ({len(sents)} transcripts of {short[0][0]}-{short[-1][0]} tokens), f32 "
+          f"trunk, TF32 off, card vs CPU: max abs diff {err!r}, max |feature| {top!r} (tolerance "
+          f"rtol={LLAMA_RTOL} atol={LLAMA_ATOL}: f32 reassociation through 2 layers)")
+    if not all(np.allclose(g, r, rtol=LLAMA_RTOL, atol=LLAMA_ATOL)
+               for g, r in zip(feats[DEVICE], feats["cpu"])):
+        raise AssertionError("text features: card and CPU disagree")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def text_full_depth_phase(torch, llm_dir: str, rows):
+    """Phase 14: the Vicuna-7B trunk at 32 layers in bf16 (seeded on the
+    card) through extract_text_features on the transcripts, with each tap
+    set: sentences/s, peak memory, ms per batch by CUDA events beside the
+    bound, and device time by family of a profiled run."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.convert.llama_tokenizer import LlamaTokenizer
+    from sdumc_tpu_torch.extract.text import BUCKETS, extract_text_features, run_batch
+    from sdumc_tpu_torch.models.llama import LlamaModel, init_weights
+
+    set_matmul_precision("highest")
+    cfg = feat4_config(torch, VICUNA_LAYERS)
+    t0 = time.perf_counter()
+    with torch.device("meta"):
+        trunk = LlamaModel(cfg)
+    trunk = init_weights(trunk.to_empty(device=DEVICE), seed=5).eval()
+    torch.cuda.synchronize()
+    body = [p for n, p in trunk.named_parameters() if "embed_tokens" not in n]
+    n_body = sum(p.numel() for p in body)
+    wbytes = sum(p.numel() * p.element_size() for p in body)
+    print(f"Vicuna-7B-v1.5 trunk at full depth ({cfg.num_layers} layers, bf16, {n_body} "
+          f"non-embedding parameters, {wbytes / 1e9!r} GB), seeded on the card in "
+          f"{time.perf_counter() - t0!r} s")
+    tok = LlamaTokenizer.from_dir(llm_dir)
+    sents = [s for _, s in rows]
+    torch.cuda.reset_peak_memory_stats()
+    for taps in TEXT_TAPS:
+        extract_text_features(trunk, tok, sents, layer_ids=taps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = extract_text_features(trunk, tok, sents, layer_ids=taps)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if not all(np.isfinite(f).all() and f.shape[1] == cfg.hidden_size for f in feats):
+            raise AssertionError(f"taps {taps}: non-finite features or wrong width")
+        print(f"  --layer_ids {','.join(map(str, taps))}: {len(sents)} transcripts in {seconds!r} s "
+              f"host clock (tokenizing included, warm), {len(sents) / seconds!r} sentences/s")
+    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+
+    # one full batch of the most populated bucket, timed alone
+    ids_of = [tok(s)["input_ids"] for s in sents if s.strip()]
+    bucket_of = [next((b for b in BUCKETS if len(i) <= b), len(i)) for i in ids_of]
+    bucket = max(set(bucket_of), key=bucket_of.count)
+    chunk = [i for i, b in zip(ids_of, bucket_of) if b == bucket][:TEXT_BATCH]
+    ids = torch.zeros(TEXT_BATCH, bucket, dtype=torch.long)
+    for j, row in enumerate(chunk):
+        ids[j, :len(row)] = torch.tensor(row)
+    lengths = torch.tensor([len(r) for r in chunk] + [0] * (TEXT_BATCH - len(chunk)))
+    ids, lengths = ids.to(DEVICE), lengths.to(DEVICE)
+    with torch.inference_mode():
+        ms = time_ms(lambda: run_batch(trunk, ids, lengths, TEXT_TAPS[0]), iters=10, warmup=2)
+    real = int(lengths.sum())
+    ops_ms = 1e3 * 2 * n_body * real / PEAK_BF16_FLOPS
+    bytes_ms = 1e3 * wbytes / PEAK_HBM_BYTES
+    bound = max(ops_ms, bytes_ms)
+    padded_ms = 1e3 * 2 * n_body * TEXT_BATCH * bucket / PEAK_BF16_FLOPS
+    print(f"  one batch ({len(chunk)} transcripts in bucket {bucket}, {real} real of "
+          f"{TEXT_BATCH * bucket} tokens, taps -3): {ms!r} ms (CUDA events, 10 runs); bound "
+          f"{bound!r} ms = max(2 x {n_body} x {real} flops at {PEAK_BF16_FLOPS / 1e12:.0f} TFLOP/s "
+          f"= {ops_ms!r}, {wbytes / 1e9!r} GB at {PEAK_HBM_BYTES / 1e12} TB/s = {bytes_ms!r}), "
+          f"{bound / ms:.1%} of it (the padded tokens' flops: {padded_ms!r} ms)")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        extract_text_features(trunk, tok, sents, layer_ids=TEXT_TAPS[1])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_device_time(prof, wall, "  profiled text extraction (taps -4..-1, warm)", TEXT_FAMILIES,
+                      "elementwise, norms, rope, casts and the tap sum", top=10)
+    del trunk
+    torch.cuda.empty_cache()
+
+
+def write_bmp(path: str, rgb) -> None:
+    """A 24-bit BI_RGB BMP, bottom-up, rows padded to 4 bytes (OpenFace's
+    aligned-crop format), written with numpy."""
+    import numpy as np
+
+    h, w, _ = rgb.shape
+    stride = (3 * w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    header = (struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
+              + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0))
+    with open(path, "wb") as f:
+        f.write(header + rows.tobytes())
+
+
+def random_image(rng, size: int):
+    """A seeded [size, size, 3] uint8 image: a smooth gradient plus noise."""
+    import numpy as np
+
+    ramp = np.linspace(0, 1, size)
+    base = 255 * rng.uniform(size=3) * (ramp[:, None, None] + ramp[None, :, None]) / 2
+    return np.clip(base + rng.normal(0, 20, size=(size, size, 3)), 0, 255).astype(np.uint8)
+
+
+def write_manet_checkpoint(torch, path: str, seed: int = 6) -> None:
+    """A seeded MANet (RAF-DB, 7 classes) saved as the released .pth is:
+    ``{"state_dict": ...}`` with ``module.``-prefixed keys; BN scales,
+    biases and running statistics drawn at random."""
+    from sdumc_tpu_torch.models.manet import MANet, init_weights
+
+    model = init_weights(MANet(), seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    torch.save({"state_dict": {"module." + k: v for k, v in model.state_dict().items()},
+                "epoch": 0, "best_acc": 0.0}, path)
+
+
+def manet_macs(torch, model) -> int:
+    """Multiply-accumulates of one 224x224 frame through every Conv2d and
+    Linear that the forward runs (forward hooks, batch 1)."""
+    macs = []
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.Conv2d):
+            k = mod.in_channels // mod.groups * mod.kernel_size[0] * mod.kernel_size[1]
+        else:
+            k = mod.in_features
+        macs.append(out.numel() * k)
+
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    dev = next(model.parameters()).device
+    with torch.inference_mode():
+        model(torch.zeros(1, 3, 224, 224, device=dev))
+    for h in hooks:
+        h.remove()
+    return sum(macs)
+
+
+def visual_phase(torch, tmp: str):
+    """Phase 15: ``cli.extract visual`` with its defaults on a seeded MANet
+    .pth and 12 clips of BMP face crops; outputs checked; one clip's first
+    batch card against CPU, and the TF32 control; a warm run; a profiled
+    warm run of the shortest clips; the f32 bound."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdumc_tpu_torch.cli import extract
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.convert.torch_manet import load_manet
+    from sdumc_tpu_torch.extract.visual import (extract_video_embeddings, load_face,
+                                                sample_frame_paths)
+
+    ckpt, face_dir, save_root = (os.path.join(tmp, n) for n in ("manet.pth", "faces", "visual"))
+    write_manet_checkpoint(torch, ckpt)
+    rng = np.random.default_rng(7)
+    frames = {}
+    t0 = time.perf_counter()
+    for i in range(VISUAL_CLIPS):
+        vid = f"clip_{i:02d}"
+        os.makedirs(os.path.join(face_dir, vid))
+        frames[vid] = int(rng.integers(VISUAL_FRAMES[0], VISUAL_FRAMES[1] + 1))
+        for j in range(frames[vid]):
+            write_bmp(os.path.join(face_dir, vid, f"frame_det_00_{j + 1:06d}.bmp"),
+                      random_image(rng, FACE))
+    print(f"seeded MANet (RAF-DB, 7 classes) .pth and {VISUAL_CLIPS} clips of "
+          f"{sum(frames.values())} {FACE}x{FACE} 24-bit BMP frames written in "
+          f"{time.perf_counter() - t0!r} s")
+    argv = ["visual", "--checkpoint", ckpt, "--face_dir", face_dir, "--save_dir", save_root]
+    reset_counts()
+    out = extract.main(argv)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    for vid, n in frames.items():
+        feat = np.load(os.path.join(out["save_dir"], f"{vid}.npy"))
+        if feat.shape != (n, 1024) or feat.dtype != np.float32 or not np.isfinite(feat).all():
+            raise AssertionError(f"{vid}: {feat.shape} {feat.dtype} (want ({n}, 1024)) or non-finite")
+    print(f"visual path (cli.extract visual, defaults: batch 32, FRAME): {out['videos']} clips, "
+          f"{out['frames']} frames in {out['seconds']!r} s host clock (cold; reading and "
+          f"resizing {out['decode_seconds']!r} s of it); launches of the port's kernels "
+          f"{counts} (MANet runs cuDNN and PyTorch's own kernels only)")
+
+    vid = min(frames, key=frames.get)      # its first batch of 32 frames, card against CPU
+    faces = [load_face(p) for p in sample_frame_paths(os.path.join(face_dir, vid))[:32]]
+    cpu_model, _ = load_manet(ckpt, "cpu")
+    ref = extract_video_embeddings(cpu_model, faces)
+    top = float(np.abs(ref).max())
+
+    def check(x):
+        err = float(np.abs(x - ref).max())
+        return err, bool(np.allclose(x, ref, rtol=MODEL_RTOL, atol=MODEL_ATOL)
+                         and err <= VISUAL_REL * top)
+
+    err, ok = check(np.load(os.path.join(out["save_dir"], f"{vid}.npy"))[:len(faces)])
+    print(f"{vid}'s first {len(faces)} frames: card vs CPU max abs diff {err!r}, max |embedding| "
+          f"{top!r} (tolerance rtol={MODEL_RTOL} atol={MODEL_ATOL} and max abs diff <= "
+          f"{VISUAL_REL} x max |embedding|: f32 reassociation through about 20 convolutions)")
+    if not ok:
+        raise AssertionError(f"{vid}: card and CPU embeddings disagree")
+    card_model, _ = load_manet(ckpt, DEVICE)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_err, tf32_ok = check(extract_video_embeddings(card_model, faces))
+    finally:
+        set_matmul_precision("highest")
+    print(f"control, the same frames with torch.backends.cudnn.allow_tf32 = True: max abs diff "
+          f"{tf32_err!r}, {tf32_err / top!r} of max |embedding| (must be refused)")
+    if tf32_ok:
+        raise AssertionError("the visual check does not see TF32 in the convolutions")
+
+    out = extract.main(argv)
+    print(f"warm second run: {out['frames']} frames in {out['seconds']!r} s host clock, "
+          f"{out['frames'] / out['seconds']!r} frames/s; reading and resizing "
+          f"{out['decode_seconds']!r} s ({out['decode_seconds'] / out['seconds']:.1%})")
+    # the profiler's trace of all 12 clips takes longer to read than the run
+    # itself: a warm run over the PROFILED_CLIPS shortest clips instead
+    sub_dir = os.path.join(tmp, "faces_profiled")
+    os.makedirs(sub_dir)
+    for v in sorted(frames, key=frames.get)[:PROFILED_CLIPS]:
+        os.symlink(os.path.join(face_dir, v), os.path.join(sub_dir, v))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sub = extract.main(["visual", "--checkpoint", ckpt, "--face_dir", sub_dir, "--save_dir",
+                            os.path.join(tmp, "visual_profiled")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    fams = print_device_time(prof, wall, f"profiled warm run of the {PROFILED_CLIPS} shortest "
+                             f"clips ({sub['frames']} frames; reading and resizing "
+                             f"{sub['decode_seconds']!r} s)", VISUAL_FAMILIES,
+                             "the rest (CBAM gates, concatenations, means)", top=10)
+    macs = manet_macs(torch, card_model)
+    device = sum(fams.values())
+    bound = 1e3 * 2 * macs * sub["frames"] / PEAK_F32_FLOPS
+    print(f"  MANet: {macs} MACs per frame (every Conv2d and Linear, hooks); bound for "
+          f"{sub['frames']} frames {bound!r} ms (f32 at {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, TF32 "
+          f"off), device time {device!r} ms ({bound / device:.1%} of the bound), per frame "
+          f"{device / sub['frames']!r} ms device")
+    del cpu_model, card_model
+    torch.cuda.empty_cache()
+
+
+def manet_train_phase(torch, tmp: str):
+    """Phase 16: ``cli.extract manet_train`` for one epoch at full width,
+    batch 128, on a seeded ImageFolder of BMPs; one step card against CPU
+    in float64; ms per step by CUDA events on a prepared batch."""
+    import numpy as np
+
+    from sdumc_tpu_torch.cli import extract
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.extract.image_io import load_face
+    from sdumc_tpu_torch.extract.manet_train import (image_folder, make_optimizer,
+                                                     make_train_step, random_resized_crop_flip)
+    from sdumc_tpu_torch.models.manet import MANet, MANetConfig, init_weights
+
+    root = os.path.join(tmp, "rafdb")
+    rng = np.random.default_rng(8)
+    for split, per_class in (("train", TRAIN_PER_CLASS), ("test", TEST_PER_CLASS)):
+        for c in range(MANET_CLASSES):
+            os.makedirs(os.path.join(root, split, str(c + 1)))
+            for i in range(per_class):
+                write_bmp(os.path.join(root, split, str(c + 1), f"{split}_{c}_{i:04d}_aligned.bmp"),
+                          random_image(rng, RAF))
+    reset_counts()
+    out = extract.main(["manet_train", "--data", root, "--epochs", "1", "--batch-size",
+                        str(MANET_BATCH), "--checkpoint_path", os.path.join(tmp, "manet_ck")])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    steps = TRAIN_PER_CLASS * MANET_CLASSES // MANET_BATCH
+    if out["steps"] != steps or len(out["losses"]) != steps or not all(
+            map(math.isfinite, out["losses"])):
+        raise AssertionError(f"manet_train: {out['steps']} steps, losses {out['losses']}")
+    print(f"MANet trainer (cli.extract manet_train, 1 epoch, batch {MANET_BATCH}, full width): "
+          f"losses {out['losses']}, test acc {out['accs']}, {out['seconds'] / steps!r} s per step "
+          f"host clock (reading, cropping and resizing included); launches {counts}")
+
+    paths, labels, _ = image_folder(os.path.join(root, "train"))
+    rng = np.random.default_rng(0)
+    order = rng.permutation(len(paths))[:MANET_BATCH]
+    t0 = time.perf_counter()
+    imgs = np.stack([random_resized_crop_flip(rng, load_face(paths[i])) for i in order])
+    host = time.perf_counter() - t0
+    x, y = torch.from_numpy(imgs), torch.from_numpy(labels[order])
+    set_matmul_precision("highest")
+    model = init_weights(MANet(MANetConfig(num_classes=MANET_CLASSES)), 0).to(DEVICE)
+    opt, sched = make_optimizer(model, 0.01, steps)
+    step = make_train_step(model, opt, sched)
+    xd, yd = x.to(DEVICE), y.to(DEVICE)
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: step(xd, yd), iters=TIMED_TRAIN_STEPS, warmup=2)
+    macs = manet_macs(torch, model)
+    bound = 1e3 * 3 * 2 * macs * MANET_BATCH / PEAK_F32_FLOPS
+    print(f"  warm train step, batch {MANET_BATCH} on the card: {ms!r} ms (CUDA events, "
+          f"{TIMED_TRAIN_STEPS} steps), {MANET_BATCH / ms * 1e3!r} images/s; bound {bound!r} ms "
+          f"(3 x the forward's {macs} MACs per image in f32 at {PEAK_F32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s), {bound / ms:.1%} of it; the batch's crops took {host!r} s on the host; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+    del model, opt, step
+
+    def run(dev):
+        m = init_weights(MANet(MANetConfig(num_classes=MANET_CLASSES)), 0).double().to(dev)
+        o, s = make_optimizer(m, 0.01, steps)
+        met = make_train_step(m, o, s)(x[:PARITY_BATCH].double().to(dev), y[:PARITY_BATCH].to(dev))
+        return met["loss"].item(), {k: p.grad.cpu() for k, p in m.named_parameters()}
+
+    (loss_cpu, g_cpu), (loss_card, g_card) = run("cpu"), run(DEVICE)
+    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    worst, key = max(((g_card[k] - g).abs().max().item(), k) for k, g in g_cpu.items())
+    print(f"  one step card vs CPU (float64, batch {PARITY_BATCH}): loss {loss_card!r} vs "
+          f"{loss_cpu!r}; {len(g_cpu)} gradients, worst max abs diff {worst!r} at {key} = "
+          f"{worst / gmax!r} of the largest gradient {gmax!r} (tolerance {MANET_GRAD_REL} of "
+          f"it, loss rtol {MANET_LOSS_RTOL}: float64 reassociation)")
+    if abs(loss_card - loss_cpu) > MANET_LOSS_RTOL * abs(loss_cpu) or worst > MANET_GRAD_REL * gmax:
+        raise AssertionError("MANet train step: card and CPU disagree")
+    torch.cuda.empty_cache()
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3 with the kernels of the checkout at `root`, built from its
     own sources into its own build/kernels/; per-kernel totals."""
@@ -1360,17 +1826,28 @@ def main() -> int:
     for name, rep in report.items():
         print(f"--- nvcc {name} ---\n{rep['log'].strip()}")
 
-    totals = kernel_phase(torch, fused_cross, fused_pool, main_path_lengths(main_path_config()))
-    flash = flash_phase(torch, flash_wavlm)
-    infer_launches = main_path_phase(torch, fused_cross)
+    def phase(n: int, fn, *a):
+        t = time.perf_counter()
+        result = fn(*a)
+        print(f"phase {n} ({fn.__name__}): {time.perf_counter() - t!r} s")
+        return result
+
+    totals = phase(2, kernel_phase, torch, fused_cross, fused_pool,
+                   main_path_lengths(main_path_config()))
+    flash = phase(3, flash_phase, torch, flash_wavlm)
+    infer_launches = phase(4, main_path_phase, torch, fused_cross)
     with tempfile.TemporaryDirectory() as work:
-        extract_counts, feats_dir = extraction_phase(torch, flash_wavlm, work)
-        launches = training_phase(torch, fused_cross)
-        step_parity_phase(torch)
-        step_timing_phase(torch)
-        llama_parity_phase(torch)
-        llm_dir, proj_path = feat4_cli_phase(torch, work, feats_dir)
-        full_depth_phase(torch, llm_dir, proj_path, feats_dir)
+        extract_counts, feats_dir = phase(5, extraction_phase, torch, flash_wavlm, work)
+        launches = phase(7, training_phase, torch, fused_cross)
+        phase(8, step_parity_phase, torch)
+        phase(9, step_timing_phase, torch)
+        phase(10, llama_parity_phase, torch)
+        llm_dir, proj_path = phase(11, feat4_cli_phase, torch, work, feats_dir)
+        phase(12, full_depth_phase, torch, llm_dir, proj_path, feats_dir)
+        rows = phase(13, text_cli_phase, torch, work, llm_dir)
+        phase(14, text_full_depth_phase, torch, llm_dir, rows)
+        phase(15, visual_phase, torch, work)
+        phase(16, manet_train_phase, torch, work)
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():

@@ -1,25 +1,35 @@
 """Feature-extraction entry point of the port (stage L1).
 
     python -m sdumc_tpu_torch.cli.extract audio --model_dir ... --audio_dir ... --save_dir ...
+    python -m sdumc_tpu_torch.cli.extract text --model_dir ... --trans_path ... --save_dir ...
+    python -m sdumc_tpu_torch.cli.extract visual --checkpoint ... --face_dir ... --save_dir ...
+    python -m sdumc_tpu_torch.cli.extract manet_train --data ...
     python -m sdumc_tpu_torch.cli.extract feat4 --llm_dir ... --projector_path ... \
         --wavlm_dir ... --save_dir ...
 
-Two stages are ported: ``audio`` (WavLM, extract/audio.py) and ``feat4``
-(the Vicuna pseudo-text decode, extract/llm4wav.py). The JAX package's
-other stages are still to port (ROADMAP queue 1): ``text`` (text
-families), ``visual``, ``vision`` and ``manet_train`` (visual), ``asr``
-(ASR) and ``pack`` (bf16 streams and the int8 store).
+Five stages are ported: ``audio`` (WavLM, extract/audio.py), ``text``
+(the LLaMA family, extract/text.py), ``visual`` (MANet, extract/visual.py),
+``manet_train`` (MANet's RAF-DB trainer, extract/manet_train.py) and
+``feat4`` (the Vicuna pseudo-text decode, extract/llm4wav.py). The JAX
+package's other stages are still to port (ROADMAP queue 1): ``vision``
+(the other visual encoders), ``asr`` (ASR) and ``pack`` (bf16 streams and
+the int8 store).
 """
 
 from __future__ import annotations
 
+import importlib
 import sys
 
+STAGES = {
+    "audio": "sdumc_tpu_torch.extract.audio",
+    "text": "sdumc_tpu_torch.extract.text",
+    "visual": "sdumc_tpu_torch.extract.visual",
+    "manet_train": "sdumc_tpu_torch.extract.manet_train",
+    "feat4": "sdumc_tpu_torch.extract.llm4wav",
+}
 NOT_PORTED = {
-    "text": "text families",
-    "visual": "visual",
-    "vision": "visual",
-    "manet_train": "visual",
+    "vision": "the other visual encoders",
     "asr": "ASR",
     "pack": "bf16 streams and the int8 store",
 }
@@ -33,14 +43,8 @@ def main(argv=None):
         print(__doc__)
         return 1
     stage, rest = argv[0], argv[1:]
-    if stage == "audio":
-        from sdumc_tpu_torch.extract.audio import main as run
-
-        return run(rest)
-    if stage == "feat4":
-        from sdumc_tpu_torch.extract.llm4wav import main as run
-
-        return run(rest)
+    if stage in STAGES:
+        return importlib.import_module(STAGES[stage]).main(rest)
     print(__doc__)
     if stage in NOT_PORTED:
         print(f"stage {stage!r} is not ported yet: ROADMAP queue 1, {NOT_PORTED[stage]}")

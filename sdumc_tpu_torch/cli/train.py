@@ -42,7 +42,7 @@ def main(argv=None):
     cfg = args_to_config(args)
     if args.multihost:
         raise NotImplementedError("--multihost is not ported yet (ROADMAP.md queue 1, "
-                                  "item 9: multi-device)")
+                                  "multi-device)")
     if cfg.data.feature_dtype != "float32":
         raise NotImplementedError(
             "--feature_dtype bfloat16 is not ported yet: the bf16 frame "

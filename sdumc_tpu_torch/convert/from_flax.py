@@ -2,12 +2,13 @@
 
 For the fusion net, the inverse of the reference-key table in
 ``sdumc_tpu/convert/torch_to_jax.py``, kept here as the port's own copy;
-for WavLM and LLaMA, the inverses of ``sdumc_tpu/convert/hf_wavlm.py`` and
-``sdumc_tpu/convert/hf_llama.py``. The port names
-its submodules after the reference torch (or HF) state_dict, so the keys
-produced here are those keys: Dense ``kernel`` [in, out] transposes to
-Linear ``weight`` [out, in], a Flax conv kernel [k, in/groups, out] to a
-torch Conv1d weight [out, in/groups, k].
+for WavLM, LLaMA and MANet, the inverses of ``sdumc_tpu/convert/hf_wavlm.py``,
+``sdumc_tpu/convert/hf_llama.py`` and ``sdumc_tpu/convert/torch_manet.py``.
+The port names its submodules after the reference torch (or HF)
+state_dict, so the keys produced here are those keys: Dense ``kernel``
+[in, out] transposes to Linear ``weight`` [out, in], a Flax conv kernel
+[k, in/groups, out] to a torch Conv1d weight [out, in/groups, k] (MANet's
+2-d [kh, kw, in, out] to Conv2d's [out, in, kh, kw]).
 """
 
 from __future__ import annotations
@@ -190,4 +191,47 @@ def llama_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
             out[key] = t
         else:
             raise KeyError(f"no port key for flax param {'/'.join(path)}")
+    return out
+
+
+_MANET_SUB = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1",
+              "gate_fc1": "ChannelGate.mlp.1", "gate_fc2": "ChannelGate.mlp.3",
+              "spatial_conv": "SpatialGate.spatial.conv", "spatial_bn": "SpatialGate.spatial.bn"}
+_MANET_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight", "mean": "running_mean",
+               "var": "running_var"}
+
+
+def manet_key_for(path: Tuple[str, ...]) -> str:
+    """The port's (the reference's) MANet key of one Flax path of either
+    collection: ``layer3_1_p1_0/cbam/spatial_bn/bn/scale`` ->
+    ``layer3_1_p1.0.cbam.SpatialGate.spatial.bn.weight``."""
+    *scopes, leaf = path
+    if leaf not in _MANET_LEAF:
+        raise KeyError(f"no port key for flax MANet path {'/'.join(path)}")
+    names = []
+    for i, s in enumerate(scopes):
+        if s == "bn" and i == len(scopes) - 1:        # the BN wrapper's inner module
+            continue
+        if i == 0 and s.startswith("layer"):          # layer3_1_p1_0 -> layer3_1_p1.0
+            stage, block = s.rsplit("_", 1)
+            names += [stage, block]
+        else:
+            names.append(_MANET_SUB.get(s, s))
+    return ".".join(names + [_MANET_LEAF[leaf]])
+
+
+def manet_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX MANet's ``{"params", "batch_stats"}`` (arrays) as the port's state
+    dict: conv kernels [kh, kw, I, O] -> [O, I, kh, kw], dense kernels
+    transposed, BN scale / bias / mean / var to weight / bias /
+    running_mean / running_var (``num_batches_tracked`` is not carried)."""
+    out = {}
+    for collection in ("params", "batch_stats"):
+        for path, value in _leaves(variables.get(collection, {})):
+            arr = np.array(value, dtype=np.float32)
+            if arr.ndim == 4:
+                arr = arr.transpose(3, 2, 0, 1)
+            elif arr.ndim == 2:
+                arr = arr.T
+            out[manet_key_for(path)] = torch.from_numpy(np.ascontiguousarray(arr))
     return out

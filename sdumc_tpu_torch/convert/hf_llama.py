@@ -1,4 +1,5 @@
-"""An HF-format LLaMA / Vicuna directory -> the port's LlamaForCausalLM.
+"""An HF-format LLaMA / Vicuna directory -> the port's LlamaForCausalLM (or
+its LlamaModel trunk alone, which the text stage runs).
 
 The port of ``sdumc_tpu/convert/hf_llama.py`` without ``transformers``:
 ``config.json`` is read with ``json`` and the weights with ``torch.load``
@@ -21,7 +22,7 @@ from typing import Iterator, Mapping, Optional, Tuple
 
 import torch
 
-from sdumc_tpu_torch.models.llama import LlamaConfig, model_from_state_dict
+from sdumc_tpu_torch.models.llama import LlamaConfig, LlamaModel, model_from_state_dict
 from sdumc_tpu_torch.ops.quant import quantize_params
 
 # keys of older HF checkpoints that the port computes instead of loading
@@ -76,17 +77,38 @@ def target_dtype(key: str, dtype) -> torch.dtype:
     return torch.float32 if key.endswith("norm.weight") else dtype
 
 
-def iter_state_dict(model_dir: str, dtype=torch.bfloat16, device="cpu"
+def iter_state_dict(model_dir: str, dtype=torch.bfloat16, device="cpu", prefix: str = ""
                     ) -> Iterator[Tuple[str, torch.Tensor]]:
-    """(key, tensor) of every weight, one shard at a time, each cast and
-    moved as it is read."""
+    """(key, tensor) of every weight whose key starts with ``prefix`` (the
+    key given without it), one shard at a time, each cast and moved as it
+    is read."""
     for path in weight_files(model_dir):
         shard = _load_file(path)
         for key in list(shard):
-            if key.endswith(IGNORED_SUFFIXES):
+            if key.endswith(IGNORED_SUFFIXES) or not key.startswith(prefix):
                 continue
-            yield key, shard[key].to(device=device, dtype=target_dtype(key, dtype))
+            yield key[len(prefix):], shard[key].to(device=device, dtype=target_dtype(key, dtype))
         del shard
+
+
+def _read_config(model_dir: str, dtype) -> LlamaConfig:
+    with open(os.path.join(model_dir, "config.json")) as f:
+        return config_from_hf(json.load(f), dtype)
+
+
+def load_hf_llama_trunk(model_dir: str, device="cpu", dtype=torch.bfloat16):
+    """(LlamaConfig, LlamaModel in eval mode on ``device``): the decoder
+    trunk of an HF-format directory (the ``model.*`` weights); ``lm_head``
+    is never read onto the device. Raises as ``load_hf_llama`` does."""
+    cfg = _read_config(model_dir, dtype)
+    sd = dict(iter_state_dict(model_dir, dtype, device, prefix="model."))
+    with torch.device("meta"):
+        trunk = LlamaModel(cfg)
+    try:
+        trunk.load_state_dict(sd, strict=True, assign=True)
+    except RuntimeError as e:
+        raise KeyError(f"{model_dir}: {e}") from e
+    return cfg, trunk.eval()
 
 
 def load_hf_llama(model_dir: str, device="cpu", dtype=torch.bfloat16,
@@ -97,9 +119,7 @@ def load_hf_llama(model_dir: str, device="cpu", dtype=torch.bfloat16,
     as its int8 codes are made; ``kv_quant`` ("int8") sets the KV cache.
     Raises if a weight of the model is missing or the checkpoint holds a
     key the model does not know."""
-    with open(os.path.join(model_dir, "config.json")) as f:
-        cfg = dataclasses.replace(config_from_hf(json.load(f), dtype), quant=quant,
-                                  kv_quant=kv_quant)
+    cfg = dataclasses.replace(_read_config(model_dir, dtype), quant=quant, kv_quant=kv_quant)
     sd = dict(iter_state_dict(model_dir, dtype, device))
     if quant:
         sd = quantize_params(sd, quant)

@@ -1,5 +1,6 @@
-"""The LLaMA tokenizer's encoder, read from the files of an HF model
-directory, for the feat4 stage's ASR prompt.
+"""The LLaMA tokenizer, read from the files of an HF model directory: the
+encoder for the feat4 stage's ASR prompt and the text stage's transcripts,
+and the decoder that the text stage's special-token probe reads.
 
 The port's stand-in for ``transformers.AutoTokenizer`` (the JAX package,
 ``sdumc_tpu/extract/llm4wav.py:286``): neither ``transformers`` nor
@@ -19,6 +20,16 @@ Like ``tokenizer(prompt)["input_ids"]``, a call starts with BOS when
 ``tokenizer_config.json`` says ``add_bos_token`` (the default) and ends with
 EOS when it says ``add_eos_token``. Text is encoded as plain text: special
 tokens written inside it are not recognised.
+
+``decode(ids)`` is ``tokenizer.decode(ids)`` with special tokens kept (the
+default, which the text stage's probe relies on): each id becomes its token,
+a special token its content. A ``tokenizer.json`` decodes as its
+``decoder`` says: none joins the tokens with a space, as the ``tokenizers``
+package does; LLaMA's ``Sequence`` of ``Replace("▁" -> " ")``,
+``ByteFallback``, ``Fuse`` and ``Strip`` is applied step by step; any other
+decoder raises. A ``tokenizer.model`` decodes as SentencePiece does: the
+pieces joined, ``▁`` turned into a space, runs of byte pieces joined into
+UTF-8, one leading space dropped.
 """
 
 from __future__ import annotations
@@ -37,6 +48,59 @@ _SP_BPE = 2
 def _byte_pieces(text: str, vocab: Dict[str, int]) -> Optional[List[int]]:
     ids = [vocab.get(f"<0x{b:02X}>") for b in text.encode("utf-8")]
     return None if None in ids else ids
+
+
+def _byte_of(token: str) -> Optional[int]:
+    """The byte of a ``<0xNN>`` byte-fallback token, else None."""
+    if len(token) == 6 and token.startswith("<0x") and token.endswith(">"):
+        try:
+            return int(token[3:5], 16)
+        except ValueError:
+            return None
+    return None
+
+
+def _byte_fallback(tokens: List[str]) -> List[str]:
+    """Each run of byte tokens as the UTF-8 text of its bytes; a run that
+    is not valid UTF-8 as one U+FFFD per byte (``tokenizers``' ByteFallback)."""
+    out: List[str] = []
+    run = bytearray()
+
+    def flush():
+        if run:
+            try:
+                out.append(run.decode("utf-8"))
+            except UnicodeDecodeError:
+                out.extend("�" * len(run))
+            run.clear()
+
+    for tok in tokens:
+        byte = _byte_of(tok)
+        if byte is None:
+            flush()
+            out.append(tok)
+        else:
+            run.append(byte)
+    flush()
+    return out
+
+
+def _strip(text: str, content: str, start: int, stop: int) -> str:
+    """Up to ``start`` leading and ``stop`` trailing ``content`` characters
+    removed (``tokenizers``' Strip decoder)."""
+    lo = 0
+    while lo < min(start, len(text)) and text[lo] == content:
+        lo += 1
+    hi = len(text)
+    while len(text) - hi < stop and hi > lo and text[hi - 1] == content:
+        hi -= 1
+    return text[lo:hi]
+
+
+def _sentencepiece_text(tokens: List[str]) -> str:
+    """LLaMA's decoder: ``▁`` -> space, byte runs -> UTF-8, joined, one
+    leading space dropped."""
+    return _strip("".join(_byte_fallback([t.replace(SPACE, " ") for t in tokens])), " ", 1, 0)
 
 
 def _merge_loop(symbols: List[str], best: Callable[[str, str], Optional[Tuple]]) -> List[str]:
@@ -72,6 +136,27 @@ class _HFBPE:
         self.pre = spec.get("pre_tokenizer")
         if self.pre is not None and self.pre.get("type") != "Metaspace":
             raise NotImplementedError(f"pre_tokenizer {self.pre.get('type')!r}; only Metaspace")
+        self.decoder = spec.get("decoder")
+        self.tokens = {i: t for t, i in self.vocab.items()}
+
+    def decode_tokens(self, tokens: List[str]) -> str:
+        if self.decoder is None:
+            return " ".join(tokens)
+        steps = self.decoder["decoders"] if self.decoder["type"] == "Sequence" else [self.decoder]
+        for step in steps:
+            kind = step["type"]
+            if kind == "Replace" and "String" in step["pattern"]:
+                tokens = [t.replace(step["pattern"]["String"], step["content"]) for t in tokens]
+            elif kind == "ByteFallback":
+                tokens = _byte_fallback(tokens)
+            elif kind == "Fuse":
+                tokens = ["".join(tokens)]
+            elif kind == "Strip":
+                tokens = [_strip(t, step["content"], step["start"], step["stop"]) for t in tokens]
+            else:
+                raise NotImplementedError(f"tokenizer.json decoder step {kind!r}; only "
+                                          "Replace (string), ByteFallback, Fuse and Strip")
+        return "".join(tokens)
 
     @staticmethod
     def _normalizers(spec) -> List[dict]:
@@ -199,6 +284,11 @@ class _SentencePieceBPE:
         self.remove_extra_whitespaces = bool(norm.get(4, 1))
         self.escape_whitespaces = bool(norm.get(5, 1))
         self.vocab = {p: i for p, (i, _, _) in self.pieces.items()}
+        self.tokens = {i: p for p, i in self.vocab.items()}
+
+    @staticmethod
+    def decode_tokens(tokens: List[str]) -> str:
+        return _sentencepiece_text(tokens)
 
     def _normalize(self, text: str) -> str:
         if self.remove_extra_whitespaces:
@@ -230,7 +320,8 @@ def _token_content(tok) -> Optional[str]:
 
 
 class LlamaTokenizer:
-    """``tok(text)["input_ids"]``, with ``bos_token_id`` / ``eos_token_id``."""
+    """``tok(text)["input_ids"]`` and ``tok.decode(ids)``, with
+    ``bos_token_id`` / ``eos_token_id``."""
 
     def __init__(self, model, bos_token_id: Optional[int], eos_token_id: Optional[int],
                  add_bos: bool = True, add_eos: bool = False):
@@ -279,3 +370,15 @@ class LlamaTokenizer:
         if self.add_eos and self.eos_token_id is not None:
             ids = ids + [self.eos_token_id]
         return {"input_ids": ids}
+
+    def convert_ids_to_tokens(self, ids: List[int]) -> List[str]:
+        """Each id's token (a special token's content); raises on an id
+        outside the vocabulary."""
+        try:
+            return [self.model.tokens[int(i)] for i in ids]
+        except KeyError as e:
+            raise KeyError(f"token id {e.args[0]} is not in the vocabulary") from None
+
+    def decode(self, ids: List[int]) -> str:
+        """The text of ``ids``, special tokens kept."""
+        return self.model.decode_tokens(self.convert_ids_to_tokens(ids))

@@ -175,8 +175,7 @@ def main(argv=None) -> dict:
                         help="cuda (the default) raises when no card is present")
     args = parser.parse_args(argv)
     if args.tp > 1:
-        raise NotImplementedError("--tp > 1 is not ported yet: ROADMAP queue 1, item 9 "
-                                  "(multi-device)")
+        raise NotImplementedError("--tp > 1 is not ported yet: ROADMAP queue 1, multi-device")
 
     device = resolve_device(args.device)
     set_matmul_precision("highest")

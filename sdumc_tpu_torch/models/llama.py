@@ -313,13 +313,19 @@ class LlamaLayer(nn.Module):
         return x + self.mlp(self.post_attention_layernorm(x))
 
 
+def tap_indices(n_hidden_states: int, layer_ids: Sequence[int]) -> list:
+    """The hidden-state indices a tap sum takes, sorted; indices out of
+    range are dropped (the clamp for shallow models)."""
+    return sorted({i % n_hidden_states for i in layer_ids
+                   if -n_hidden_states <= i < n_hidden_states})
+
+
 def tap_coefficients(num_layers: int, tap_sum_layers: Sequence[int]):
     """Which hidden states (HF convention: [embed, layer outputs..., the last
     entry post-final-norm]) a tap sum takes, as (embed, per-layer, final)
-    0/1 weights. Indices out of range are dropped (the clamp for shallow
-    models); the raw last-layer output never appears in the list."""
+    0/1 weights; the raw last-layer output never appears in the list."""
     n_hs = num_layers + 1
-    idxs = {i % n_hs for i in tap_sum_layers if -n_hs <= i < n_hs}
+    idxs = set(tap_indices(n_hs, tap_sum_layers))
     layer = tuple(j + 1 in idxs and j + 1 != n_hs - 1 for j in range(num_layers))
     return 0 in idxs, layer, (n_hs - 1) in idxs
 

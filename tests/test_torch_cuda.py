@@ -20,7 +20,8 @@ autograd through the plain version on the card, and against float64 at
 the full shape; a tiny fusion train step on the card against the CPU. The
 feat4 decode (no kernel of the port) is held to the CPU too: exact_topk's
 tie order, the padded int8 product, a tiny decode, and a --gen_batch chunk
-against its clips alone.
+against its clips alone. So are the text stage (f32 and bf16), a tiny
+MANet and one MANet train step (float64).
 """
 
 import math
@@ -501,3 +502,115 @@ def test_gen_batch_chunk_matches_solo_on_card(cuda, dtype):
         solo = ex.extract_many([f])[0]
         np.testing.assert_array_equal(got["tokens"], solo["tokens"])
         np.testing.assert_array_equal(got["taps"], solo["taps"])
+
+
+class _WordTokenizer:
+    """A whitespace tokenizer with BOS and an invertible decode: the surface
+    extract_text_features needs (the probe and the encoder)."""
+
+    def __init__(self):
+        self.ids, self.words = {}, {1: "<s>"}
+
+    def __call__(self, text):
+        out = [1]
+        for w in text.split():
+            if w not in self.ids:
+                self.ids[w] = len(self.ids) + 3
+                self.words[self.ids[w]] = w
+            out.append(self.ids[w])
+        return {"input_ids": out}
+
+    def decode(self, ids):
+        return " ".join(self.words[i] for i in ids)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tiny_text_extraction_on_card_matches_cpu(cuda, dtype):
+    """extract_text_features (length buckets, a short last chunk, an empty
+    row) on the card against the CPU: f32 with TF32 off to 1e-4; bf16 to a
+    few bf16 ulps of the largest feature (cuBLAS and the CPU round the
+    products' sums at other places)."""
+    import copy
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.extract.text import extract_text_features
+    from sdumc_tpu_torch.models.llama import LlamaConfig, LlamaModel, init_weights
+
+    set_matmul_precision("highest")
+    cfg = LlamaConfig.tiny(num_layers=2, vocab_size=96, hidden_size=48, intermediate_size=96,
+                           dtype=dtype)
+    model = init_weights(LlamaModel(cfg), seed=4, std=0.2).eval()
+    words = "today is a good day and the movie was really not bad at all".split()
+    rng = np.random.default_rng(5)
+    sents = [" ".join(rng.choice(words, size=n)) for n in (3, 9, 1, 14, 20, 5, 7)] + [""]
+    kw = dict(layer_ids=(-3,), buckets=(8, 16), batch_size=3)
+    cpu = extract_text_features(model, _WordTokenizer(), sents, **kw)
+    card = extract_text_features(copy.deepcopy(model).to(cuda), _WordTokenizer(), sents, **kw)
+    top = max(float(np.abs(c).max()) for c in cpu)
+    for c, g in zip(cpu, card):
+        assert c.shape == g.shape
+        if dtype == torch.float32:
+            np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4)
+        else:
+            assert np.abs(g - c).max() <= 4 * 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+def _tiny_manet(seed=0):
+    from sdumc_tpu_torch.models.manet import MANet, MANetConfig, init_weights
+
+    return init_weights(MANet(MANetConfig(layers=(1, 1, 1, 1), num_classes=3)), seed)
+
+
+@pytest.mark.cuda
+def test_tiny_manet_on_card_matches_cpu(cuda):
+    """MANet (layers 1,1,1,1) embeddings and logits in eval mode with BN
+    statistics drawn at random, f32 with cuDNN's TF32 off: card against
+    CPU to 1e-4 of the largest value."""
+    import copy
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+
+    set_matmul_precision("highest")
+    model = _tiny_manet().eval()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    x = torch.from_numpy(np.random.default_rng(2).uniform(size=(3, 3, 224, 224)).astype(np.float32))
+    card = copy.deepcopy(model).to(cuda)
+    with torch.inference_mode():
+        for kw in ({}, {"return_embedding": False}):
+            want, got = model(x, **kw), card(x.to(cuda), **kw)
+            for w, g in zip(want if isinstance(want, tuple) else (want,),
+                            got if isinstance(got, tuple) else (got,)):
+                assert (g.cpu() - w).abs().max().item() <= 1e-4 * w.abs().max().item()
+
+
+@pytest.mark.cuda
+def test_manet_train_step_on_card_matches_cpu(cuda):
+    """One MANet train step (BN in training mode, SGD with weight decay) in
+    float64 on the card against the CPU: the loss, every gradient to 1e-9
+    of the largest and the running statistics (f32 steps part by up to
+    4e-3 of the largest gradient from rounding order alone)."""
+    from sdumc_tpu_torch.extract.manet_train import make_optimizer, make_train_step
+
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.uniform(size=(4, 224, 224, 3)))
+    y = torch.tensor([0, 2, 1, 2])
+    runs = []
+    for dev in ("cpu", cuda):
+        model = _tiny_manet(seed=5).double().to(dev)
+        opt, sched = make_optimizer(model, 0.01, 10)
+        loss = make_train_step(model, opt, sched)(x.to(dev), y.to(dev))["loss"].item()
+        runs.append((loss, {k: p.grad.cpu() for k, p in model.named_parameters()},
+                     {k: b.cpu() for k, b in model.named_buffers()}))
+    (loss_cpu, g_cpu, b_cpu), (loss_card, g_card, b_card) = runs
+    assert loss_card == pytest.approx(loss_cpu, rel=1e-10)
+    gmax = max(g.abs().max().item() for g in g_cpu.values())
+    for k, g in g_cpu.items():
+        assert (g_card[k] - g).abs().max().item() <= 1e-9 * gmax, k
+    for k, b in b_cpu.items():
+        torch.testing.assert_close(b_card[k], b, rtol=1e-10, atol=1e-12)

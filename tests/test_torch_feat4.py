@@ -482,5 +482,5 @@ def test_cli_extract_feat4_on_cpu(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             extract.main(argv[:-2])
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
+    with pytest.raises(NotImplementedError, match="queue 1, multi-device"):
         extract.main(argv + ["--tp", "2"])

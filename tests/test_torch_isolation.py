@@ -1,7 +1,9 @@
 """sdumc_tpu_torch stands alone: importing every one of its modules pulls in
 neither JAX (jax, flax, optax), nor anything of the JAX package sdumc_tpu,
 nor transformers (its HF loaders read the checkpoint files themselves),
-and its sources name none of them in an import."""
+nor Pillow or pandas (the card's machine has neither), and its sources name
+none of them in an import, save one: the image reader imports Pillow
+lazily for the formats it does not read itself."""
 
 import ast
 import subprocess
@@ -11,6 +13,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "sdumc_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sdumc_tpu", "transformers")
+HOST_LIBS = ("PIL", "pandas")           # not installed on the card's machine
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -33,7 +36,7 @@ def _forbidden(module: str) -> bool:
 
 def test_importing_every_module_pulls_in_no_jax():
     run = subprocess.run(
-        [sys.executable, "-c", _PROBE.format(repo=str(REPO), forbidden=FORBIDDEN)],
+        [sys.executable, "-c", _PROBE.format(repo=str(REPO), forbidden=FORBIDDEN + HOST_LIBS)],
         capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr
     count, bad = run.stdout.split(" ", 1)
@@ -53,3 +56,24 @@ def test_sources_import_no_jax():
                 continue
             offenders += [f"{path.relative_to(REPO)}: {m}" for m in mods if _forbidden(m)]
     assert offenders == []
+
+
+def _imports(node, fn=None):
+    """(module, innermost enclosing function name) of every import below node."""
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, ast.Import):
+            yield from ((a.name, fn) for a in child.names)
+        elif isinstance(child, ast.ImportFrom):
+            yield child.module or "", fn
+        yield from _imports(child, child.name if isinstance(
+            child, (ast.FunctionDef, ast.AsyncFunctionDef)) else fn)
+
+
+def test_only_the_image_reader_names_pillow():
+    """PIL is imported in one place, inside the function that reads the
+    formats the port does not decode itself; pandas nowhere."""
+    sites = {(str(path.relative_to(REPO)), fn)
+             for path in sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             for mod, fn in _imports(ast.parse(path.read_text()))
+             if mod.split(".")[0] in HOST_LIBS}
+    assert sites == {("sdumc_tpu_torch/extract/image_io.py", "_read_with_pillow")}, sites

@@ -532,7 +532,7 @@ def test_train_cli_synthetic_cpu_and_best_checkpoint_through_infer(tmp_path):
 
 
 @pytest.mark.parametrize("flags, error", [
-    (["--multihost"], "item 9"),
+    (["--multihost"], "multi-device"),
     (["--feature_dtype", "bfloat16"], "bfloat16"),
     (["--checkpoint", "orbax_dir"], "Orbax"),
 ])

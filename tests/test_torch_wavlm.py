@@ -262,5 +262,5 @@ def test_cli_refusals_without_a_card(tmp_path, monkeypatch, capsys):
     assert resolve_attention_impl("auto", torch.device("cuda")) == "flash"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         resolve_attention_impl("ring", torch.device("cpu"))
-    assert extract.main(["text"]) == 1
-    assert "ROADMAP queue 1, text families" in capsys.readouterr().out
+    assert extract.main(["vision"]) == 1
+    assert "ROADMAP queue 1, the other visual encoders" in capsys.readouterr().out
