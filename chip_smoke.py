@@ -13,8 +13,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      shapes of the inference path's first dual batch (B = 64 rows, D = 256,
      the audio / text / video buckets), once with mixed per-row t_max and
      once with the batch's own lengths, which are also timed (CUDA events,
-     and device time per call from torch.profiler) beside the plain version
-     and the bound; and the gradient through the kernel's autograd.Function
+     and device time per call from torch.profiler; each call takes the next
+     of x's clones, so its x is not in the L2) beside the plain version and
+     the bound; and the gradient through the kernel's autograd.Function
      (its recomputing backward) against the plain version's, with the mixed
      t_max (a check of its wiring: the recompute is the plain version);
   3. the WavLM attention kernel against its plain version at wavlm-large's
@@ -90,7 +91,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
  16. the MANet trainer: ``cli.extract manet_train`` for one epoch (3 steps
      at batch 128, full width) on a seeded 7-class ImageFolder of 100x100
      BMPs, finite losses; one step card against CPU in float64 (loss and
-     every gradient); ms per step by CUDA events.
+     every gradient); ms per step by CUDA events;
+ 17. the fusion kernel's bf16 instance (bf16 x, the Q = 7 query bf16, f32
+     keys, scores and softmax, bf16 output) against its plain version at
+     phase 2's shapes, mixed per-row t_max and the batch's own, to one bf16
+     ulp of the output, and its gradient through the recomputing backward;
+     timed (CUDA events, profiler device ms) beside phase 2's f32 instance,
+     each with its bound;
+ 18. the production store: seeded MOSEI-like clips at the published widths
+     (the synthetic store's clips, 128 / 32 / 32 for train / val / test)
+     packed by ``cli.extract pack`` at float32, bfloat16 and int8 (bytes and
+     seconds); ``cli.train --feature_dtype bfloat16`` for one epoch on the
+     bf16 store, then on the int8 store (dequantised on the card), with the
+     launch counters around each run (the bf16 instance launches, the f32
+     one does not), finite losses, best_full.pt through cli.infer
+     reproducing the logged MAE, and the first eval batch's first rows card
+     against CPU (the predictions, and the text representations, with a
+     control run of the card's streams in f32 that their check must
+     refuse); then a warm train step on the f32, bf16 and int8
+     stores (CUDA events, peak memory, device time by family and idle share).
 Each phase prints its seconds. The second-to-last line is {"kernels":
 [...]}, the last line {"ok": true, "device": {...}}. Imports nothing of JAX
 or sdumc_tpu.
@@ -102,7 +121,9 @@ kernels run their matrix products on the tensor cores in the 3xTF32 split
 (three TF32 passes, f32-grade results), so those flops count three times at
 the TF32 rate; the fusion kernel's scores and weighted sum are f32 FMA and
 count once at the f32 rate. The f32 bound (every flop at the f32 rate, the
-bound of the earlier FFMA kernels) is printed beside it.
+bound of the earlier FFMA kernels) is printed beside it. The fusion kernel's
+bf16 instance reads x (and a batched query) at 2 bytes, writes 2, and issues
+2 TF32 passes (a bf16 x has no low part).
 """
 
 from __future__ import annotations
@@ -123,6 +144,7 @@ PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12      # TF32 on the tensor cores
 TF32_PASSES = 3               # the 3xTF32 split: hi.hi + hi.lo + lo.hi
 PEAK_HBM_BYTES = 3.35e12      # bytes/s
+COLD_BYTES = 4 * 50 * 2**20   # 4 x the L2: timed fusion calls cycle through x's clones
 KERNEL_RTOL, KERNEL_ATOL = 1e-4, 1e-5   # f32 reassociation over <= 2048 frames
 MODEL_RTOL, MODEL_ATOL = 1e-3, 1e-4     # f32 reassociation through the whole net
 B_DUAL, D = 64, 256
@@ -131,6 +153,9 @@ REPLACES = {
     7: ("fused_cross", "sdumc_tpu/ops/pallas/fused_cross.py:37"),
     1: ("fused_pool", "sdumc_tpu/ops/pallas/fused_pool.py:32"),
 }
+# the bf16 instance of the same kernel (phases 17-18): the same TPU kernel at bf16 x
+REPLACES_BF16 = {q: (name + "_bf16", line) for q, (name, line) in REPLACES.items()}
+BF16_TF32_PASSES = 2          # x is exact in TF32: x . W_lo and x . W_hi
 SOURCE = "sdumc_tpu_torch/csrc/fused_cross.cu"
 FLASH = {"name": "flash_wavlm", "source": "sdumc_tpu_torch/csrc/flash_wavlm.cu",
          "replaces": "sdumc_tpu/ops/pallas/flash_wavlm.py:140"}
@@ -147,6 +172,21 @@ TRAIN_ARGV = MAIN_ARGV + ["--epochs", str(TRAIN_EPOCHS)]
 # gives about 1e-4 and fails it); the losses to STEP_LOSS_RTOL
 GRAD_RTOL, GRAD_ATOL, STEP_LOSS_RTOL = 1e-5, 1e-6, 1e-4
 CKPT_MAE_RTOL = 1e-6     # best_full.pt through cli.infer: the same kernels on the same batches
+# the production store (phase 18): MOSEI-like splits at the published widths, packed
+# at each dtype, trained with bf16 streams at the main path's batch
+STORE_SPLITS = (("train", 128), ("val", 32), ("test", 32))
+STORE_DTYPES = ("float32", "bfloat16", "int8")
+STORE_ARGV = ["--device", "cuda", "--batch_size", "32", "--feature_dtype", "bfloat16"]
+STORE_CPU_ROWS = 8
+# card vs CPU at bf16 streams, the same bf16 roundings in another summation order:
+# the predictions to max |diff| <= BF16_REL max |pred| (sound runs read <= 4.2e-6 of
+# it; streams in f32 read 1.4e-6-4.6e-5 there too, so it cannot tell them apart), and
+# the text representations (text_feat, text_query_feat, both views) to a relative L2
+# error <= BF16_REP_L2 (sound <= 1.6e-4, f32 streams >= 7.6e-4 in the 11 seeded cases
+# of ``python -m sdumc_tpu_torch.bench.bf16_gap`` on the H100; the limit near their
+# geometric mean), which a control with the card's streams in f32 must fail
+BF16_REL, BF16_REP_L2 = 1e-4, 3e-4
+BF16_REP_KEYS = ("text_feat", "text_query_feat")
 TIMED_STEPS, PROFILED_STEPS = 10, 3
 TRAIN_FAMILIES = (
     ("fusion kernel (forward)", ("cross_partial", "cross_combine", "split_w")),
@@ -224,14 +264,14 @@ VISUAL_FAMILIES = (
 )
 
 
-def main_path_config():
-    """The ExperimentConfig that ``cli.infer.main(MAIN_ARGV)`` runs with."""
+def main_path_config(argv=MAIN_ARGV):
+    """The ExperimentConfig that ``cli.infer.main(argv)`` runs with."""
     from sdumc_tpu_torch.cli.common import add_reference_args, add_runtime_args, args_to_config
 
     parser = argparse.ArgumentParser()
     add_reference_args(parser)
     add_runtime_args(parser)
-    return args_to_config(parser.parse_args(MAIN_ARGV))
+    return args_to_config(parser.parse_args(argv))
 
 
 def card_line() -> str:
@@ -256,6 +296,21 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cold_cycle(x):
+    """A function that returns x or one of its clones in turn, the lot
+    COLD_BYTES together, so that a timed loop over it finds each call's x
+    out of the L2, as a train step, which reads each x once, does."""
+    n = max(2, math.ceil(COLD_BYTES / (x.numel() * x.element_size())))
+    copies = [x] + [x.clone() for _ in range(n - 1)]
+    turn = [0]
+
+    def next_x():
+        turn[0] = (turn[0] + 1) % n
+        return copies[turn[0]]
+
+    return next_x
+
+
 def device_ms(torch, fn, names, calls: int = 20) -> float:
     """Device time per call of the kernels whose names contain one of
     `names`, from torch.profiler over `calls` warm calls: the kernel time
@@ -277,21 +332,38 @@ def device_ms(torch, fn, names, calls: int = 20) -> float:
     return math.nan
 
 
-def bound_ms(q_count: int, t_valid, shared_query: bool):
+def bound_ms(q_count: int, t_valid, shared_query: bool, bf16: bool = False):
     """Least time for one call, as {"bytes", "operations", "f32"} in ms:
     each input read once (x only up to each row's t_max) and the output
     written once, over the HBM rate; the key projection (2 D^2 per valid
-    frame) in 3xTF32 over the TF32 rate plus bias + tanh (2 D), scores and
-    weighted sum (4 Q D) over the f32 rate; and every flop over the f32
-    rate, the earlier bound."""
+    frame) in 3xTF32 (2 TF32 passes for bf16 x) over the TF32 rate plus
+    bias + tanh (2 D), scores and weighted sum (4 Q D) over the f32 rate;
+    and every flop over the f32 rate, the earlier bound. The bf16 instance
+    reads x and a batched query as bf16 and writes a bf16 output (2 bytes);
+    the shared context, W and the bias stay f32."""
     n = int(sum(t_valid))
     rows = len(t_valid)
-    q_bytes = (1 if shared_query else rows) * q_count * D * 4
-    nbytes = q_bytes + n * D * 4 + D * D * 4 + D * 4 + rows * 4 + rows * q_count * D * 4
+    xb = 2 if bf16 else 4
+    q_bytes = (q_count * D * 4 if shared_query else rows * q_count * D * xb)
+    nbytes = q_bytes + n * D * xb + D * D * 4 + D * 4 + rows * 4 + rows * q_count * D * xb
     mma, ffma = n * 2 * D * D, n * (2 * D + 4 * q_count * D)
+    passes = BF16_TF32_PASSES if bf16 else TF32_PASSES
     return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES,
-            "operations": 1e3 * (TF32_PASSES * mma / PEAK_TF32_FLOPS + ffma / PEAK_F32_FLOPS),
+            "operations": 1e3 * (passes * mma / PEAK_TF32_FLOPS + ffma / PEAK_F32_FLOPS),
             "f32": 1e3 * (mma + ffma) / PEAK_F32_FLOPS}
+
+
+def bf16_ulp_err(torch, got, ref) -> tuple:
+    """(max abs diff, max of diff / bound) of two bf16 outputs, the bound one
+    bf16 ulp at the larger of the two plus the f32 tolerance (KERNEL_RTOL |ref|
+    + KERNEL_ATOL: the f32 sums before the rounding differ by that much, which
+    near an output's zero is many of its ulps); the second is <= 1 when
+    the outputs are one rounding apart."""
+    got, ref = got.float(), ref.float()
+    big = torch.maximum(got.abs(), ref.abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    diff = (got - ref).abs()
+    return diff.max().item(), (diff / (ulp + KERNEL_RTOL * ref.abs() + KERNEL_ATOL)).max().item()
 
 
 def main_path_lengths(cfg):
@@ -311,24 +383,36 @@ def main_path_lengths(cfg):
             "video": (batch.video.shape[1], tv)}
 
 
-def kernel_phase(torch, fused_cross, fused_pool, lengths, grads: bool = True):
+def kernel_phase(torch, fused_cross, fused_pool, lengths, grads: bool = True,
+                 bf16: bool = False):
     """Each kernel vs its plain version on the card: for correctness with
     mixed per-row t_max (= T, not a tile multiple, 1, 0, > T), then timed at
     the main path's lengths. Returns per-Q totals over the three modality
-    calls of one dual batch."""
+    calls of one dual batch. ``bf16`` runs the bf16 instance (x and the
+    Q = 7 query bf16, as the model hands them over)."""
     gen = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
+    names = REPLACES_BF16 if bf16 else REPLACES
     totals = {q: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
                   "bytes_ms": 0.0, "operations_ms": 0.0, "f32_bound_ms": 0.0,
-                  "device_ms": 0.0, "grad_max_abs_err": 0.0, "calls": {}} for q in REPLACES}
-    print(f"kernel vs plain (B={B_DUAL}, D={D}; tolerance rtol={KERNEL_RTOL} "
-          f"atol={KERNEL_ATOL}: f32 reassociation over <= 2048 frames)")
+                  "device_ms": 0.0, "grad_max_abs_err": 0.0, "max_ulps": 0.0,
+                  "calls": {}} for q in REPLACES}
+    if bf16:
+        print(f"bf16 instance vs plain (B={B_DUAL}, D={D}; tolerance: one bf16 ulp of the "
+              f"output plus rtol={KERNEL_RTOL} atol={KERNEL_ATOL}: both sum in f32, as the f32 "
+              f"instance, and round once; gradients rtol={KERNEL_RTOL} atol={KERNEL_ATOL}, the "
+              f"recompute is the plain version)")
+    else:
+        print(f"kernel vs plain (B={B_DUAL}, D={D}; tolerance rtol={KERNEL_RTOL} "
+              f"atol={KERNEL_ATOL}: f32 reassociation over <= 2048 frames)")
     for modality, (T, t_main) in lengths.items():
         x = (0.5 * torch.randn(B_DUAL, T, D, generator=gen)).to(dev)
         w = ((torch.rand(D, D, generator=gen) * 2 - 1) / 16).to(dev)
         b = ((torch.rand(D, generator=gen) * 2 - 1) / 16).to(dev)
         query = (0.5 * torch.randn(B_DUAL, 7, D, generator=gen)).to(dev)
         context = (0.1 * torch.randn(D, generator=gen)).to(dev)
+        if bf16:
+            x, query = x.bfloat16(), query.bfloat16()
         mixed = torch.randint(1, T + 1, (B_DUAL,), generator=gen, dtype=torch.int32)
         mixed[:5] = torch.tensor([T, max(1, T - 37), 1, 0, T + 5])
         mixed = mixed.to(dev)
@@ -360,22 +444,39 @@ def kernel_phase(torch, fused_cross, fused_pool, lengths, grads: bool = True):
             def plain(t, plain_of=plain_of, first=first):
                 return plain_of(first, x, w, b, t)
 
-            grad_err = gradient_check(torch, REPLACES[q_count][0], modality, kern_of, plain_of,
+            grad_err = gradient_check(torch, names[q_count][0], modality, kern_of, plain_of,
                                       [first, x, w, b], mixed) if grads else math.nan
             with torch.inference_mode():
-                errs = []
+                errs, ulps = [], []
                 for t in (mixed, t_main):
                     got, ref = kern(t), plain(t)
                     torch.cuda.synchronize()
+                    if bf16:
+                        err, n_ulps = bf16_ulp_err(torch, got, ref)
+                        errs.append(err)
+                        ulps.append(n_ulps)
+                        if got.dtype != torch.bfloat16 or n_ulps > 1.0:
+                            raise AssertionError(
+                                f"{names[q_count][0]} at T={T}: {got.dtype}, max abs err "
+                                f"{err!r}, {n_ulps!r} of its bound (one bf16 ulp + the f32 "
+                                f"tolerance)")
+                        continue
                     errs.append((got - ref).abs().max().item())
                     if not torch.allclose(got, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
                         raise AssertionError(
-                            f"{REPLACES[q_count][0]} at T={T}: max abs err {errs[-1]} "
+                            f"{names[q_count][0]} at T={T}: max abs err {errs[-1]} "
                             f"outside rtol={KERNEL_RTOL} atol={KERNEL_ATOL}")
-                ms, plain_ms = time_ms(lambda: kern(t_main)), time_ms(lambda: plain(t_main))
-                dev_ms = device_ms(torch, lambda: kern(t_main), ("cross_",))
-            bnd = bound_ms(q_count, t_valid, q_count == 1)
+                # timed with x cold in the L2 (the audio x alone is 33.5 MB
+                # in bf16, 67 MB in f32, the L2 50 MB)
+                next_x = cold_cycle(x)
+                ms = time_ms(lambda: kern_of(first, next_x(), w, b, t_main))
+                plain_ms = time_ms(lambda: plain_of(first, next_x(), w, b, t_main))
+                dev_ms = device_ms(torch, lambda: kern_of(first, next_x(), w, b, t_main),
+                                   ("cross_",))
+                del next_x
+            bnd = bound_ms(q_count, t_valid, q_count == 1, bf16)
             tot = totals[q_count]
+            tot["max_ulps"] = max([tot["max_ulps"], *ulps])
             tot["bytes_ms"] += bnd["bytes"]
             tot["operations_ms"] += bnd["operations"]
             tot["f32_bound_ms"] += bnd["f32"]
@@ -387,7 +488,7 @@ def kernel_phase(torch, fused_cross, fused_pool, lengths, grads: bool = True):
             if grads:
                 tot["grad_max_abs_err"] = max(tot["grad_max_abs_err"], grad_err)
             tot["calls"][modality] = ms
-            print(f"  {REPLACES[q_count][0]:11s} {modality:5s} T={T:4d} "
+            print(f"  {names[q_count][0]:16s} {modality:5s} T={T:4d} "
                   f"t_max={sorted(set(t_valid))} frames={sum(t_valid)} "
                   f"max_abs_err mixed={errs[0]!r} main={errs[1]!r} grad={grad_err!r} "
                   f"kernel_ms={ms!r} device_ms={dev_ms!r} plain_ms={plain_ms!r} "
@@ -410,11 +511,12 @@ def gradient_check(torch, name, modality, kern_of, plain_of, inputs, t_max) -> f
     for fn in (kern_of, plain_of):
         leaves = [t.detach().clone().requires_grad_() for t in inputs]
         out = fn(*leaves, t_max)
-        g = torch.randn(out.shape, generator=gen.manual_seed(2)).to(out.device)
+        g = torch.randn(out.shape, generator=gen.manual_seed(2)).to(out.device, out.dtype)
         grads.append(torch.autograd.grad(out, leaves, g))
     torch.cuda.synchronize()
     worst = 0.0
     for label, got, ref in zip(("dq", "dx", "dW", "db"), *grads):
+        got, ref = got.float(), ref.float()
         err = (got - ref).abs().max().item()
         worst = max(worst, err)
         if not torch.allclose(got, ref, rtol=KERNEL_RTOL, atol=KERNEL_ATOL):
@@ -435,6 +537,7 @@ def read_counts() -> dict:
     from sdumc_tpu_torch.ops.kernels import flash_wavlm, fused_cross
 
     counts = {REPLACES[q][0]: n for q, n in fused_cross.LAUNCHES.items()}
+    counts.update({REPLACES_BF16[q][0]: n for q, n in fused_cross.LAUNCHES_BF16.items()})
     counts[FLASH["name"]] = flash_wavlm.LAUNCHES
     return counts
 
@@ -1757,6 +1860,251 @@ def manet_train_phase(torch, tmp: str):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------ the production store (phases 17-18)
+
+def bf16_kernel_phase(torch, fused_cross, fused_pool, lengths, f32_totals):
+    """Phase 17: the bf16 instance vs its plain version at phase 2's shapes,
+    timed beside phase 2's f32 instance."""
+    totals = kernel_phase(torch, fused_cross, fused_pool, lengths, bf16=True)
+    for q_count in REPLACES:
+        f, h = f32_totals[q_count], totals[q_count]
+        print(f"  per dual batch, Q={q_count}: f32 instance kernel_ms={f['ms']!r} "
+              f"device_ms={f['device_ms']!r} bound_ms={f['bound_ms']!r}; bf16 instance "
+              f"kernel_ms={h['ms']!r} device_ms={h['device_ms']!r} bound_ms={h['bound_ms']!r} "
+              f"(bytes {h['bytes_ms']!r}, operations {h['operations_ms']!r}) plain_ms="
+              f"{h['plain_ms']!r} max_abs_err={h['max_abs_err']!r} ({h['max_ulps']!r} of its "
+              f"bound) "
+              f"grad_max_abs_err={h['grad_max_abs_err']!r}")
+    return totals
+
+
+def dir_bytes(paths) -> int:
+    return sum(os.path.getsize(p) for p in paths if os.path.exists(p))
+
+
+def write_store_datasets(torch, root: str) -> dict:
+    """Seeded MOSEI-like clips at the published widths (the synthetic
+    store's clips, so phase 4's lengths: audio 50-1200 frames of 1024, text
+    4-96 of 4096, video 8-300 of 1024, feat4 4-64 of 4096), STORE_SPLITS
+    of them, as .npy directories; then ``cli.extract pack`` of each at each
+    STORE_DTYPES into a dataset root of its own (features/CMU-MOSEI/{name}
+    .bin / .json, labels/CMU-MOSEI.npz). Returns {dtype: root}."""
+    import shutil
+
+    import numpy as np
+
+    from sdumc_tpu_torch.cli import extract
+    from sdumc_tpu_torch.data.pipeline import build_sources
+
+    cfg = main_path_config()
+    sources = build_sources(cfg.data, cfg.paths, synthetic=True)
+    names = [f"{split}_{i}" for split, n in STORE_SPLITS for i in range(n)]
+    npy = os.path.join(root, "npy")
+    t0 = time.perf_counter()
+    for src in sources.values():
+        os.makedirs(os.path.join(npy, src.name))
+        for n in names:
+            np.save(os.path.join(npy, src.name, n + ".npy"), src.get(n))
+    del sources
+    raw = dir_bytes(os.path.join(npy, d, f) for d in os.listdir(npy)
+                    for f in os.listdir(os.path.join(npy, d)))
+    print(f"store clips: {len(names)} clips x 4 streams, {raw!r} bytes of f32 .npy, "
+          f"{time.perf_counter() - t0!r} s to generate and write")
+    rng = np.random.default_rng(11)
+    corpora = {f"{split}_corpus": {f"{split}_{i}": {"emo": 0.0,
+                                                    "val": float(np.round(rng.uniform(-3, 3), 2))}
+                                   for i in range(n)} for split, n in STORE_SPLITS}
+    roots = {}
+    for dtype in STORE_DTYPES:
+        roots[dtype] = os.path.join(root, dtype)
+        features = os.path.join(roots[dtype], "features", cfg.data.dataset)
+        os.makedirs(features)
+        os.makedirs(os.path.join(roots[dtype], "labels"))
+        np.savez(os.path.join(roots[dtype], "labels", f"{cfg.data.dataset}.npz"), **corpora)
+        t0 = time.perf_counter()
+        for name in os.listdir(npy):
+            if extract.main(["pack", "--src_dir", os.path.join(npy, name), "--out_prefix",
+                             os.path.join(features, name), "--dtype", dtype]) != 0:
+                raise AssertionError(f"cli.extract pack {name} --dtype {dtype} failed")
+        seconds = time.perf_counter() - t0
+        nbytes = dir_bytes(os.path.join(features, f) for f in os.listdir(features))
+        print(f"cli.extract pack --dtype {dtype}: {nbytes!r} bytes ({nbytes / raw!r} of the "
+              f".npy), {seconds!r} s for the 4 streams")
+    shutil.rmtree(npy)
+    return roots
+
+
+def store_step(torch, cfg, store: str, feature_dtype: str):
+    """A warm train step on the card on the first train batch of the store
+    at ``cfg``'s paths: ms by CUDA events over TIMED_STEPS steps, peak
+    memory, then PROFILED_STEPS steps under torch.profiler (device time by
+    family, idle share)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdumc_tpu_torch.cli.common import bf16_full_precision_reduction, build_model
+    from sdumc_tpu_torch.data.pipeline import get_loaders
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    train_ds, _, _ = get_loaders(cfg.data.dataset, cfg.data, cfg.paths)
+    batch = first_train_batch(cfg, train_ds)
+    model = build_model(cfg, train_ds.input_dims(), torch.device("cuda"))
+    step = make_step(torch, cfg, model)
+    nbytes = sum(getattr(batch, k).nbytes for k in ("audio", "text", "video", "feat4"))
+    with bf16_full_precision_reduction():
+        d = batch_to_device_dict(batch, "cuda", feature_dtype)
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: step(d), iters=TIMED_STEPS, warmup=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(PROFILED_STEPS):
+                step(d)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    streams = {k: str(v.dtype).replace("torch.", "") for k, v in d.items() if k in
+               ("audio", "text", "video", "feat4")}
+    title = (f"warm train step on the {store} store (streams {streams}, batch "
+             f"{batch.size}, T = {batch.audio.shape[1]} / {max(batch.text.shape[1], batch.feat4.shape[1])}"
+             f" / {batch.video.shape[1]}, {nbytes!r} feature bytes to the card): {ms!r} ms per step "
+             f"over {TIMED_STEPS} steps (CUDA events), peak device memory {peak!r} GiB; profiled "
+             f"({PROFILED_STEPS} steps)")
+    print_device_time(prof, wall, title, TRAIN_FAMILIES,
+                      "elementwise, casts, softmax and reductions", top=6)
+    del model, step, d
+    torch.cuda.empty_cache()
+    return ms
+
+
+def representations(torch, model, d) -> dict:
+    """{key: both views' BF16_REP_KEYS outputs, f32 on the CPU} of a device
+    batch (features already dequantised) through the fused dual view in eval
+    mode, with cuBLAS's bf16 products reducing in f32 as the CLIs run them."""
+    from sdumc_tpu_torch.cli.common import bf16_full_precision_reduction
+
+    ta, tt, tv, tf4 = d["t_max"]
+    model.eval()
+    with torch.inference_mode(), bf16_full_precision_reduction():
+        _, aux = model(d["audio"], (d["text"], d["feat4"]), d["video"],
+                       t_max=(ta, (tt, tf4), tv), dual=True)
+    return {k: aux[k].float().cpu() for k in BF16_REP_KEYS}
+
+
+def store_phase(torch, fused_cross, work: str):
+    """Phase 18: the production store end to end: pack at three dtypes;
+    cli.train --feature_dtype bfloat16 for one epoch on the bf16 store, then
+    on the int8 store, with the launch counters around each run (the bf16
+    instance runs, the f32 instance does not); best_full.pt through
+    cli.infer reproducing the logged MAE; the first eval batch's first rows
+    card vs CPU; a warm train step on each store. Returns {store dtype:
+    the bf16 instance's launches in its cli.train run}."""
+    import dataclasses
+
+    from sdumc_tpu_torch.cli import infer, train
+    from sdumc_tpu_torch.cli.common import build_model
+    from sdumc_tpu_torch.data.pipeline import BatchIterator, get_loaders
+    from sdumc_tpu_torch.train.step import batch_to_device_dict, dequant_features, make_eval_step
+
+    roots = write_store_datasets(torch, os.path.join(work, "store"))
+    before = os.environ.get("SDUMC_DATA_DIR")
+    launches = {}
+    try:
+        for dtype in ("bfloat16", "int8"):
+            os.environ["SDUMC_DATA_DIR"] = roots[dtype]
+            cfg = main_path_config(STORE_ARGV)
+            bs = cfg.data.batch_size
+            train_ds, val_ds, test_ds = get_loaders(cfg.data.dataset, cfg.data, cfg.paths)
+            per_epoch = (len(train_ds) // bs + math.ceil(len(val_ds) / bs)
+                         + math.ceil(len(test_ds) / bs))
+            ck = os.path.join(work, f"ck_{dtype}")
+            reset_counts()
+            t0 = time.perf_counter()
+            result = train.main(STORE_ARGV + ["--epochs", "1", "--checkpoint_dir", ck,
+                                              "--save_root", ck])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_counts()
+            for q_count in REPLACES:
+                got, f32 = fused_cross.LAUNCHES_BF16[q_count], fused_cross.LAUNCHES[q_count]
+                if got != 3 * per_epoch or f32:
+                    raise AssertionError(
+                        f"{dtype} store: {REPLACES_BF16[q_count][0]} launched {got} times "
+                        f"(expected 3 x {per_epoch} batches), the f32 instance {f32}")
+            launches[dtype] = dict(fused_cross.LAUNCHES_BF16)
+            (h,) = result["history"]
+            values = [h["train_loss"], h["train_mse_full"], h["train_mse_missing"],
+                      h["eval_mse_full"], h["test"]["full"]["mae"], h["test"]["missing"]["mae"]]
+            if not all(map(math.isfinite, values)):
+                raise AssertionError(f"{dtype} store: non-finite training log {h}")
+            print(f"cli.train --feature_dtype bfloat16 on the {dtype} store: one epoch of "
+                  f"{len(train_ds) // bs} steps at batch {bs} (+ eval {len(val_ds)} and test "
+                  f"{len(test_ds)} clips), {seconds!r} s host clock (model init and checkpoints "
+                  f"included), train_loss={h['train_loss']!r} test_mae_full="
+                  f"{h['test']['full']['mae']!r} {h['clips_per_sec']!r} clips/s; launches {counts}")
+
+            best = os.path.join(ck, "best_full.pt")
+            out = infer.main(STORE_ARGV + ["--checkpoint", best])
+            mae, logged = out["full"]["mae"], result["best_full"]["mae"]
+            print(f"  best_full.pt through cli.infer: test MAE {mae!r}, logged {logged!r} "
+                  f"(tolerance rtol={CKPT_MAE_RTOL}: the same kernels on the same batches)")
+            if abs(mae - logged) > CKPT_MAE_RTOL * abs(logged):
+                raise AssertionError(f"{dtype} store: the best checkpoint does not reproduce its MAE")
+
+            # the first eval batch's first rows (the batch's own t_max), card vs CPU
+            batch = next(iter(BatchIterator(test_ds, bs, shuffle=False,
+                                            buckets=cfg.data.length_buckets, prefetch=0)))
+            n = STORE_CPU_ROWS
+            rows = dataclasses.replace(
+                batch, **{k: getattr(batch, k)[:n] for k in ("audio", "text", "video", "feat4",
+                                                            "emos", "vals")},
+                lengths=batch.lengths[:, :n], names=batch.names[:n],
+                scales={k: v[:n] for k, v in batch.scales.items()} if batch.scales else None)
+            cpu = build_model(cfg, train_ds.input_dims(), torch.device("cpu"), best)
+            d_cpu = batch_to_device_dict(rows, "cpu", "bfloat16")
+            v0, v1 = make_eval_step(cpu)(d_cpu)
+            for view, ref, key in (("full", v0, "val_preds_full"),
+                                   ("missing", v1, "val_preds_missing")):
+                got = torch.from_numpy(out["results"][key][:n])
+                err = (got - ref).abs().max().item()
+                limit = BF16_REL * ref.abs().max().item()
+                print(f"  first eval batch, {n} rows, {view} view: cli.infer's predictions vs "
+                      f"CPU max abs diff {err!r}, {err / limit!r} of the tolerance {BF16_REL} x "
+                      f"max |pred| = {limit!r} (bf16 streams on both, summed in another order)")
+                if err > limit:
+                    raise AssertionError(f"{dtype} store, {view} view: card and CPU disagree")
+            # the text representations of the same rows, card vs CPU, and a
+            # control with the card's streams in f32 (the features widened
+            # exactly after the dequantisation), which the check must refuse
+            card = build_model(cfg, train_ds.input_dims(), torch.device("cuda"), best)
+            d_card = dequant_features(batch_to_device_dict(rows, "cuda", "bfloat16"))
+            d_wide = {k: v.float() if k in ("audio", "text", "video", "feat4") else v
+                      for k, v in d_card.items()}
+            ref = representations(torch, cpu, dequant_features(d_cpu))
+            errs = {}
+            for label, d in (("bf16 streams", d_card), ("f32-stream control", d_wide)):
+                got = representations(torch, card, d)
+                errs[label] = {k: ((got[k] - ref[k]).norm() / ref[k].norm()).item()
+                               for k in BF16_REP_KEYS}
+            del card, d_card, d_wide
+            print(f"  the same rows' text representations (both views), card vs CPU, relative "
+                  f"L2 error (tolerance {BF16_REP_L2}): {errs}")
+            if max(errs["bf16 streams"].values()) > BF16_REP_L2:
+                raise AssertionError(f"{dtype} store: card and CPU representations disagree")
+            if min(errs["f32-stream control"].values()) <= BF16_REP_L2:
+                raise AssertionError(f"{dtype} store: the f32-stream control passes the bf16 "
+                                     f"check, which so cannot tell them apart")
+
+        for dtype in STORE_DTYPES:
+            os.environ["SDUMC_DATA_DIR"] = roots[dtype]
+            store_step(torch, main_path_config(STORE_ARGV), dtype,
+                       "float32" if dtype == "float32" else "bfloat16")
+    finally:
+        if before is None:
+            os.environ.pop("SDUMC_DATA_DIR", None)
+        else:
+            os.environ["SDUMC_DATA_DIR"] = before
+    return launches
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3 with the kernels of the checkout at `root`, built from its
     own sources into its own build/kernels/; per-kernel totals."""
@@ -1832,8 +2180,8 @@ def main() -> int:
         print(f"phase {n} ({fn.__name__}): {time.perf_counter() - t!r} s")
         return result
 
-    totals = phase(2, kernel_phase, torch, fused_cross, fused_pool,
-                   main_path_lengths(main_path_config()))
+    lengths = main_path_lengths(main_path_config())
+    totals = phase(2, kernel_phase, torch, fused_cross, fused_pool, lengths)
     flash = phase(3, flash_phase, torch, flash_wavlm)
     infer_launches = phase(4, main_path_phase, torch, fused_cross)
     with tempfile.TemporaryDirectory() as work:
@@ -1848,6 +2196,8 @@ def main() -> int:
         phase(14, text_full_depth_phase, torch, llm_dir, rows)
         phase(15, visual_phase, torch, work)
         phase(16, manet_train_phase, torch, work)
+        bf16_totals = phase(17, bf16_kernel_phase, torch, fused_cross, fused_pool, lengths, totals)
+        store_launches = phase(18, store_phase, torch, fused_cross, work)
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():
@@ -1867,6 +2217,16 @@ def main() -> int:
         "bound_by": "operations" if flash["operations_ms"] >= flash["bytes_ms"] else "bytes",
         "library_ms": flash["library_ms"],
     })
+    for q_count, (name, replaces) in REPLACES_BF16.items():
+        tot = bf16_totals[q_count]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCE, "replaces": replaces,
+            "launches": store_launches["bfloat16"][q_count], "max_abs_err": tot["max_abs_err"],
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
+            "bound_by": ("operations" if tot["operations_ms"] >= tot["bytes_ms"]
+                         else "bytes"),
+            "library_ms": None,
+        })
     print("fused_cross / fused_pool times are per dual batch: the sum of the "
           "audio, text and video calls above; library_ms is null: no single "
           "PyTorch call computes tanh(x W^T + b) keys, the masked softmax and "
@@ -1877,9 +2237,14 @@ def main() -> int:
           "Launches are counted on each kernel's own path: cli.train for "
           "fused_cross / fused_pool (cli.infer: "
           f"{ {REPLACES[q][0]: n for q, n in infer_launches.items()} }), cli.extract audio "
-          "for flash_wavlm; max_abs_err is the forward's against the plain version")
+          "for flash_wavlm, cli.train --feature_dtype bfloat16 on the bf16 store for the "
+          "bf16 instances (the int8 store's run: "
+          f"{ {REPLACES_BF16[q][0]: n for q, n in store_launches['int8'].items()} }); "
+          "max_abs_err is "
+          "the forward's against the plain version")
     for name, tot in ((REPLACES[7][0], totals[7]), (REPLACES[1][0], totals[1]),
-                      (FLASH["name"], flash)):
+                      (FLASH["name"], flash), (REPLACES_BF16[7][0], bf16_totals[7]),
+                      (REPLACES_BF16[1][0], bf16_totals[1])):
         print(f"{name}: kernel_ms={tot['ms']!r} device_ms={tot['device_ms']!r} "
               f"grad_max_abs_err={tot.get('grad_max_abs_err')!r} "
               f"bound_ms={tot['bound_ms']!r} ({tot['ms'] and tot['bound_ms'] / tot['ms']:.1%} "

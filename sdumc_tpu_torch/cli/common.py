@@ -9,6 +9,7 @@ The port adds ``--device``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 
 import torch
 
@@ -35,7 +36,9 @@ def add_reference_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--feat_scale", type=int, default=1)
     p.add_argument("--feature_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="only float32 is ported so far; bfloat16 raises")
+                   help="bfloat16 casts f32 features to bf16 on the device and runs "
+                        "the fusion net's bf16 frame streams; a bf16 or int8 packed "
+                        "store runs them either way")
     # model
     p.add_argument("--model", type=str, default="wengnet_mosei_mult_views_text_missing")
     p.add_argument("--layers", type=str, default="256,128")
@@ -131,6 +134,21 @@ def resolve_device(name: str, index: int = 0) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass --device cpu to "
                            "run the plain PyTorch versions on the CPU")
     return torch.device("cuda", index)
+
+
+@contextlib.contextmanager
+def bf16_full_precision_reduction():
+    """Within it, cuBLAS's bf16 products reduce in f32 (torch's
+    ``allow_bf16_reduced_precision_reduction`` off), as the JAX package's
+    bf16 dots accumulate in f32; the setting is restored on exit, so other
+    entry points in the same process keep theirs."""
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_bf16_reduced_precision_reduction
+    flags.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = before
 
 
 def set_matmul_precision(precision: str) -> None:

@@ -6,14 +6,18 @@
     python -m sdumc_tpu_torch.cli.extract manet_train --data ...
     python -m sdumc_tpu_torch.cli.extract feat4 --llm_dir ... --projector_path ... \
         --wavlm_dir ... --save_dir ...
+    python -m sdumc_tpu_torch.cli.extract pack --src_dir ... --out_prefix ... \
+        [--dtype float32|bfloat16|int8]
 
-Five stages are ported: ``audio`` (WavLM, extract/audio.py), ``text``
+Six stages are ported: ``audio`` (WavLM, extract/audio.py), ``text``
 (the LLaMA family, extract/text.py), ``visual`` (MANet, extract/visual.py),
-``manet_train`` (MANet's RAF-DB trainer, extract/manet_train.py) and
-``feat4`` (the Vicuna pseudo-text decode, extract/llm4wav.py). The JAX
-package's other stages are still to port (ROADMAP queue 1): ``vision``
-(the other visual encoders), ``asr`` (ASR) and ``pack`` (bf16 streams and
-the int8 store).
+``manet_train`` (MANet's RAF-DB trainer, extract/manet_train.py),
+``feat4`` (the Vicuna pseudo-text decode, extract/llm4wav.py) and ``pack``
+(a directory of ``.npy`` features into one packed store, data/packed.py,
+that cli.train and cli.infer read when it sits in the features directory
+as ``{feature}.bin`` / ``.json``). The JAX package's other stages are
+still to port (ROADMAP queue 1): ``vision`` (the other visual encoders)
+and ``asr`` (ASR).
 """
 
 from __future__ import annotations
@@ -27,11 +31,11 @@ STAGES = {
     "visual": "sdumc_tpu_torch.extract.visual",
     "manet_train": "sdumc_tpu_torch.extract.manet_train",
     "feat4": "sdumc_tpu_torch.extract.llm4wav",
+    "pack": "sdumc_tpu_torch.data.packed",
 }
 NOT_PORTED = {
     "vision": "the other visual encoders",
     "asr": "ASR",
-    "pack": "bf16 streams and the int8 store",
 }
 
 

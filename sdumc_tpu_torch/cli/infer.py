@@ -3,7 +3,9 @@
 Loads a reference ``.pt`` checkpoint (or seeds the weights), runs both
 views over the test split, prints ``eval_mosei_metric`` for the full and
 the text-missing view, and with ``--savewhole`` dumps the 8 embedding
-streams. Runs on CUDA unless ``--device cpu`` is given.
+streams. Runs on CUDA unless ``--device cpu`` is given. Reads packed stores
+as cli.train does; ``--feature_dtype bfloat16``, a bf16 store or an int8
+store run the bf16 frame streams.
 
     python -m sdumc_tpu_torch.cli.infer --synthetic
 """
@@ -17,16 +19,18 @@ import numpy as np
 import torch
 
 from sdumc_tpu_torch.cli.common import (
-    add_reference_args, add_runtime_args, args_to_config, build_model,
-    resolve_device, set_matmul_precision)
+    add_reference_args, add_runtime_args, args_to_config, bf16_full_precision_reduction,
+    build_model, resolve_device, set_matmul_precision)
 
 
 def run_embedding_eval(model, dataset, cfg, device):
     """Eval pass that also harvests the embedding streams:
-    full/missing x {rep, rnc, text_query, text}."""
+    full/missing x {rep, rnc, text_query, text}. An int8 store's batches
+    are dequantised as the eval step does (the JAX package's pass does
+    not, and raises on an int8 store)."""
     from sdumc_tpu_torch.data.pipeline import BatchIterator
     from sdumc_tpu_torch.train.loop import _pad_partial
-    from sdumc_tpu_torch.train.step import batch_to_device_dict
+    from sdumc_tpu_torch.train.step import batch_to_device_dict, dequant_features
 
     # aux key -> (full-view stream, missing-view stream) in the dump
     streams = {"features": ("full_rep", "missing_rep"),
@@ -42,7 +46,7 @@ def run_embedding_eval(model, dataset, cfg, device):
                        pin_memory=device.type == "cuda")
     for batch in it:
         padded, n = _pad_partial(batch, cfg.data.batch_size)
-        d = batch_to_device_dict(padded, device)
+        d = dequant_features(batch_to_device_dict(padded, device, cfg.data.feature_dtype))
         ta, tt, tv, tf4 = d["t_max"]
         with torch.inference_mode():
             v0, a0 = model(d["audio"], d["text"], d["video"],
@@ -68,10 +72,6 @@ def main(argv=None):
     add_runtime_args(parser)
     args = parser.parse_args(argv)
     cfg = args_to_config(args)
-    if cfg.data.feature_dtype != "float32":
-        raise NotImplementedError(
-            "--feature_dtype bfloat16 is not ported yet: the bf16 frame "
-            "streams come in a later step; use float32")
     device = resolve_device(args.device, args.gpu)
     set_matmul_precision(cfg.model.matmul_precision)
 
@@ -84,14 +84,15 @@ def main(argv=None):
                                        synthetic=args.synthetic)
     model = build_model(cfg, train_ds.input_dims(), device, args.checkpoint)
 
-    if args.savewhole:
-        results = run_embedding_eval(model, test_ds, cfg, device)
-        os.makedirs(args.save_root, exist_ok=True)
-        save_path = os.path.join(args.save_root, "test_embeddings.npz")
-        np.savez_compressed(save_path, **{k: v for k, v in results.items() if k != "names"})
-        print(f"saved embeddings -> {save_path}")
-    else:
-        results = run_eval(make_eval_step(model), test_ds, cfg, device)
+    with bf16_full_precision_reduction():
+        if args.savewhole:
+            results = run_embedding_eval(model, test_ds, cfg, device)
+            os.makedirs(args.save_root, exist_ok=True)
+            save_path = os.path.join(args.save_root, "test_embeddings.npz")
+            np.savez_compressed(save_path, **{k: v for k, v in results.items() if k != "names"})
+            print(f"saved embeddings -> {save_path}")
+        else:
+            results = run_eval(make_eval_step(model), test_ds, cfg, device)
 
     m_full = eval_mosei_metric(results["val_preds_full"], results["val_labels"])
     m_missing = eval_mosei_metric(results["val_preds_missing"], results["val_labels"])

@@ -15,7 +15,10 @@ canonical ICASSP recipe ports by changing the module name:
         --text_query_feat_loss_w=0 --features_loss_w=0.13 --rnc_loss_w=0.5
 
 Runs on CUDA unless ``--device cpu`` is given; ``--synthetic`` runs without
-a dataset on disk. Checkpoints (``--checkpoint_dir``) are reference-format
+a dataset on disk. A packed store (``cli.extract pack``) in the features
+directory is read in place of the ``.npy`` directory of the same name;
+``--feature_dtype bfloat16``, a bf16 store or an int8 store run the fusion
+net's bf16 frame streams. Checkpoints (``--checkpoint_dir``) are reference-format
 ``.pt`` files; ``--resume`` takes a ``latest.pt``.
 """
 
@@ -26,8 +29,8 @@ import os
 import time
 
 from sdumc_tpu_torch.cli.common import (
-    add_reference_args, add_runtime_args, args_to_config, build_model, resolve_device,
-    set_matmul_precision)
+    add_reference_args, add_runtime_args, args_to_config, bf16_full_precision_reduction,
+    build_model, resolve_device, set_matmul_precision)
 
 
 def main(argv=None):
@@ -43,10 +46,6 @@ def main(argv=None):
     if args.multihost:
         raise NotImplementedError("--multihost is not ported yet (ROADMAP.md queue 1, "
                                   "multi-device)")
-    if cfg.data.feature_dtype != "float32":
-        raise NotImplementedError(
-            "--feature_dtype bfloat16 is not ported yet: the bf16 frame "
-            "streams come in a later step; use float32")
     device = resolve_device(args.device, args.gpu)
     set_matmul_precision(cfg.model.matmul_precision)
 
@@ -66,7 +65,8 @@ def main(argv=None):
           f"on {device}")
 
     t0 = time.time()
-    result = train(cfg, model, train_ds, eval_ds, test_ds, device, resume_from=args.resume)
+    with bf16_full_precision_reduction():
+        result = train(cfg, model, train_ds, eval_ds, test_ds, device, resume_from=args.resume)
     print(f">>>>> Finish: training duration {time.time() - t0:.1f}s >>>>>")
     print("best_test_full:", result["best_full"])
     print("best_test_missing:", result["best_missing"])

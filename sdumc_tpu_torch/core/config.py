@@ -58,7 +58,10 @@ class DataConfig:
     drop_too_long_train_clips: bool = True
     debug: bool = False              # truncate every split to 100 samples
     length_buckets: Tuple[int, ...] = (64, 128, 256, 512, 1024, 2048, 4096)
-    # only float32 so far; the bf16 feature streams are not ported yet
+    # frame features on the device: "bfloat16" casts f32 batches to bf16
+    # (round to nearest even) and so runs the fusion net's bf16 frame
+    # streams; a bf16 or int8 packed store gives bf16 streams either way.
+    # "float32" keeps the checkpoint-parity path.
     feature_dtype: str = "float32"
     shuffle_seed: int = 100          # train batches shuffle with (shuffle_seed, epoch)
 

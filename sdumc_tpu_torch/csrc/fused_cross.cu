@@ -45,9 +45,22 @@
 //    ring's 64 KB for the weighted sum, one column per thread.
 //  * 84 KB of shared memory and at most 128 registers a thread let 2 blocks
 //    share an SM.
+//
+// The bf16 instance (sdumc_fused_cross_bf16) is the same kernel with x read
+// as bf16 and the output rounded to bf16 (to nearest even), as the Pallas
+// kernel computes at bf16 x (out_shape takes x's dtype, :142): W, the bias,
+// the query, the keys, the scores, the softmax and the accumulator stay f32.
+// x's tiles are staged as bf16 (half the bytes of the f32 instance, 8 values
+// per 16-byte cp.async) and widened when a fragment or a column is read. A
+// bf16 value is exact in TF32 (7 stored mantissa bits against 10), so its
+// 3xTF32 split has lo = 0: the x_lo . W_hi pass is dropped and the key
+// projection issues 2 TF32 passes, with the same f32 sums as the three.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "tf32x3.cuh"
 
@@ -59,6 +72,8 @@ constexpr int kBT = 64;                // frames per tile
 constexpr int kKC = 16;                // input features per pipeline stage: two 8-wide steps
 constexpr int kCS = kKC + 8;           // row stride of a stage's x: a quarter warp's float2
                                        // loads (4 rows g, elements 2t) hit 32 banks
+constexpr int kCSb = kKC + 8;          // ... in bf16 elements (48 bytes): a warp's bf16 pair
+                                       // loads (8 rows g, words t) hit 32 banks
 constexpr int kWS = 2 * kKC;           // row stride of a stage's split W: 8 pairs of 4 floats
 constexpr int kChunks = kD / kKC;
 constexpr int kStages = 2;
@@ -80,7 +95,15 @@ constexpr size_t smem_floats() {
   return (size_t)ring_floats<QP>() + QP * kD + 3 * QP;
 }
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+template <typename TX>
+__host__ __device__ constexpr bool is_bf16() { return std::is_same<TX, __nv_bfloat16>::value; }
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
@@ -107,17 +130,22 @@ split_w_kernel(const float* __restrict__ w, float* __restrict__ w_split) {
 
 // Frames t0 .. t0 + 63 of x and every row of the split W, input features
 // 16c .. 16c + 15, into one ring stage; frames past `rows` are zero-filled.
+// x's rows sit at a stride of kCS floats (kCSb bf16 values for bf16 x).
 // In the stage, W row j's 8 pairs sit with pair q at q ^ 4 (j & 1), so the
 // two rows a quarter warp reads fall on distinct banks.
-__device__ __forceinline__ void load_stage(float* stage, const float* xb, const float* w_split,
+template <typename TX>
+__device__ __forceinline__ void load_stage(float* stage, const TX* xb, const float* w_split,
                                            int t0, int rows, int c, int tid) {
-  {
-    const int r = tid >> 2, q4 = tid & 3;
-    float* dst = stage + r * kCS + 4 * q4;
+  constexpr int kVec = 16 / sizeof(TX);        // x values per 16-byte copy
+  constexpr int kPerRow = kKC / kVec;          // copies per row of a stage
+  constexpr int kXS = is_bf16<TX>() ? kCSb : kCS;
+  if (tid < kBT * kPerRow) {
+    const int r = tid / kPerRow, v = tid % kPerRow;
+    TX* dst = reinterpret_cast<TX*>(stage) + r * kXS + kVec * v;
     if (r < rows)
-      cp_async16(dst, xb + (size_t)(t0 + r) * kD + kKC * c + 4 * q4);
+      cp_async16(dst, xb + (size_t)(t0 + r) * kD + kKC * c + kVec * v);
     else
-      *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
   }
   const int j0 = tid >> 3, q = tid & 7;
   float* ws = stage + kXC + j0 * kWS + 4 * (q ^ ((j0 & 1) << 2));
@@ -133,10 +161,10 @@ __device__ __forceinline__ int row_tiles(int tm, int T) {
   return (n_valid + kBT - 1) / kBT;
 }
 
-template <int QP>
+template <int QP, typename TX>
 __global__ void __launch_bounds__(kThreads, 2)
 cross_partial_kernel(const float* __restrict__ q, long long q_bstride,
-                     const float* __restrict__ x,
+                     const TX* __restrict__ x,
                      const float* __restrict__ w_split,
                      const float* __restrict__ bias,
                      const int* __restrict__ tmax, int tmax_scalar,
@@ -175,8 +203,9 @@ cross_partial_kernel(const float* __restrict__ q, long long q_bstride,
   const int wc = warp >> 1;              // ... and key columns 64 wc .. 64 wc + 63
   const int wn = 64 * wc;
 
-  const float* xb = x + (size_t)b * T * kD;
+  const TX* xb = x + (size_t)b * T * kD;
   const float* qb = q + (size_t)b * q_bstride;
+  TX* x_tile = reinterpret_cast<TX*>(ring);  // [64][256] for the weighted sum
   for (int i = tid; i < QP * kD; i += kThreads) q_s[i] = i < Q * kD ? qb[i] : 0.f;
   if (tid < QP) {
     m_s[tid] = -INFINITY;
@@ -219,9 +248,22 @@ cross_partial_kernel(const float* __restrict__ q, long long q_bstride,
           uint32_t ah[2][4], al[2][4];   // [m tile][fragment] of step s
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi) {
-            const float* xr = xs + (wm + 16 * mi + g) * kCS + 8 * s + 2 * t;
-            tf32x3::split_a(*reinterpret_cast<const float2*>(xr),
-                            *reinterpret_cast<const float2*>(xr + 8 * kCS), ah[mi], al[mi]);
+            if constexpr (is_bf16<TX>()) {
+              // a bf16 value widened to f32 is its own TF32 hi; lo = 0
+              const __nv_bfloat16* xr = reinterpret_cast<const __nv_bfloat16*>(xs) +
+                                        (wm + 16 * mi + g) * kCSb + 8 * s + 2 * t;
+              const float2 x0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr));
+              const float2 x1 =
+                  __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(xr + 8 * kCSb));
+              ah[mi][0] = __float_as_uint(x0.x);
+              ah[mi][1] = __float_as_uint(x1.x);
+              ah[mi][2] = __float_as_uint(x0.y);
+              ah[mi][3] = __float_as_uint(x1.y);
+            } else {
+              const float* xr = xs + (wm + 16 * mi + g) * kCS + 8 * s + 2 * t;
+              tf32x3::split_a(*reinterpret_cast<const float2*>(xr),
+                              *reinterpret_cast<const float2*>(xr + 8 * kCS), ah[mi], al[mi]);
+            }
           }
           // pair 4s + t of W row wn + 8 ni + g (the row's parity is g's)
           const float* wr = ws + (wn + g) * kWS + 4 * ((4 * s + t) ^ ((g & 1) << 2));
@@ -229,24 +271,31 @@ cross_partial_kernel(const float* __restrict__ q, long long q_bstride,
           for (int ni = 0; ni < 8; ++ni) {
             const uint4 f = *reinterpret_cast<const uint4*>(wr + 8 * ni * kWS);
 #pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-              tf32x3::mma3(acc[mi][ni], ah[mi], al[mi], f.x, f.y, f.z, f.w);
+            for (int mi = 0; mi < 2; ++mi) {
+              if constexpr (is_bf16<TX>()) {
+                tf32x3::mma(acc[mi][ni], ah[mi], f.z, f.w);   // x . W_lo, then x . W_hi
+                tf32x3::mma(acc[mi][ni], ah[mi], f.x, f.y);
+              } else {
+                tf32x3::mma3(acc[mi][ni], ah[mi], al[mi], f.x, f.y, f.z, f.w);
+              }
+            }
           }
         }
       }
       __syncthreads();  // every warp is done with the ring
     }
 
-    // stage the f32 x tile again for the weighted sum; it lands during the scores
+    // stage the x tile again for the weighted sum; it lands during the scores
+    constexpr int kVec = 16 / sizeof(TX);
 #pragma unroll
-    for (int k = 0; k < kBT * kD / 4 / kThreads; ++k) {
+    for (int k = 0; k < kBT * kD / kVec / kThreads; ++k) {
       const int i = tid + k * kThreads;
-      const int r = i / (kD / 4), c4 = i % (kD / 4);
-      float* dst = ring + r * kD + 4 * c4;
+      const int r = i / (kD / kVec), cv = i % (kD / kVec);
+      TX* dst = x_tile + r * kD + kVec * cv;
       if (r < rows)
-        cp_async16(dst, xb + (size_t)(t0 + r) * kD + 4 * c4);
+        cp_async16(dst, xb + (size_t)(t0 + r) * kD + kVec * cv);
       else
-        *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
     cp_async_commit();
 
@@ -349,8 +398,8 @@ cross_partial_kernel(const float* __restrict__ q, long long q_bstride,
 #pragma unroll
     for (int j = 0; j < QP; ++j) acc_out[j] *= a_s[j];
     for (int r = 0; r < rows; r += 4) {
-      const float x0 = ring[r * kD + tid], x1 = ring[(r + 1) * kD + tid];
-      const float x2 = ring[(r + 2) * kD + tid], x3 = ring[(r + 3) * kD + tid];
+      const float x0 = widen(x_tile[r * kD + tid]), x1 = widen(x_tile[(r + 1) * kD + tid]);
+      const float x2 = widen(x_tile[(r + 2) * kD + tid]), x3 = widen(x_tile[(r + 3) * kD + tid]);
 #pragma unroll
       for (int j = 0; j < QP; ++j) {
         const float4 pw = *reinterpret_cast<const float4*>(s_s + j * kBT + r);
@@ -371,13 +420,13 @@ cross_partial_kernel(const float* __restrict__ q, long long q_bstride,
 
 // out[b, q, d] = sum_s e^(m_s - M) acc_s[d] / sum_s e^(m_s - M) l_s, over
 // the splits that hold a tile of row b (split 0 always does).
-template <int QP>
+template <int QP, typename TX>
 __global__ void __launch_bounds__(kThreads)
 cross_combine_kernel(const float* __restrict__ m_part,
                      const float* __restrict__ l_part,
                      const float* __restrict__ acc_part,
                      const int* __restrict__ tmax, int tmax_scalar,
-                     float* __restrict__ out, int Q, int T, int nsplit) {
+                     TX* __restrict__ out, int Q, int T, int nsplit) {
   const int b = blockIdx.x;
   const int j = blockIdx.y;
   const int d = threadIdx.x;
@@ -394,35 +443,50 @@ cross_combine_kernel(const float* __restrict__ m_part,
     l = fmaf(e, l_part[row], l);
     a = fmaf(e, acc_part[row * kD + d], a);
   }
-  out[((size_t)b * Q + j) * kD + d] = a / l;
+  store_out(out + ((size_t)b * Q + j) * kD + d, a / l);
 }
 
-template <int QP>
-cudaError_t launch(const float* q, long long q_bstride, const float* x,
+template <int QP, typename TX>
+cudaError_t launch(const float* q, long long q_bstride, const TX* x,
                    const float* w, const float* bias, const int* tmax,
-                   int tmax_scalar, float* out, float* m_part, float* l_part,
+                   int tmax_scalar, TX* out, float* m_part, float* l_part,
                    float* acc_part, float* w_split, int B, int Q, int T, int nsplit,
                    float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats<QP>();
   cudaError_t err = cudaFuncSetAttribute(
-      cross_partial_kernel<QP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cross_partial_kernel<QP, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cross_partial_kernel<QP>,
+    err = cudaFuncSetAttribute(cross_partial_kernel<QP, TX>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   split_w_kernel<<<kD, kD / 2, 0, stream>>>(w, w_split);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cross_partial_kernel<QP><<<dim3(nsplit, B), kThreads, smem, stream>>>(
+  cross_partial_kernel<QP, TX><<<dim3(nsplit, B), kThreads, smem, stream>>>(
       q, q_bstride, x, w_split, bias, tmax, tmax_scalar, Q, T, nsplit, scale,
       m_part, l_part, acc_part);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  cross_combine_kernel<QP><<<dim3(B, Q), kThreads, 0, stream>>>(
+  cross_combine_kernel<QP, TX><<<dim3(B, Q), kThreads, 0, stream>>>(
       m_part, l_part, acc_part, tmax, tmax_scalar, out, Q, T, nsplit);
   return cudaGetLastError();
+}
+
+template <typename TX>
+int dispatch(const float* q, long long q_bstride, const TX* x, const float* w,
+             const float* bias, const int* tmax, int tmax_scalar, TX* out, float* m_part,
+             float* l_part, float* acc_part, float* w_split, int B, int Q, int T, int D,
+             int nsplit, float scale, void* stream) {
+  if (B < 1 || T < 1 || Q < 1 || Q > 8 || D != kD || nsplit < 1 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Q == 1)
+    return (int)launch<1, TX>(q, q_bstride, x, w, bias, tmax, tmax_scalar, out,
+                              m_part, l_part, acc_part, w_split, B, Q, T, nsplit, scale, s);
+  return (int)launch<8, TX>(q, q_bstride, x, w, bias, tmax, tmax_scalar, out,
+                            m_part, l_part, acc_part, w_split, B, Q, T, nsplit, scale, s);
 }
 
 }  // namespace
@@ -441,14 +505,20 @@ int sdumc_fused_cross(const float* q, long long q_bstride, const float* x,
                       int tmax_scalar, float* out, float* m_part,
                       float* l_part, float* acc_part, float* w_split, int B, int Q,
                       int T, int D, int nsplit, float scale, void* stream) {
-  if (B < 1 || T < 1 || Q < 1 || Q > 8 || D != kD || nsplit < 1 || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Q == 1)
-    return (int)launch<1>(q, q_bstride, x, w, bias, tmax, tmax_scalar, out,
-                          m_part, l_part, acc_part, w_split, B, Q, T, nsplit, scale, s);
-  return (int)launch<8>(q, q_bstride, x, w, bias, tmax, tmax_scalar, out,
-                        m_part, l_part, acc_part, w_split, B, Q, T, nsplit, scale, s);
+  return dispatch<float>(q, q_bstride, x, w, bias, tmax, tmax_scalar, out, m_part, l_part,
+                         acc_part, w_split, B, Q, T, D, nsplit, scale, stream);
+}
+
+// The bf16 instance: x and out are bf16 ([B, T, D] and [B, Q, D]); every
+// other argument as above.
+int sdumc_fused_cross_bf16(const float* q, long long q_bstride, const void* x,
+                           const float* w, const float* bias, const int* tmax,
+                           int tmax_scalar, void* out, float* m_part,
+                           float* l_part, float* acc_part, float* w_split, int B, int Q,
+                           int T, int D, int nsplit, float scale, void* stream) {
+  return dispatch<__nv_bfloat16>(q, q_bstride, static_cast<const __nv_bfloat16*>(x), w, bias,
+                                 tmax, tmax_scalar, static_cast<__nv_bfloat16*>(out), m_part,
+                                 l_part, acc_part, w_split, B, Q, T, D, nsplit, scale, stream);
 }
 
 const char* sdumc_cuda_error_string(int err) {

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -53,7 +53,11 @@ def bucket_for(length: int, buckets: Sequence[int]) -> int:
 
 @dataclasses.dataclass
 class Batch:
-    """One host batch, every array padded to its bucket."""
+    """One host batch, every array padded to its bucket.
+
+    The four feature arrays are float32, or a packed store's payload
+    (data/packed.py): uint16 bf16 bit patterns, or int8 codes with their
+    per-clip per-channel ``scales``."""
 
     audio: np.ndarray   # [B, Ta_bucket, Da]
     text: np.ndarray    # [B, Tt_bucket, Dt]
@@ -67,6 +71,9 @@ class Batch:
     # the page-locked torch tensors that own audio/text/video/feat4 when the
     # batch was collated into them (BatchIterator pin_memory), else empty
     pinned: tuple = ()
+    # int8 store only: {"audio": [B, Da] f32, ...} per-clip per-channel
+    # scales; the steps dequantise on the device (train/step.py)
+    scales: Optional[dict] = None
 
     @property
     def size(self) -> int:

@@ -1,12 +1,15 @@
 """Host input pipeline: dataset assembly, batching, background prefetch.
 
-One pipeline that reads lazily (npy or synthetic), shuffles per epoch with
-a seeded RNG, emits bucketed ``Batch``es (collate.py) and prefetches them
-on a background thread.
+One pipeline that reads lazily (a packed store, npy or synthetic),
+shuffles per epoch with a seeded RNG, emits bucketed ``Batch``es
+(collate.py) and prefetches them on a background thread. When every source
+is a packed store (data/packed.py) and ``--feat_scale`` is 1, batches come
+straight from the blobs in the store's dtype, lengths from the index.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Dict, Iterator, List, Sequence
@@ -15,26 +18,39 @@ import numpy as np
 
 from sdumc_tpu_torch.core.config import DataConfig, PathsConfig
 from sdumc_tpu_torch.core.registry import DATASETS
-from sdumc_tpu_torch.data.collate import Batch, make_batch, scale_compress
+from sdumc_tpu_torch.data.collate import Batch, bucket_for, make_batch, scale_compress
 from sdumc_tpu_torch.data.feature_store import NpyDirSource, SyntheticSource, stable_seed
 from sdumc_tpu_torch.data.labels import read_names_labels
+from sdumc_tpu_torch.data.packed import PackedSource, batch_scales, fill_batch_from_packed
+
+MODALITIES = ("audio", "text", "video", "feat4")
+
+
+def _pinned_alloc(owners: list):
+    """alloc(shape, dtype) of zeroed page-locked buffers; each owning torch
+    tensor is appended to `owners`, so that a copy to a card reads memory
+    that torch's host allocator tracks (a numpy view seen through
+    torch.from_numpy is not tracked, and could be handed out again while
+    the copy still reads it). uint16 (bf16 bit patterns) is owned by a bf16
+    tensor."""
+    import torch
+
+    def alloc(shape, dtype=np.float32):
+        dtype = np.dtype(dtype)
+        if dtype == np.uint16:
+            owners.append(torch.zeros(shape, dtype=torch.bfloat16, pin_memory=True))
+            return owners[-1].view(torch.int16).numpy().view(np.uint16)
+        owners.append(torch.zeros(shape, dtype=torch.from_numpy(np.zeros(0, dtype)).dtype,
+                                  pin_memory=True))
+        return owners[-1].numpy()
+
+    return alloc
 
 
 def _make_pinned_batch(*args, **kw) -> Batch:
-    """make_batch into page-locked buffers; the Batch keeps the torch tensors
-    that own them, so that a copy to a card reads from memory that torch's
-    host allocator tracks (a numpy view seen through torch.from_numpy is
-    not tracked, and could be handed out again while the copy still reads
-    it)."""
-    import torch
-
+    """make_batch into page-locked buffers that the Batch keeps."""
     owners = []
-
-    def alloc(shape):
-        owners.append(torch.zeros(shape, dtype=torch.float32, pin_memory=True))
-        return owners[-1].numpy()
-
-    batch = make_batch(*args, alloc=alloc, **kw)
+    batch = make_batch(*args, alloc=_pinned_alloc(owners), **kw)
     batch.pinned = tuple(owners)
     return batch
 
@@ -101,12 +117,48 @@ class BatchIterator:
             np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
         return idx
 
+    def _packed_usable(self) -> bool:
+        return self.ds.feat_scale <= 1 and all(
+            isinstance(s, PackedSource) for s in self.ds.sources.values())
+
+    def _packed_batch(self, chunk) -> Batch:
+        """A batch straight out of the packed blobs, in the store's dtype:
+        lengths from the index, t_max = min(batch max, last bucket), and the
+        per-clip scales of an int8 store."""
+        names = [self.ds.names[int(i)] for i in chunk]
+        owners = []
+        alloc = _pinned_alloc(owners) if self.pin_memory else None
+        mats, t_max, lengths, scales = {}, [], [], {}
+        for key in MODALITIES:
+            src = self.ds.sources[key]
+            lens = src.lengths_for(names)
+            tm = int(min(lens.max(), self.buckets[-1]))
+            mats[key], _ = fill_batch_from_packed(src, names, bucket_for(tm, self.buckets),
+                                                  src.dim, alloc=alloc)
+            if src.dtype_name == "int8":
+                scales[key] = batch_scales(src, names, src.dim)
+            t_max.append(tm)
+            lengths.append(np.minimum(lens, self.buckets[-1]))
+        labels = [self.ds.labels[int(i)] for i in chunk]
+        return Batch(
+            audio=mats["audio"], text=mats["text"], video=mats["video"],
+            feat4=mats["feat4"], t_max=tuple(t_max),
+            lengths=np.array(lengths, np.int32),
+            emos=np.array([lab.get("emo", 0.0) for lab in labels], np.float32),
+            vals=np.array([lab.get("val", 0.0) for lab in labels], np.float32),
+            names=names, pinned=tuple(owners), scales=scales or None,
+        )
+
     def _batches(self) -> Iterator[Batch]:
         idx = self._order()
+        use_packed = self._packed_usable()
         for s in range(0, len(idx), self.bs):
             chunk = idx[s : s + self.bs]
             if self.drop_remainder and len(chunk) < self.bs:
                 return
+            if use_packed:
+                yield self._packed_batch(chunk)
+                continue
             feats, emos, vals, names = [], [], [], []
             for i in chunk:
                 f, e, v, n = self.ds.example(int(i))
@@ -172,7 +224,16 @@ def build_sources(cfg: DataConfig, paths: PathsConfig, synthetic: bool = False,
             k: SyntheticSource(v, regimes[k][0], regimes[k][1], regimes[k][2])
             for k, v in names.items()
         }
-    return {k: NpyDirSource(paths.features_dir, v) for k, v in names.items()}
+
+    def source(feature_name: str):
+        # a packed store ({name}.bin + {name}.json, cli.extract pack) wins
+        # over the .npy directory of the same name
+        prefix = os.path.join(paths.features_dir, feature_name)
+        if os.path.exists(prefix + ".bin") and os.path.exists(prefix + ".json"):
+            return PackedSource(prefix, feature_name)
+        return NpyDirSource(paths.features_dir, feature_name)
+
+    return {k: source(v) for k, v in names.items()}
 
 
 def build_loaders(cfg: DataConfig, paths: PathsConfig, *, synthetic: bool = False,

@@ -18,6 +18,15 @@ In training mode the dropouts sit where the JAX model puts them: frame
 dropout on the frame stream before each of the six ops, dropout on the
 pooled vectors, on the cross-attention outputs and after every MLP ReLU.
 They draw from the generator that ``models.layers.use_generator`` sets.
+
+bf16 frame streams (the compute dtype follows the audio features', so bf16
+features from the production store or ``--feature_dtype bfloat16`` give
+bf16 streams): the three input projections and the query projections compute in
+bf16 with f32 parameters, every ``[B, T, d]`` stream is bf16, and the six
+frame-attention ops take the kernel's bf16 instance (f32 keys, scores and
+softmax, bf16 output). The pooled and cross-attention outputs go back to
+f32 at the MLPs that take them, as JAX's f32 MLPs promote them; everything
+from there on is f32.
 """
 
 from __future__ import annotations
@@ -56,6 +65,7 @@ class FRA2UTTNew(nn.Module):
         self.dropout = Dropout(dropout)
 
     def forward(self, x, t_max=None):
+        """Pooled [B, D] in x's dtype."""
         x = self.frame_dropout(x)
         pooled = fused_attention_pool(
             x, self.input_proj.weight, self.input_proj.bias,
@@ -76,9 +86,11 @@ class CrossAttention(nn.Module):
         self.frame_dropout = FrameDropout(dropout)
         self.dropout = Dropout(dropout)
 
-    def forward(self, query, x, t_max=None):
+    def forward(self, query, x, t_max=None, dtype: Optional[torch.dtype] = None):
+        """[B, 7, D] in x's dtype; the query projection computes in
+        ``dtype`` (None: the parameters' dtype)."""
         x = self.frame_dropout(x)
-        q = self.query_proj(query)
+        q = self.query_proj(query, dtype)
         out = fused_cross_attention(
             q, x, self.input_proj.weight, self.input_proj.bias, t_max,
             self.softmax_scale)
@@ -164,6 +176,10 @@ class SDUMCFusion(nn.Module):
         """
         cfg = self.cfg
         ta, tt, tv = t_max if t_max is not None else (None, None, None)
+        # frame-stream compute dtype follows the audio features': None (the
+        # parameters' dtype) for f32 features, bf16 for bf16 ones
+        pdt = self.fc_att.weight.dtype
+        cdt = None if audio.dtype == pdt else audio.dtype
 
         if dual:
             if cfg.use_imagination:
@@ -173,25 +189,25 @@ class SDUMCFusion(nn.Module):
             text_gt, text_ps = text
             tt_gt, tt_ps = tt
             B = audio.shape[0]
-            tf_gt = self.frame_dim_reshape_1(text_gt)
-            tf_ps = self.frame_dim_reshape_1(text_ps)
+            tf_gt = self.frame_dim_reshape_1(text_gt, cdt)
+            tf_ps = self.frame_dim_reshape_1(text_ps, cdt)
             T_t = max(tf_gt.shape[1], tf_ps.shape[1])
             text_f = torch.cat([F.pad(z, (0, 0, 0, T_t - z.shape[1]))
                                 for z in (tf_gt, tf_ps)])
             tt = _row_lengths(tt_gt, tt_ps, B, audio.device)
-            audio_f = self.frame_dim_reshape_0(audio)
-            video_f = self.frame_dim_reshape_2(video)
+            audio_f = self.frame_dim_reshape_0(audio, cdt)
+            video_f = self.frame_dim_reshape_2(video, cdt)
             audio_f = torch.cat([audio_f, audio_f])
             video_f = torch.cat([video_f, video_f])
         else:
-            audio_f = self.frame_dim_reshape_0(audio)
-            text_f = self.frame_dim_reshape_1(text)
-            video_f = self.frame_dim_reshape_2(video)
+            audio_f = self.frame_dim_reshape_0(audio, cdt)
+            text_f = self.frame_dim_reshape_1(text, cdt)
+            video_f = self.frame_dim_reshape_2(video, cdt)
 
-        # frame -> utterance pooling
-        audio_pre = self.fra2utt_0(audio_f, ta)
-        text_pre = self.fra2utt_1(text_f, tt)
-        video_pre = self.fra2utt_2(video_f, tv)
+        # frame -> utterance pooling; back to the parameters' dtype for the MLPs
+        audio_pre = self.fra2utt_0(audio_f, ta).to(pdt)
+        text_pre = self.fra2utt_1(text_f, tt).to(pdt)
+        video_pre = self.fra2utt_2(video_f, tv).to(pdt)
 
         audio_hidden = self.audio_mlp(audio_pre)
         text_hidden = self.text_mlp(text_pre)
@@ -222,9 +238,12 @@ class SDUMCFusion(nn.Module):
         ], dim=1)                                                       # [B, 7, d]
 
         # cross attention back over each modality's frames
-        cross_audio = self.cross_audio_mlp(self.cross_att_fra2utt_0(multi_query, audio_f, ta))
-        cross_text = self.cross_text_mlp(self.cross_att_fra2utt_1(multi_query, text_f, tt))
-        cross_video = self.cross_video_mlp(self.cross_att_fra2utt_2(multi_query, video_f, tv))
+        cross_audio = self.cross_audio_mlp(
+            self.cross_att_fra2utt_0(multi_query, audio_f, ta, cdt).to(pdt))
+        cross_text = self.cross_text_mlp(
+            self.cross_att_fra2utt_1(multi_query, text_f, tt, cdt).to(pdt))
+        cross_video = self.cross_video_mlp(
+            self.cross_att_fra2utt_2(multi_query, video_f, tv, cdt).to(pdt))
         if cfg.use_imagination and missing:
             cross_text = self.missing_cross_text_query_imagination_mlp(
                 cross_audio, cross_text, cross_video)

@@ -14,11 +14,18 @@ import math
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
 class Linear(nn.Linear):
-    """nn.Linear whose init draws from `generator`."""
+    """nn.Linear whose init draws from `generator`.
+
+    ``forward(x, dtype)`` computes in ``dtype`` when one is given (the bf16
+    frame streams): the parameters stay f32 and are cast per call, and the
+    product is rounded to ``dtype`` before the bias is added, as flax's
+    ``Dense(dtype=...)`` rounds (a fused bias would round once, and part
+    from it); ``dtype=None`` is nn.Linear."""
 
     def __init__(self, in_features: int, out_features: int,
                  generator: Optional[torch.Generator] = None):
@@ -31,6 +38,11 @@ class Linear(nn.Linear):
         with torch.no_grad():
             self.weight.uniform_(-bound, bound, generator=generator)
             self.bias.uniform_(-bound, bound, generator=generator)
+
+    def forward(self, x, dtype: Optional[torch.dtype] = None):
+        if dtype is None:
+            return F.linear(x, self.weight, self.bias)
+        return F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
 
 
 class _RandomDrop(nn.Module):
@@ -54,7 +66,10 @@ class _RandomDrop(nn.Module):
             raise RuntimeError("dropout in training mode draws from the train step's "
                                "generator; set one with models.layers.use_generator")
         keep, keep_p = self._keep(x)
-        return torch.where(keep, x * (1.0 / keep_p), 0.0)
+        scale = 1.0 / keep_p
+        if x.dtype != torch.float32:     # scale in x's dtype, as the JAX layers do
+            scale = torch.tensor(scale, dtype=x.dtype).item()
+        return torch.where(keep, x * scale, 0.0)
 
     def _keep(self, x):
         """(bool keep mask shaped like x, probability of keeping)."""

@@ -13,6 +13,12 @@ online softmax and the weighted sum; its header says what bounds it on an
 H100 and how the design answers. A tensor on the CPU takes the plain version
 below; a tensor on the card takes the kernel or raises.
 
+``x`` is f32, or bf16 (the production store's frame streams): the bf16
+instance reads x as bf16, keeps W, the bias, the keys, the scores and the
+softmax in f32, and rounds the output to bf16, as the Pallas kernel does at
+bf16 x. Its plain version is the f32 formula on the widened inputs, rounded
+to x's dtype at the end.
+
 The gradient is the JAX package's: its ``custom_vjp`` recomputes the
 forward through the einsum formulation and differentiates that, so no
 backward kernel exists there either. Here ``Recomputed`` saves the
@@ -33,9 +39,11 @@ import torch.nn.functional as F
 from sdumc_tpu_torch.ops.kernels import build, check_operand
 from sdumc_tpu_torch.ops.masking import mask_time_scores
 
-# Kernel launches by query count (7: CrossAttention, 1: FRA2UTTNew pool).
-# A launch of the kernel pair counts once; the plain version counts nothing.
+# Kernel launches by query count (7: CrossAttention, 1: FRA2UTTNew pool), of
+# the f32 instance and of the bf16 instance. A launch of the kernel pair
+# counts once; the plain version counts nothing.
 LAUNCHES: Dict[int, int] = {1: 0, 7: 0}
+LAUNCHES_BF16: Dict[int, int] = {1: 0, 7: 0}
 
 KERNEL_D = 256                   # the kernel's compile-time feature width
 _TILE_T = 64                     # frames per tile in the kernel
@@ -43,14 +51,19 @@ _sm_count: Dict[int, int] = {}
 
 
 def reset_launches() -> None:
-    for q in LAUNCHES:
-        LAUNCHES[q] = 0
+    for counts in (LAUNCHES, LAUNCHES_BF16):
+        for q in counts:
+            counts[q] = 0
 
 
 def fused_cross_attention_plain(q, x, weight, bias, t_max=None,
                                 softmax_scale: float = 0.3):
     """The einsum formulation, with per-row masking: the CPU path and the
-    kernel's oracle."""
+    kernel's oracle. A bf16 x computes in f32 on the widened inputs and
+    rounds the output to bf16."""
+    if x.dtype == torch.bfloat16:
+        return fused_cross_attention_plain(q.float(), x.float(), weight.float(), bias.float(),
+                                           t_max, softmax_scale).to(x.dtype)
     k = torch.tanh(F.linear(x, weight, bias))
     scores = torch.einsum("btd,bqd->btq", k, q)
     scores = mask_time_scores(softmax_scale * scores, t_max, axis=1)
@@ -111,12 +124,12 @@ def _kernel(q, x, weight, bias, t_max, softmax_scale):
 
 def _lib() -> ctypes.CDLL:
     lib = build.load("fused_cross")
-    fn = lib.sdumc_fused_cross
-    if fn.argtypes is None:
+    if lib.sdumc_cuda_error_string.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, i, p, p, p, p, p,
-                       i, i, i, i, i, ctypes.c_float, p]
-        fn.restype = ctypes.c_int
+        for fn in (lib.sdumc_fused_cross, lib.sdumc_fused_cross_bf16):
+            fn.argtypes = [p, ctypes.c_longlong, p, p, p, p, i, p, p, p, p, p,
+                           i, i, i, i, i, ctypes.c_float, p]
+            fn.restype = ctypes.c_int
         lib.sdumc_cuda_error_string.argtypes = [i]
         lib.sdumc_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -137,8 +150,10 @@ def _splits(device: torch.device, B: int, T: int) -> int:
 
 
 def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
-    """Run the kernel on the card. ``q`` is [B, Q, D], or [Q, D] shared by
-    every row when ``q_batched`` is False."""
+    """Run the kernel on the card: the f32 instance for an f32 ``x``, the
+    bf16 instance for a bf16 one (the output takes x's dtype). ``q`` is
+    [B, Q, D], or [Q, D] shared by every row when ``q_batched`` is False;
+    a bf16 ``q`` is widened to f32 here (exact)."""
     if x.device.type != "cuda":
         raise ValueError(f"the fused kernel runs on a CUDA device, x is on {x.device}")
     if x.dim() != 3:
@@ -149,7 +164,10 @@ def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
         raise ValueError(f"the kernel takes D = {KERNEL_D} (the fusion net's "
                          f"width) and 1 <= Q <= 8, got D={D}, Q={Q}")
     dev = x.device
-    check_operand("x", x, (B, T, D), dev)
+    check_operand("x", x, (B, T, D), dev, (torch.float32, torch.bfloat16))
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and q.dtype == torch.bfloat16:
+        q = q.float()
     check_operand("q", q, (B, Q, D) if q_batched else (Q, D), dev)
     check_operand("weight", weight, (D, D), dev)
     check_operand("bias", bias, (D,), dev)
@@ -171,7 +189,7 @@ def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
 
     qp = 1 if Q == 1 else 8
     nsplit = _splits(dev, B, T)
-    out = torch.empty((B, Q, D), dtype=torch.float32, device=dev)
+    out = torch.empty((B, Q, D), dtype=x.dtype, device=dev)
     m_part = torch.empty(B * nsplit * qp, dtype=torch.float32, device=dev)
     l_part = torch.empty_like(m_part)
     acc_part = torch.empty(B * nsplit * qp * D, dtype=torch.float32, device=dev)
@@ -179,7 +197,8 @@ def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.sdumc_fused_cross(
+        entry = lib.sdumc_fused_cross_bf16 if bf16 else lib.sdumc_fused_cross
+        err = entry(
             q.data_ptr(), Q * D if q_batched else 0, x.data_ptr(),
             weight.data_ptr(), bias.data_ptr(), tmax_ptr, tmax_scalar,
             out.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
@@ -189,5 +208,6 @@ def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
     if err:
         raise RuntimeError("fused_cross kernel launch failed: "
                            + lib.sdumc_cuda_error_string(err).decode())
-    LAUNCHES[Q] = LAUNCHES.get(Q, 0) + 1
+    counts = LAUNCHES_BF16 if bf16 else LAUNCHES
+    counts[Q] = counts.get(Q, 0) + 1
     return out

@@ -10,13 +10,16 @@ context vector as the single query:
 
 On the card this is ``csrc/fused_cross.cu`` instantiated for one query, with
 the context vector shared by every row (no broadcast copy). The launch
-counts under ``fused_cross.LAUNCHES[1]``. A tensor on the CPU takes the plain
+counts under ``fused_cross.LAUNCHES[1]`` (``LAUNCHES_BF16[1]`` for a bf16
+``x``, whose pooled output is bf16). A tensor on the CPU takes the plain
 version. The gradient recomputes the plain version, as for the Q = 7 case
 (``fused_cross.Recomputed``); the shared context's gradient is summed over
 the rows.
 """
 
 from __future__ import annotations
+
+import torch
 
 from sdumc_tpu_torch.ops.attention_pool import attention_pool
 from sdumc_tpu_torch.ops.kernels import fused_cross
@@ -25,7 +28,11 @@ from sdumc_tpu_torch.ops.kernels import fused_cross
 def fused_attention_pool_plain(x, weight, bias, context, t_max=None,
                                softmax_scale: float = 0.3):
     """The einsum formulation (ops/attention_pool.py): the CPU path and the
-    kernel's oracle."""
+    kernel's oracle. A bf16 x computes in f32 on the widened inputs and
+    rounds the output to bf16."""
+    if x.dtype == torch.bfloat16:
+        return fused_attention_pool_plain(x.float(), weight.float(), bias.float(),
+                                          context.float(), t_max, softmax_scale).to(x.dtype)
     return attention_pool(x, weight, bias, context,
                           softmax_scale=softmax_scale, t_max=t_max)[0]
 

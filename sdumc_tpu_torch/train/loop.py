@@ -32,7 +32,10 @@ from sdumc_tpu_torch.train.step import batch_to_device_dict, make_eval_step, mak
 
 def _pad_partial(batch, bs):
     """Repeat-pad a partial eval batch to the batch size (rows are
-    independent in eval; preds are sliced back on the host)."""
+    independent in eval; preds are sliced back on the host). An int8
+    store's scales are padded with their rows (the JAX package's
+    ``_pad_partial`` leaves them, and its eval over such a store fails
+    for a last batch of 2 to bs - 1 clips)."""
     n = batch.size
     if n == bs:
         return batch, n
@@ -47,6 +50,7 @@ def _pad_partial(batch, bs):
         feat4=pad(batch.feat4), emos=pad(batch.emos), vals=pad(batch.vals),
         lengths=np.concatenate([batch.lengths, batch.lengths[:, reps]], axis=1),
         names=batch.names + [batch.names[-1]] * len(reps),
+        scales={k: pad(v) for k, v in batch.scales.items()} if batch.scales else None,
     )
     return padded, n
 
@@ -61,7 +65,7 @@ def run_eval(eval_step, dataset: MoseiDataset, cfg: ExperimentConfig,
     preds_full, preds_missing, labels, names = [], [], [], []
     for batch in it:
         padded, n = _pad_partial(batch, cfg.data.batch_size)
-        v0, v1 = eval_step(batch_to_device_dict(padded, device))
+        v0, v1 = eval_step(batch_to_device_dict(padded, device, cfg.data.feature_dtype))
         preds_full.append(v0[:n].cpu().numpy())
         preds_missing.append(v1[:n].cpu().numpy())
         labels.append(batch.vals)
@@ -164,7 +168,7 @@ def train(cfg: ExperimentConfig, model, train_ds: MoseiDataset, eval_ds: MoseiDa
                            pin_memory=device.type == "cuda", drop_remainder=True)
         acc, n_clips, n_steps = None, 0, 0
         for batch in it:
-            metrics = train_step(batch_to_device_dict(batch, device))
+            metrics = train_step(batch_to_device_dict(batch, device, cfg.data.feature_dtype))
             acc = metrics if acc is None else {k: acc[k] + v for k, v in metrics.items()}
             n_clips += batch.size
             n_steps += 1

@@ -34,6 +34,23 @@ from sdumc_tpu_torch.models.layers import use_generator
 from sdumc_tpu_torch.train.state import TrainState
 
 AUX_KEYS = ("features", "rnc", "text_feat", "text_query_feat")
+FEATURES = ("audio", "text", "video", "feat4")
+
+
+def dequant_features(batch: Dict) -> Dict:
+    """An int8 store's batch on the device: codes ``batch[k]`` (int8) times
+    the per-clip per-channel scales ``batch[k + "_scale"]`` ([B, D] f32),
+    as a bf16 product (both factors rounded to bf16, as the JAX package
+    computes it), so the streams are bf16. A batch without scales is
+    returned as it is."""
+    if not any(k + "_scale" in batch for k in FEATURES):
+        return batch
+    out = dict(batch)
+    for k in FEATURES:
+        s = batch.get(k + "_scale")
+        if s is not None:
+            out[k] = batch[k].to(torch.bfloat16) * s[:, None, :].to(torch.bfloat16)
+    return out
 
 
 def _apply_views(model, batch: Dict):
@@ -58,7 +75,8 @@ def dual_view_loss(model, batch: Dict, loss_cfg: LossConfig):
     """(loss, metrics) of one batch dict (audio/text/video/feat4 [B, T, D],
     vals [B], t_max the 4 host ints). Dropout follows the model's mode, and
     in training mode draws from the generator that ``use_generator`` gave
-    the model."""
+    the model. An int8 store's batch is dequantised first."""
+    batch = dequant_features(batch)
     vals = batch["vals"]
     vals0, aux0, vals1, aux1 = _apply_views(model, batch)
 
@@ -125,15 +143,20 @@ def make_eval_step(model):
     def eval_step(batch):
         model.eval()
         with torch.inference_mode():
-            vals0, _, vals1, _ = _apply_views(model, batch)
+            vals0, _, vals1, _ = _apply_views(model, dequant_features(batch))
         return vals0.reshape(-1), vals1.reshape(-1)
 
     return eval_step
 
 
-def batch_to_device_dict(batch, device) -> Dict:
-    """A data.collate.Batch as f32 tensors on `device`; t_max stays host
-    ints.
+def batch_to_device_dict(batch, device, feature_dtype: str = "float32") -> Dict:
+    """A data.collate.Batch as tensors on `device`; t_max stays host ints.
+
+    The features keep the batch's dtype: f32, bf16 (a bf16 store's uint16
+    bit patterns, seen as bf16) or int8 codes, which ship as they are with
+    their ``<key>_scale`` [B, D] f32 scales (``dequant_features`` widens
+    them on the device). ``feature_dtype="bfloat16"`` casts an f32 batch to
+    bf16 on `device` after the copy, rounding to nearest even.
 
     On a card the copies are asynchronous and read only page-locked memory
     that torch's host allocator owns: the batch's own page-locked tensors
@@ -142,18 +165,29 @@ def batch_to_device_dict(batch, device) -> Dict:
     its copy has completed, so `batch` may be dropped at once."""
     device = torch.device(device)
     cuda = device.type == "cuda"
-    pinned = dict(zip(("audio", "text", "video", "feat4"), batch.pinned))
+    pinned = dict(zip(FEATURES, batch.pinned))
+    scales = batch.scales or {}
 
-    def put(name: str) -> torch.Tensor:
-        a = getattr(batch, name)
-        t = pinned.get(name)
+    def put(a: np.ndarray, owner=None) -> torch.Tensor:
+        t = owner
         if t is None or t.data_ptr() != a.ctypes.data:   # no buffer, or an array replaced
-            t = torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+            if a.dtype == np.uint16:
+                t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+            else:
+                keep = a.dtype == np.int8
+                t = torch.from_numpy(np.ascontiguousarray(a, dtype=None if keep else np.float32))
             if cuda:
                 t = t.pin_memory()
         return t.to(device, non_blocking=cuda)
 
-    return {
-        **{name: put(name) for name in ("audio", "text", "video", "feat4", "vals")},
-        "t_max": tuple(int(t) for t in batch.t_max),
-    }
+    d = {}
+    for name in FEATURES:
+        t = put(getattr(batch, name), pinned.get(name))
+        if feature_dtype == "bfloat16" and t.dtype == torch.float32:
+            t = t.to(torch.bfloat16)
+        d[name] = t
+    for name, s in scales.items():
+        d[name + "_scale"] = put(s)
+    d["vals"] = put(batch.vals)
+    d["t_max"] = tuple(int(t) for t in batch.t_max)
+    return d

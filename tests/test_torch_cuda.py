@@ -21,7 +21,10 @@ the full shape; a tiny fusion train step on the card against the CPU. The
 feat4 decode (no kernel of the port) is held to the CPU too: exact_topk's
 tie order, the padded int8 product, a tiny decode, and a --gen_batch chunk
 against its clips alone. So are the text stage (f32 and bf16), a tiny
-MANet and one MANet train step (float64).
+MANet and one MANet train step (float64). The fusion kernel's bf16 instance
+is held to its plain version to one bf16 ulp of the output plus the f32
+tolerance, at the tile edges; with it the page-locked batches of a packed
+store and a bf16 dual-view forward, card against CPU.
 """
 
 import math
@@ -174,6 +177,156 @@ def test_pinned_batches_copy_from_their_own_buffers(cuda):
         for name, owner in zip(("audio", "text", "video", "feat4"), batch.pinned):
             assert owner.data_ptr() == getattr(batch, name).ctypes.data
             np.testing.assert_array_equal(d[name].cpu().numpy(), getattr(batch, name))
+
+
+def _bf16_ulp(a: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |a| (8 significant bits), as f32."""
+    return torch.ldexp(torch.ones_like(a), torch.frexp(a.abs()).exponent - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("tmax", ["rows", None, 37, 0, -3])
+def test_bf16_kernel_matches_plain(cuda, T, tmax):
+    """The bf16 instance (bf16 x, the Q = 7 query the bf16 output of the
+    query projection, the Q = 1 context f32) against its plain version at
+    the tile edges and with t_max <= 0: both sum in f32 (to RTOL / ATOL, as
+    the f32 instance) and round the output to bf16 once, so they differ by
+    one bf16 ulp plus that tolerance."""
+    B = 6
+    x, w, b, q, c = (t.to(cuda) for t in _inputs(B, T, 7))
+    x, q = x.bfloat16(), q.bfloat16()
+    if tmax == "rows":
+        rows = [T, max(1, T - 5), 1, 0, T + 3, (T + 1) // 2]
+        tmax = torch.tensor(rows, dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        for got, ref in ((fused_cross.fused_cross_attention(q, x, w, b, tmax),
+                          fused_cross.fused_cross_attention_plain(q, x, w, b, tmax)),
+                         (fused_pool.fused_attention_pool(x, w, b, c, tmax),
+                          fused_pool.fused_attention_pool_plain(x, w, b, c, tmax))):
+            assert got.dtype == ref.dtype == torch.bfloat16
+            got, ref = got.float(), ref.float()
+            bound = _bf16_ulp(torch.maximum(got.abs(), ref.abs())) + RTOL * ref.abs() + ATOL
+            assert ((got - ref).abs() <= bound).all(), (got - ref).abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [65, 300, 2048])
+def test_bf16_instance_is_the_f32_instance_rounded(cuda, T):
+    """A bf16 x is exact in TF32, so the bf16 instance (2 TF32 passes) and
+    the f32 instance (3, the third on x's zero low part) sum the same f32
+    values: the bf16 output is the f32 instance's on the widened inputs,
+    rounded once, to the bit."""
+    B = 4
+    x, w, b, q, c = (t.to(cuda) for t in _inputs(B, T, 7, seed=7))
+    x, q = x.bfloat16(), q.bfloat16()
+    rows = torch.tensor([T, T // 2, 1, 0], dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        for got, wide in ((fused_cross.fused_cross_attention(q, x, w, b, rows),
+                           fused_cross.fused_cross_attention(q.float(), x.float(), w, b, rows)),
+                          (fused_pool.fused_attention_pool(x, w, b, c, rows),
+                           fused_pool.fused_attention_pool(x.float(), w, b, c, rows))):
+            assert torch.equal(got, wide.bfloat16())
+
+
+@pytest.mark.cuda
+def test_bf16_launches_gradient_and_checks(cuda):
+    """The bf16 instance counts under LAUNCHES_BF16 (the f32 instance's
+    counts stay 0); its gradient (the recomputing backward) equals autograd
+    through the plain version, dx in bf16; an f16 x is refused."""
+    B, T = 5, 129
+    x, w, b, q, c = (t.to(cuda) for t in _inputs(B, T, 7))
+    x, q = x.bfloat16(), q.bfloat16()
+    rows = torch.tensor([T, 64, 1, 0, T + 2], dtype=torch.int32, device=cuda)
+    fused_cross.reset_launches()
+    for Q in (7, 1):
+        kern, plain = _kernel_and_plain(Q, rows)
+        inputs = [c if Q == 1 else q, x, w, b]
+        g = torch.randn((B, D) if Q == 1 else (B, Q, D), generator=torch.Generator().manual_seed(3))
+        out, got = _grads(kern, inputs, g.to(cuda).bfloat16())
+        _, ref = _grads(plain, inputs, g.to(cuda).bfloat16())
+        assert out.dtype == torch.bfloat16 and got[1].dtype == torch.bfloat16
+        for name, a, r in zip(("dq", "dx", "dW", "db"), got, ref):
+            torch.testing.assert_close(a, r, rtol=0, atol=0, msg=name)
+    assert fused_cross.LAUNCHES_BF16 == {1: 1, 7: 1} and fused_cross.LAUNCHES == {1: 0, 7: 0}
+    with pytest.raises(TypeError):
+        fused_cross.fused_cross_attention(q, x.half(), w, b, rows)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "int8"])
+def test_pinned_packed_batches_keep_the_store_dtype(cuda, tmp_path, dtype):
+    """BatchIterator(pin_memory=True) on a packed store collates into
+    page-locked tensors of the store's dtype (bf16 owners behind uint16
+    views; int8) that batch_to_device_dict copies from; the device batch
+    holds the store's bits, and an int8 batch its scales."""
+    from sdumc_tpu_torch.data.packed import PackedSource, pack_features
+    from sdumc_tpu_torch.data.pipeline import BatchIterator, MoseiDataset
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    rng = np.random.default_rng(5)
+    sources = {}
+    for key, d in (("audio", 8), ("text", 16), ("video", 8), ("feat4", 16)):
+        (tmp_path / key).mkdir()
+        for i in range(5):
+            np.save(tmp_path / key / f"c{i}.npy", rng.normal(size=(3 + 7 * i, d)).astype(np.float32))
+        pack_features(str(tmp_path / key), str(tmp_path / f"{key}_{dtype}"), dtype=dtype)
+        sources[key] = PackedSource(str(tmp_path / f"{key}_{dtype}"), key)
+    ds = MoseiDataset([f"c{i}" for i in range(5)], [{"val": 0.5}] * 5, sources)
+    want = torch.bfloat16 if dtype == "bfloat16" else torch.int8
+    for batch in BatchIterator(ds, 4, shuffle=False, pin_memory=True, prefetch=2):
+        assert all(t.is_pinned() and t.dtype == want for t in batch.pinned)
+        d = batch_to_device_dict(batch, cuda)
+        for name, owner in zip(("audio", "text", "video", "feat4"), batch.pinned):
+            assert owner.data_ptr() == getattr(batch, name).ctypes.data
+            assert d[name].dtype == want and torch.equal(d[name].cpu(), owner)
+            if dtype == "int8":
+                np.testing.assert_array_equal(d[name + "_scale"].cpu().numpy(),
+                                              batch.scales[name])
+
+
+@pytest.mark.cuda
+def test_fusion_bf16_dual_view_on_card_matches_cpu(cuda):
+    """The fused dual view at bf16 streams: card (the bf16 instance, cuBLAS
+    bf16 products reducing in f32) vs CPU (plain). The same bf16 roundings
+    on both sides, summed in another order: the predictions and rnc within
+    1e-4 of their largest value, the text representations to a relative L2
+    error of 3e-4 and ``features`` to 5e-4 (the seeded cases of
+    bench/bf16_gap.py read <= 1.6e-4, and <= 3.4e-4 up to 16 rows, on the
+    H100). A control
+    with the card's streams in f32 (the same inputs widened) must fail the
+    check on the text representations (it reads >= 7.6e-4 there; at the
+    predictions 1e-6-5e-5, too close to tell)."""
+    from sdumc_tpu_torch.cli.common import bf16_full_precision_reduction
+    from sdumc_tpu_torch.core.config import ModelConfig
+    from sdumc_tpu_torch.models.fusion import SDUMCFusion
+
+    dims = (32, 64, 32)
+    model = SDUMCFusion(ModelConfig(input_dims=dims), torch.Generator().manual_seed(0)).eval()
+    rng = np.random.default_rng(3)
+    a, t, f, v = (torch.from_numpy(rng.normal(size=(3, n, d)).astype(np.float32)).bfloat16()
+                  for n, d in ((70, dims[0]), (20, dims[1]), (12, dims[1]), (40, dims[2])))
+    kw = dict(t_max=(65, (17, 12), 33), dual=True)
+    fused_cross.reset_launches()
+    with torch.inference_mode(), bf16_full_precision_reduction():
+        ref, ref_aux = model(a, (t, f), v, **kw)
+        model.to(cuda)
+        got, aux = model(a.to(cuda), (t.to(cuda), f.to(cuda)), v.to(cuda), **kw)
+        assert fused_cross.LAUNCHES_BF16 == {1: 3, 7: 3} and fused_cross.LAUNCHES == {1: 0, 7: 0}
+        a32, t32, f32, v32 = (z.float().to(cuda) for z in (a, t, f, v))
+        _, control_aux = model(a32, (t32, f32), v32, **kw)
+    for name, g, r in (("vals", got, ref), ("rnc", aux["rnc"], ref_aux["rnc"])):
+        assert g.dtype == torch.float32
+        err = (g.cpu() - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item(), (name, err)
+
+    def rel_l2(out, key):
+        return ((out[key].cpu() - ref_aux[key]).norm() / ref_aux[key].norm()).item()
+
+    for key, limit in (("features", 5e-4), ("text_feat", 3e-4), ("text_query_feat", 3e-4)):
+        assert aux[key].dtype == torch.float32 and rel_l2(aux, key) <= limit, key
+    for key in ("text_feat", "text_query_feat"):
+        assert rel_l2(control_aux, key) > 3e-4, key
 
 
 @pytest.mark.cuda

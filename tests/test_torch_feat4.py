@@ -36,6 +36,9 @@ from sdumc_tpu_torch.models.generation import (beam_generate, beam_generate_batc
 from sdumc_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
 from tests.test_torch_llama import hf_model, jax_from_hf, port_from_hf
 
+# several test workers share the machine's cores: one torch thread each
+torch.set_num_threads(1)
+
 HF_TOL = dict(rtol=3e-4, atol=3e-4)
 TOL = dict(rtol=1e-5, atol=1e-5)
 REPO = Path(__file__).resolve().parent.parent

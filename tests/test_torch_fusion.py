@@ -25,6 +25,9 @@ from sdumc_tpu_torch.convert import (load_reference_checkpoint, load_reference_s
 from sdumc_tpu_torch.core.config import ModelConfig
 from sdumc_tpu_torch.models.fusion import SDUMCFusion
 
+# several test workers share the machine's cores: one torch thread each
+torch.set_num_threads(1)
+
 DIMS = (32, 64, 32)
 RTOL, ATOL = 1e-4, 1e-5
 AUX_KEYS = ("features", "rnc", "text_feat", "text_query_feat")

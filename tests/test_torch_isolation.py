@@ -1,9 +1,10 @@
 """sdumc_tpu_torch stands alone: importing every one of its modules pulls in
 neither JAX (jax, flax, optax), nor anything of the JAX package sdumc_tpu,
 nor transformers (its HF loaders read the checkpoint files themselves),
-nor Pillow or pandas (the card's machine has neither), and its sources name
-none of them in an import, save one: the image reader imports Pillow
-lazily for the formats it does not read itself."""
+nor Pillow or pandas (the card's machine has neither), nor ml_dtypes (JAX's
+dependency: the port keeps bf16 on the host as uint16 bit patterns), and
+its sources name none of them in an import, save one: the image reader
+imports Pillow lazily for the formats it does not read itself."""
 
 import ast
 import subprocess
@@ -13,7 +14,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "sdumc_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sdumc_tpu", "transformers")
-HOST_LIBS = ("PIL", "pandas")           # not installed on the card's machine
+HOST_LIBS = ("PIL", "pandas", "ml_dtypes")   # not known on the card's machine
 
 _PROBE = """
 import importlib, pkgutil, sys

@@ -35,6 +35,9 @@ from sdumc_tpu_torch.models.llama import (LlamaConfig, LlamaForCausalLM, cache_m
 from sdumc_tpu_torch.ops.quant import (dequantize_kernel, int8_matmul, quantize_kernel,
                                        quantize_params)
 
+# several test workers share the machine's cores: one torch thread each
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 

@@ -26,6 +26,9 @@ from sdumc_tpu_torch.convert import manet_state_dict_from_flax
 from sdumc_tpu_torch.extract import image_io, manet_train, visual
 from sdumc_tpu_torch.models.manet import MANet, MANetConfig, init_weights
 
+# several test workers share the machine's cores: one torch thread each
+torch.set_num_threads(1)
+
 TOL = dict(rtol=2e-3, atol=2e-4)
 
 

@@ -35,6 +35,9 @@ from sdumc_tpu_torch.convert import manet_state_dict_from_flax
 from sdumc_tpu_torch.extract import manet_train
 from sdumc_tpu_torch.models.manet import MANet, MANetConfig, init_weights
 
+# several test workers share the machine's cores: one torch thread each
+torch.set_num_threads(1)
+
 SMALL = dict(layers=(1, 1, 1, 1), num_classes=3)
 
 

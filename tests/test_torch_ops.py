@@ -25,6 +25,9 @@ from sdumc_tpu_torch.ops.cross_attention import multi_query_cross_attention
 from sdumc_tpu_torch.ops.kernels import fused_cross, fused_pool
 from sdumc_tpu_torch.ops.masking import NEG_INF, mask_time_scores
 
+# several test workers share the machine's cores: one torch thread each
+torch.set_num_threads(1)
+
 B, T, D, Q = 4, 128, 256, 7
 RTOL, ATOL = 2e-5, 2e-6
 ROW_TMAX = [T, 1, 63, 97]     # = T, one frame, and two non-multiples of a tile

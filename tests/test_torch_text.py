@@ -29,6 +29,9 @@ from sdumc_tpu_torch.models.llama import LlamaModel
 from tests.test_torch_feat4 import write_tokenizer_json, write_tokenizer_model
 from tests.test_torch_llama import hf_model, jax_from_hf
 
+# several test workers share the machine's cores: one torch thread each
+torch.set_num_threads(1)
+
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_ULPS = 4
 WORDS = ("today is a good day i think the movie was really not bad at all and "

@@ -43,6 +43,9 @@ from sdumc_tpu_torch.train.schedule import make_lr_lambda, warmup_step_decay_fac
 from sdumc_tpu_torch.train.state import create_train_state, make_optimizer
 from sdumc_tpu_torch.train.step import dual_view_loss, make_eval_step, make_train_step
 
+# several test workers share the machine's cores: one torch thread each
+torch.set_num_threads(1)
+
 DIMS = (16, 32, 16)
 SMALL = dict(general_dim=32, layers=(32, 16), fused_layers=(32, 32))
 # every term of the mixed loss weighted (the CLI defaults)
@@ -532,16 +535,32 @@ def test_train_cli_synthetic_cpu_and_best_checkpoint_through_infer(tmp_path):
 
 
 @pytest.mark.parametrize("flags, error", [
-    (["--multihost"], "multi-device"),
-    (["--feature_dtype", "bfloat16"], "bfloat16"),
-    (["--checkpoint", "orbax_dir"], "Orbax"),
+    pytest.param(["--multihost"], "multi-device", id="flags0-multi-device"),
+    pytest.param(["--checkpoint", "orbax_dir"], "Orbax", id="flags2-Orbax"),
 ])
 def test_train_cli_refuses_what_is_not_ported(flags, error, tmp_path):
+    """--multihost and an Orbax --checkpoint raise."""
     from sdumc_tpu_torch.cli import train
 
     with pytest.raises((NotImplementedError, ValueError), match=error):
         train.main(["--synthetic", "--device", "cpu", "--feat_scale", "16",
                     "--checkpoint_dir", str(tmp_path)] + flags)
+
+
+def test_train_cli_bf16_packed_store_cpu(tmp_path, monkeypatch):
+    """cli.train --feature_dtype bfloat16 --device cpu trains one epoch on a
+    tiny bf16 packed store: finite losses."""
+    from sdumc_tpu_torch.cli import train
+    from tests.test_torch_packed import write_dataset
+
+    write_dataset(tmp_path / "data", "bfloat16")
+    monkeypatch.setenv("SDUMC_DATA_DIR", str(tmp_path / "data"))
+    result = train.main(["--device", "cpu", "--batch_size", "4", "--epochs", "1",
+                         "--layers", "16,8", "--checkpoint_dir", str(tmp_path / "ck"),
+                         "--save_root", str(tmp_path / "saved"),
+                         "--feature_dtype", "bfloat16"])
+    (h,) = result["history"]
+    assert all(np.isfinite(h[k]) for k in ("train_loss", "train_mse_full", "eval_mse_full"))
 
 
 def test_use_generator_reaches_every_dropout():

@@ -33,6 +33,9 @@ from sdumc_tpu_torch.models.wavlm import WavLMConfig, WavLMModel, resolve_attent
 from sdumc_tpu_torch.ops.kernels import flash_wavlm
 from tests.test_flash_wavlm import einsum_reference
 
+# several test workers share the machine's cores: one torch thread each
+torch.set_num_threads(1)
+
 NB, MD = 40, 100
 ATT_TOL = dict(rtol=2e-5, atol=2e-5)
 MODEL_TOL = dict(rtol=1e-4, atol=1e-4)
