@@ -109,7 +109,39 @@ Phases, each fatal on failure (non-zero exit, no result line):
      against CPU (the predictions, and the text representations, with a
      control run of the card's streams in f32 that their check must
      refuse); then a warm train step on the f32, bf16 and int8
-     stores (CUDA events, peak memory, device time by family and idle share).
+     stores (CUDA events, peak memory, device time by family and idle share);
+ 19. the WavLM kernel's bf16 instance (bf16 q, k, v, gate and bias, f32
+     scores and softmax, p rounded to bf16 against the running max of
+     64-key tiles, bf16 output) against its bf16 plain version at phase 3's
+     shapes and masks, to flash_wavlm.bf16_tolerance element by element and
+     to flash_wavlm.BF16_MISMATCH_LIMIT in the share of elements that
+     differ, which three controls (p unrounded, the row sum of the
+     unrounded p, p rounded against the final max) must exceed; timed beside
+     phase 3's f32 instance, its bound (the bf16 tensor-core rate, and the
+     TF32 rate of the one pass it issues) and one bf16 SDPA call with a
+     materialised mask;
+ 20. the WavLM kernel's gradient (FlashGatedAttention: the kernel forward,
+     the chunked backward) against autograd through the plain version at
+     both of phase 3's shapes, f32: dq, dk, dv, dgate and d rel_embed, with
+     the backward's ms and the peak memory beside the plain version's;
+ 21. ``cli.extract audio --dtype bfloat16`` on phase 5's wavs and model, with
+     the launch counters around it (24 bf16-instance launches a batch, none
+     of the f32 instance), every clip against phase 5's f32 features (per
+     frame cosine > 0.995, JAX's rule); on the shortest clip every attention
+     module on the card against the CPU's bf16 plain path fed the same
+     input, to BF16_LAYER_L2, which two controls (the f32 instance; the
+     einsum path's bf16 scores) must exceed; its audio s per s beside phase
+     5's and a profiled warm run;
+ 22. ``cli.extract asr`` with its defaults, and once with --vad, on the same
+     wavs and a seeded whisper-base.en in HF's format (config.json,
+     generation_config.json with base.en's decode rules, model.safetensors,
+     a byte-level tokenizer.json over all 51864 ids): one csv row per clip,
+     the 60-s clip split over the 30-s window and re-joined, the launch
+     counters around each run (no kernel of the port); one batch's tokens
+     card against CPU with the smallest top-1 / top-2 logit gap; ms per
+     decode step (CUDA events) beside its bound, device time by family and
+     idle share; then the csv through ``cli.extract text`` on phase 11's
+     2-layer Vicuna, the ASR text variant end to end.
 Each phase prints its seconds. The second-to-last line is {"kernels":
 [...]}, the last line {"ok": true, "device": {...}}. Imports nothing of JAX
 or sdumc_tpu.
@@ -123,7 +155,9 @@ the TF32 rate; the fusion kernel's scores and weighted sum are f32 FMA and
 count once at the f32 rate. The f32 bound (every flop at the f32 rate, the
 bound of the earlier FFMA kernels) is printed beside it. The fusion kernel's
 bf16 instance reads x (and a batched query) at 2 bytes, writes 2, and issues
-2 TF32 passes (a bf16 x has no low part).
+2 TF32 passes (a bf16 x has no low part). The WavLM kernel's bf16 instance
+reads q, k, v, the gate and the bias diagonal at 2 bytes, writes 2, and
+issues one TF32 pass per product (bf16 and the rounded p are exact in TF32).
 """
 
 from __future__ import annotations
@@ -159,6 +193,9 @@ BF16_TF32_PASSES = 2          # x is exact in TF32: x . W_lo and x . W_hi
 SOURCE = "sdumc_tpu_torch/csrc/fused_cross.cu"
 FLASH = {"name": "flash_wavlm", "source": "sdumc_tpu_torch/csrc/flash_wavlm.cu",
          "replaces": "sdumc_tpu/ops/pallas/flash_wavlm.py:140"}
+# the bf16 instance of the same kernel (phases 19-21): bf16 q, k, v are exact in TF32,
+# so each product issues one TF32 pass
+FLASH_BF16 = {**FLASH, "name": "flash_wavlm_bf16"}
 FLASH_SHAPES = ((8, 249), (1, 2999))   # a 5-s bucket batch, the 60-s clip
 FLASH_H, FLASH_HD = 16, 64             # wavlm-large's heads
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5    # f32, summed in another order over <= 3000 keys
@@ -223,8 +260,49 @@ DECODE_FAMILIES = (
 EXTRACTION_FAMILIES = (
     ("flash_wavlm kernel", ("flash_wavlm",)),
     ("cuDNN convolutions", ("conv", "fprop", "dgrad", "wgrad")),
-    ("cuBLAS GEMMs", ("gemm", "cutlass", "sm80_xmma", "sm90_xmma")),
+    ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "sm80_xmma", "sm90_xmma")),
     ("memory copies", ("memcpy", "memset")),
+)
+# the bf16 audio path (phase 21): JAX's rule (tests/test_wavlm.py:151-170) for bf16
+# against f32 features; and each bf16 attention module on the card against the same
+# module on the CPU fed the same input, to a relative L2 error of its output of
+# BF16_LAYER_L2, which the controls (p not rounded; scores rounded to bf16) must exceed.
+# On an H100 (700 W) the sound path read at most 6.5e-4 over the 24 layers of the
+# shortest clip and the controls at least 1.71e-3 and 2.10e-3; the limit is near the
+# geometric mean of 6.5e-4 and 1.71e-3. The clip's features at tap -5 are no check:
+# there card and CPU part by 0.0138, as far as each lies from the f32 features (0.0143,
+# 0.0142), and so do both controls (0.0138, 0.0137).
+BF16_COS_MIN = 0.995
+BF16_LAYER_L2 = 1e-3
+# the flash gradient (phase 20): JAX's test tolerance (tests/test_flash_wavlm.py)
+FLASH_GRAD_RTOL, FLASH_GRAD_ATOL = 3e-4, 3e-5
+# ASR (phase 22): whisper-base.en's published config.json (51864 tokens, 80 mels,
+# 1500 source positions, 6 + 6 layers of width 512, 8 heads, FFN 2048) and the
+# decode rules of its generation_config.json: <|notimestamps|> forced at position 1,
+# suppress_tokens, begin_suppress_tokens [220, <|endoftext|>]
+WHISPER_BASE_EN = dict(
+    vocab_size=51864, num_mel_bins=80, d_model=512, encoder_layers=6,
+    encoder_attention_heads=8, decoder_layers=6, decoder_attention_heads=8,
+    encoder_ffn_dim=2048, decoder_ffn_dim=2048, max_source_positions=1500,
+    max_target_positions=448, bos_token_id=50257, eos_token_id=50256, pad_token_id=50256,
+    decoder_start_token_id=50257)
+WHISPER_RULES = dict(
+    forced_decoder_ids=[[1, 50362]], begin_suppress_tokens=[220, 50256],
+    suppress_tokens=[1, 2, 7, 8, 9, 10, 14, 25, 26, 27, 28, 29, 31, 58, 59, 60, 61, 62, 63,
+                     90, 91, 92, 93, 357, 366, 438, 532, 685, 705, 796, 930, 1058, 1220, 1267,
+                     1279, 1303, 1343, 1377, 1391, 1635, 1782, 1875, 2162, 2361, 2488, 3467,
+                     4008, 4211, 4600, 4808, 5299, 5855, 6329, 7203, 9609, 9959, 10563, 10786,
+                     11420, 11709, 11907, 13163, 13697, 13700, 14808, 15306, 16410, 16791,
+                     17992, 19203, 19510, 20724, 22305, 22935, 27007, 30109, 30420, 33409,
+                     34949, 40283, 40493, 40549, 47282, 49146, 50257, 50357, 50358, 50359,
+                     50360, 50361])
+ASR_BATCH, ASR_TIMED_STEPS = 8, 64
+ASR_FAMILIES = (
+    ("cuBLAS GEMMs (projections, FFN, logits)", ("gemm", "nvjet", "cutlass", "xmma", "gemv",
+                                                 "splitk")),
+    ("softmax", ("softmax",)),
+    ("argmax and masking", ("argmax", "masked", "where")),
+    ("memory copies", ("memcpy", "memset", "copy")),
 )
 # text and visual (phases 13-16)
 TEXT_BATCH, TEXT_TAPS = 16, ((-3,), (-4, -3, -2, -1))
@@ -314,20 +392,21 @@ def cold_cycle(x):
 def device_ms(torch, fn, names, calls: int = 20) -> float:
     """Device time per call of the kernels whose names contain one of
     `names`, from torch.profiler over `calls` warm calls: the kernel time
-    without the wrapper's host overhead (NaN if no trace holds them)."""
+    without the wrapper's host overhead (NaN if no trace holds them all)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):          # a trace now and then comes back without kernels
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):          # a trace now and then comes back without kernels,
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:   # or some of them
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA and any(n in e.key for n in names))
-        if total > 0:
+        found = [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and any(n in e.key for n in names)]
+        total = sum(e.self_device_time_total for e in found)
+        if total > 0 and all(e.count % calls == 0 for e in found):
             return total / 1e3 / calls
     return math.nan
 
@@ -539,6 +618,7 @@ def read_counts() -> dict:
     counts = {REPLACES[q][0]: n for q, n in fused_cross.LAUNCHES.items()}
     counts.update({REPLACES_BF16[q][0]: n for q, n in fused_cross.LAUNCHES_BF16.items()})
     counts[FLASH["name"]] = flash_wavlm.LAUNCHES
+    counts[FLASH_BF16["name"]] = flash_wavlm.LAUNCHES_BF16
     return counts
 
 
@@ -743,9 +823,11 @@ def write_wavs(path: str, seed: int = 0):
     return clips
 
 
-def profile_extraction(torch, model_dir: str, audio_dir: str, top: int = 15):
-    """A warm extraction of every wav in audio_dir under torch.profiler:
-    device time by kernel, and the device's busy share of the window."""
+def profile_extraction(torch, model_dir: str, audio_dir: str, top: int = 15,
+                       dtype: str = "float32"):
+    """A warm extraction of every wav in audio_dir under torch.profiler, at
+    `dtype`: device time by kernel, and the device's busy share of the
+    window."""
     import glob
 
     from torch.profiler import ProfilerActivity, profile
@@ -756,15 +838,15 @@ def profile_extraction(torch, model_dir: str, audio_dir: str, top: int = 15):
     cfg, model = load_hf_wavlm(model_dir)
     model.to("cuda")
     wavs = [read_wav(p) for p in sorted(glob.glob(os.path.join(audio_dir, "*.wav")))]
-    extract_audio_features(model, cfg, wavs)
+    extract_audio_features(model, cfg, wavs, dtype=dtype)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        extract_audio_features(model, cfg, wavs)
+        extract_audio_features(model, cfg, wavs, dtype=dtype)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    print_device_time(prof, wall, "profiled extraction (warm, same wavs)", EXTRACTION_FAMILIES,
-                      "elementwise, norms and the rest", top)
+    print_device_time(prof, wall, f"profiled extraction ({dtype}, warm, same wavs)",
+                      EXTRACTION_FAMILIES, "elementwise, norms and the rest", top)
 
 
 def print_device_time(prof, wall: float, title: str, families_by_name, rest: str,
@@ -852,7 +934,7 @@ def extraction_phase(torch, flash_wavlm, tmp: str):
     if not np.allclose(got, ref, rtol=FEAT_RTOL, atol=FEAT_ATOL):
         raise AssertionError(f"{short}: card and CPU features disagree")
     profile_extraction(torch, model_dir, audio_dir)
-    return counts, out["save_dir"]
+    return counts, out["save_dir"], out["audio_seconds"] / out["seconds"]
 
 
 def training_phase(torch, fused_cross):
@@ -2105,6 +2187,575 @@ def store_phase(torch, fused_cross, work: str):
     return launches
 
 
+# ------------------------------------- the WavLM kernel's bf16 instance and ASR (phases 19-22)
+
+def flash_bf16_bound_ms(B, T, n_valid):
+    """Least time for one call of the bf16 instance, as {"bytes",
+    "operations", "operations_tf32"} in ms: bf16 q, k, v, the gate and the
+    bias diagonal read once, f32 kvalid, the bf16 output written once, over
+    the HBM rate; QK^T and PV (4 hd flops per query and valid key) on bf16
+    operands over the card's dense bf16 tensor-core rate. The kernel issues
+    them as one TF32 pass; "operations_tf32" is that pass over the TF32 rate,
+    what the kernel's chosen units could reach at best."""
+    H, hd = FLASH_H, FLASH_HD
+    nbytes = 2 * (4 * B * T * H * hd + B * H * T + H * (2 * T - 1)) + 4 * B * T
+    flops = 4 * H * hd * T * int(sum(n_valid))
+    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES, "operations": 1e3 * flops / PEAK_BF16_FLOPS,
+            "operations_tf32": 1e3 * flops / PEAK_TF32_FLOPS}
+
+
+def flash_bf16_control(torch, flash_wavlm, q, k, v, gate, diag, kvalid, variant):
+    """The bf16 plain version with one step wrong, a control for the
+    mismatch share: "f32 p" (p not rounded) or "f32 row sum" (the row sum of
+    the unrounded p); p against the running max of the kernel's key tiles."""
+    B, T, H, hd = q.shape
+    bf, tile = torch.bfloat16, flash_wavlm.KEY_TILE
+    qs = (q * torch.tensor(hd ** -0.5, dtype=bf)).float()
+    s = torch.einsum("bthd,bshd->bhts", qs, k.float())
+    s = s + gate.float()[..., None] * flash_wavlm.dense_bias(diag.float(), T)[None]
+    s = s.masked_fill(~(kvalid[:, None, None, :] > 0), flash_wavlm.NEG_BF16)
+    n = -(-T // tile)
+    tiles = torch.nn.functional.pad(s, (0, n * tile - T), value=-float("inf"))
+    del s
+    tiles = tiles.view(B, H, T, n, tile)
+    m = tiles.amax(-1).cummax(-1).values
+    p32 = torch.exp(tiles - m[..., None])
+    del tiles
+    carry = torch.exp(m - m[..., -1:])
+    l = (p32.sum(-1) * carry).sum(-1)
+    pw = p32 if variant == "f32 p" else p32.to(bf).float()
+    w = (pw * carry[..., None]).view(B, H, T, n * tile)[..., :T]
+    out = torch.einsum("bhts,bshd->bthd", w, v.float())
+    return (out / l.transpose(1, 2)[..., None]).to(bf)
+
+
+def bf16_ulps(torch, err, ref):
+    """The largest of err in bf16 ulps (8 significant bits) of the largest
+    |ref|: near an output's zero its own ulp is far below the error that p's
+    rounding brings (2^-7 of the spread of v), so the output's scale is the
+    unit."""
+    top = ref.float().abs().max()
+    return (err.max() / torch.ldexp(torch.ones_like(top), torch.frexp(top).exponent - 8)).item()
+
+
+def flash_bf16_phase(torch, flash_wavlm, f32_totals):
+    """Phase 19: the WavLM kernel's bf16 instance against its bf16 plain
+    version at phase 3's shapes and masks (and a row of 4 keys), to
+    flash_wavlm.bf16_tolerance element by element and to
+    flash_wavlm.BF16_MISMATCH_LIMIT in the share of elements that differ,
+    which three controls must exceed (p unrounded, the row sum of the
+    unrounded p, p rounded against the final max); timed beside phase 3's
+    f32 instance, the bound and one bf16 SDPA call with a materialised
+    mask."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(19)
+    dev = torch.device("cuda")
+    kw = dict(num_buckets=320, max_distance=800)
+    limit = flash_wavlm.BF16_MISMATCH_LIMIT
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
+           "operations_ms": 0.0, "operations_tf32_ms": 0.0, "max_abs_err": 0.0,
+           "max_ulps": 0.0, "max_of_bound": 0.0, "max_share": 0.0, "device_ms": 0.0,
+           "calls": {}, "controls": {}}
+    print(f"flash_wavlm_bf16 vs its bf16 plain version (H={FLASH_H}, hd={FLASH_HD}; p "
+          "rounded to bf16 against the running max of 64-key tiles in both; tolerance "
+          "flash_wavlm.bf16_tolerance: 2^-7 max_u |v_u - out| + 1 bf16 ulp + 1e-5 max |v|, "
+          f"and at most {limit} of the elements differing, a share the controls must exceed)")
+    for B, T in FLASH_SHAPES:
+        rows = max(B, 4)
+        q, k, v = (torch.randn(rows, T, FLASH_H, FLASH_HD, generator=gen).to(dev).bfloat16()
+                   for _ in range(3))
+        gate = (1 + torch.rand(rows, FLASH_H, T, generator=gen)).to(dev).bfloat16()
+        rel = torch.randn(320, FLASH_H, generator=gen).to(dev).bfloat16()
+        lengths = torch.randint(1, T + 1, (rows,), generator=gen)
+        lengths[:4] = torch.tensor([T, T - 37, 1, 4])
+        kvalid = (torch.arange(T)[None, :] < lengths[:, None]).float().to(dev)
+        with torch.inference_mode():
+            diag = flash_wavlm.bias_diag_for(rel, T, **kw)
+            got = flash_wavlm.flash_gated_attention(q, k, v, gate, None, kvalid, diag, **kw)
+            ref = flash_wavlm.flash_gated_attention_plain(q, k, v, gate, None, kvalid, diag, **kw)
+            torch.cuda.synchronize()
+            diff = (got.float() - ref.float()).abs()
+            of_bound = (diff / flash_wavlm.bf16_tolerance(ref, v)).max().item()
+            err, ulps = diff.max().item(), bf16_ulps(torch, diff, ref)
+            share = flash_wavlm.bf16_mismatch_share(got, ref)
+            controls = {variant: flash_wavlm.bf16_mismatch_share(flash_bf16_control(
+                torch, flash_wavlm, q, k, v, gate, diag, kvalid, variant), ref)
+                for variant in ("f32 p", "f32 row sum")}
+            controls["final max"] = flash_wavlm.bf16_mismatch_share(
+                flash_wavlm.flash_gated_attention_plain(q, k, v, gate, None, kvalid, diag,
+                                                        key_tile=T, **kw), ref)
+            del diff, ref
+            print(f"  flash_wavlm_bf16 B={rows} T={T}: max_abs_err={err!r} ({ulps!r} bf16 ulps "
+                  f"of the largest output, {of_bound!r} of the bound), elements differing "
+                  f"{share!r} (limit {limit}); controls against the plain version {controls!r}")
+            if got.dtype != torch.bfloat16 or not of_bound <= 1.0 or not share <= limit:
+                raise AssertionError(f"flash_wavlm_bf16 at B={rows} T={T}: max abs err {err!r}, "
+                                     f"{of_bound!r} of its bound, {share!r} of the elements "
+                                     "differ")
+            if not all(c > limit for c in controls.values()):
+                raise AssertionError(f"a control passes the mismatch limit {limit}: {controls}")
+            args = [t[:B].contiguous() for t in (q, k, v, gate)]
+            mask_b = kvalid[:B].contiguous()
+
+            def kern():
+                return flash_wavlm.flash_gated_attention(*args, None, mask_b, diag, **kw)
+
+            ms = time_ms(kern)
+            dev_ms = device_ms(torch, kern, ("flash_wavlm",))
+            plain_ms = time_ms(lambda: flash_wavlm.flash_gated_attention_plain(
+                *args, None, mask_b, diag, **kw))
+            qh, kh, vh = (t.transpose(1, 2).contiguous() for t in args[:3])
+            attn_mask = (args[3].float()[..., None] * flash_wavlm.dense_bias(diag.float(), T)[None]
+                         + torch.where(mask_b > 0, 0.0, flash_wavlm.NEG)[:, None, None, :]
+                         ).bfloat16()
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=attn_mask))
+        bnd = flash_bf16_bound_ms(B, T, lengths[:B].tolist())
+        least = max(bnd["bytes"], bnd["operations"])
+        for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
+                         ("bound_ms", least), ("bytes_ms", bnd["bytes"]),
+                         ("operations_ms", bnd["operations"]),
+                         ("operations_tf32_ms", bnd["operations_tf32"]), ("device_ms", dev_ms)):
+            tot[key] += val
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        tot["max_ulps"] = max(tot["max_ulps"], ulps)
+        tot["max_of_bound"] = max(tot["max_of_bound"], of_bound)
+        tot["max_share"] = max(tot["max_share"], share)
+        tot["controls"][f"T={T}"] = controls
+        tot["calls"][f"B={B} T={T}"] = ms
+        print(f"  flash_wavlm_bf16 B={B} T={T} kernel_ms={ms!r} device_ms={dev_ms!r} "
+              f"plain_ms={plain_ms!r} sdpa_bf16_ms={lib_ms!r} bound_ms={least!r} (bytes "
+              f"{bnd['bytes']!r}, operations at the bf16 rate {bnd['operations']!r}; at the TF32 "
+              f"rate of the kernel's one pass {bnd['operations_tf32']!r})")
+    print(f"  both shapes: f32 instance (phase 3) kernel_ms={f32_totals['ms']!r} device_ms="
+          f"{f32_totals['device_ms']!r} bound_ms={f32_totals['bound_ms']!r}; bf16 instance "
+          f"kernel_ms={tot['ms']!r} device_ms={tot['device_ms']!r} bound_ms={tot['bound_ms']!r} "
+          f"({tot['device_ms'] and tot['bound_ms'] / tot['device_ms']:.1%} of its device time; "
+          f"at the TF32 rate {tot['operations_tf32_ms']!r} ms, "
+          f"{tot['device_ms'] and tot['operations_tf32_ms'] / tot['device_ms']:.1%}) "
+          f"plain_ms={tot['plain_ms']!r} sdpa_bf16_ms={tot['library_ms']!r}")
+    return tot
+
+
+def flash_grad_phase(torch, flash_wavlm):
+    """Phase 20: FlashGatedAttention (the kernel forward, the chunked
+    backward) on the card against autograd through the plain version, at
+    B=8 T=249 and B=1 T=2999, f32, with mixed key masks: dq, dk, dv, dgate
+    and d rel_embed; the backward's ms (CUDA events) and peak memory of
+    forward + backward, each beside the plain version's."""
+    gen = torch.Generator().manual_seed(20)
+    dev = torch.device("cuda")
+    kw = dict(num_buckets=320, max_distance=800)
+    print(f"flash gradient vs plain autograd (f32, tolerance rtol={FLASH_GRAD_RTOL} "
+          f"atol={FLASH_GRAD_ATOL}: JAX's test's, another summation order)")
+    for B, T in FLASH_SHAPES:
+        base = [torch.randn(B, T, FLASH_H, FLASH_HD, generator=gen) for _ in range(3)]
+        base += [1 + torch.rand(B, FLASH_H, T, generator=gen), torch.randn(320, FLASH_H, generator=gen)]
+        base = [t.to(dev) for t in base]
+        lengths = torch.randint(1, T + 1, (B,), generator=gen)
+        lengths[0] = T
+        kvalid = (torch.arange(T)[None, :] < lengths[:, None]).float().to(dev)
+        dout = torch.randn(B, T, FLASH_H, FLASH_HD, generator=gen).to(dev)
+        result = {}
+        for name, fn in (("flash", flash_wavlm.flash_gated_attention),
+                         ("plain", flash_wavlm.flash_gated_attention_plain)):
+            leaves = [t.clone().requires_grad_() for t in base]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            out = fn(*leaves, kvalid, **kw)
+            grads = torch.autograd.grad(out, leaves, dout, retain_graph=True)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - before) / 2**20
+            ms = time_ms(lambda: torch.autograd.grad(out, leaves, dout, retain_graph=True),
+                         iters=5, warmup=1)
+            result[name] = (grads, peak, ms)
+            del out
+        errs = []
+        for gname, g, r in zip(("dq", "dk", "dv", "dgate", "drel"), result["flash"][0],
+                               result["plain"][0]):
+            errs.append(f"{gname} {(g - r).abs().max().item()!r} of max {r.abs().max().item()!r}")
+            if not torch.allclose(g, r, rtol=FLASH_GRAD_RTOL, atol=FLASH_GRAD_ATOL):
+                raise AssertionError(f"flash gradient {gname} at B={B} T={T}: "
+                                     f"{(g - r).abs().max().item()!r}")
+        print(f"  B={B} T={T}: {'; '.join(errs)}; backward_ms={result['flash'][2]!r} "
+              f"(plain autograd {result['plain'][2]!r}), peak MiB forward + backward "
+              f"{result['flash'][1]!r} (plain {result['plain'][1]!r})")
+        del result
+        torch.cuda.empty_cache()
+
+
+def bf16_layer_holds(torch, cpu_model, cfg, wav, cpu_tap):
+    """Each bf16 WavLM attention module on the card (the projections, the
+    gate, the kernel's bf16 instance, out_proj) against the same module on
+    the CPU (the bf16 plain path), both fed the card's input to it: the
+    relative L2 error of the module's output over the clip's frames, largest
+    over the 24 layers, for the sound card path and for two controls run on
+    the card, the f32 instance on the widened inputs (p not rounded) and the
+    einsum path (scores rounded to bf16, JAX's einsum semantics). Returns
+    {name: (largest error, its layer, the relative L2 error of the card's
+    tap -5 against ``cpu_tap``, the CPU's bf16 features)}."""
+    import copy
+
+    import numpy as np
+
+    from sdumc_tpu_torch.cli.common import bf16_full_precision_reduction
+    from sdumc_tpu_torch.extract.audio import BUCKETS, zero_mean_unit_var
+    from sdumc_tpu_torch.models import wavlm as wavlm_mod
+    from sdumc_tpu_torch.ops.kernels import flash_wavlm
+
+    cpu_model.to(dtype=torch.bfloat16)
+    card_model = copy.deepcopy(cpu_model).to("cuda")
+    bucket = next(b for b in BUCKETS if len(wav) <= b)
+    batch = np.zeros((1, bucket), np.float32)
+    batch[0, : len(wav)] = zero_mean_unit_var(wav)
+    frames = cfg.output_length(len(wav))
+    mask = torch.zeros(1, cfg.output_length(bucket), dtype=torch.bool)
+    mask[0, :frames] = True
+    wav_t = torch.from_numpy(batch).bfloat16()
+
+    def f32_attention(q, k, v, gate, rel_embed, kvalid, bias_diag, **kw):
+        return flash_wavlm.launch(q.float(), k.float(), v.float(), gate.float(),
+                                  bias_diag.float(), kvalid).to(q.dtype)
+
+    runs = {"sound": {}, "control: the f32 instance on widened inputs": {
+                "flash_gated_attention": f32_attention},
+            "control: the einsum path (bf16 scores)": {
+                "resolve_attention_impl": lambda *a: "einsum"}}
+    holds = {}
+    with torch.inference_mode(), bf16_full_precision_reduction():
+        for name, patches in runs.items():
+            saved = {attr: getattr(wavlm_mod, attr) for attr in patches}
+            seen = []
+            hooks = [layer.attention.register_forward_hook(
+                lambda mod, args, out: seen.append((args[0].cpu(), out[0].cpu())))
+                for layer in card_model.encoder.layers]
+            try:
+                for attr, fn in patches.items():
+                    setattr(wavlm_mod, attr, fn)
+                taps = card_model(wav_t.to("cuda"), pad_mask=mask.to("cuda"),
+                                  output_hidden_states=True)["hidden_states"]
+            finally:
+                for attr, fn in saved.items():
+                    setattr(wavlm_mod, attr, fn)
+                for hook in hooks:
+                    hook.remove()
+            errs, bias = [], None
+            for layer, (x, h_card) in zip(cpu_model.encoder.layers, seen):
+                h, bias = layer.attention(x, bias, mask)
+                want = h[0, :frames].float()
+                errs.append(((h_card[0, :frames].float() - want).norm() / want.norm()).item())
+            tap = taps[-5][0, :frames].float().cpu().numpy()
+            at = int(np.argmax(errs))
+            holds[name] = (errs[at], at, float(np.linalg.norm(tap - cpu_tap)
+                                               / np.linalg.norm(cpu_tap)))
+    del card_model
+    return holds
+
+
+def bf16_extraction_phase(torch, tmp: str, f32_dir: str, f32_rate: float):
+    """Phase 21: ``cli.extract audio --dtype bfloat16`` on phase 5's wavs and
+    seeded wavlm-large, with the launch counters around it (the bf16
+    instance 24 times per batch, the f32 instance never); every clip against
+    phase 5's f32 features (JAX's cosine rule); on the shortest, each
+    attention module card against CPU (``bf16_layer_holds``); its rate beside
+    phase 5's; a profiled warm run. Returns the launch counts."""
+    import numpy as np
+
+    from sdumc_tpu_torch.cli import extract
+    from sdumc_tpu_torch.convert.hf_wavlm import load_hf_wavlm
+    from sdumc_tpu_torch.extract.audio import extract_audio_features, plan_batches, read_wav
+
+    model_dir, audio_dir = os.path.join(tmp, "model"), os.path.join(tmp, "wavs")
+    names = sorted(os.path.splitext(f)[0] for f in os.listdir(audio_dir))
+    wavs = {n: read_wav(os.path.join(audio_dir, n + ".wav")) for n in names}
+    cfg, cpu_model = load_hf_wavlm(model_dir)
+    n_batches = len(plan_batches(cfg, [len(wavs[n]) for n in names], 8))
+    reset_counts()
+    out = extract.main(["audio", "--model_dir", model_dir, "--audio_dir", audio_dir,
+                        "--save_dir", os.path.join(tmp, "out_bf16"), "--dtype", "bfloat16"])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    if (counts[FLASH_BF16["name"]] != cfg.num_layers * n_batches or counts[FLASH["name"]]
+            or out["batches"] != n_batches):
+        raise AssertionError(f"bf16 extraction: launches {counts} in {out['batches']} batches, "
+                             f"expected {cfg.num_layers} x {n_batches} of the bf16 instance")
+    cos_min = 1.0
+    for name in names:
+        got = np.load(os.path.join(out["save_dir"], f"{name}.npy"))
+        ref = np.load(os.path.join(f32_dir, f"{name}.npy"))
+        if got.shape != ref.shape or got.dtype != np.float32 or not np.isfinite(got).all():
+            raise AssertionError(f"{name}: {got.shape} {got.dtype} (want {ref.shape}) or non-finite")
+        cos = np.sum(got * ref, -1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(ref, axis=-1))
+        cos_min = min(cos_min, float(cos.min()))
+    if not cos_min > BF16_COS_MIN:
+        raise AssertionError(f"bf16 vs f32 features: min cosine {cos_min!r}")
+    short = min(names, key=lambda n: len(wavs[n]))
+    ref = extract_audio_features(cpu_model, cfg, [wavs[short]], device="cpu", dtype="bfloat16")[0]
+    got = np.load(os.path.join(out["save_dir"], f"{short}.npy"))
+    f32 = np.load(os.path.join(f32_dir, f"{short}.npy"))
+    rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    rel_card, rel_cpu = (float(np.linalg.norm(a - f32) / np.linalg.norm(f32)) for a in (got, ref))
+    print(f"bf16 extraction path (cli.extract audio --dtype bfloat16): {out['clips']} clips in "
+          f"{out['batches']} batches, {out['seconds']!r} s host clock, "
+          f"{out['audio_seconds'] / out['seconds']!r} audio s per s (f32, phase 5: {f32_rate!r}); "
+          f"launches {counts}; min per-frame cosine against the f32 features {cos_min!r} "
+          f"(rule > {BF16_COS_MIN}); {short} at tap -5, card vs CPU bf16 relative L2 error "
+          f"{rel!r}, each against f32: card {rel_card!r}, CPU {rel_cpu!r} (not a check: through "
+          "20 layers two sound bf16 runs part as far as each lies from f32)")
+    holds = bf16_layer_holds(torch, cpu_model, cfg, wavs[short], ref)
+    print(f"  {short}, every attention module fed the card's input, card vs CPU (the CPU's "
+          f"bf16 plain path), relative L2 error of its output (limit {BF16_LAYER_L2}):")
+    for name, (worst, at, tap) in holds.items():
+        print(f"    {name}: largest {worst!r} at layer {at}; its tap -5 against the CPU's "
+              f"bf16 features {tap!r}")
+    if not holds["sound"][0] <= BF16_LAYER_L2:
+        raise AssertionError(f"{short}: a bf16 attention module on the card parts from the CPU's by "
+                             f"{holds['sound'][0]!r}")
+    if not all(h[0] > BF16_LAYER_L2 for name, h in holds.items() if name != "sound"):
+        raise AssertionError(f"a control passes the bf16 attention check: {holds}")
+    del cpu_model
+    profile_extraction(torch, model_dir, audio_dir, dtype="bfloat16")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def write_whisper_dir(torch, path: str, seed: int = 22):
+    """A seeded whisper-base.en in HF's format: config.json and
+    generation_config.json (WHISPER_BASE_EN, WHISPER_RULES), model.safetensors
+    (WhisperForConditionalGeneration's keys, ``model.`` prefixed, proj_out
+    tied and left out, as HF saves it; normal(0, 0.02) weights as HF's init
+    draws them, biases 0, norms 1 / 0, the encoder's sinusoidal table),
+    written by the port's own writer, and a hand-written byte-level
+    tokenizer.json over all 51864 ids."""
+    from sdumc_tpu_torch.convert import safetensors_io
+    from sdumc_tpu_torch.convert.hf_whisper import config_from_hf
+    from sdumc_tpu_torch.models.whisper import WhisperModel, sinusoids
+
+    config = {"model_type": "whisper", "architectures": ["WhisperForConditionalGeneration"],
+              **WHISPER_BASE_EN, **WHISPER_RULES}
+    cfg = config_from_hf(config)
+    with torch.device("meta"):
+        shapes = {k: t.shape for k, t in WhisperModel(cfg).state_dict().items()}
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+    for key, shape in shapes.items():
+        if key == "encoder.embed_positions.weight":
+            val = sinusoids(*shape)
+        elif "layer_norm" in key:
+            val = torch.ones(shape) if key.endswith("weight") else torch.zeros(shape)
+        elif key.endswith(".bias"):
+            val = torch.zeros(shape)
+        else:
+            val = 0.02 * torch.randn(shape, generator=gen)
+        sd["model." + key] = val
+    os.makedirs(path, exist_ok=True)
+    safetensors_io.save_file(sd, os.path.join(path, "model.safetensors"))
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+    with open(os.path.join(path, "generation_config.json"), "w") as f:
+        json.dump({"decoder_start_token_id": WHISPER_BASE_EN["decoder_start_token_id"],
+                   "eos_token_id": WHISPER_BASE_EN["eos_token_id"], **WHISPER_RULES}, f, indent=1)
+    write_whisper_tokenizer(path, cfg.vocab_size)
+    return cfg
+
+
+def write_whisper_tokenizer(path: str, n_ids: int) -> None:
+    """tokenizer.json in Whisper's English layout: the BPE vocabulary at ids
+    0-50255 (the 256 byte pieces of byte-level BPE, then two-byte pieces),
+    then the added tokens: <|endoftext|> 50256, <|startoftranscript|> 50257,
+    99 language tokens, <|translate|>, <|transcribe|>, <|startoflm|>,
+    <|startofprev|>, <|nocaptions|>, <|notimestamps|> 50362 (specials) and the
+    1501 timestamps <|0.00|> .. <|30.00|> (not special)."""
+    from sdumc_tpu_torch.convert.whisper_tokenizer import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    pieces = [b2u[b] for b in range(256)]
+    pieces += [b2u[a] + b2u[b] for a in range(256) for b in range(256)][: 50256 - 256]
+    vocab = {p: i for i, p in enumerate(pieces)}
+    specials = (["<|endoftext|>", "<|startoftranscript|>"]
+                + [f"<|{chr(97 + i // 26)}{chr(97 + i % 26)}|>" for i in range(99)]
+                + ["<|translate|>", "<|transcribe|>", "<|startoflm|>", "<|startofprev|>",
+                   "<|nocaptions|>", "<|notimestamps|>"])
+    stamps = ["<|%.2f|>" % (i * 0.02) for i in range(1501)]
+    added = [{"id": len(vocab) + i, "content": c, "single_word": False, "lstrip": False,
+              "rstrip": False, "normalized": False, "special": c in specials}
+             for i, c in enumerate(specials + stamps)]
+    if len(vocab) + len(added) != n_ids or added[-1 - 1501]["content"] != "<|notimestamps|>":
+        raise AssertionError("the tokenizer does not cover the vocabulary")
+    spec = {"version": "1.0", "truncation": None, "padding": None, "added_tokens": added,
+            "normalizer": None,
+            "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False,
+                              "trim_offsets": True, "use_regex": True},
+            "post_processor": None,
+            "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                        "use_regex": True},
+            "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                      "continuing_subword_prefix": None, "end_of_word_suffix": None,
+                      "fuse_unk": False, "byte_fallback": False, "ignore_merges": False,
+                      "vocab": vocab, "merges": []}}
+    with open(os.path.join(path, "tokenizer.json"), "w", encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+
+
+def whisper_decode_bound_ms(cfg, batch: int) -> float:
+    """Least time of one decode step at `batch`: the decoder's f32 weights
+    read once per step (every layer's self-attention, cross q / out and
+    FFN, the tied embedding for the logits) and every layer's cross K / V of
+    the batch (1500 frames each), over the HBM rate."""
+    d, f = cfg.d_model, cfg.ffn_dim
+    per_layer = 4 * d * d + 3 * d + 2 * d * d + 2 * d + 2 * d * f + d + f + 6 * d
+    weights = cfg.decoder_layers * per_layer + cfg.vocab_size * d
+    cross = cfg.decoder_layers * 2 * batch * cfg.max_source_positions * d
+    return 1e3 * 4 * (weights + cross) / PEAK_HBM_BYTES
+
+
+def asr_phase(torch, tmp: str, llm_dir: str):
+    """Phase 22: ``cli.extract asr`` with its defaults (and once with
+    --vad) on phase 5's wavs and a seeded whisper-base.en: one csv row per
+    clip, the 60-s clip split over the window and re-joined; one batch's
+    tokens card against CPU and the smallest top-1 / top-2 logit gap; ms per
+    decode step (CUDA events) beside its bound, device time by family and
+    the idle share; the launch counters (no kernel of the port runs); then
+    the csv through ``cli.extract text`` on phase 11's 2-layer Vicuna."""
+    import csv
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdumc_tpu_torch.cli import extract
+    from sdumc_tpu_torch.convert.hf_whisper import load_hf_whisper
+    from sdumc_tpu_torch.convert.whisper_tokenizer import WhisperTokenizer
+    from sdumc_tpu_torch.extract.asr import WINDOW, plan_items, transcribe
+    from sdumc_tpu_torch.extract.audio import read_wav
+    from sdumc_tpu_torch.models.whisper import greedy_transcribe, init_self_caches
+    from sdumc_tpu_torch.ops.mel import log_mel_spectrogram
+
+    model_dir, audio_dir = os.path.join(tmp, "whisper"), os.path.join(tmp, "wavs")
+    t0 = time.perf_counter()
+    cfg = write_whisper_dir(torch, model_dir)
+    print(f"seeded whisper-base.en written in {time.perf_counter() - t0!r} s")
+    names = sorted(os.path.splitext(f)[0] for f in os.listdir(audio_dir))
+    wavs = [read_wav(os.path.join(audio_dir, n + ".wav")) for n in names]
+    items = plan_items(names, wavs)
+    runs = {}
+    for label, flags in (("defaults", []), ("--vad", ["--vad"])):
+        csv_path = os.path.join(tmp, f"transcription{'_vad' if flags else ''}.csv")
+        reset_counts()
+        out = extract.main(["asr", "--model_dir", model_dir, "--audio_dir", audio_dir,
+                            "--save_csv", csv_path, *flags])
+        torch.cuda.synchronize()
+        counts = read_counts()
+        with open(csv_path, newline="", encoding="utf-8") as f:
+            table = list(csv.reader(f))
+        if (table[0] != ["name", "english"] or [r[0] for r in table[1:]] != names
+                or any(counts.values())):
+            raise AssertionError(f"asr {label}: header {table[0]}, {len(table) - 1} rows for "
+                                 f"{len(names)} clips, launches {counts}")
+        runs[label] = (out, dict((r[0], r[1]) for r in table[1:]), csv_path)
+        print(f"asr path (cli.extract asr {label}): {out['clips']} clips, {out['pieces']} pieces "
+              f"of <= 30 s in {out['batches']} batches of {ASR_BATCH}, {out['seconds']!r} s host "
+              f"clock (weights on the card, wav reading included), "
+              f"{out['audio_seconds'] / out['seconds']!r} audio s per s; launches of the port's "
+              f"kernels {counts} (the ASR stage runs cuBLAS, cuFFT and PyTorch's own kernels)")
+    out, texts, csv_path = runs["defaults"]
+    if out["pieces"] != len(items):
+        raise AssertionError(f"asr: {out['pieces']} pieces, planned {len(items)}")
+    cfg_gpu, model, meta = load_hf_whisper(model_dir, "cuda")
+    tok = WhisperTokenizer.from_dir(model_dir)
+    long_name = max(names, key=lambda n: len(wavs[names.index(n)]))
+    long_items = [it for it in items if it[0] == long_name]
+    alone = transcribe(model, tok, meta, [(f"{n}#{j}", 0, w) for n, j, w in long_items],
+                       batch=ASR_BATCH)
+    joined = " ".join(t for t in (alone[f"{long_name}#{j}"] for _, j, _ in long_items) if t)
+    if len(long_items) < 2 or texts[long_name] != joined.strip():
+        raise AssertionError(f"{long_name}: {len(long_items)} pieces; the csv's text is not "
+                             "its pieces' texts re-joined")
+    print(f"{long_name} ({len(wavs[names.index(long_name)]) / 16000!r} s): {len(long_items)} "
+          f"pieces of <= {WINDOW / 16000} s, transcribed alone and re-joined: the csv's text")
+
+    # one batch of pieces, card against CPU: equal tokens
+    kw = dict(start_id=meta["decoder_start_token_id"], eos_id=meta["eos_token_id"],
+              forced_ids=[tuple(x) for x in meta["forced_decoder_ids"]],
+              suppress_ids=meta["suppress_tokens"],
+              begin_suppress_ids=meta["begin_suppress_tokens"])
+    audio = np.zeros((ASR_BATCH, WINDOW), np.float32)
+    for j, (_, _, w) in enumerate(items[:ASR_BATCH]):
+        audio[j, : len(w)] = w
+    _, cpu_model, _ = load_hf_whisper(model_dir, "cpu")
+    toks = {}
+    with torch.inference_mode():
+        for dev, m in (("cpu", cpu_model), ("cuda", model)):
+            mel = log_mel_spectrogram(torch.from_numpy(audio).to(dev), n_mels=cfg.num_mel_bins)
+            toks[dev] = greedy_transcribe(m, mel, **kw)
+        mel = log_mel_spectrogram(torch.from_numpy(audio).cuda(), n_mels=cfg.num_mel_bins)
+        xkvs = model.decoder.cross_kv(model.encoder(mel))
+        tokens, n_tok = toks["cuda"]["tokens"], toks["cuda"]["n_tokens"]
+        seq = torch.cat([torch.full_like(tokens[:, :1], kw["start_id"]), tokens[:, :-1]], 1)
+        logits = model.decoder(seq, xkvs)                           # teacher-forced [B, 200, V]
+    if not torch.equal(toks["cpu"]["tokens"], tokens.cpu()):
+        raise AssertionError("asr: card and CPU tokens differ on the first batch")
+    sup = torch.zeros(cfg.vocab_size, dtype=torch.bool, device="cuda")
+    sup[kw["suppress_ids"]] = True
+    gaps = []
+    for step in range(tokens.shape[1]):
+        if step < 1:                                                # the forced <|notimestamps|>
+            continue
+        ban = sup.clone()
+        if step == 1:
+            ban[kw["begin_suppress_ids"]] = True
+        live = n_tok >= step                                        # rows still decoding
+        if live.any():
+            top2 = logits[:, step].masked_fill(ban, -math.inf)[live].topk(2, dim=-1).values
+            gaps.append((top2[:, 0] - top2[:, 1]).min().item())
+    del cpu_model
+    print(f"first batch ({ASR_BATCH} pieces, {int(n_tok.sum())} tokens, up to "
+          f"{int(n_tok.max())} a piece): card tokens equal the CPU's (f32, TF32 off); the "
+          f"smallest top-1 / top-2 logit gap over its live steps {min(gaps)!r}")
+
+    # ms per decode step at batch ASR_BATCH, the cross K / V of the batch in place
+    state = {"step": 0}
+
+    def decode_step():
+        s = state["step"]
+        logits = model.decoder(state["last"], xkvs, start=s, caches=state["caches"])[:, -1]
+        state["last"] = logits.argmax(dim=-1, keepdim=True)
+        state["step"] = s + 1
+
+    with torch.inference_mode():
+        state["caches"] = init_self_caches(cfg, ASR_BATCH, ASR_TIMED_STEPS + 9, "cuda")
+        state["last"] = torch.full((ASR_BATCH, 1), kw["start_id"], device="cuda")
+        ms = time_ms(decode_step, iters=ASR_TIMED_STEPS, warmup=3)
+        state["step"] = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(16):
+                decode_step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    bound = whisper_decode_bound_ms(cfg, ASR_BATCH)
+    print(f"whisper-base.en decode step, batch {ASR_BATCH} (f32, TF32 off): {ms!r} ms by CUDA "
+          f"events over {ASR_TIMED_STEPS} steps, bound {bound!r} ms (decoder weights and the "
+          f"batch's cross K/V at 3.35 TB/s; {bound / ms:.1%} of it)")
+    print_device_time(prof, wall, "profiled decode (16 steps)", ASR_FAMILIES,
+                      "elementwise, norms and the rest")
+
+    # the ASR text variant: the csv through the text stage
+    save_dir = os.path.join(tmp, "asr_text")
+    reset_counts()
+    t_out = extract.main(["text", "--model_dir", llm_dir, "--trans_path", csv_path,
+                          "--save_dir", save_dir])
+    torch.cuda.synchronize()
+    for name in names:
+        feat = np.load(os.path.join(save_dir, f"{name}.npy"))
+        if feat.ndim != 2 or feat.shape[1] != VICUNA["hidden_size"] or not np.isfinite(feat).all():
+            raise AssertionError(f"asr text {name}: {feat.shape} or non-finite")
+    print(f"ASR text variant: cli.extract text on the transcription csv, {t_out['rows']} rows, "
+          f"{t_out['seconds']!r} s host clock, launches {read_counts()}")
+    del model
+    torch.cuda.empty_cache()
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3 with the kernels of the checkout at `root`, built from its
     own sources into its own build/kernels/; per-kernel totals."""
@@ -2185,7 +2836,8 @@ def main() -> int:
     flash = phase(3, flash_phase, torch, flash_wavlm)
     infer_launches = phase(4, main_path_phase, torch, fused_cross)
     with tempfile.TemporaryDirectory() as work:
-        extract_counts, feats_dir = phase(5, extraction_phase, torch, flash_wavlm, work)
+        extract_counts, feats_dir, f32_rate = phase(5, extraction_phase, torch, flash_wavlm,
+                                                     work)
         launches = phase(7, training_phase, torch, fused_cross)
         phase(8, step_parity_phase, torch)
         phase(9, step_timing_phase, torch)
@@ -2198,6 +2850,10 @@ def main() -> int:
         phase(16, manet_train_phase, torch, work)
         bf16_totals = phase(17, bf16_kernel_phase, torch, fused_cross, fused_pool, lengths, totals)
         store_launches = phase(18, store_phase, torch, fused_cross, work)
+        flash_bf16 = phase(19, flash_bf16_phase, torch, flash_wavlm, flash)
+        phase(20, flash_grad_phase, torch, flash_wavlm)
+        bf16_counts = phase(21, bf16_extraction_phase, torch, work, feats_dir, f32_rate)
+        phase(22, asr_phase, torch, work, llm_dir)
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():
@@ -2227,6 +2883,14 @@ def main() -> int:
                          else "bytes"),
             "library_ms": None,
         })
+    kernels.append({
+        **FLASH_BF16, "route": "cuda", "launches": bf16_counts[FLASH_BF16["name"]],
+        "max_abs_err": flash_bf16["max_abs_err"], "ms": flash_bf16["ms"],
+        "plain_ms": flash_bf16["plain_ms"], "bound_ms": flash_bf16["bound_ms"],
+        "bound_by": ("operations" if flash_bf16["operations_ms"] >= flash_bf16["bytes_ms"]
+                     else "bytes"),
+        "library_ms": flash_bf16["library_ms"],
+    })
     print("fused_cross / fused_pool times are per dual batch: the sum of the "
           "audio, text and video calls above; library_ms is null: no single "
           "PyTorch call computes tanh(x W^T + b) keys, the masked softmax and "
@@ -2239,16 +2903,17 @@ def main() -> int:
           f"{ {REPLACES[q][0]: n for q, n in infer_launches.items()} }), cli.extract audio "
           "for flash_wavlm, cli.train --feature_dtype bfloat16 on the bf16 store for the "
           "bf16 instances (the int8 store's run: "
-          f"{ {REPLACES_BF16[q][0]: n for q, n in store_launches['int8'].items()} }); "
-          "max_abs_err is "
+          f"{ {REPLACES_BF16[q][0]: n for q, n in store_launches['int8'].items()} }), "
+          "cli.extract audio --dtype bfloat16 for flash_wavlm_bf16 (its library_ms: bf16 SDPA "
+          "with a materialised bf16 mask); max_abs_err is "
           "the forward's against the plain version")
     for name, tot in ((REPLACES[7][0], totals[7]), (REPLACES[1][0], totals[1]),
                       (FLASH["name"], flash), (REPLACES_BF16[7][0], bf16_totals[7]),
-                      (REPLACES_BF16[1][0], bf16_totals[1])):
+                      (REPLACES_BF16[1][0], bf16_totals[1]), (FLASH_BF16["name"], flash_bf16)):
         print(f"{name}: kernel_ms={tot['ms']!r} device_ms={tot['device_ms']!r} "
               f"grad_max_abs_err={tot.get('grad_max_abs_err')!r} "
               f"bound_ms={tot['bound_ms']!r} ({tot['ms'] and tot['bound_ms'] / tot['ms']:.1%} "
-              f"of it) f32_bound_ms={tot['f32_bound_ms']!r}")
+              f"of it) f32_bound_ms={tot.get('f32_bound_ms')!r}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,16 +8,18 @@
         --wavlm_dir ... --save_dir ...
     python -m sdumc_tpu_torch.cli.extract pack --src_dir ... --out_prefix ... \
         [--dtype float32|bfloat16|int8]
+    python -m sdumc_tpu_torch.cli.extract asr --model_dir ... --audio_dir ... \
+        --save_csv ... [--vad]
 
-Six stages are ported: ``audio`` (WavLM, extract/audio.py), ``text``
+Seven stages are ported: ``audio`` (WavLM, extract/audio.py), ``text``
 (the LLaMA family, extract/text.py), ``visual`` (MANet, extract/visual.py),
 ``manet_train`` (MANet's RAF-DB trainer, extract/manet_train.py),
-``feat4`` (the Vicuna pseudo-text decode, extract/llm4wav.py) and ``pack``
+``feat4`` (the Vicuna pseudo-text decode, extract/llm4wav.py), ``pack``
 (a directory of ``.npy`` features into one packed store, data/packed.py,
 that cli.train and cli.infer read when it sits in the features directory
-as ``{feature}.bin`` / ``.json``). The JAX package's other stages are
-still to port (ROADMAP queue 1): ``vision`` (the other visual encoders)
-and ``asr`` (ASR).
+as ``{feature}.bin`` / ``.json``) and ``asr`` (Whisper transcripts,
+extract/asr.py). The JAX package's other stage is still to port (ROADMAP
+queue 1): ``vision`` (the other visual encoders).
 """
 
 from __future__ import annotations
@@ -32,10 +34,10 @@ STAGES = {
     "manet_train": "sdumc_tpu_torch.extract.manet_train",
     "feat4": "sdumc_tpu_torch.extract.llm4wav",
     "pack": "sdumc_tpu_torch.data.packed",
+    "asr": "sdumc_tpu_torch.extract.asr",
 }
 NOT_PORTED = {
     "vision": "the other visual encoders",
-    "asr": "ASR",
 }
 
 

@@ -2,8 +2,9 @@
 
 For the fusion net, the inverse of the reference-key table in
 ``sdumc_tpu/convert/torch_to_jax.py``, kept here as the port's own copy;
-for WavLM, LLaMA and MANet, the inverses of ``sdumc_tpu/convert/hf_wavlm.py``,
-``sdumc_tpu/convert/hf_llama.py`` and ``sdumc_tpu/convert/torch_manet.py``.
+for WavLM, LLaMA, MANet and Whisper, the inverses of
+``sdumc_tpu/convert/hf_wavlm.py``, ``sdumc_tpu/convert/hf_llama.py``,
+``sdumc_tpu/convert/torch_manet.py`` and ``sdumc_tpu/convert/hf_whisper.py``.
 The port names its submodules after the reference torch (or HF)
 state_dict, so the keys produced here are those keys: Dense ``kernel``
 [in, out] transposes to Linear ``weight`` [out, in], a Flax conv kernel
@@ -234,4 +235,36 @@ def manet_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
             elif arr.ndim == 2:
                 arr = arr.T
             out[manet_key_for(path)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def whisper_key_for(path: Tuple[str, ...]) -> str:
+    """Port (HF) key of one param path of the JAX WhisperModel:
+    ``encoder/layers_0_self_attn/q_proj/kernel`` ->
+    ``encoder.layers.0.self_attn.q_proj.weight``."""
+    side, name, *rest = path
+    leaf = {**_LEAF, **_NORM_LEAF}
+    if name in ("embed_positions", "embed_tokens") and not rest:
+        return f"{side}.{name}.weight"
+    if name.startswith("layers_"):
+        _, i, sub = name.split("_", 2)
+        name = f"layers.{i}.{sub}"
+    if len(rest) == 2:                     # an attention projection
+        return f"{side}.{name}.{rest[0]}.{leaf[rest[1]]}"
+    if len(rest) == 1 and rest[0] in leaf:
+        return f"{side}.{name}.{leaf[rest[0]]}"
+    raise KeyError(f"no port key for flax param {'/'.join(path)}")
+
+
+def whisper_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    """The JAX WhisperModel's params as the port's (HF's) state_dict. Raises
+    on a param path it does not know."""
+    out = {}
+    for path, value in _leaves(params):
+        arr = np.array(value, dtype=np.float32)
+        if arr.ndim == 3:                                    # conv [k, in, out]
+            arr = arr.transpose(2, 1, 0)
+        elif arr.ndim == 2 and path[-1] == "kernel":         # dense [in, out]
+            arr = arr.T
+        out[whisper_key_for(path)] = torch.from_numpy(np.ascontiguousarray(arr))
     return out

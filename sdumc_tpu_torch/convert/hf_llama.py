@@ -2,15 +2,14 @@
 its LlamaModel trunk alone, which the text stage runs).
 
 The port of ``sdumc_tpu/convert/hf_llama.py`` without ``transformers``:
-``config.json`` is read with ``json`` and the weights with ``torch.load``
-(``pytorch_model.bin``, or the shards ``pytorch_model-0000k-of-0000n.bin``
-that ``pytorch_model.bin.index.json`` maps) or with ``safetensors``
-(``model.safetensors`` and its shards), which raises clearly where that
-package is missing. The model is built on the meta device and loaded with
-``assign=True``; each tensor is cast to its dtype as it is read (the fp16
-checkpoint to bf16, norm scales to f32, as JAX keeps them) and moved to the
-target device at once, so a 7B load never holds an f32 copy or the whole
-checkpoint on the host.
+``config.json`` is read with ``json`` and the weights through
+``convert/safetensors_io.py`` (``pytorch_model.bin`` with ``torch.load``,
+``model.safetensors`` with the port's own reader, or the shards that either's
+index maps; the ``safetensors`` package is not needed). The model is built on the meta
+device and loaded with ``assign=True``; each tensor is cast to its dtype as
+it is read (the fp16 checkpoint to bf16, norm scales to f32, as JAX keeps
+them) and moved to the target device at once, so a 7B load never holds an
+f32 copy or the whole checkpoint on the host.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from typing import Iterator, Mapping, Optional, Tuple
 
 import torch
 
+from sdumc_tpu_torch.convert import safetensors_io
 from sdumc_tpu_torch.models.llama import LlamaConfig, LlamaModel, model_from_state_dict
 from sdumc_tpu_torch.ops.quant import quantize_params
 
@@ -46,31 +46,6 @@ def config_from_hf(mapping: Mapping, dtype=torch.bfloat16) -> LlamaConfig:
     )
 
 
-def _load_file(path: str) -> Mapping[str, torch.Tensor]:
-    if path.endswith(".safetensors"):
-        try:
-            from safetensors.torch import load_file
-        except ImportError as e:
-            raise RuntimeError(f"{path} needs the safetensors package, which is not "
-                               "installed; save the checkpoint as pytorch_model*.bin") from e
-        return load_file(path)
-    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
-
-
-def weight_files(model_dir: str):
-    """The weight files of an HF directory, in shard order."""
-    for single, index in (("pytorch_model.bin", "pytorch_model.bin.index.json"),
-                          ("model.safetensors", "model.safetensors.index.json")):
-        if os.path.exists(os.path.join(model_dir, single)):
-            return [os.path.join(model_dir, single)]
-        if os.path.exists(os.path.join(model_dir, index)):
-            with open(os.path.join(model_dir, index)) as f:
-                shards = sorted(set(json.load(f)["weight_map"].values()))
-            return [os.path.join(model_dir, s) for s in shards]
-    raise FileNotFoundError(f"{model_dir} holds no pytorch_model.bin, model.safetensors or "
-                            "sharded index of either")
-
-
 def target_dtype(key: str, dtype) -> torch.dtype:
     """Norm scales stay f32 (JAX keeps them f32 and applies them in f32);
     every other weight takes the model dtype."""
@@ -82,8 +57,8 @@ def iter_state_dict(model_dir: str, dtype=torch.bfloat16, device="cpu", prefix: 
     """(key, tensor) of every weight whose key starts with ``prefix`` (the
     key given without it), one shard at a time, each cast and moved as it
     is read."""
-    for path in weight_files(model_dir):
-        shard = _load_file(path)
+    for path in safetensors_io.weight_files(model_dir):
+        shard = safetensors_io.load_weight_file(path)
         for key in list(shard):
             if key.endswith(IGNORED_SUFFIXES) or not key.startswith(prefix):
                 continue

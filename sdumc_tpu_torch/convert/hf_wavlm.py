@@ -1,8 +1,9 @@
 """An HF-format WavLM / wav2vec2 / HuBERT directory -> the port's WavLMModel.
 
-Reads ``config.json`` with ``json`` and the weights with ``torch.load``
-(``pytorch_model.bin``) or ``safetensors.torch`` (``model.safetensors``);
-``transformers`` is never imported. The port's submodules carry HF's
+Reads ``config.json`` with ``json`` and the weights through
+``convert/safetensors_io.py`` (``pytorch_model.bin`` with ``torch.load``,
+``model.safetensors`` with the port's own reader, or either's shards); neither ``transformers`` nor
+``safetensors`` is imported. The port's submodules carry HF's
 state_dict names, so the weights load as a state dict; the positional
 conv's weight norm (g * v / ||v||, torch weight_norm dim=2) is folded into
 one effective weight, since extraction runs the encoder frozen.
@@ -17,6 +18,7 @@ from typing import Dict, Mapping
 
 import torch
 
+from sdumc_tpu_torch.convert import safetensors_io
 from sdumc_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 
 POS_CONV = "encoder.pos_conv_embed.conv"
@@ -66,21 +68,6 @@ def hf_state_dict_to_port(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, t
     return sd
 
 
-def _read_weights(model_dir: str) -> Dict[str, torch.Tensor]:
-    bin_path = os.path.join(model_dir, "pytorch_model.bin")
-    st_path = os.path.join(model_dir, "model.safetensors")
-    if os.path.exists(bin_path):
-        return torch.load(bin_path, map_location="cpu", weights_only=True)
-    if os.path.exists(st_path):
-        try:
-            from safetensors.torch import load_file
-        except ImportError as e:
-            raise RuntimeError(f"{st_path} needs the safetensors package, which is not "
-                               "installed; save the checkpoint as pytorch_model.bin") from e
-        return load_file(st_path)
-    raise FileNotFoundError(f"{model_dir} holds neither pytorch_model.bin nor model.safetensors")
-
-
 def load_hf_wavlm(model_dir: str, **overrides):
     """(WavLMConfig, WavLMModel in eval mode on the CPU) from an HF-format
     directory; ``overrides`` replace config fields (e.g. attention_impl).
@@ -90,7 +77,7 @@ def load_hf_wavlm(model_dir: str, **overrides):
         cfg = dataclasses.replace(config_from_hf(json.load(f)), **overrides)
     with torch.device("meta"):                     # no init work: every weight is loaded
         model = WavLMModel(cfg)
-    sd = {k: v.float() for k, v in hf_state_dict_to_port(_read_weights(model_dir)).items()}
+    sd = {k: v.float() for k, v in hf_state_dict_to_port(safetensors_io.load_hf_weights(model_dir)).items()}
     result = model.load_state_dict(sd, strict=False, assign=True)
     if result.missing_keys or result.unexpected_keys:
         raise KeyError(f"{model_dir}: missing {result.missing_keys}, "

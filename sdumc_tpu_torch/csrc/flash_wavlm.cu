@@ -54,9 +54,37 @@
 //    arrives, and the rescale exp(m_old - m_new) then wipes what it summed. A
 //    row with no valid key averages v over all T keys, as the plain version
 //    does.
+//
+// The bf16 instance (sdumc_flash_wavlm_bf16) computes what the Pallas kernel
+// computes at bf16 inputs (flash_wavlm.py:140-248, wrapper :251-371): q, k, v,
+// the gate and the bias are bf16 (the wrapper rounds the gate and the bias
+// to bf16, as the Pallas wrapper rounds its gate column and bias tiles),
+// masked keys add NEG rounded to bf16, QK^T and P.V accumulate in f32, the
+// scores, the gated bias and the softmax statistics are f32, p = exp(s - m)
+// is rounded to bf16 before P.V, the row sum l is the f32 sum of the rounded
+// p (the Pallas kernel takes it from v's ones column through the same dot),
+// and out = acc / l is rounded to bf16 once. The scale 1 / sqrt(hd) is a
+// power of two for hd 16 and 64, so applying it to the f32 score is exact
+// and equals the Pallas wrapper's bf16 scaling of q. m is the running max of
+// 64-key tiles, so p is rounded relative to it (the Pallas kernel's is of
+// its own blocks); the plain version rounds against the same running max.
+// Route: a bf16 value is exact in TF32 (8 significant bits against 11), so
+// the tiles are staged at 2 bytes (cp.async, 8 values per 16 bytes), widened
+// once per block into f32 buffers laid out for 8-byte fragment loads, and
+// each product issues ONE TF32 mma.sync pass (m16n8k8) instead of three;
+// the rounded p is exact in TF32 too. Its bound on this card: the same 36.8
+// GFLOP at T = 2999 on bf16 operands at the dense bf16 tensor-core rate of
+// 989 TFLOP/s, 0.037 ms, against 0.0073 ms for the 24.6 MB of bf16 q, k, v
+// and out: bound by the tensor cores. The one TF32 pass chosen here can at
+// best reach the 495 TFLOP/s TF32 rate, 0.074 ms, half the bf16 rate; a
+// native bf16 mma (m16n8k16) or wgmma, for a later change, is what closes
+// that factor. 55 KB of shared memory a block (hd = 64).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "tf32x3.cuh"
 
@@ -95,7 +123,31 @@ struct Layout {
   static constexpr size_t floats = (size_t)kMask + kKeys;
 };
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+// Shared memory of the bf16 instance, in floats. The raw bf16 k and v tiles
+// land in [64][HD + 8] bf16 buffers (cp.async); the widening pass writes them
+// as f32:
+//   k: row u, element e at u * KS + e
+//   v: key pair p (2p, 2p + 1), column c at p * VS + 2c: v(2p, c), v(2p + 1, c)
+// so that one 8-byte load gives a lane its B fragment. KS = HD + 8 and VS =
+// 2 HD + 8 (both 8 mod 32) put a half warp's 16 loads on 32 distinct banks.
+template <int HD>
+struct LayoutB16 {
+  static constexpr int RS = HD + 8;                        // bf16 values a raw row
+  static constexpr int KS = HD + 8;
+  static constexpr int VS = 2 * HD + 8;
+  static constexpr int kRawK = 0;
+  static constexpr int kRawV = kRawK + kKeys * RS / 2;
+  static constexpr int kWideK = kRawV + kKeys * RS / 2;
+  static constexpr int kWideV = kWideK + kKeys * KS;
+  static constexpr int kWin = kWideV + kKeys / 2 * VS;
+  static constexpr int kMask = kWin + 2 * kKeys;
+  static constexpr size_t floats = (size_t)kMask + kKeys;
+};
+
+template <bool B16>
+using Elem = typename std::conditional<B16, __nv_bfloat16, float>::type;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem));
 }
@@ -167,6 +219,74 @@ __device__ __forceinline__ void split_tiles(float* smem, int tid) {
   }
 }
 
+// The bf16 instance's load_raw: rows t0 .. t0 + 63 of k and v into the raw
+// bf16 buffers, rows at or past T zero-filled; 16 bytes (8 values) a copy.
+template <int HD>
+__device__ __forceinline__ void load_raw_b16(float* smem, const __nv_bfloat16* k,
+                                             const __nv_bfloat16* v, int t0, int T,
+                                             size_t row_stride, int tid) {
+  using L = LayoutB16<HD>;
+  constexpr int kC = HD / 8;
+  __nv_bfloat16* rk = reinterpret_cast<__nv_bfloat16*>(smem + L::kRawK);
+  __nv_bfloat16* rv = reinterpret_cast<__nv_bfloat16*>(smem + L::kRawV);
+  for (int i = tid; i < kKeys * kC; i += kThreads) {
+    const int r = i / kC, c = i % kC;
+    __nv_bfloat16* dk = rk + r * L::RS + 8 * c;
+    __nv_bfloat16* dv = rv + r * L::RS + 8 * c;
+    if (t0 + r < T) {
+      const size_t src = (size_t)(t0 + r) * row_stride + 8 * c;
+      cp_async16(dk, k + src);
+      cp_async16(dv, v + src);
+    } else {
+      *reinterpret_cast<uint4*>(dk) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(dv) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ void widen8(uint4 raw, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 w = __bfloat1622float2(p[i]);
+    f[2 * i] = w.x;
+    f[2 * i + 1] = w.y;
+  }
+}
+
+// The raw bf16 k and v tiles widened into their f32 buffers (exact).
+template <int HD>
+__device__ __forceinline__ void widen_tiles(float* smem, int tid) {
+  using L = LayoutB16<HD>;
+  constexpr int kC = HD / 8;
+  const __nv_bfloat16* rk = reinterpret_cast<const __nv_bfloat16*>(smem + L::kRawK);
+  const __nv_bfloat16* rv = reinterpret_cast<const __nv_bfloat16*>(smem + L::kRawV);
+  for (int i = tid; i < kKeys * kC; i += kThreads) {
+    const int r = i / kC, c = i % kC;
+    float f[8];
+    widen8(*reinterpret_cast<const uint4*>(rk + r * L::RS + 8 * c), f);
+    float* d = smem + L::kWideK + r * L::KS + 8 * c;
+    *reinterpret_cast<float4*>(d) = make_float4(f[0], f[1], f[2], f[3]);
+    *reinterpret_cast<float4*>(d + 4) = make_float4(f[4], f[5], f[6], f[7]);
+  }
+  for (int i = tid; i < kKeys / 2 * kC; i += kThreads) {
+    const int p = i / kC, c = i % kC;
+    float a[8], b[8];
+    widen8(*reinterpret_cast<const uint4*>(rv + 2 * p * L::RS + 8 * c), a);
+    widen8(*reinterpret_cast<const uint4*>(rv + (2 * p + 1) * L::RS + 8 * c), b);
+    float* d = smem + L::kWideV + p * L::VS + 16 * c;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      *reinterpret_cast<float4*>(d + 4 * j) =
+          make_float4(a[2 * j], b[2 * j], a[2 * j + 1], b[2 * j + 1]);
+  }
+}
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
 // 2^x on the SFU (relative error about 2^-22); flushes results below 2^-126 to 0.
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
@@ -174,22 +294,23 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-template <int HD>
+template <int HD, bool B16>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                   const float* __restrict__ v, const float* __restrict__ gate,
-                   const float* __restrict__ bias_diag,
-                   const float* __restrict__ kvalid, float* __restrict__ out,
+flash_wavlm_kernel(const Elem<B16>* __restrict__ q, const Elem<B16>* __restrict__ k,
+                   const Elem<B16>* __restrict__ v, const Elem<B16>* __restrict__ gate,
+                   const Elem<B16>* __restrict__ bias_diag,
+                   const float* __restrict__ kvalid, Elem<B16>* __restrict__ out,
                    int T, int H, float scale) {
   static_assert(HD % 16 == 0 && HD <= 64, "8-wide steps, whole float4 rows");
   using L = Layout<HD>;
+  using LB = LayoutB16<HD>;
   constexpr int kK = HD / 8;          // 8-wide steps of q . k; 8-column tiles of out
 
   extern __shared__ __align__(16) float smem[];
-  const float* ks = smem + L::kSplitK;
-  const float* vs = smem + L::kSplitV;
-  float* w_s = smem + L::kWin;
-  float* n_s = smem + L::kMask;
+  const float* ks = smem + (B16 ? LB::kWideK : L::kSplitK);
+  const float* vs = smem + (B16 ? LB::kWideV : L::kSplitV);
+  float* w_s = smem + (B16 ? LB::kWin : L::kWin);
+  float* n_s = smem + (B16 ? LB::kMask : L::kMask);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -199,31 +320,54 @@ flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int b = blockIdx.z;
   const size_t row_stride = (size_t)H * HD;
   const size_t head = ((size_t)b * T * H + h) * HD;
-  const float* diag = bias_diag + (size_t)h * (2 * T - 1);
+  const Elem<B16>* diag = bias_diag + (size_t)h * (2 * T - 1);
   const float* kv = kvalid ? kvalid + (size_t)b * T : nullptr;
 
   // this lane's two query rows: r0 (= fragment row g) and r1 (= g + 8)
   const int r0 = 16 * warp + g, r1 = r0 + 8;
   const bool in0 = q0 + r0 < T, in1 = q0 + r1 < T;
 
-  load_raw<HD>(smem, k + head, v + head, 0, T, row_stride, tid);
+  if constexpr (B16)
+    load_raw_b16<HD>(smem, k + head, v + head, 0, T, row_stride, tid);
+  else
+    load_raw<HD>(smem, k + head, v + head, 0, T, row_stride, tid);
 
   // q . k's A fragments, split once: step kk, k index t <-> element 8kk + 2t
+  // (the bf16 instance: the widened values, their own TF32 hi)
   uint32_t qh[kK][4], ql[kK][4];
   {
-    const float* qa = q + head + (size_t)(in0 ? q0 + r0 : 0) * row_stride + 2 * t;
-    const float* qb = q + head + (size_t)(in1 ? q0 + r1 : 0) * row_stride + 2 * t;
+    const Elem<B16>* qa = q + head + (size_t)(in0 ? q0 + r0 : 0) * row_stride + 2 * t;
+    const Elem<B16>* qb = q + head + (size_t)(in1 ? q0 + r1 : 0) * row_stride + 2 * t;
 #pragma unroll
     for (int kk = 0; kk < kK; ++kk) {
-      const float2 x0 = in0 ? *reinterpret_cast<const float2*>(qa + 8 * kk) : make_float2(0.f, 0.f);
-      const float2 x1 = in1 ? *reinterpret_cast<const float2*>(qb + 8 * kk) : make_float2(0.f, 0.f);
-      tf32x3::split_a(x0, x1, qh[kk], ql[kk]);
+      if constexpr (B16) {
+        const float2 x0 = in0 ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qa + 8 * kk))
+                              : make_float2(0.f, 0.f);
+        const float2 x1 = in1 ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qb + 8 * kk))
+                              : make_float2(0.f, 0.f);
+        qh[kk][0] = __float_as_uint(x0.x);
+        qh[kk][1] = __float_as_uint(x1.x);
+        qh[kk][2] = __float_as_uint(x0.y);
+        qh[kk][3] = __float_as_uint(x1.y);
+      } else {
+        const float2 x0 = in0 ? *reinterpret_cast<const float2*>(qa + 8 * kk) : make_float2(0.f, 0.f);
+        const float2 x1 = in1 ? *reinterpret_cast<const float2*>(qb + 8 * kk) : make_float2(0.f, 0.f);
+        tf32x3::split_a(x0, x1, qh[kk], ql[kk]);
+      }
     }
   }
-  const float* gate_row = gate + ((size_t)b * H + h) * T + q0;
-  const float g0 = in0 ? gate_row[r0] : 0.f;
-  const float g1 = in1 ? gate_row[r1] : 0.f;
+  const Elem<B16>* gate_row = gate + ((size_t)b * H + h) * T + q0;
+  float g0, g1;
+  if constexpr (B16) {
+    g0 = in0 ? __bfloat162float(gate_row[r0]) : 0.f;
+    g1 = in1 ? __bfloat162float(gate_row[r1]) : 0.f;
+  } else {
+    g0 = in0 ? gate_row[r0] : 0.f;
+    g1 = in1 ? gate_row[r1] : 0.f;
+  }
   const float sl = scale * kLog2e;    // scores are kept in log2 units
+  // a masked key's term: NEG (the bf16 instance: NEG rounded to bf16)
+  const float neg = (B16 ? round_bf16(kNeg) : kNeg) * kLog2e;
 
   float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows r0, r1
   float l0 = 0.f, l1 = 0.f;               // running sum over this lane's columns
@@ -238,20 +382,35 @@ flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int k0 = kt * kKeys;
     cp_async_wait_all();               // this tile's raw k and v landed
     __syncthreads();                   // ... for every thread; the split buffers are free
-    split_tiles<HD>(smem, tid);
+    if constexpr (B16)
+      widen_tiles<HD>(smem, tid);
+    else
+      split_tiles<HD>(smem, tid);
     if (tid < kKeys) {
       const int u = k0 + tid;
-      n_s[tid] = u >= T ? -INFINITY : (kv && !(kv[u] > 0.f)) ? kNeg * kLog2e : 0.f;
+      n_s[tid] = u >= T ? -INFINITY : (kv && !(kv[u] > 0.f)) ? neg : 0.f;
     } else {
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = tid - kKeys + e * kKeys;     // 0 .. 127
         const long long d = (long long)k0 - q0 + T - 1 - (kKeys - 1) + c;
-        w_s[c] = (c < 2 * kKeys - 1 && d >= 0 && d <= 2LL * T - 2) ? diag[d] * kLog2e : 0.f;
+        float w = 0.f;
+        if (c < 2 * kKeys - 1 && d >= 0 && d <= 2LL * T - 2) {
+          if constexpr (B16)
+            w = __bfloat162float(diag[d]) * kLog2e;
+          else
+            w = diag[d] * kLog2e;
+        }
+        w_s[c] = w;
       }
     }
     __syncthreads();                   // split tiles, mask and window in place; raw buffers free
-    if (kt + 1 < nk) load_raw<HD>(smem, k + head, v + head, k0 + kKeys, T, row_stride, tid);
+    if (kt + 1 < nk) {
+      if constexpr (B16)
+        load_raw_b16<HD>(smem, k + head, v + head, k0 + kKeys, T, row_stride, tid);
+      else
+        load_raw<HD>(smem, k + head, v + head, k0 + kKeys, T, row_stride, tid);
+    }
 
     // S = Q K^T: s[j] covers keys 8j .. 8j + 7 (c0, c1: row r0, keys 8j + 2t, + 1)
     float s[kNT][4];
@@ -263,8 +422,13 @@ flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int kk = 0; kk < kK; ++kk) {
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
-        const uint4 f = *reinterpret_cast<const uint4*>(ks + (8 * j + g) * L::KS + 16 * kk + 4 * t);
-        tf32x3::mma3(s[j], qh[kk], ql[kk], f.x, f.y, f.z, f.w);
+        if constexpr (B16) {
+          const uint2 f = *reinterpret_cast<const uint2*>(ks + (8 * j + g) * LB::KS + 8 * kk + 2 * t);
+          tf32x3::mma(s[j], qh[kk], f.x, f.y);
+        } else {
+          const uint4 f = *reinterpret_cast<const uint4*>(ks + (8 * j + g) * L::KS + 16 * kk + 4 * t);
+          tf32x3::mma3(s[j], qh[kk], ql[kk], f.x, f.y, f.z, f.w);
+        }
       }
     }
 
@@ -299,6 +463,10 @@ flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 2; ++e) {
         s[j][e] = exp2_ftz(s[j][e] - mn0);
         s[j][2 + e] = exp2_ftz(s[j][2 + e] - mn1);
+        if constexpr (B16) {        // p rounded to bf16; l sums the rounded p
+          s[j][e] = round_bf16(s[j][e]);
+          s[j][2 + e] = round_bf16(s[j][2 + e]);
+        }
         ps0 += s[j][e];
         ps1 += s[j][2 + e];
       }
@@ -317,12 +485,22 @@ flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
       for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
-      uint32_t ph[4], pl[4];
-      tf32x3::split_a(make_float2(s[j][0], s[j][1]), make_float2(s[j][2], s[j][3]), ph, pl);
+      if constexpr (B16) {          // the rounded p is exact in TF32: one pass
+        const uint32_t pa[4] = {__float_as_uint(s[j][0]), __float_as_uint(s[j][2]),
+                                __float_as_uint(s[j][1]), __float_as_uint(s[j][3])};
 #pragma unroll
-      for (int n = 0; n < kK; ++n) {
-        const uint4 f = *reinterpret_cast<const uint4*>(vs + (4 * j + t) * L::VS + 4 * (8 * n + g));
-        tf32x3::mma3(pv[n], ph, pl, f.x, f.y, f.z, f.w);
+        for (int n = 0; n < kK; ++n) {
+          const uint2 f = *reinterpret_cast<const uint2*>(vs + (4 * j + t) * LB::VS + 2 * (8 * n + g));
+          tf32x3::mma(pv[n], pa, f.x, f.y);
+        }
+      } else {
+        uint32_t ph[4], pl[4];
+        tf32x3::split_a(make_float2(s[j][0], s[j][1]), make_float2(s[j][2], s[j][3]), ph, pl);
+#pragma unroll
+        for (int n = 0; n < kK; ++n) {
+          const uint4 f = *reinterpret_cast<const uint4*>(vs + (4 * j + t) * L::VS + 4 * (8 * n + g));
+          tf32x3::mma3(pv[n], ph, pl, f.x, f.y, f.z, f.w);
+        }
       }
     }
 #pragma unroll
@@ -341,35 +519,63 @@ flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   // o[n]: columns 8n + 2t, 8n + 2t + 1 of rows r0 (c0, c1) and r1 (c2, c3)
   if (in0) {
-    float* dst = out + head + (size_t)(q0 + r0) * row_stride + 2 * t;
+    Elem<B16>* dst = out + head + (size_t)(q0 + r0) * row_stride + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kK; ++n)
-      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][0] / l0, o[n][1] / l0);
+    for (int n = 0; n < kK; ++n) {
+      if constexpr (B16)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(o[n][0] / l0, o[n][1] / l0);
+      else
+        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][0] / l0, o[n][1] / l0);
+    }
   }
   if (in1) {
-    float* dst = out + head + (size_t)(q0 + r1) * row_stride + 2 * t;
+    Elem<B16>* dst = out + head + (size_t)(q0 + r1) * row_stride + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kK; ++n)
-      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2] / l1, o[n][3] / l1);
+    for (int n = 0; n < kK; ++n) {
+      if constexpr (B16)
+        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(o[n][2] / l1, o[n][3] / l1);
+      else
+        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2] / l1, o[n][3] / l1);
+    }
   }
 }
 
-template <int HD>
-cudaError_t launch(const float* q, const float* k, const float* v, const float* gate,
-                   const float* bias_diag, const float* kvalid, float* out,
-                   int B, int T, int H, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * Layout<HD>::floats;
+template <int HD, bool B16>
+cudaError_t launch(const Elem<B16>* q, const Elem<B16>* k, const Elem<B16>* v,
+                   const Elem<B16>* gate, const Elem<B16>* bias_diag, const float* kvalid,
+                   Elem<B16>* out, int B, int T, int H, float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (B16 ? LayoutB16<HD>::floats : Layout<HD>::floats);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wavlm_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_wavlm_kernel<HD, B16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_wavlm_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_wavlm_kernel<HD, B16>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kTile - 1) / kTile, H, B);
-  flash_wavlm_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  flash_wavlm_kernel<HD, B16><<<grid, kThreads, smem, stream>>>(
       q, k, v, gate, bias_diag, kvalid, out, T, H, scale);
   return cudaGetLastError();
+}
+
+template <bool B16>
+int dispatch(const void* q, const void* k, const void* v, const void* gate,
+             const void* bias_diag, const float* kvalid, void* out,
+             int B, int T, int H, int hd, float scale, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  using E = Elem<B16>;
+  const E* qe = static_cast<const E*>(q);
+  const E* ke = static_cast<const E*>(k);
+  const E* ve = static_cast<const E*>(v);
+  const E* ge = static_cast<const E*>(gate);
+  const E* de = static_cast<const E*>(bias_diag);
+  E* oe = static_cast<E*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return (int)launch<16, B16>(qe, ke, ve, ge, de, kvalid, oe, B, T, H, scale, s);
+    case 64: return (int)launch<64, B16>(qe, ke, ve, ge, de, kvalid, oe, B, T, H, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -384,13 +590,15 @@ extern "C" {
 int sdumc_flash_wavlm(const float* q, const float* k, const float* v, const float* gate,
                       const float* bias_diag, const float* kvalid, float* out,
                       int B, int T, int H, int hd, float scale, void* stream) {
-  if (B < 1 || T < 1 || H < 1 || H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return (int)launch<16>(q, k, v, gate, bias_diag, kvalid, out, B, T, H, scale, s);
-    case 64: return (int)launch<64>(q, k, v, gate, bias_diag, kvalid, out, B, T, H, scale, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, k, v, gate, bias_diag, kvalid, out, B, T, H, hd, scale, stream);
+}
+
+// The bf16 instance: q, k, v, gate, bias_diag and out are bf16, with the
+// f32 instance's shapes; kvalid stays f32. scale must be a power of two.
+int sdumc_flash_wavlm_bf16(const void* q, const void* k, const void* v, const void* gate,
+                           const void* bias_diag, const float* kvalid, void* out,
+                           int B, int T, int H, int hd, float scale, void* stream) {
+  return dispatch<true>(q, k, v, gate, bias_diag, kvalid, out, B, T, H, hd, scale, stream);
 }
 
 const char* sdumc_flash_wavlm_error_string(int err) {

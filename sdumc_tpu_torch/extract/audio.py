@@ -10,7 +10,10 @@ Wavs are normalised per clip (zero mean, unit variance, as
 Wav2Vec2FeatureExtractor does), grouped by length under a frame budget,
 zero-padded to a sample bucket and run as batches with a frame mask, which
 gives the per-clip outputs. On the card every attention layer runs the
-hand-written kernel (``attention_impl="auto"``).
+hand-written kernel (``attention_impl="auto"``). ``--dtype bfloat16`` casts
+the weights and the waves to bf16, as JAX's extractor does: the attention
+then runs the kernel's bf16 instance (its plain version on the CPU), cuBLAS
+reduces the bf16 products in f32, and the taps are summed in f32.
 
     python -m sdumc_tpu_torch.cli.extract audio --model_dir DIR --audio_dir WAVS \
         --save_dir OUT [--device cpu]
@@ -84,19 +87,19 @@ def extract_audio_features(
     device=None,
 ) -> List[np.ndarray]:
     """One [T_i, D] (or [D] for UTTERANCE) f32 array per input wav. The
-    model runs on ``device`` (default: where its weights are)."""
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"--dtype {dtype} is not ported yet; see ROADMAP queue 2 "
-            "(the bf16-input variant of the WavLM attention kernel)")
+    model is moved to ``device`` (default: where its weights are) and cast
+    to ``dtype`` ("float32" or "bfloat16") in place."""
+    from sdumc_tpu_torch.cli.common import bf16_full_precision_reduction
+
+    wd = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype]
     n_taps = cfg.num_layers + 1
     idxs = sorted({i % n_taps for i in layer_ids if -n_taps <= i < n_taps})
     if not idxs:
         raise ValueError(f"layer_ids {tuple(layer_ids)} select none of the {n_taps} taps")
     device = torch.device(device) if device is not None else next(model.parameters()).device
-    model.to(device)
+    model.to(device=device, dtype=wd)
     results: List = [None] * len(wavs)
-    with torch.inference_mode():
+    with torch.inference_mode(), bf16_full_precision_reduction():
         for chunk in plan_batches(cfg, [len(w) for w in wavs], batch_size, buckets):
             group = [zero_mean_unit_var(wavs[i]) for i in chunk]
             maxlen = max(len(w) for w in group)
@@ -107,7 +110,7 @@ def extract_audio_features(
             for j, w in enumerate(group):
                 batch[j, : len(w)] = w
                 mask[j, : frame_len[j]] = True
-            out = model(torch.from_numpy(batch).to(device),
+            out = model(torch.from_numpy(batch).to(device, wd),
                         pad_mask=torch.from_numpy(mask).to(device), output_hidden_states=True)
             hs = out["hidden_states"]
             feats = sum(hs[i].float() for i in idxs).cpu().numpy()
@@ -139,10 +142,12 @@ def main(argv=None):
     parser.add_argument("--batch_size", type=int, default=8)
     parser.add_argument("--attention_impl", type=str, default="auto",
                         choices=["auto", "einsum", "flash"],
-                        help="auto = the hand-written kernel on CUDA, einsum on the CPU")
+                        help="auto = the hand-written kernel on CUDA; on the CPU einsum "
+                             "at float32, the kernel's plain version at bfloat16")
     parser.add_argument("--dtype", type=str, default="float32",
                         choices=["float32", "bfloat16"],
-                        help="only float32 is ported so far; bfloat16 raises")
+                        help="bfloat16 casts the weights and the waves to bf16 (the "
+                             "kernel's bf16 instance); float32 matches HF exactly")
     parser.add_argument("--overwrite", action="store_true", default=True)
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="cuda (the default) raises when no card is present")
@@ -152,10 +157,6 @@ def main(argv=None):
                              "(TF32 off); the others allow TF32")
     args = parser.parse_args(argv)
 
-    if args.dtype != "float32":
-        raise NotImplementedError(
-            f"--dtype {args.dtype} is not ported yet; see ROADMAP queue 2 "
-            "(the bf16-input variant of the WavLM attention kernel)")
     layer_ids = tuple(int(x) for x in args.layer_ids.split(","))
     device = resolve_device(args.device)
     set_matmul_precision(args.matmul_precision)

@@ -15,6 +15,19 @@ The port of ``sdumc_tpu/models/wavlm.py``. The reference runs HF
 Submodules carry HF's state_dict names, so an HF checkpoint loads as a
 state dict (``convert/hf_wavlm.py``); only the positional conv's weight norm
 is folded into ``encoder.pos_conv_embed.conv.weight``.
+
+In bf16 (the model cast with ``.to(torch.bfloat16)``, as
+``cli.extract audio --dtype bfloat16`` does) the model rounds where flax
+rounds with bf16 parameters and no ``dtype``: a Dense or a conv rounds its
+product to bf16 and then adds its bias in bf16 (``Linear`` / ``Conv1d``
+below; a fused bias would round once); LayerNorm and GroupNorm take their
+statistics and normalise in f32 and round once (torch's bf16 norms do the
+same); the gate's sum over its 4 pairs accumulates in f32; the einsum
+path's softmax is f32; the kernel path is the flash kernel's bf16 instance
+(or its plain version on the CPU: f32 scores, p rounded to bf16); the
+weight-normed positional conv is folded in f32 at conversion and rounded
+with the other weights. Elementwise ops (gelu, sigmoid, the gate's
+arithmetic) are torch's bf16 ops, each computed in f32 and rounded once.
 """
 
 from __future__ import annotations
@@ -85,9 +98,12 @@ class WavLMConfig:
         return t
 
 
-def resolve_attention_impl(impl: str, device: torch.device) -> str:
+def resolve_attention_impl(impl: str, device: torch.device,
+                           dtype: torch.dtype = torch.float32) -> str:
+    """"auto" is the kernel on the card, at any T, and its plain version on
+    the CPU at bf16 (the kernel's semantics); einsum on the CPU at f32."""
     if impl == "auto":
-        return "flash" if device.type == "cuda" else "einsum"
+        return "flash" if device.type == "cuda" or dtype == torch.bfloat16 else "einsum"
     if impl == "ring":
         raise NotImplementedError(
             "attention_impl='ring' (sequence-parallel WavLM) is not ported; "
@@ -97,6 +113,33 @@ def resolve_attention_impl(impl: str, device: torch.device) -> str:
     return impl
 
 
+class Linear(nn.Linear):
+    """nn.Linear; in bf16 the product is rounded before the bias is added,
+    as flax's Dense with bf16 parameters does."""
+
+    def forward(self, x):
+        if x.dtype == torch.bfloat16:
+            return F.linear(x, self.weight) + self.bias
+        return super().forward(x)
+
+
+class Conv1d(nn.Conv1d):
+    """nn.Conv1d; in bf16 the convolution (f32 accumulate) is rounded before
+    the bias is added, as the JAX model's ``_conv1d`` does. On the CPU the
+    bf16 convolution runs on the widened inputs and is rounded once: torch's
+    CPU bf16 grouped conv1d is wrong (relative error about 1 against f32 at
+    groups 4, torch 2.13), and the f32 one is the same function."""
+
+    def forward(self, x):
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        if x.device.type == "cpu":
+            out = self._conv_forward(x.float(), self.weight.float(), None).to(x.dtype)
+        else:
+            out = self._conv_forward(x, self.weight, None)
+        return out if self.bias is None else out + self.bias[:, None]
+
+
 class ConvLayer(nn.Module):
     """One temporal conv of the feature encoder, with its norm and gelu."""
 
@@ -104,8 +147,8 @@ class ConvLayer(nn.Module):
         super().__init__()
         in_dim = 1 if i == 0 else cfg.conv_dim[i - 1]
         dim = cfg.conv_dim[i]
-        self.conv = nn.Conv1d(in_dim, dim, cfg.conv_kernel[i],
-                              stride=cfg.conv_stride[i], bias=cfg.conv_bias)
+        self.conv = Conv1d(in_dim, dim, cfg.conv_kernel[i],
+                           stride=cfg.conv_stride[i], bias=cfg.conv_bias)
         if cfg.feat_extract_norm == "layer":
             self.layer_norm = nn.LayerNorm(dim, eps=cfg.layer_norm_eps)
         elif i == 0:   # "group": GroupNorm(groups = channels) on the first conv
@@ -140,7 +183,7 @@ class FeatureProjection(nn.Module):
     def __init__(self, cfg: WavLMConfig):
         super().__init__()
         self.layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=cfg.layer_norm_eps)
-        self.projection = nn.Linear(cfg.conv_dim[-1], cfg.hidden_size)
+        self.projection = Linear(cfg.conv_dim[-1], cfg.hidden_size)
 
     def forward(self, feats):
         return self.projection(self.layer_norm(feats))
@@ -153,8 +196,8 @@ class PositionalConvEmbedding(nn.Module):
     def __init__(self, cfg: WavLMConfig):
         super().__init__()
         k = cfg.num_conv_pos_embeddings
-        self.conv = nn.Conv1d(cfg.hidden_size, cfg.hidden_size, k, padding=k // 2,
-                              groups=cfg.num_conv_pos_embedding_groups)
+        self.conv = Conv1d(cfg.hidden_size, cfg.hidden_size, k, padding=k // 2,
+                           groups=cfg.num_conv_pos_embedding_groups)
         self.trim = k % 2 == 0                     # HF's SamePad
 
     def forward(self, x):                          # [B, T, D]
@@ -172,12 +215,12 @@ class WavLMAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         D, H = cfg.hidden_size, cfg.num_heads
-        self.q_proj = nn.Linear(D, D)
-        self.k_proj = nn.Linear(D, D)
-        self.v_proj = nn.Linear(D, D)
-        self.out_proj = nn.Linear(D, D)
+        self.q_proj = Linear(D, D)
+        self.k_proj = Linear(D, D)
+        self.v_proj = Linear(D, D)
+        self.out_proj = Linear(D, D)
         if cfg.use_rel_pos_bias:
-            self.gru_rel_pos_linear = nn.Linear(D // H, 8)
+            self.gru_rel_pos_linear = Linear(D // H, 8)
             self.gru_rel_pos_const = nn.Parameter(torch.ones(1, H, 1, 1))
             if has_relative_position_bias:
                 self.rel_attn_embed = nn.Embedding(cfg.num_buckets, H)
@@ -202,7 +245,7 @@ class WavLMAttention(nn.Module):
             out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, D)
             return self.out_proj(out), None
 
-        impl = resolve_attention_impl(cfg.attention_impl, x.device)
+        impl = resolve_attention_impl(cfg.attention_impl, x.device, x.dtype)
         if position_bias is None:                  # layer 0: built once per forward
             rel_embed = self.rel_attn_embed.weight
             if impl == "einsum":
@@ -235,8 +278,8 @@ class WavLMAttention(nn.Module):
 class FeedForward(nn.Module):
     def __init__(self, cfg: WavLMConfig):
         super().__init__()
-        self.intermediate_dense = nn.Linear(cfg.hidden_size, cfg.intermediate_size)
-        self.output_dense = nn.Linear(cfg.intermediate_size, cfg.hidden_size)
+        self.intermediate_dense = Linear(cfg.hidden_size, cfg.intermediate_size)
+        self.output_dense = Linear(cfg.intermediate_size, cfg.hidden_size)
 
     def forward(self, h):
         return self.output_dense(F.gelu(self.intermediate_dense(h)))

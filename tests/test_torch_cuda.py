@@ -24,7 +24,12 @@ against its clips alone. So are the text stage (f32 and bf16), a tiny
 MANet and one MANet train step (float64). The fusion kernel's bf16 instance
 is held to its plain version to one bf16 ulp of the output plus the f32
 tolerance, at the tile edges; with it the page-locked batches of a packed
-store and a bf16 dual-view forward, card against CPU.
+store and a bf16 dual-view forward, card against CPU. The WavLM kernel's
+bf16 instance is held to its plain version to ``flash_wavlm.bf16_tolerance``
+and ``flash_wavlm.BF16_MISMATCH_LIMIT`` (both round p against the running max
+of 64-key tiles), its gradient (the autograd.Function's
+chunked backward) against the plain version's autograd, and a tiny bf16
+WavLM extraction card against CPU.
 """
 
 import math
@@ -518,9 +523,11 @@ def test_flash_launches_and_wrapper_checks(cuda):
         with pytest.raises(ValueError, match="hd"):      # no hd = 8 instance
             flash_wavlm.flash_gated_attention(q[..., :8].contiguous(), k[..., :8].contiguous(),
                                               v[..., :8].contiguous(), gate, rel, **kw)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        flash_wavlm.flash_gated_attention(q.requires_grad_(), k, v, gate, rel, **kw)
-    assert flash_wavlm.LAUNCHES == 2
+    # under grad the kernel runs forward (it was forward-only before its
+    # autograd.Function); its gradient is held in test_flash_gradient_on_card
+    out = flash_wavlm.flash_gated_attention(q.requires_grad_(), k, v, gate, rel, **kw)
+    assert out.requires_grad and flash_wavlm.LAUNCHES == 3
+    assert flash_wavlm.LAUNCHES_BF16 == 0
 
 
 @pytest.mark.cuda
@@ -551,6 +558,128 @@ def test_tiny_wavlm_on_card_matches_cpu(cuda, stable):
     for i, (g, r) in enumerate(zip(got, ref)):
         torch.testing.assert_close(torch.where(keep, g.cpu(), 0.0), torch.where(keep, r, 0.0),
                                    rtol=1e-4, atol=1e-4, msg=f"hidden_states[{i}]")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 127, 129, 249, 1000])
+@pytest.mark.parametrize("mask", ["prefix", "scattered"])
+def test_flash_bf16_kernel_matches_plain(cuda, T, mask):
+    """The bf16 instance against its plain version at the tile edges, with
+    masks, without, and with a row of no valid key, to
+    ``flash_wavlm.bf16_tolerance`` (a p one bf16 ulp apart: 2^-7 of the
+    output's spread over v, one bf16 ulp, the f32 sums) and to
+    ``flash_wavlm.BF16_MISMATCH_LIMIT`` in the share of elements that
+    differ (both round p against the running max of 64-key tiles)."""
+    hd = 16 if T in (65, 129) else 64
+    args = [t.to(cuda).bfloat16() for t in _flash_inputs(3, T, 4, hd, mask)[:5]]
+    kvalid = _flash_inputs(3, T, 4, hd, mask)[5].to(cuda)
+    kw = dict(num_buckets=NB, max_distance=MD)
+    flash_wavlm.reset_launches()
+    with torch.inference_mode():
+        for mask_arg in (kvalid, None, torch.zeros_like(kvalid)):
+            got = flash_wavlm.flash_gated_attention(*args, mask_arg, **kw)
+            ref = flash_wavlm.flash_gated_attention_plain(*args, mask_arg, **kw)
+            assert got.dtype == ref.dtype == torch.bfloat16
+            err = (got.float() - ref.float()).abs()
+            bound = flash_wavlm.bf16_tolerance(ref, args[2])
+            assert (err <= bound).all(), (err / bound).max().item()
+            share = flash_wavlm.bf16_mismatch_share(got, ref)
+            assert share <= flash_wavlm.BF16_MISMATCH_LIMIT, share
+    assert flash_wavlm.LAUNCHES_BF16 == 3 and flash_wavlm.LAUNCHES == 0
+
+
+@pytest.mark.cuda
+def test_flash_bf16_at_wavlm_large_and_checks(cuda):
+    """wavlm-large's heads over the 60-s clip, the last 1000 keys masked, the
+    bf16 instance against its plain version on the card (the bound and the
+    mismatch share of test_flash_bf16_kernel_matches_plain); the gate and the
+    bias may come in f32 (rounded by the wrapper); a bf16 q with f32 k is
+    refused."""
+    B, T, H, hd, nb, md = 1, 2999, 16, 64, 320, 800
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, T, H, hd)).astype(np.float32)).to(cuda)
+               for _ in range(3))
+    gate = torch.from_numpy((1.0 + rng.uniform(size=(B, H, T))).astype(np.float32)).to(cuda)
+    rel = torch.from_numpy(rng.normal(size=(nb, H)).astype(np.float32)).to(cuda)
+    kvalid = (torch.arange(T, device=cuda) < T - 1000).float()[None]
+    kw = dict(num_buckets=nb, max_distance=md)
+    with torch.inference_mode():
+        qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+        got = flash_wavlm.flash_gated_attention(qb, kb, vb, gate, rel, kvalid, **kw)
+        ref = flash_wavlm.flash_gated_attention_plain(qb, kb, vb, gate, rel, kvalid, **kw)
+        err = (got.float() - ref.float()).abs()
+        bound = flash_wavlm.bf16_tolerance(ref, vb)
+        assert (err <= bound).all(), (err / bound).max().item()
+        share = flash_wavlm.bf16_mismatch_share(got, ref)
+        assert share <= flash_wavlm.BF16_MISMATCH_LIMIT, share
+        with pytest.raises(TypeError):
+            flash_wavlm.flash_gated_attention(qb, k, vb, gate, rel, kvalid, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_gradient_on_card(cuda, dtype):
+    """FlashGatedAttention on the card (the kernel forward, the chunked
+    backward on the card): at f32 its gradients for q, k, v, the gate and
+    rel_embed equal autograd through the plain version to rtol 3e-4 / atol
+    3e-5 (JAX's tolerance, tests/test_flash_wavlm.py); at bf16 they take the
+    inputs' dtypes and equal the f32 chunked backward run on the widened
+    inputs and the kernel's bf16 output, rounded once, to one bf16 ulp."""
+    B, T, H, hd = 3, 200, 4, 64
+    base = [t.to(cuda) for t in _flash_inputs(B, T, H, hd, "prefix", seed=5)]
+    kvalid = base[5]
+    g = torch.randn(B, T, H, hd, generator=torch.Generator().manual_seed(2)).to(cuda)
+    kw = dict(num_buckets=NB, max_distance=MD)
+    flash_wavlm.reset_launches()
+    leaves = [t.to(dtype).requires_grad_() for t in base[:5]]
+    out = flash_wavlm.flash_gated_attention(*leaves, kvalid, **kw)
+    got = torch.autograd.grad(out, leaves, g.to(dtype))
+    assert (flash_wavlm.LAUNCHES_BF16 if dtype == torch.bfloat16 else flash_wavlm.LAUNCHES) == 1
+    if dtype == torch.float32:
+        plain = [t.clone().detach().requires_grad_() for t in base[:5]]
+        ref_out = flash_wavlm.flash_gated_attention_plain(*plain, kvalid, **kw)
+        want = torch.autograd.grad(ref_out, plain, g)
+        for name, a, r in zip(("dq", "dk", "dv", "dgate", "drel"), got, want):
+            torch.testing.assert_close(a, r, rtol=3e-4, atol=3e-5, msg=name)
+        return
+    diag = flash_wavlm.bias_diag_for(leaves[4].detach(), T, NB, MD)
+    wide = flash_wavlm.flash_backward(*(t.detach().float() for t in leaves[:4]), diag.float(),
+                                      kvalid, out.detach().float(), g.bfloat16().float())
+    for name, a, r in zip(("dq", "dk", "dv", "dgate"), got[:4], wide[:4]):
+        assert a.dtype == torch.bfloat16
+        err = (a.float() - r.bfloat16().float()).abs()
+        assert (err <= _bf16_ulp(r)).all(), name
+    assert got[4].dtype == torch.bfloat16 and torch.isfinite(got[4].float()).all()
+
+
+@pytest.mark.cuda
+def test_tiny_bf16_wavlm_on_card_matches_cpu(cuda):
+    """A tiny WavLM (hd = 16) in bf16 through extract_audio_features on the
+    card (the bf16 instance, cuBLAS / cuDNN bf16) against the CPU (the plain
+    version): relative L2 error per clip <= 4 u (u = 2^-8; each rounds at
+    every op in its own order); one bf16 launch per layer and batch, none of
+    the f32 instance."""
+    from sdumc_tpu_torch.extract.audio import extract_audio_features, plan_batches
+    from sdumc_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+
+    cfg = WavLMConfig.tiny(hidden_size=64, num_heads=4)
+    torch.manual_seed(0)
+    model = WavLMModel(cfg).eval()
+    sd = model.state_dict()
+    rng = np.random.default_rng(3)
+    wavs = [rng.normal(size=(n,)).astype(np.float32) for n in (900, 1800, 1300)]
+    kw = dict(layer_ids=(-2,), batch_size=2, buckets=(1000, 2000), dtype="bfloat16")
+    ref = extract_audio_features(model, cfg, wavs, device="cpu", **kw)
+    card = WavLMModel(cfg).eval()
+    card.load_state_dict(sd)
+    flash_wavlm.reset_launches()
+    got = extract_audio_features(card, cfg, wavs, device=cuda, **kw)
+    n_batches = len(plan_batches(cfg, [len(w) for w in wavs], 2, (1000, 2000)))
+    assert flash_wavlm.LAUNCHES_BF16 == cfg.num_layers * n_batches
+    assert flash_wavlm.LAUNCHES == 0
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert np.linalg.norm(g - r) / np.linalg.norm(r) <= 4 * 2.0 ** -8
 
 
 # ---------------------------------------------------------------- feat4 decode on the card

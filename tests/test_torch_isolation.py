@@ -1,6 +1,7 @@
 """sdumc_tpu_torch stands alone: importing every one of its modules pulls in
 neither JAX (jax, flax, optax), nor anything of the JAX package sdumc_tpu,
-nor transformers (its HF loaders read the checkpoint files themselves),
+nor transformers or safetensors (its HF loaders read the checkpoint files,
+safetensors included, and the tokenizers' files themselves),
 nor Pillow or pandas (the card's machine has neither), nor ml_dtypes (JAX's
 dependency: the port keeps bf16 on the host as uint16 bit patterns), and
 its sources name none of them in an import, save one: the image reader
@@ -13,7 +14,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "sdumc_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sdumc_tpu", "transformers")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sdumc_tpu", "transformers", "safetensors")
 HOST_LIBS = ("PIL", "pandas", "ml_dtypes")   # not known on the card's machine
 
 _PROBE = """

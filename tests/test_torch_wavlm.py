@@ -259,11 +259,17 @@ def test_cli_refusals_without_a_card(tmp_path, monkeypatch, capsys):
             str(tmp_path / "wavs"), "--save_dir", str(tmp_path / "out")]
     with pytest.raises(RuntimeError, match="no CUDA device"):
         extract.main(base)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        extract.main(base + ["--device", "cpu", "--dtype", "bfloat16"])
+    # --dtype bfloat16 runs (it raised before the kernel's bf16 instance),
+    # without a card only on --device cpu
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract.main(base + ["--dtype", "bfloat16"])
+    out = extract.main(base + ["--device", "cpu", "--dtype", "bfloat16", "--layer_ids", "-2"])
+    assert out["clips"] == 0 and os.path.isdir(out["save_dir"])
     assert resolve_attention_impl("auto", torch.device("cpu")) == "einsum"
+    assert resolve_attention_impl("auto", torch.device("cpu"), torch.bfloat16) == "flash"
     assert resolve_attention_impl("auto", torch.device("cuda")) == "flash"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         resolve_attention_impl("ring", torch.device("cpu"))
     assert extract.main(["vision"]) == 1
     assert "ROADMAP queue 1, the other visual encoders" in capsys.readouterr().out
+    assert set(extract.NOT_PORTED) == {"vision"}
