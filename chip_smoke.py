@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (sdumc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                 # every phase, as below
-    python3 chip_smoke.py --ab OTHER      # phases 2-3 only, for this checkout's
-                                          # kernels and OTHER's (the root of
-                                          # another checkout), in turns
+    python3 chip_smoke.py --ab OTHER      # phases 2-3, 17 and 19 only, for this
+                                          # checkout's kernels and OTHER's (the
+                                          # root of another checkout), in turns
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. environment: the card's name and power limit, then the kernel build
@@ -96,8 +96,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
      keys, scores and softmax, bf16 output) against its plain version at
      phase 2's shapes, mixed per-row t_max and the batch's own, to one bf16
      ulp of the output, and its gradient through the recomputing backward;
-     timed (CUDA events, profiler device ms) beside phase 2's f32 instance,
-     each with its bound;
+     per call the blocks that hold a tile and the W bytes read per frame
+     (from each row's t_max and the instance's tile); timed (CUDA events,
+     profiler device ms, each over 3 repetitions with their spread) beside
+     phase 2's f32 instance, each with its bound;
  18. the production store: seeded MOSEI-like clips at the published widths
      (the synthetic store's clips, 128 / 32 / 32 for train / val / test)
      packed by ``cli.extract pack`` at float32, bfloat16 and int8 (bytes and
@@ -112,14 +114,14 @@ Phases, each fatal on failure (non-zero exit, no result line):
      stores (CUDA events, peak memory, device time by family and idle share);
  19. the WavLM kernel's bf16 instance (bf16 q, k, v, gate and bias, f32
      scores and softmax, p rounded to bf16 against the running max of
-     64-key tiles, bf16 output) against its bf16 plain version at phase 3's
+     128-key tiles, bf16 output) against its bf16 plain version at phase 3's
      shapes and masks, to flash_wavlm.bf16_tolerance element by element and
      to flash_wavlm.BF16_MISMATCH_LIMIT in the share of elements that
      differ, which three controls (p unrounded, the row sum of the
      unrounded p, p rounded against the final max) must exceed; timed beside
-     phase 3's f32 instance, its bound (the bf16 tensor-core rate, and the
-     TF32 rate of the one pass it issues) and one bf16 SDPA call with a
-     materialised mask;
+     phase 3's f32 instance (3 repetitions with their spread), its bound
+     (the bf16 tensor-core rate) and one bf16 SDPA call with a materialised
+     mask;
  20. the WavLM kernel's gradient (FlashGatedAttention: the kernel forward,
      the chunked backward) against autograd through the plain version at
      both of phase 3's shapes, f32: dq, dk, dv, dgate and d rel_embed, with
@@ -149,15 +151,17 @@ or sdumc_tpu.
 A bound is the least time the card could take for the call: the larger of
 its bytes (each input read once, the output written once) at the HBM rate
 and its operations at the rate of the units the kernel runs them on. Both
-kernels run their matrix products on the tensor cores in the 3xTF32 split
-(three TF32 passes, f32-grade results), so those flops count three times at
-the TF32 rate; the fusion kernel's scores and weighted sum are f32 FMA and
-count once at the f32 rate. The f32 bound (every flop at the f32 rate, the
-bound of the earlier FFMA kernels) is printed beside it. The fusion kernel's
-bf16 instance reads x (and a batched query) at 2 bytes, writes 2, and issues
-2 TF32 passes (a bf16 x has no low part). The WavLM kernel's bf16 instance
-reads q, k, v, the gate and the bias diagonal at 2 bytes, writes 2, and
-issues one TF32 pass per product (bf16 and the rounded p are exact in TF32).
+kernels' f32 instances run their matrix products on the tensor cores in the
+3xTF32 split (three TF32 passes, f32-grade results), so those flops count
+three times at the TF32 rate; the fusion kernel's scores and weighted sum
+are f32 FMA and count once at the f32 rate. The f32 bound (every flop at
+the f32 rate, the bound of the earlier FFMA kernels) is printed beside it.
+The fusion kernel's bf16 instance reads x (and a batched query) at 2 bytes,
+writes 2, and runs its key projection as 3 bf16 passes (x times W's hi, mid
+and lo parts) at the bf16 rate; the count of its earlier design (2 TF32
+passes) is printed beside it. The WavLM kernel's bf16 instance reads q, k,
+v, the gate and the bias diagonal at 2 bytes, writes 2, and its products
+count once at the bf16 rate.
 """
 
 from __future__ import annotations
@@ -189,12 +193,13 @@ REPLACES = {
 }
 # the bf16 instance of the same kernel (phases 17-18): the same TPU kernel at bf16 x
 REPLACES_BF16 = {q: (name + "_bf16", line) for q, (name, line) in REPLACES.items()}
-BF16_TF32_PASSES = 2          # x is exact in TF32: x . W_lo and x . W_hi
+BF16_PASSES = 3               # bf16 x . W's hi, mid and lo parts, at the bf16 rate
+BF16_TF32_PASSES = 2          # the count of the earlier design: x . W_lo and x . W_hi in TF32
+TIMING_REPS = 3               # phases 17 and 19 time each call this many times
 SOURCE = "sdumc_tpu_torch/csrc/fused_cross.cu"
 FLASH = {"name": "flash_wavlm", "source": "sdumc_tpu_torch/csrc/flash_wavlm.cu",
          "replaces": "sdumc_tpu/ops/pallas/flash_wavlm.py:140"}
-# the bf16 instance of the same kernel (phases 19-21): bf16 q, k, v are exact in TF32,
-# so each product issues one TF32 pass
+# the bf16 instance of the same kernel (phases 19-21): bf16 tensor-core products
 FLASH_BF16 = {**FLASH, "name": "flash_wavlm_bf16"}
 FLASH_SHAPES = ((8, 249), (1, 2999))   # a 5-s bucket batch, the 60-s clip
 FLASH_H, FLASH_HD = 16, 64             # wavlm-large's heads
@@ -258,7 +263,7 @@ DECODE_FAMILIES = (
 )
 # (family, name fragments) of the extraction's device kernels, matched in order
 EXTRACTION_FAMILIES = (
-    ("flash_wavlm kernel", ("flash_wavlm",)),
+    ("flash_wavlm kernel", ("flash_wavlm", "flash_bf16")),
     ("cuDNN convolutions", ("conv", "fprop", "dgrad", "wgrad")),
     ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "sm80_xmma", "sm90_xmma")),
     ("memory copies", ("memcpy", "memset")),
@@ -398,7 +403,7 @@ def device_ms(torch, fn, names, calls: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):          # a trace now and then comes back without kernels,
+    for _ in range(5):          # a trace now and then comes back without kernels,
         with profile(activities=[ProfilerActivity.CUDA]) as prof:   # or some of them
             for _ in range(calls):
                 fn()
@@ -412,24 +417,60 @@ def device_ms(torch, fn, names, calls: int = 20) -> float:
 
 
 def bound_ms(q_count: int, t_valid, shared_query: bool, bf16: bool = False):
-    """Least time for one call, as {"bytes", "operations", "f32"} in ms:
-    each input read once (x only up to each row's t_max) and the output
-    written once, over the HBM rate; the key projection (2 D^2 per valid
-    frame) in 3xTF32 (2 TF32 passes for bf16 x) over the TF32 rate plus
-    bias + tanh (2 D), scores and weighted sum (4 Q D) over the f32 rate;
-    and every flop over the f32 rate, the earlier bound. The bf16 instance
-    reads x and a batched query as bf16 and writes a bf16 output (2 bytes);
-    the shared context, W and the bias stay f32."""
+    """Least time for one call, as {"bytes", "operations", "f32",
+    "operations_tf32"} in ms: each input read once (x only up to each row's
+    t_max) and the output written once, over the HBM rate; the key
+    projection (2 D^2 per valid frame) in 3xTF32 over the TF32 rate (for
+    bf16 x: 3 bf16 passes over the bf16 rate) plus bias + tanh (2 D), scores
+    and weighted sum (4 Q D) over the f32 rate; every flop over the f32
+    rate, the earlier bound; and, for bf16 x, the earlier design's count, 2
+    TF32 passes over the TF32 rate. The bf16 instance reads x and a batched
+    query as bf16 and writes a bf16 output (2 bytes); the shared context, W
+    and the bias stay f32."""
     n = int(sum(t_valid))
     rows = len(t_valid)
     xb = 2 if bf16 else 4
     q_bytes = (q_count * D * 4 if shared_query else rows * q_count * D * xb)
     nbytes = q_bytes + n * D * xb + D * D * 4 + D * 4 + rows * 4 + rows * q_count * D * xb
     mma, ffma = n * 2 * D * D, n * (2 * D + 4 * q_count * D)
-    passes = BF16_TF32_PASSES if bf16 else TF32_PASSES
+    mma_s = BF16_PASSES * mma / PEAK_BF16_FLOPS if bf16 else TF32_PASSES * mma / PEAK_TF32_FLOPS
     return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES,
-            "operations": 1e3 * (passes * mma / PEAK_TF32_FLOPS + ffma / PEAK_F32_FLOPS),
+            "operations": 1e3 * (mma_s + ffma / PEAK_F32_FLOPS),
+            "operations_tf32": 1e3 * (BF16_TF32_PASSES * mma / PEAK_TF32_FLOPS
+                                      + ffma / PEAK_F32_FLOPS),
             "f32": 1e3 * (mma + ffma) / PEAK_F32_FLOPS}
+
+
+def repeated_ms(fn, device_fn, reps: int):
+    """(events ms, device ms, their spreads, the readings) over `reps`
+    repetitions of time_ms and device_ms: the medians and (max - min) / min
+    of the readings, a device reading whose trace lost its kernels (NaN)
+    left out."""
+    ev = [fn() for _ in range(reps)]
+    dv = [device_fn() for _ in range(reps)]
+
+    def median_spread(v):
+        v = sorted(x for x in v if math.isfinite(x))
+        if not v:
+            return math.nan, math.nan
+        return v[len(v) // 2], (v[-1] - v[0]) / v[0] if v[0] > 0 else math.nan
+
+    (e_ms, e_spread), (d_ms, d_spread) = median_spread(ev), median_spread(dv)
+    return e_ms, d_ms, e_spread, d_spread, ev, dv
+
+
+def tile_blocks(t_valid, T: int, tile: int) -> int:
+    """The blocks of a fusion call that hold a tile: ceil(n_valid / tile) a
+    row (the other blocks exit at once)."""
+    return sum(math.ceil(min(t, T) / tile) if t > 0 else math.ceil(T / tile) for t in t_valid)
+
+
+def fusion_w_reads(fused_cross, blocks: int, bf16: bool) -> int:
+    """Bytes of W's split one call streams: the whole split once per tile,
+    3 bf16 parts in the bf16 instance (2 f32 parts, hi and lo, in the f32
+    one, and in a bf16 instance that has no W_PARTS, as --ab may time)."""
+    parts = getattr(fused_cross, "W_PARTS", None) if bf16 else None
+    return blocks * (parts * D * D * 2 if parts else 2 * D * D * 4)
 
 
 def bf16_ulp_err(torch, got, ref) -> tuple:
@@ -472,9 +513,13 @@ def kernel_phase(torch, fused_cross, fused_pool, lengths, grads: bool = True,
     gen = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
     names = REPLACES_BF16 if bf16 else REPLACES
+    reps = TIMING_REPS if bf16 else 1
+    tile = getattr(fused_cross, "TILE_T_BF16", 64) if bf16 else 64
     totals = {q: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-                  "bytes_ms": 0.0, "operations_ms": 0.0, "f32_bound_ms": 0.0,
-                  "device_ms": 0.0, "grad_max_abs_err": 0.0, "max_ulps": 0.0,
+                  "bytes_ms": 0.0, "operations_ms": 0.0, "operations_tf32_ms": 0.0,
+                  "f32_bound_ms": 0.0, "device_ms": 0.0, "grad_max_abs_err": 0.0,
+                  "max_ulps": 0.0, "blocks": 0, "tile_frames": 0, "w_bytes": 0, "frames": 0,
+                  "ms_reps": [0.0] * reps, "device_ms_reps": [0.0] * reps,
                   "calls": {}} for q in REPLACES}
     if bf16:
         print(f"bf16 instance vs plain (B={B_DUAL}, D={D}; tolerance: one bf16 ulp of the "
@@ -548,16 +593,26 @@ def kernel_phase(torch, fused_cross, fused_pool, lengths, grads: bool = True,
                 # timed with x cold in the L2 (the audio x alone is 33.5 MB
                 # in bf16, 67 MB in f32, the L2 50 MB)
                 next_x = cold_cycle(x)
-                ms = time_ms(lambda: kern_of(first, next_x(), w, b, t_main))
+                ms, dev_ms, ms_spread, dev_spread, ms_reps, dev_reps = repeated_ms(
+                    lambda: time_ms(lambda: kern_of(first, next_x(), w, b, t_main)),
+                    lambda: device_ms(torch, lambda: kern_of(first, next_x(), w, b, t_main),
+                                      ("cross_",)), reps)
                 plain_ms = time_ms(lambda: plain_of(first, next_x(), w, b, t_main))
-                dev_ms = device_ms(torch, lambda: kern_of(first, next_x(), w, b, t_main),
-                                   ("cross_",))
                 del next_x
             bnd = bound_ms(q_count, t_valid, q_count == 1, bf16)
+            blocks = tile_blocks(t_valid, T, tile)
+            w_bytes = fusion_w_reads(fused_cross, blocks, bf16)
             tot = totals[q_count]
             tot["max_ulps"] = max([tot["max_ulps"], *ulps])
             tot["bytes_ms"] += bnd["bytes"]
             tot["operations_ms"] += bnd["operations"]
+            tot["operations_tf32_ms"] += bnd["operations_tf32"]
+            tot["blocks"] += blocks
+            tot["tile_frames"] += blocks * tile
+            tot["w_bytes"] += w_bytes
+            tot["frames"] += sum(t_valid)
+            tot["ms_reps"] = [a + c for a, c in zip(tot["ms_reps"], ms_reps)]
+            tot["device_ms_reps"] = [a + c for a, c in zip(tot["device_ms_reps"], dev_reps)]
             tot["f32_bound_ms"] += bnd["f32"]
             tot["ms"] += ms
             tot["device_ms"] += dev_ms
@@ -567,13 +622,19 @@ def kernel_phase(torch, fused_cross, fused_pool, lengths, grads: bool = True,
             if grads:
                 tot["grad_max_abs_err"] = max(tot["grad_max_abs_err"], grad_err)
             tot["calls"][modality] = ms
+            reps_note = (f" over {reps} repetitions: kernel_ms {ms_reps!r} (spread "
+                         f"{ms_spread:.1%}), device_ms {dev_reps!r} (spread {dev_spread:.1%}); "
+                         f"blocks with a tile {blocks} of {tile} frames, W bytes read "
+                         f"{w_bytes} = {w_bytes / (blocks * tile):.0f} per tile frame, "
+                         f"{w_bytes / sum(t_valid):.0f} per valid frame; the earlier 2-TF32-pass "
+                         f"count's bound {bnd['operations_tf32']!r}" if bf16 else "")
             print(f"  {names[q_count][0]:16s} {modality:5s} T={T:4d} "
                   f"t_max={sorted(set(t_valid))} frames={sum(t_valid)} "
                   f"max_abs_err mixed={errs[0]!r} main={errs[1]!r} grad={grad_err!r} "
                   f"kernel_ms={ms!r} device_ms={dev_ms!r} plain_ms={plain_ms!r} "
                   f"bound_ms={max(bnd['bytes'], bnd['operations'])!r} "
                   f"(bytes {bnd['bytes']!r}, operations {bnd['operations']!r}; "
-                  f"f32 bound {bnd['f32']!r})")
+                  f"f32 bound {bnd['f32']!r}){reps_note}")
     return totals
 
 
@@ -1953,10 +2014,13 @@ def bf16_kernel_phase(torch, fused_cross, fused_pool, lengths, f32_totals):
         print(f"  per dual batch, Q={q_count}: f32 instance kernel_ms={f['ms']!r} "
               f"device_ms={f['device_ms']!r} bound_ms={f['bound_ms']!r}; bf16 instance "
               f"kernel_ms={h['ms']!r} device_ms={h['device_ms']!r} bound_ms={h['bound_ms']!r} "
-              f"(bytes {h['bytes_ms']!r}, operations {h['operations_ms']!r}) plain_ms="
+              f"(bytes {h['bytes_ms']!r}, operations {h['operations_ms']!r}; the earlier "
+              f"2-TF32-pass count {h['operations_tf32_ms']!r}) plain_ms="
               f"{h['plain_ms']!r} max_abs_err={h['max_abs_err']!r} ({h['max_ulps']!r} of its "
-              f"bound) "
-              f"grad_max_abs_err={h['grad_max_abs_err']!r}")
+              f"bound) grad_max_abs_err={h['grad_max_abs_err']!r}; per repetition kernel_ms "
+              f"{h['ms_reps']!r} device_ms {h['device_ms_reps']!r}; {h['blocks']} blocks with a "
+              f"tile, W bytes {h['w_bytes']} = {h['w_bytes'] / h['frames']:.0f} per valid frame, "
+              f"{h['w_bytes'] / h['tile_frames']:.0f} per tile frame")
     return totals
 
 
@@ -2191,17 +2255,14 @@ def store_phase(torch, fused_cross, work: str):
 
 def flash_bf16_bound_ms(B, T, n_valid):
     """Least time for one call of the bf16 instance, as {"bytes",
-    "operations", "operations_tf32"} in ms: bf16 q, k, v, the gate and the
-    bias diagonal read once, f32 kvalid, the bf16 output written once, over
-    the HBM rate; QK^T and PV (4 hd flops per query and valid key) on bf16
-    operands over the card's dense bf16 tensor-core rate. The kernel issues
-    them as one TF32 pass; "operations_tf32" is that pass over the TF32 rate,
-    what the kernel's chosen units could reach at best."""
+    "operations"} in ms: bf16 q, k, v, the gate and the bias diagonal read
+    once, f32 kvalid, the bf16 output written once, over the HBM rate; QK^T
+    and PV (4 hd flops per query and valid key) on bf16 operands over the
+    card's dense bf16 tensor-core rate."""
     H, hd = FLASH_H, FLASH_HD
     nbytes = 2 * (4 * B * T * H * hd + B * H * T + H * (2 * T - 1)) + 4 * B * T
     flops = 4 * H * hd * T * int(sum(n_valid))
-    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES, "operations": 1e3 * flops / PEAK_BF16_FLOPS,
-            "operations_tf32": 1e3 * flops / PEAK_TF32_FLOPS}
+    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES, "operations": 1e3 * flops / PEAK_BF16_FLOPS}
 
 
 def flash_bf16_control(torch, flash_wavlm, q, k, v, gate, diag, kvalid, variant):
@@ -2209,7 +2270,7 @@ def flash_bf16_control(torch, flash_wavlm, q, k, v, gate, diag, kvalid, variant)
     mismatch share: "f32 p" (p not rounded) or "f32 row sum" (the row sum of
     the unrounded p); p against the running max of the kernel's key tiles."""
     B, T, H, hd = q.shape
-    bf, tile = torch.bfloat16, flash_wavlm.KEY_TILE
+    bf, tile = torch.bfloat16, bf16_key_tile(flash_wavlm)
     qs = (q * torch.tensor(hd ** -0.5, dtype=bf)).float()
     s = torch.einsum("bthd,bshd->bhts", qs, k.float())
     s = s + gate.float()[..., None] * flash_wavlm.dense_bias(diag.float(), T)[None]
@@ -2227,6 +2288,12 @@ def flash_bf16_control(torch, flash_wavlm, q, k, v, gate, diag, kvalid, variant)
     w = (pw * carry[..., None]).view(B, H, T, n * tile)[..., :T]
     out = torch.einsum("bhts,bshd->bthd", w, v.float())
     return (out / l.transpose(1, 2)[..., None]).to(bf)
+
+
+def bf16_key_tile(flash_wavlm) -> int:
+    """The bf16 instance's key tile (128; 64, the f32 instance's, in a
+    checkout without KEY_TILE_BF16, which --ab may time)."""
+    return getattr(flash_wavlm, "KEY_TILE_BF16", flash_wavlm.KEY_TILE)
 
 
 def bf16_ulps(torch, err, ref):
@@ -2254,11 +2321,13 @@ def flash_bf16_phase(torch, flash_wavlm, f32_totals):
     kw = dict(num_buckets=320, max_distance=800)
     limit = flash_wavlm.BF16_MISMATCH_LIMIT
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-           "operations_ms": 0.0, "operations_tf32_ms": 0.0, "max_abs_err": 0.0,
+           "operations_ms": 0.0, "max_abs_err": 0.0,
            "max_ulps": 0.0, "max_of_bound": 0.0, "max_share": 0.0, "device_ms": 0.0,
+           "ms_reps": [0.0] * TIMING_REPS, "device_ms_reps": [0.0] * TIMING_REPS,
            "calls": {}, "controls": {}}
     print(f"flash_wavlm_bf16 vs its bf16 plain version (H={FLASH_H}, hd={FLASH_HD}; p "
-          "rounded to bf16 against the running max of 64-key tiles in both; tolerance "
+          f"rounded to bf16 against the running max of {bf16_key_tile(flash_wavlm)}-key tiles "
+          "in both; tolerance "
           "flash_wavlm.bf16_tolerance: 2^-7 max_u |v_u - out| + 1 bf16 ulp + 1e-5 max |v|, "
           f"and at most {limit} of the elements differing, a share the controls must exceed)")
     for B, T in FLASH_SHAPES:
@@ -2301,8 +2370,9 @@ def flash_bf16_phase(torch, flash_wavlm, f32_totals):
             def kern():
                 return flash_wavlm.flash_gated_attention(*args, None, mask_b, diag, **kw)
 
-            ms = time_ms(kern)
-            dev_ms = device_ms(torch, kern, ("flash_wavlm",))
+            ms, dev_ms, ms_spread, dev_spread, ms_reps, dev_reps = repeated_ms(
+                    lambda: time_ms(kern),
+                lambda: device_ms(torch, kern, ("flash_wavlm", "flash_bf16")), TIMING_REPS)
             plain_ms = time_ms(lambda: flash_wavlm.flash_gated_attention_plain(
                 *args, None, mask_b, diag, **kw))
             qh, kh, vh = (t.transpose(1, 2).contiguous() for t in args[:3])
@@ -2314,9 +2384,10 @@ def flash_bf16_phase(torch, flash_wavlm, f32_totals):
         least = max(bnd["bytes"], bnd["operations"])
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("bound_ms", least), ("bytes_ms", bnd["bytes"]),
-                         ("operations_ms", bnd["operations"]),
-                         ("operations_tf32_ms", bnd["operations_tf32"]), ("device_ms", dev_ms)):
+                         ("operations_ms", bnd["operations"]), ("device_ms", dev_ms)):
             tot[key] += val
+        tot["ms_reps"] = [a + c for a, c in zip(tot["ms_reps"], ms_reps)]
+        tot["device_ms_reps"] = [a + c for a, c in zip(tot["device_ms_reps"], dev_reps)]
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         tot["max_ulps"] = max(tot["max_ulps"], ulps)
         tot["max_of_bound"] = max(tot["max_of_bound"], of_bound)
@@ -2325,15 +2396,15 @@ def flash_bf16_phase(torch, flash_wavlm, f32_totals):
         tot["calls"][f"B={B} T={T}"] = ms
         print(f"  flash_wavlm_bf16 B={B} T={T} kernel_ms={ms!r} device_ms={dev_ms!r} "
               f"plain_ms={plain_ms!r} sdpa_bf16_ms={lib_ms!r} bound_ms={least!r} (bytes "
-              f"{bnd['bytes']!r}, operations at the bf16 rate {bnd['operations']!r}; at the TF32 "
-              f"rate of the kernel's one pass {bnd['operations_tf32']!r})")
+              f"{bnd['bytes']!r}, operations at the bf16 rate {bnd['operations']!r}); over "
+              f"{TIMING_REPS} repetitions kernel_ms {ms_reps!r} (spread {ms_spread:.1%}), "
+              f"device_ms {dev_reps!r} (spread {dev_spread:.1%})")
     print(f"  both shapes: f32 instance (phase 3) kernel_ms={f32_totals['ms']!r} device_ms="
           f"{f32_totals['device_ms']!r} bound_ms={f32_totals['bound_ms']!r}; bf16 instance "
           f"kernel_ms={tot['ms']!r} device_ms={tot['device_ms']!r} bound_ms={tot['bound_ms']!r} "
-          f"({tot['device_ms'] and tot['bound_ms'] / tot['device_ms']:.1%} of its device time; "
-          f"at the TF32 rate {tot['operations_tf32_ms']!r} ms, "
-          f"{tot['device_ms'] and tot['operations_tf32_ms'] / tot['device_ms']:.1%}) "
-          f"plain_ms={tot['plain_ms']!r} sdpa_bf16_ms={tot['library_ms']!r}")
+          f"({tot['device_ms'] and tot['bound_ms'] / tot['device_ms']:.1%} of its device time) "
+          f"plain_ms={tot['plain_ms']!r} sdpa_bf16_ms={tot['library_ms']!r}; per repetition "
+          f"kernel_ms {tot['ms_reps']!r} device_ms {tot['device_ms_reps']!r}")
     return tot
 
 
@@ -2757,21 +2828,26 @@ def asr_phase(torch, tmp: str, llm_dir: str):
 
 
 def kernels_only(torch, root: str, lengths: dict) -> dict:
-    """Phases 2-3 with the kernels of the checkout at `root`, built from its
-    own sources into its own build/kernels/; per-kernel totals."""
+    """Phases 2-3, 17 and 19 (without the gradient checks) with the kernels
+    of the checkout at `root`, built from its own sources into its own
+    build/kernels/, each held to that checkout's own plain versions;
+    per-kernel totals."""
     sys.path.insert(0, os.path.abspath(root))
     from sdumc_tpu_torch.ops.kernels import build, flash_wavlm, fused_cross, fused_pool
 
     build.build()
     totals = kernel_phase(torch, fused_cross, fused_pool, lengths, grads=False)
-    return {REPLACES[7][0]: totals[7], REPLACES[1][0]: totals[1],
-            FLASH["name"]: flash_phase(torch, flash_wavlm)}
+    flash = flash_phase(torch, flash_wavlm)
+    bf16 = kernel_phase(torch, fused_cross, fused_pool, lengths, grads=False, bf16=True)
+    return {REPLACES[7][0]: totals[7], REPLACES[1][0]: totals[1], FLASH["name"]: flash,
+            REPLACES_BF16[7][0]: bf16[7], REPLACES_BF16[1][0]: bf16[1],
+            FLASH_BF16["name"]: flash_bf16_phase(torch, flash_wavlm, flash)}
 
 
 def ab_phase(other: str) -> None:
-    """Phases 2-3 for OTHER's kernels and this checkout's, each in its own
-    process, in the order OTHER, this, this, OTHER, on one card; the inputs
-    and the timing are this script's in every run."""
+    """Phases 2-3, 17 and 19 for OTHER's kernels and this checkout's, each in
+    its own process, in the order OTHER, this, this, OTHER, on one card; the
+    inputs and the timing are this script's in every run."""
     here = os.path.dirname(os.path.abspath(__file__))
     lengths = json.dumps(main_path_lengths(main_path_config()), default=int)
     runs = []
@@ -2784,7 +2860,8 @@ def ab_phase(other: str) -> None:
             print(proc.stderr[-4000:], file=sys.stderr)
             raise RuntimeError(f"the kernel phases failed for {root}")
         runs.append((label, json.loads(proc.stdout.strip().splitlines()[-1])))
-    for name in (REPLACES[7][0], REPLACES[1][0], FLASH["name"]):
+    for name in (REPLACES[7][0], REPLACES[1][0], FLASH["name"], REPLACES_BF16[7][0],
+                 REPLACES_BF16[1][0], FLASH_BF16["name"]):
         for key in ("ms", "device_ms"):
             print(f"{name:12s} {key:9s} " + "  ".join(
                 f"{label}={res[name][key]!r}" for label, res in runs))
@@ -2798,7 +2875,8 @@ def main() -> int:
     import torch
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--ab", metavar="OTHER", help="time phases 2-3 against OTHER's kernels")
+    parser.add_argument("--ab", metavar="OTHER",
+                        help="time phases 2-3, 17 and 19 against OTHER's kernels")
     parser.add_argument("--kernels-from", help=argparse.SUPPRESS)
     parser.add_argument("--lengths", help=argparse.SUPPRESS)
     args = parser.parse_args()

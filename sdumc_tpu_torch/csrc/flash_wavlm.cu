@@ -11,21 +11,21 @@
 // diag [H, 2T - 1] is the bucketed bias rel_embed[bucket(u - t), h] laid out
 // by offset: the bias depends on (t, u) only through u - t, so one vector per
 // head replaces the TPU kernel's Toeplitz tile table ([2n - 1, H, blk, blk]),
-// and a (query tile, key tile) pair reads one window of 2 * 64 - 1 values.
-// The TPU kernel's layout tricks (gate and mask columns appended to q and k, a
-// ones column on v for the row sum, heads packed per grid step) exist only
-// for Mosaic and are not carried over.
+// and a (query tile, key tile) pair reads one window of it. The TPU kernel's
+// layout tricks (gate and mask columns appended to q and k, a ones column on
+// v for the row sum, heads packed per grid step) exist only for Mosaic and
+// are not carried over. Two instances, each with its own kernel body.
 //
-// What bounds it on an H100: 4 * B * H * T^2 * hd flops of QK^T and PV, at
-// T = 2999 36.8 GFLOP against 49 MB of q, k, v and out. Both products run on
-// the tensor cores in the 3xTF32 split of tf32x3.cuh (three TF32 passes, f32
-// accumulate, f32-grade results; the precision is fixed and does not follow
-// torch's allow_tf32), so the least time is 3 x 36.8 GFLOP at 495 TFLOP/s =
-// 0.22 ms, against 0.015 ms for the bytes: bound by tensor-core throughput.
-// mma.sync reaches 674 of the 1024 TF32 MACs an SM can do per clock
-// (bench/mma_rate.py), and the f32 softmax, the hi / lo splits and the
-// staging share the warps' instruction slots with it. The design, flash-attention-2
-// style:
+// The f32 instance (sdumc_flash_wavlm). What bounds it on an H100: 4 * B * H
+// * T^2 * hd flops of QK^T and PV, at T = 2999 36.8 GFLOP against 49 MB of
+// q, k, v and out. Both products run on the tensor cores in the 3xTF32 split
+// of tf32x3.cuh (three TF32 passes, f32 accumulate, f32-grade results; the
+// precision is fixed and does not follow torch's allow_tf32), so the least
+// time is 3 x 36.8 GFLOP at 495 TFLOP/s = 0.22 ms, against 0.015 ms for the
+// bytes: bound by tensor-core throughput. mma.sync reaches 674 of the 1024
+// TF32 MACs an SM can do per clock (bench/mma_rate.py), and the f32 softmax,
+// the hi / lo splits and the staging share the warps' instruction slots with
+// it. The design, flash-attention-2 style:
 //  * One block of 4 warps per (b, h, 64-query tile); each warp owns 16 query
 //    rows, keeps its q rows as A fragments (hi and lo, split once per block)
 //    and its S and O accumulators in registers; the row max and row sum of
@@ -66,26 +66,47 @@
 // and out = acc / l is rounded to bf16 once. The scale 1 / sqrt(hd) is a
 // power of two for hd 16 and 64, so applying it to the f32 score is exact
 // and equals the Pallas wrapper's bf16 scaling of q. m is the running max of
-// 64-key tiles, so p is rounded relative to it (the Pallas kernel's is of
-// its own blocks); the plain version rounds against the same running max.
-// Route: a bf16 value is exact in TF32 (8 significant bits against 11), so
-// the tiles are staged at 2 bytes (cp.async, 8 values per 16 bytes), widened
-// once per block into f32 buffers laid out for 8-byte fragment loads, and
-// each product issues ONE TF32 mma.sync pass (m16n8k8) instead of three;
-// the rounded p is exact in TF32 too. Its bound on this card: the same 36.8
-// GFLOP at T = 2999 on bf16 operands at the dense bf16 tensor-core rate of
-// 989 TFLOP/s, 0.037 ms, against 0.0073 ms for the 24.6 MB of bf16 q, k, v
-// and out: bound by the tensor cores. The one TF32 pass chosen here can at
-// best reach the 495 TFLOP/s TF32 rate, 0.074 ms, half the bf16 rate; a
-// native bf16 mma (m16n8k16) or wgmma, for a later change, is what closes
-// that factor. 55 KB of shared memory a block (hd = 64).
+// 128-key tiles, the Pallas kernel's default block (flash_wavlm.py:262), so p
+// is rounded against the max the Pallas kernel rounds it against; the plain
+// version rounds against the same running max.
+// What bounds it on this card: the same 36.8 GFLOP at T = 2999 on bf16
+// operands at the dense bf16 tensor-core rate of 989 TFLOP/s, 0.037 ms,
+// against 0.0073 ms for the 24.6 MB of bf16 q, k, v and out: bound by the
+// tensor cores. Its own kernel body feeds them bf16 directly:
+//  * One block of two warpgroups (64 query rows each, 128 queries) per (b,
+//    h, 128-query tile); the warps loop over 128-key tiles. S = Q K^T is one
+//    wgmma m64n128k16 a 16-wide step, q's fragments held in registers and
+//    the k tile [128 keys][hd] K-major in shared memory; P.V is wgmma
+//    m64n{hd}k16 with p from registers (rounded to bf16 and packed in pairs
+//    straight from the scores' accumulators) and the v tile read MN-major
+//    (transposed) as it lies. No operand is widened and no TF32 instruction
+//    is issued. The next tile's S is issued behind this tile's P.V, so the
+//    two run together while the warps wait.
+//  * Each tile's k and v arrive by TMA (cp.async.bulk.tensor, 3-D tensor
+//    maps over [B, T, H * hd], 128-byte swizzle at hd 64, 32-byte at hd 16,
+//    the swizzle wgmma's descriptors name) into a 3-stage ring with full and
+//    empty mbarriers; warp 0 issues the copies, and writes the tile's bias
+//    window and key-mask terms beside them, once every warp has released
+//    the stage. (A producer warp of its own would make 9 warps, 3 on one of
+//    the SM's four register files: ptxas then caps a thread at 168
+//    registers and spills; 8 warps keep up to 255.) A box never crosses
+//    into the next batch row: the map's T axis ends each row, and TMA fills
+//    rows past T with zeros.
+//  * P.V of each tile sums into a fresh accumulator, added to O in f32, as
+//    in the f32 instance: one running sum over 3000 keys would move about
+//    1e-4 relative, and with it many outputs' bf16 rounding.
+//  * 102 KB of shared memory (hd 64): one block an SM; at B = 1, T = 2999
+//    the grid is 24 query tiles x 16 heads = 384 blocks, 2.9 waves over 132
+//    SMs; at B = 8, T = 249, 256 blocks, 1.9 waves. The scale, gated bias,
+//    mask, exp2 and rounding of every score on the CUDA cores take about as
+//    long as the products (PERF.md section 7).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
-#include <type_traits>
-
+#include "hopper_bf16.cuh"
 #include "tf32x3.cuh"
 
 namespace {
@@ -122,30 +143,6 @@ struct Layout {
   static constexpr int kMask = kWin + 2 * kKeys;       // [64]  key term: 0, NEG * log2 e, or -inf past T
   static constexpr size_t floats = (size_t)kMask + kKeys;
 };
-
-// Shared memory of the bf16 instance, in floats. The raw bf16 k and v tiles
-// land in [64][HD + 8] bf16 buffers (cp.async); the widening pass writes them
-// as f32:
-//   k: row u, element e at u * KS + e
-//   v: key pair p (2p, 2p + 1), column c at p * VS + 2c: v(2p, c), v(2p + 1, c)
-// so that one 8-byte load gives a lane its B fragment. KS = HD + 8 and VS =
-// 2 HD + 8 (both 8 mod 32) put a half warp's 16 loads on 32 distinct banks.
-template <int HD>
-struct LayoutB16 {
-  static constexpr int RS = HD + 8;                        // bf16 values a raw row
-  static constexpr int KS = HD + 8;
-  static constexpr int VS = 2 * HD + 8;
-  static constexpr int kRawK = 0;
-  static constexpr int kRawV = kRawK + kKeys * RS / 2;
-  static constexpr int kWideK = kRawV + kKeys * RS / 2;
-  static constexpr int kWideV = kWideK + kKeys * KS;
-  static constexpr int kWin = kWideV + kKeys / 2 * VS;
-  static constexpr int kMask = kWin + 2 * kKeys;
-  static constexpr size_t floats = (size_t)kMask + kKeys;
-};
-
-template <bool B16>
-using Elem = typename std::conditional<B16, __nv_bfloat16, float>::type;
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -219,74 +216,6 @@ __device__ __forceinline__ void split_tiles(float* smem, int tid) {
   }
 }
 
-// The bf16 instance's load_raw: rows t0 .. t0 + 63 of k and v into the raw
-// bf16 buffers, rows at or past T zero-filled; 16 bytes (8 values) a copy.
-template <int HD>
-__device__ __forceinline__ void load_raw_b16(float* smem, const __nv_bfloat16* k,
-                                             const __nv_bfloat16* v, int t0, int T,
-                                             size_t row_stride, int tid) {
-  using L = LayoutB16<HD>;
-  constexpr int kC = HD / 8;
-  __nv_bfloat16* rk = reinterpret_cast<__nv_bfloat16*>(smem + L::kRawK);
-  __nv_bfloat16* rv = reinterpret_cast<__nv_bfloat16*>(smem + L::kRawV);
-  for (int i = tid; i < kKeys * kC; i += kThreads) {
-    const int r = i / kC, c = i % kC;
-    __nv_bfloat16* dk = rk + r * L::RS + 8 * c;
-    __nv_bfloat16* dv = rv + r * L::RS + 8 * c;
-    if (t0 + r < T) {
-      const size_t src = (size_t)(t0 + r) * row_stride + 8 * c;
-      cp_async16(dk, k + src);
-      cp_async16(dv, v + src);
-    } else {
-      *reinterpret_cast<uint4*>(dk) = make_uint4(0u, 0u, 0u, 0u);
-      *reinterpret_cast<uint4*>(dv) = make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-  cp_async_commit();
-}
-
-__device__ __forceinline__ void widen8(uint4 raw, float (&f)[8]) {
-  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 w = __bfloat1622float2(p[i]);
-    f[2 * i] = w.x;
-    f[2 * i + 1] = w.y;
-  }
-}
-
-// The raw bf16 k and v tiles widened into their f32 buffers (exact).
-template <int HD>
-__device__ __forceinline__ void widen_tiles(float* smem, int tid) {
-  using L = LayoutB16<HD>;
-  constexpr int kC = HD / 8;
-  const __nv_bfloat16* rk = reinterpret_cast<const __nv_bfloat16*>(smem + L::kRawK);
-  const __nv_bfloat16* rv = reinterpret_cast<const __nv_bfloat16*>(smem + L::kRawV);
-  for (int i = tid; i < kKeys * kC; i += kThreads) {
-    const int r = i / kC, c = i % kC;
-    float f[8];
-    widen8(*reinterpret_cast<const uint4*>(rk + r * L::RS + 8 * c), f);
-    float* d = smem + L::kWideK + r * L::KS + 8 * c;
-    *reinterpret_cast<float4*>(d) = make_float4(f[0], f[1], f[2], f[3]);
-    *reinterpret_cast<float4*>(d + 4) = make_float4(f[4], f[5], f[6], f[7]);
-  }
-  for (int i = tid; i < kKeys / 2 * kC; i += kThreads) {
-    const int p = i / kC, c = i % kC;
-    float a[8], b[8];
-    widen8(*reinterpret_cast<const uint4*>(rv + 2 * p * L::RS + 8 * c), a);
-    widen8(*reinterpret_cast<const uint4*>(rv + (2 * p + 1) * L::RS + 8 * c), b);
-    float* d = smem + L::kWideV + p * L::VS + 16 * c;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(d + 4 * j) =
-          make_float4(a[2 * j], b[2 * j], a[2 * j + 1], b[2 * j + 1]);
-  }
-}
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
 // 2^x on the SFU (relative error about 2^-22); flushes results below 2^-126 to 0.
 __device__ __forceinline__ float exp2_ftz(float x) {
   float y;
@@ -294,23 +223,22 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-template <int HD, bool B16>
+template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_wavlm_kernel(const Elem<B16>* __restrict__ q, const Elem<B16>* __restrict__ k,
-                   const Elem<B16>* __restrict__ v, const Elem<B16>* __restrict__ gate,
-                   const Elem<B16>* __restrict__ bias_diag,
-                   const float* __restrict__ kvalid, Elem<B16>* __restrict__ out,
+flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ gate,
+                   const float* __restrict__ bias_diag,
+                   const float* __restrict__ kvalid, float* __restrict__ out,
                    int T, int H, float scale) {
   static_assert(HD % 16 == 0 && HD <= 64, "8-wide steps, whole float4 rows");
   using L = Layout<HD>;
-  using LB = LayoutB16<HD>;
   constexpr int kK = HD / 8;          // 8-wide steps of q . k; 8-column tiles of out
 
   extern __shared__ __align__(16) float smem[];
-  const float* ks = smem + (B16 ? LB::kWideK : L::kSplitK);
-  const float* vs = smem + (B16 ? LB::kWideV : L::kSplitV);
-  float* w_s = smem + (B16 ? LB::kWin : L::kWin);
-  float* n_s = smem + (B16 ? LB::kMask : L::kMask);
+  const float* ks = smem + L::kSplitK;
+  const float* vs = smem + L::kSplitV;
+  float* w_s = smem + L::kWin;
+  float* n_s = smem + L::kMask;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -320,54 +248,32 @@ flash_wavlm_kernel(const Elem<B16>* __restrict__ q, const Elem<B16>* __restrict_
   const int b = blockIdx.z;
   const size_t row_stride = (size_t)H * HD;
   const size_t head = ((size_t)b * T * H + h) * HD;
-  const Elem<B16>* diag = bias_diag + (size_t)h * (2 * T - 1);
+  const float* diag = bias_diag + (size_t)h * (2 * T - 1);
   const float* kv = kvalid ? kvalid + (size_t)b * T : nullptr;
 
   // this lane's two query rows: r0 (= fragment row g) and r1 (= g + 8)
   const int r0 = 16 * warp + g, r1 = r0 + 8;
   const bool in0 = q0 + r0 < T, in1 = q0 + r1 < T;
 
-  if constexpr (B16)
-    load_raw_b16<HD>(smem, k + head, v + head, 0, T, row_stride, tid);
-  else
-    load_raw<HD>(smem, k + head, v + head, 0, T, row_stride, tid);
+  load_raw<HD>(smem, k + head, v + head, 0, T, row_stride, tid);
 
   // q . k's A fragments, split once: step kk, k index t <-> element 8kk + 2t
-  // (the bf16 instance: the widened values, their own TF32 hi)
   uint32_t qh[kK][4], ql[kK][4];
   {
-    const Elem<B16>* qa = q + head + (size_t)(in0 ? q0 + r0 : 0) * row_stride + 2 * t;
-    const Elem<B16>* qb = q + head + (size_t)(in1 ? q0 + r1 : 0) * row_stride + 2 * t;
+    const float* qa = q + head + (size_t)(in0 ? q0 + r0 : 0) * row_stride + 2 * t;
+    const float* qb = q + head + (size_t)(in1 ? q0 + r1 : 0) * row_stride + 2 * t;
 #pragma unroll
     for (int kk = 0; kk < kK; ++kk) {
-      if constexpr (B16) {
-        const float2 x0 = in0 ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qa + 8 * kk))
-                              : make_float2(0.f, 0.f);
-        const float2 x1 = in1 ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qb + 8 * kk))
-                              : make_float2(0.f, 0.f);
-        qh[kk][0] = __float_as_uint(x0.x);
-        qh[kk][1] = __float_as_uint(x1.x);
-        qh[kk][2] = __float_as_uint(x0.y);
-        qh[kk][3] = __float_as_uint(x1.y);
-      } else {
-        const float2 x0 = in0 ? *reinterpret_cast<const float2*>(qa + 8 * kk) : make_float2(0.f, 0.f);
-        const float2 x1 = in1 ? *reinterpret_cast<const float2*>(qb + 8 * kk) : make_float2(0.f, 0.f);
-        tf32x3::split_a(x0, x1, qh[kk], ql[kk]);
-      }
+      const float2 x0 = in0 ? *reinterpret_cast<const float2*>(qa + 8 * kk) : make_float2(0.f, 0.f);
+      const float2 x1 = in1 ? *reinterpret_cast<const float2*>(qb + 8 * kk) : make_float2(0.f, 0.f);
+      tf32x3::split_a(x0, x1, qh[kk], ql[kk]);
     }
   }
-  const Elem<B16>* gate_row = gate + ((size_t)b * H + h) * T + q0;
-  float g0, g1;
-  if constexpr (B16) {
-    g0 = in0 ? __bfloat162float(gate_row[r0]) : 0.f;
-    g1 = in1 ? __bfloat162float(gate_row[r1]) : 0.f;
-  } else {
-    g0 = in0 ? gate_row[r0] : 0.f;
-    g1 = in1 ? gate_row[r1] : 0.f;
-  }
+  const float* gate_row = gate + ((size_t)b * H + h) * T + q0;
+  const float g0 = in0 ? gate_row[r0] : 0.f;
+  const float g1 = in1 ? gate_row[r1] : 0.f;
   const float sl = scale * kLog2e;    // scores are kept in log2 units
-  // a masked key's term: NEG (the bf16 instance: NEG rounded to bf16)
-  const float neg = (B16 ? round_bf16(kNeg) : kNeg) * kLog2e;
+  const float neg = kNeg * kLog2e;    // a masked key's term
 
   float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows r0, r1
   float l0 = 0.f, l1 = 0.f;               // running sum over this lane's columns
@@ -382,10 +288,7 @@ flash_wavlm_kernel(const Elem<B16>* __restrict__ q, const Elem<B16>* __restrict_
     const int k0 = kt * kKeys;
     cp_async_wait_all();               // this tile's raw k and v landed
     __syncthreads();                   // ... for every thread; the split buffers are free
-    if constexpr (B16)
-      widen_tiles<HD>(smem, tid);
-    else
-      split_tiles<HD>(smem, tid);
+    split_tiles<HD>(smem, tid);
     if (tid < kKeys) {
       const int u = k0 + tid;
       n_s[tid] = u >= T ? -INFINITY : (kv && !(kv[u] > 0.f)) ? neg : 0.f;
@@ -395,22 +298,13 @@ flash_wavlm_kernel(const Elem<B16>* __restrict__ q, const Elem<B16>* __restrict_
         const int c = tid - kKeys + e * kKeys;     // 0 .. 127
         const long long d = (long long)k0 - q0 + T - 1 - (kKeys - 1) + c;
         float w = 0.f;
-        if (c < 2 * kKeys - 1 && d >= 0 && d <= 2LL * T - 2) {
-          if constexpr (B16)
-            w = __bfloat162float(diag[d]) * kLog2e;
-          else
-            w = diag[d] * kLog2e;
-        }
+        if (c < 2 * kKeys - 1 && d >= 0 && d <= 2LL * T - 2) w = diag[d] * kLog2e;
         w_s[c] = w;
       }
     }
     __syncthreads();                   // split tiles, mask and window in place; raw buffers free
-    if (kt + 1 < nk) {
-      if constexpr (B16)
-        load_raw_b16<HD>(smem, k + head, v + head, k0 + kKeys, T, row_stride, tid);
-      else
-        load_raw<HD>(smem, k + head, v + head, k0 + kKeys, T, row_stride, tid);
-    }
+    if (kt + 1 < nk)
+      load_raw<HD>(smem, k + head, v + head, k0 + kKeys, T, row_stride, tid);
 
     // S = Q K^T: s[j] covers keys 8j .. 8j + 7 (c0, c1: row r0, keys 8j + 2t, + 1)
     float s[kNT][4];
@@ -422,13 +316,8 @@ flash_wavlm_kernel(const Elem<B16>* __restrict__ q, const Elem<B16>* __restrict_
     for (int kk = 0; kk < kK; ++kk) {
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
-        if constexpr (B16) {
-          const uint2 f = *reinterpret_cast<const uint2*>(ks + (8 * j + g) * LB::KS + 8 * kk + 2 * t);
-          tf32x3::mma(s[j], qh[kk], f.x, f.y);
-        } else {
-          const uint4 f = *reinterpret_cast<const uint4*>(ks + (8 * j + g) * L::KS + 16 * kk + 4 * t);
-          tf32x3::mma3(s[j], qh[kk], ql[kk], f.x, f.y, f.z, f.w);
-        }
+        const uint4 f = *reinterpret_cast<const uint4*>(ks + (8 * j + g) * L::KS + 16 * kk + 4 * t);
+        tf32x3::mma3(s[j], qh[kk], ql[kk], f.x, f.y, f.z, f.w);
       }
     }
 
@@ -463,10 +352,6 @@ flash_wavlm_kernel(const Elem<B16>* __restrict__ q, const Elem<B16>* __restrict_
       for (int e = 0; e < 2; ++e) {
         s[j][e] = exp2_ftz(s[j][e] - mn0);
         s[j][2 + e] = exp2_ftz(s[j][2 + e] - mn1);
-        if constexpr (B16) {        // p rounded to bf16; l sums the rounded p
-          s[j][e] = round_bf16(s[j][e]);
-          s[j][2 + e] = round_bf16(s[j][2 + e]);
-        }
         ps0 += s[j][e];
         ps1 += s[j][2 + e];
       }
@@ -485,22 +370,12 @@ flash_wavlm_kernel(const Elem<B16>* __restrict__ q, const Elem<B16>* __restrict_
       for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
 #pragma unroll
     for (int j = 0; j < kNT; ++j) {
-      if constexpr (B16) {          // the rounded p is exact in TF32: one pass
-        const uint32_t pa[4] = {__float_as_uint(s[j][0]), __float_as_uint(s[j][2]),
-                                __float_as_uint(s[j][1]), __float_as_uint(s[j][3])};
+      uint32_t ph[4], pl[4];
+      tf32x3::split_a(make_float2(s[j][0], s[j][1]), make_float2(s[j][2], s[j][3]), ph, pl);
 #pragma unroll
-        for (int n = 0; n < kK; ++n) {
-          const uint2 f = *reinterpret_cast<const uint2*>(vs + (4 * j + t) * LB::VS + 2 * (8 * n + g));
-          tf32x3::mma(pv[n], pa, f.x, f.y);
-        }
-      } else {
-        uint32_t ph[4], pl[4];
-        tf32x3::split_a(make_float2(s[j][0], s[j][1]), make_float2(s[j][2], s[j][3]), ph, pl);
-#pragma unroll
-        for (int n = 0; n < kK; ++n) {
-          const uint4 f = *reinterpret_cast<const uint4*>(vs + (4 * j + t) * L::VS + 4 * (8 * n + g));
-          tf32x3::mma3(pv[n], ph, pl, f.x, f.y, f.z, f.w);
-        }
+      for (int n = 0; n < kK; ++n) {
+        const uint4 f = *reinterpret_cast<const uint4*>(vs + (4 * j + t) * L::VS + 4 * (8 * n + g));
+        tf32x3::mma3(pv[n], ph, pl, f.x, f.y, f.z, f.w);
       }
     }
 #pragma unroll
@@ -519,64 +394,347 @@ flash_wavlm_kernel(const Elem<B16>* __restrict__ q, const Elem<B16>* __restrict_
   }
   // o[n]: columns 8n + 2t, 8n + 2t + 1 of rows r0 (c0, c1) and r1 (c2, c3)
   if (in0) {
-    Elem<B16>* dst = out + head + (size_t)(q0 + r0) * row_stride + 2 * t;
+    float* dst = out + head + (size_t)(q0 + r0) * row_stride + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kK; ++n) {
-      if constexpr (B16)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(o[n][0] / l0, o[n][1] / l0);
-      else
-        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][0] / l0, o[n][1] / l0);
-    }
+    for (int n = 0; n < kK; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][0] / l0, o[n][1] / l0);
   }
   if (in1) {
-    Elem<B16>* dst = out + head + (size_t)(q0 + r1) * row_stride + 2 * t;
+    float* dst = out + head + (size_t)(q0 + r1) * row_stride + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kK; ++n) {
-      if constexpr (B16)
-        *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(o[n][2] / l1, o[n][3] / l1);
-      else
-        *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2] / l1, o[n][3] / l1);
-    }
+    for (int n = 0; n < kK; ++n)
+      *reinterpret_cast<float2*>(dst + 8 * n) = make_float2(o[n][2] / l1, o[n][3] / l1);
   }
 }
 
-template <int HD, bool B16>
-cudaError_t launch(const Elem<B16>* q, const Elem<B16>* k, const Elem<B16>* v,
-                   const Elem<B16>* gate, const Elem<B16>* bias_diag, const float* kvalid,
-                   Elem<B16>* out, int B, int T, int H, float scale, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (B16 ? LayoutB16<HD>::floats : Layout<HD>::floats);
+template <int HD>
+cudaError_t launch(const float* q, const float* k, const float* v, const float* gate,
+                   const float* bias_diag, const float* kvalid, float* out, int B, int T, int H,
+                   float scale, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * Layout<HD>::floats;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wavlm_kernel<HD, B16>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_wavlm_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_wavlm_kernel<HD, B16>,
+    err = cudaFuncSetAttribute(flash_wavlm_kernel<HD>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kTile - 1) / kTile, H, B);
-  flash_wavlm_kernel<HD, B16><<<grid, kThreads, smem, stream>>>(
+  flash_wavlm_kernel<HD><<<grid, kThreads, smem, stream>>>(
       q, k, v, gate, bias_diag, kvalid, out, T, H, scale);
   return cudaGetLastError();
 }
 
-template <bool B16>
-int dispatch(const void* q, const void* k, const void* v, const void* gate,
-             const void* bias_diag, const float* kvalid, void* out,
-             int B, int T, int H, int hd, float scale, void* stream) {
-  if (B < 1 || T < 1 || H < 1 || H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
-  using E = Elem<B16>;
-  const E* qe = static_cast<const E*>(q);
-  const E* ke = static_cast<const E*>(k);
-  const E* ve = static_cast<const E*>(v);
-  const E* ge = static_cast<const E*>(gate);
-  const E* de = static_cast<const E*>(bias_diag);
-  E* oe = static_cast<E*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (hd) {
-    case 16: return (int)launch<16, B16>(qe, ke, ve, ge, de, kvalid, oe, B, T, H, scale, s);
-    case 64: return (int)launch<64, B16>(qe, ke, ve, ge, de, kvalid, oe, B, T, H, scale, s);
-    default: return (int)cudaErrorInvalidValue;
+// ------------------------------------------------------------ the bf16 instance
+
+namespace b16 {
+
+using namespace hopper;
+
+constexpr int kWarps = 8;                     // 16 query rows each
+constexpr int kThreads = 32 * kWarps;
+constexpr int kQTile = 16 * kWarps;           // 128 queries per block
+constexpr int kKTile = 128;                   // keys per tile: the Pallas kernel's default block
+constexpr int kNT = kKTile / 8;               // 8-key accumulator tiles of S
+constexpr int kStages = 3;
+static_assert(kQTile == kKTile, "the bias window spans one 128 x 128 tile pair");
+
+// One ring stage: the k tile [128][HD] and the v tile [128][HD] as TMA lays
+// them (swizzled, each 1024-byte aligned), then the tile's bias window
+// [256] (offset col - row + 127, times log2 e; the last entry unused) and
+// key terms [128] (0, NEG_bf16 * log2 e, or -inf past T), f32.
+template <int HD>
+struct Stage {
+  static constexpr int kTileBytes = kKTile * HD * 2;
+  static constexpr int kK = 0;
+  static constexpr int kV = kTileBytes;
+  static constexpr int kWin = 2 * kTileBytes;
+  static constexpr int kMask = kWin + 4 * 2 * kKTile;
+  static constexpr int kBytes = (kMask + 4 * kKTile + 1023) / 1024 * 1024;
+  // the ring, then the full and empty barriers; + 1024 to align the base
+  static constexpr int kBars = kStages * kBytes;
+  static constexpr size_t kSmem = (size_t)kBars + 16 * kStages + 1024;
+};
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Warp 0 fills stage s with key tile kt: the bias window and the key terms
+// by hand, k and v by TMA; every lane arrives on the stage's full barrier,
+// lane 0 with the TMA's bytes.
+template <int HD>
+__device__ __forceinline__ void fill_stage(uint8_t* smem, uint32_t base, uint32_t full,
+                                           const CUtensorMap* k_map, const CUtensorMap* v_map,
+                                           const __nv_bfloat16* diag, const float* kv, int s,
+                                           int kt, int q0, int T, int h, int b, int lane) {
+  using S = Stage<HD>;
+  constexpr float kLog2e = 1.4426950408889634f;
+  const int k0 = kt * kKTile;
+  uint8_t* st = smem + s * S::kBytes;
+  float* w_s = reinterpret_cast<float*>(st + S::kWin);
+  float* n_s = reinterpret_cast<float*>(st + S::kMask);
+  const float neg = round_bf16(-1e30f) * kLog2e;
+#pragma unroll
+  for (int e = 0; e < 2 * kKTile / 32; ++e) {
+    const int c = lane + 32 * e;              // 0 .. 255
+    const long long d = (long long)k0 - q0 + T - 1 - (kKTile - 1) + c;
+    w_s[c] = (c < 2 * kKTile - 1 && d >= 0 && d <= 2LL * T - 2)
+                 ? __bfloat162float(diag[d]) * kLog2e : 0.f;
+  }
+#pragma unroll
+  for (int e = 0; e < kKTile / 32; ++e) {
+    const int c = lane + 32 * e, u = k0 + c;
+    n_s[c] = u >= T ? -INFINITY : (kv && !(kv[u] > 0.f)) ? neg : 0.f;
+  }
+  if (lane == 0) {
+    mbar_arrive_expect_tx(full, 2 * S::kTileBytes);
+    tma_load_3d(base + s * S::kBytes + S::kK, k_map, full, h * HD, k0, b);
+    tma_load_3d(base + s * S::kBytes + S::kV, v_map, full, h * HD, k0, b);
+  } else {
+    mbar_arrive(full);
   }
 }
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bf16_kernel(const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ gate,
+                  const __nv_bfloat16* __restrict__ bias_diag, const float* __restrict__ kvalid,
+                  __nv_bfloat16* __restrict__ out, int T, int H, float scale) {
+  static_assert(HD == 16 || HD == 64, "the instances the wrapper takes");
+  using S = Stage<HD>;
+  constexpr int kK = HD / 16;         // 16-wide steps of q . k
+  constexpr int kN = HD / 8;          // 8-column tiles of out
+  constexpr int kSpan = HD * 2;       // bytes of a k or v row: the swizzle's span
+  constexpr uint32_t kLayout = HD == 64 ? 1 : 3;   // wgmma's code for that swizzle
+  constexpr float kLog2e = 1.4426950408889634f;
+
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_addr(smem);
+  const uint32_t full0 = base + S::kBars;           // full[s] at full0 + 8 s
+  const uint32_t empty0 = full0 + 8 * kStages;      // empty[s] at empty0 + 8 s
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = blockIdx.x * kQTile;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int nk = (T + kKTile - 1) / kKTile;
+  const __nv_bfloat16* diag = bias_diag + (size_t)h * (2 * T - 1);
+  const float* kv = kvalid ? kvalid + (size_t)b * T : nullptr;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 32);                 // warp 0's lanes (+ TMA's bytes)
+      mbar_init(empty0 + 8 * s, kWarps);            // one lane of each warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // warp 0 also keeps the ring full: the first stages now, stage s again
+  // once every warp is done with it
+  if (warp == 0)
+    for (int kt = 0; kt < kStages && kt < nk; ++kt)
+      fill_stage<HD>(smem, base, full0 + 8 * kt, &k_map, &v_map, diag, kv, kt, kt, q0, T, h, b,
+                     lane);
+
+  // this lane's query rows r0 = 16 warp + g and r1 = r0 + 8 of the tile
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * warp + g, r1 = r0 + 8;
+  const bool in0 = q0 + r0 < T, in1 = q0 + r1 < T;
+  const size_t row_stride = (size_t)H * HD;
+  const size_t head = ((size_t)b * T * H + h) * HD;
+
+  // q's A fragments, step kk: elements 16 kk + 2t (a0, a1) and + 8 (a2, a3)
+  uint32_t qa[kK][4];
+  {
+    const __nv_bfloat16* pa = q + head + (size_t)(in0 ? q0 + r0 : 0) * row_stride + 2 * t;
+    const __nv_bfloat16* pb = q + head + (size_t)(in1 ? q0 + r1 : 0) * row_stride + 2 * t;
+#pragma unroll
+    for (int kk = 0; kk < kK; ++kk) {
+      qa[kk][0] = in0 ? *reinterpret_cast<const uint32_t*>(pa + 16 * kk) : 0u;
+      qa[kk][1] = in1 ? *reinterpret_cast<const uint32_t*>(pb + 16 * kk) : 0u;
+      qa[kk][2] = in0 ? *reinterpret_cast<const uint32_t*>(pa + 16 * kk + 8) : 0u;
+      qa[kk][3] = in1 ? *reinterpret_cast<const uint32_t*>(pb + 16 * kk + 8) : 0u;
+    }
+  }
+  const __nv_bfloat16* gate_row = gate + ((size_t)b * H + h) * T + q0;
+  const float g0 = in0 ? __bfloat162float(gate_row[r0]) : 0.f;
+  const float g1 = in1 ? __bfloat162float(gate_row[r1]) : 0.f;
+  const float sl = scale * kLog2e;    // scores are kept in log2 units
+
+  float m0 = -INFINITY, m1 = -INFINITY;   // running max of rows r0, r1
+  float l0 = 0.f, l1 = 0.f;               // running sum of the rounded p, this lane's columns
+  float o[kN][4];
+#pragma unroll
+  for (int n = 0; n < kN; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+  // S = Q K^T of key tile kt on the warpgroup (warps 4 wg .. 4 wg + 3, query
+  // rows 64 wg .. 64 wg + 63) into sc, once the tile has landed: one
+  // m64n128k16 wgmma a 16-wide step, q's fragments from registers, the k
+  // tile [128 keys][HD] K-major from shared memory. sc[4j + e] is c_e of
+  // keys 8j .. 8j + 7. Committed, not waited for.
+  float sc[4 * kNT];
+  auto issue_s = [&](int kt) {
+    const int s = kt % kStages;
+    mbar_wait(full0 + 8 * s, (kt / kStages) & 1);
+    const uint32_t ks = base + s * S::kBytes + S::kK;
+    fence_regs(sc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kK; ++kk)
+      wgmma_m64n128k16_rs(sc, qa[kk], desc_swizzled(ks + 32 * kk, kLayout, 8 * kSpan), kk);
+    wgmma_commit();
+  };
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs(sc);
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kStages;
+    const uint32_t round = kt / kStages;
+    const uint32_t vs = base + s * S::kBytes + S::kV;
+    const float* w_s = reinterpret_cast<const float*>(smem + s * S::kBytes + S::kWin);
+    const float* n_s = reinterpret_cast<const float*>(smem + s * S::kBytes + S::kMask);
+
+    // scale, gated bias, key term; online softmax across the quad's 128
+    // columns. Keys past T carry -inf: they weigh 0 and never set the max.
+    float mt0 = -INFINITY, mt1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const float nm = n_s[col];
+        sc[4 * j + e] = fmaf(sc[4 * j + e], sl, fmaf(g0, w_s[col - r0 + kKTile - 1], nm));
+        sc[4 * j + 2 + e] = fmaf(sc[4 * j + 2 + e], sl, fmaf(g1, w_s[col - r1 + kKTile - 1], nm));
+        mt0 = fmaxf(mt0, sc[4 * j + e]);
+        mt1 = fmaxf(mt1, sc[4 * j + 2 + e]);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mt0 = fmaxf(mt0, __shfl_xor_sync(0xffffffffu, mt0, off));
+      mt1 = fmaxf(mt1, __shfl_xor_sync(0xffffffffu, mt1, off));
+    }
+    const float mn0 = fmaxf(m0, mt0), mn1 = fmaxf(m1, mt1);  // finite: key k0 < T
+    const float alpha0 = exp2_ftz(m0 - mn0), alpha1 = exp2_ftz(m1 - mn1);
+    m0 = mn0;
+    m1 = mn1;
+
+    // p = exp(s - m) rounded to bf16, summed as rounded, packed in pairs: the
+    // pair a lane holds in c0, c1 of key tile j is its A fragment entry of
+    // P.V's step j / 2 (a0 / a1 for even j, a2 / a3 for odd j)
+    uint32_t pa[kNT][2];
+    float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) {
+      const float p0 = round_bf16(exp2_ftz(sc[4 * j + 0] - mn0));
+      const float p1 = round_bf16(exp2_ftz(sc[4 * j + 1] - mn0));
+      const float p2 = round_bf16(exp2_ftz(sc[4 * j + 2] - mn1));
+      const float p3 = round_bf16(exp2_ftz(sc[4 * j + 3] - mn1));
+      ps0 += p0 + p1;
+      ps1 += p2 + p3;
+      pa[j][0] = pack_bf16(p0, p1);
+      pa[j][1] = pack_bf16(p2, p3);
+    }
+    l0 = fmaf(l0, alpha0, ps0);
+    l1 = fmaf(l1, alpha1, ps1);
+
+    // P V of this tile into a fresh accumulator (as in the f32 instance):
+    // one m64n{HD}k16 wgmma a 16-key step, p from registers, the v tile
+    // [128 keys][HD] MN-major (transposed) from shared memory, 16 rows of
+    // it a step. pv[4n + e] is c_e of out columns 8n .. 8n + 7.
+    // The next tile's S is issued behind it, so that its products run while
+    // this one's finish; both are waited for together.
+    float pv[4 * kN];
+    fence_regs(pv);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kKTile / 16; ++kk) {
+      const uint32_t a[4] = {pa[2 * kk][0], pa[2 * kk][1], pa[2 * kk + 1][0], pa[2 * kk + 1][1]};
+      const uint64_t db = desc_swizzled(vs + 16 * kSpan * kk, kLayout, 8 * kSpan);
+      if constexpr (HD == 64)
+        wgmma_m64n64k16_rs_mn(pv, a, db, kk);
+      else
+        wgmma_m64n16k16_rs_mn(pv, a, db, kk);
+    }
+    wgmma_commit();
+    if (kt + 1 < nk) issue_s(kt + 1);
+    wgmma_wait<0>();
+    fence_regs(pv);
+    fence_regs(sc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty0 + 8 * s);    // this warp is done with the stage
+    if (warp == 0 && kt + kStages < nk) {          // refill it with tile kt + kStages
+      mbar_wait(empty0 + 8 * s, round & 1);
+      fill_stage<HD>(smem, base, full0 + 8 * s, &k_map, &v_map, diag, kv, s, kt + kStages, q0,
+                     T, h, b, lane);
+    }
+#pragma unroll
+    for (int n = 0; n < kN; ++n) {
+      o[n][0] = fmaf(o[n][0], alpha0, pv[4 * n + 0]);
+      o[n][1] = fmaf(o[n][1], alpha0, pv[4 * n + 1]);
+      o[n][2] = fmaf(o[n][2], alpha1, pv[4 * n + 2]);
+      o[n][3] = fmaf(o[n][3], alpha1, pv[4 * n + 3]);
+    }
+  }
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  // o[n]: columns 8n + 2t, 8n + 2t + 1 of rows r0 (c0, c1) and r1 (c2, c3)
+  if (in0) {
+    __nv_bfloat16* dst = out + head + (size_t)(q0 + r0) * row_stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(o[n][0] / l0, o[n][1] / l0);
+  }
+  if (in1) {
+    __nv_bfloat16* dst = out + head + (size_t)(q0 + r1) * row_stride + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * n) = __floats2bfloat162_rn(o[n][2] / l1, o[n][3] / l1);
+  }
+}
+
+// A 3-D map over x [B, T, H * HD] bf16 with boxes of HD x 128 rows of one
+// batch row: a box never crosses into the next row, and rows past T read
+// as zeros.
+template <int HD>
+bool head_tile_map(CUtensorMap* map, const void* x, int B, int T, int H) {
+  const cuuint64_t dims[3] = {(cuuint64_t)H * HD, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)H * HD * 2, (cuuint64_t)T * H * HD * 2};
+  const cuuint32_t box[3] = {HD, kKTile, 1};
+  return bf16_tile_map(map, x, 3, dims, strides, box);
+}
+
+template <int HD>
+cudaError_t launch(const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+                   const __nv_bfloat16* gate, const __nv_bfloat16* bias_diag,
+                   const float* kvalid, __nv_bfloat16* out, int B, int T, int H, float scale,
+                   cudaStream_t stream) {
+  CUtensorMap k_map, v_map;
+  if (!head_tile_map<HD>(&k_map, k, B, T, H) || !head_tile_map<HD>(&v_map, v, B, T, H))
+    return cudaErrorInvalidValue;
+  const size_t smem = Stage<HD>::kSmem;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bf16_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + kQTile - 1) / kQTile, H, B);
+  flash_bf16_kernel<HD><<<grid, kThreads, smem, stream>>>(k_map, v_map, q, gate, bias_diag,
+                                                          kvalid, out, T, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace b16
 
 }  // namespace
 
@@ -590,7 +748,13 @@ extern "C" {
 int sdumc_flash_wavlm(const float* q, const float* k, const float* v, const float* gate,
                       const float* bias_diag, const float* kvalid, float* out,
                       int B, int T, int H, int hd, float scale, void* stream) {
-  return dispatch<false>(q, k, v, gate, bias_diag, kvalid, out, B, T, H, hd, scale, stream);
+  if (B < 1 || T < 1 || H < 1 || H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return (int)launch<16>(q, k, v, gate, bias_diag, kvalid, out, B, T, H, scale, s);
+    case 64: return (int)launch<64>(q, k, v, gate, bias_diag, kvalid, out, B, T, H, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // The bf16 instance: q, k, v, gate, bias_diag and out are bf16, with the
@@ -598,7 +762,20 @@ int sdumc_flash_wavlm(const float* q, const float* k, const float* v, const floa
 int sdumc_flash_wavlm_bf16(const void* q, const void* k, const void* v, const void* gate,
                            const void* bias_diag, const float* kvalid, void* out,
                            int B, int T, int H, int hd, float scale, void* stream) {
-  return dispatch<true>(q, k, v, gate, bias_diag, kvalid, out, B, T, H, hd, scale, stream);
+  if (B < 1 || T < 1 || H < 1 || H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  using E = __nv_bfloat16;
+  const E* qe = static_cast<const E*>(q);
+  const E* ke = static_cast<const E*>(k);
+  const E* ve = static_cast<const E*>(v);
+  const E* ge = static_cast<const E*>(gate);
+  const E* de = static_cast<const E*>(bias_diag);
+  E* oe = static_cast<E*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16: return (int)b16::launch<16>(qe, ke, ve, ge, de, kvalid, oe, B, T, H, scale, s);
+    case 64: return (int)b16::launch<64>(qe, ke, ve, ge, de, kvalid, oe, B, T, H, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* sdumc_flash_wavlm_error_string(int err) {

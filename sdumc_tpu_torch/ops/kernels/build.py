@@ -25,7 +25,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[2]
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 SOURCES = {"fused_cross": "csrc/fused_cross.cu", "flash_wavlm": "csrc/flash_wavlm.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-ldl")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -25,8 +25,9 @@ instance computes what the Pallas kernel computes at bf16 inputs. The gate
 and the bias are rounded to bf16, masked keys add NEG rounded to bf16, the
 scores and the softmax statistics are f32, p = exp(s - m) is rounded to bf16
 before P.V, the row sum is the f32 sum of the rounded p, and the output is
-rounded to bf16 once. m is the running max over the kernel's 64-key tiles,
-and its plain version rounds p against the same running max. The two then
+rounded to bf16 once. m is the running max over the bf16 instance's
+128-key tiles (``KEY_TILE_BF16``, the Pallas kernel's default block), and
+its plain version rounds p against the same running max. The two then
 differ only by f32 rounding (summation order, exp against the kernel's
 exp2): that moves a p by one bf16 ulp only where it lies within a few f32
 ulps of a rounding midpoint. ``bf16_tolerance`` bounds the output if every
@@ -52,14 +53,16 @@ from sdumc_tpu_torch.ops.kernels import build, check_operand
 
 NEG = -1e30
 KERNEL_HEAD_DIMS = (16, 64)       # hd instances: wavlm-large's 64, the card tests' 16
-KEY_TILE = 64                     # keys per tile of the kernel's online softmax
+KEY_TILE = 64                     # keys per tile of the f32 instance's online softmax
+KEY_TILE_BF16 = 128               # ... of the bf16 instance's: the Pallas kernel's default block
 
 NEG_BF16 = float(torch.tensor(NEG).bfloat16())   # NEG rounded to bf16: -1.00026e30
 # The largest share of bf16 output elements in which the kernel may differ
 # from its plain version. The kernel reads 3.3e-4 and 1.4e-3 at wavlm-large's
 # heads, T = 249 and 2999, with mixed masks (chip_smoke.py phase 19, H100
 # 80GB HBM3 at 700 W), and the plain version 0 - 2.9e-4 against JAX's Pallas
-# kernel in interpret mode at the same key tile (tests/test_torch_wavlm_bf16.py).
+# kernel in interpret mode at the same key tile (tests/test_torch_wavlm_bf16.py,
+# tests/test_torch_bf16_kernels.py at the 128-key tile).
 # At the same shapes variants read 2.6-3.7% (the row sum of the unrounded p),
 # 11-15% (p rounded against the final max) and 24-26% (p not rounded), and
 # JAX's kernel at another key tile 5-10%.
@@ -122,12 +125,13 @@ def dense_bias(bias_diag: torch.Tensor, T: int) -> torch.Tensor:
 
 def flash_gated_attention_plain(q, k, v, gate, rel_embed, kvalid=None, bias_diag=None,
                                 *, num_buckets: int, max_distance: int,
-                                key_tile: int = KEY_TILE):
+                                key_tile: int = KEY_TILE_BF16):
     """The einsum formulation: the CPU path and the kernel's oracle.
     ``bias_diag`` ([H, 2T - 1], from ``bias_diag_for``) stands in for
     ``rel_embed`` when given. A bf16 q takes the bf16 instance's semantics
     (``_plain_bf16``), p rounded against the running max of ``key_tile``
-    keys (the kernel's 64; JAX's Pallas kernel's is its ``block``)."""
+    keys (the bf16 instance's 128; JAX's Pallas kernel's is its ``block``,
+    128 by default)."""
     B, T, H, hd = q.shape
     if bias_diag is None:
         bias_diag = bias_diag_for(rel_embed, T, num_buckets, max_distance)
@@ -141,14 +145,14 @@ def flash_gated_attention_plain(q, k, v, gate, rel_embed, kvalid=None, bias_diag
     return torch.einsum("bhts,bshd->bthd", probs, v)
 
 
-def _plain_bf16(q, k, v, gate, bias_diag, kvalid, key_tile: int = KEY_TILE):
+def _plain_bf16(q, k, v, gate, bias_diag, kvalid, key_tile: int = KEY_TILE_BF16):
     """The bf16 instance's function on the widened inputs: q scaled in bf16
     (the Pallas wrapper's fold; exact for hd 16 and 64), the gate and the
     bias rounded to bf16, masked keys at NEG rounded to bf16, f32 scores and
     softmax statistics, p rounded to bf16, the row sum of the rounded p, the
     output rounded to bf16 once. As in the kernel, p = exp(s - m_j) is
     rounded against the running max m_j of the key tiles 0..j (``key_tile``
-    keys each, the kernel's 64), and tile j's sums are carried to the final
+    keys each, the kernel's 128), and tile j's sums are carried to the final
     max by exp(m_j - m_last)."""
     B, T, H, hd = q.shape
     bf = torch.bfloat16

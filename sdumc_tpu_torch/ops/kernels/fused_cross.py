@@ -17,7 +17,10 @@ below; a tensor on the card takes the kernel or raises.
 instance reads x as bf16, keeps W, the bias, the keys, the scores and the
 softmax in f32, and rounds the output to bf16, as the Pallas kernel does at
 bf16 x. Its plain version is the f32 formula on the widened inputs, rounded
-to x's dtype at the end.
+to x's dtype at the end. On the card it runs its key projection on bf16
+tensor cores: W is cut into three bf16 parts (``split_w_bf16``), each x .
+part is exact in f32, and the keys are their f32 sum (``keys_bf16_order``
+is that order in plain torch).
 
 The gradient is the JAX package's: its ``custom_vjp`` recomputes the
 forward through the einsum formulation and differentiates that, so no
@@ -46,7 +49,9 @@ LAUNCHES: Dict[int, int] = {1: 0, 7: 0}
 LAUNCHES_BF16: Dict[int, int] = {1: 0, 7: 0}
 
 KERNEL_D = 256                   # the kernel's compile-time feature width
-_TILE_T = 64                     # frames per tile in the kernel
+_TILE_T = 64                     # frames per tile in the f32 instance
+TILE_T_BF16 = 256                # ... in the bf16 instance
+W_PARTS = 3                      # the bf16 instance's parts of W
 _sm_count: Dict[int, int] = {}
 
 
@@ -69,6 +74,36 @@ def fused_cross_attention_plain(q, x, weight, bias, t_max=None,
     scores = mask_time_scores(softmax_scale * scores, t_max, axis=1)
     attn = torch.softmax(scores, dim=1)
     return torch.einsum("btd,btq->bqd", x, attn)
+
+
+def split_w_bf16(weight: torch.Tensor):
+    """(hi, mid, lo), the bf16 instance's parts of an f32 W: each part is
+    the bf16 rounding toward zero (the top 16 bits) of what the earlier
+    parts leave, and each remainder is exact in f32. So hi + mid + lo == W
+    to the bit for every |w| >= 2^-110 and 0 (below that a part would fall
+    under bf16's smallest subnormal, 2^-133), and a bf16 x times a part (8
+    by 8 significant bits) is exact in f32. The plain twin of the kernel's
+    ``cross_split_w3_kernel``."""
+    rest = weight.float().contiguous()
+    parts = []
+    for _ in range(W_PARTS):
+        top = (rest.view(torch.int32) & -65536).view(torch.float32)   # 0xffff0000
+        parts.append(top.bfloat16())
+        rest = rest - top
+    return tuple(parts)
+
+
+def keys_bf16_order(x, weight, bias):
+    """tanh(x W^T + b) as the bf16 instance sums it: x . lo, x . mid and
+    x . hi, each an f32 product of exact terms, added in that order in f32,
+    then the bias. Within f32 reassociation of the f32 formula on the
+    widened x."""
+    hi, mid, lo = split_w_bf16(weight)
+    xf = x.float()
+    k = F.linear(xf, lo.float())
+    k = k + F.linear(xf, mid.float())
+    k = k + F.linear(xf, hi.float())
+    return torch.tanh(k + bias.float())
 
 
 def fused_cross_attention(q, x, weight, bias, t_max=None,
@@ -135,18 +170,22 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def splits_for(sm_count: int, B: int, T: int) -> int:
-    """Blocks per row along time: one per 64-frame tile, so that B rows fill
-    the card's SMs several times over, up to 16 blocks per SM in all (which
-    bounds the partials); each block takes an equal run of a row's tiles."""
-    return max(1, min(math.ceil(T / _TILE_T), math.ceil(16 * sm_count / B)))
+def splits_for(sm_count: int, B: int, T: int, tile: int = _TILE_T) -> int:
+    """Blocks per row along time: one per tile of ``tile`` frames (the f32
+    instance's 64, the bf16 instance's 256), so that B rows fill the card's
+    SMs several times over, up to 16 blocks per SM in all (which bounds the
+    partials); each block takes an equal run of a row's tiles. A row shorter
+    than a tile takes one block whatever its length: the short buckets'
+    calls run B blocks (64 of the 132 SMs at the dual batch), since a tile's
+    key columns are never split across blocks (its scores sum over them)."""
+    return max(1, min(math.ceil(T / tile), math.ceil(16 * sm_count / B)))
 
 
-def _splits(device: torch.device, B: int, T: int) -> int:
+def _splits(device: torch.device, B: int, T: int, tile: int = _TILE_T) -> int:
     idx = device.index if device.index is not None else torch.cuda.current_device()
     if idx not in _sm_count:
         _sm_count[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return splits_for(_sm_count[idx], B, T)
+    return splits_for(_sm_count[idx], B, T, tile)
 
 
 def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
@@ -188,12 +227,14 @@ def launch(q, x, weight, bias, t_max, softmax_scale, *, q_batched: bool):
         tmax_scalar = int(t_max)
 
     qp = 1 if Q == 1 else 8
-    nsplit = _splits(dev, B, T)
+    nsplit = _splits(dev, B, T, TILE_T_BF16 if bf16 else _TILE_T)
     out = torch.empty((B, Q, D), dtype=x.dtype, device=dev)
     m_part = torch.empty(B * nsplit * qp, dtype=torch.float32, device=dev)
     l_part = torch.empty_like(m_part)
     acc_part = torch.empty(B * nsplit * qp * D, dtype=torch.float32, device=dev)
-    w_split = torch.empty(2 * D * D, dtype=torch.float32, device=dev)
+    # W's split: hi and lo in f32, or the bf16 instance's three bf16 parts
+    w_split = (torch.empty(W_PARTS * D * D, dtype=torch.bfloat16, device=dev) if bf16
+               else torch.empty(2 * D * D, dtype=torch.float32, device=dev))
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
