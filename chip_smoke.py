@@ -143,7 +143,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
      card against CPU with the smallest top-1 / top-2 logit gap; ms per
      decode step (CUDA events) beside its bound, device time by family and
      idle share; then the csv through ``cli.extract text`` on phase 11's
-     2-layer Vicuna, the ASR text variant end to end.
+     2-layer Vicuna, the ASR text variant end to end;
+ 23. ``cli.extract vision`` for each encoder with its defaults (FRAME,
+     every 5th frame, batch 32) on phase 15's 12 clips of BMP crops, with
+     seeded weights at the published configs in each loader's format
+     (openai/clip-vit-large-patch14 as a whole CLIPModel with text tensors
+     beside, facebook/dinov2-base at 518, MCG-NJU/videomae-base in its
+     pretraining layout, timm's eva02_base_patch14_224 state dict, a
+     torchvision resnet18 .pth): every output's shape and finiteness, the
+     launch counters around the runs (no kernel of the port), one batch
+     card against CPU per family on the same host-resized pixels, a TF32
+     control that the CLIP check must refuse, CLIP once at UTTERANCE; per
+     family a warm run (frames/s, reading and resizing apart, peak
+     memory), a profiled warm run of the 2 shortest clips (device time by
+     the operator that launched it, idle share) and the f32 bound from
+     the forward's MACs.
 Each phase prints its seconds. The second-to-last line is {"kernels":
 [...]}, the last line {"ok": true, "device": {...}}. Imports nothing of JAX
 or sdumc_tpu.
@@ -333,6 +347,11 @@ MANET_BATCH, PARITY_BATCH, TIMED_TRAIN_STEPS = 128, 8, 5
 # the largest gradient from rounding order alone (BatchNorm in training mode
 # cancels), too loose to tell a fault; float64 parts at about 1e-12
 MANET_GRAD_REL, MANET_LOSS_RTOL = 1e-8, 1e-10
+# the vision stage (phase 23): each family at its published config, on phase 15's clips;
+# card vs CPU on one batch to max |diff| <= VISION_REL * max |embedding| (f32
+# reassociation through the encoder; one TF32 product in every layer gives about 1e-3)
+VISION_FAMILIES = ("clip", "dinov2", "videomae", "eva02", "imagenet")
+VISION_CHECK_FRAMES, VISION_PROFILED_CLIPS, VISION_REL = 4, 2, 1e-4
 TEXT_FAMILIES = (
     ("cuBLAS GEMMs", ("gemm", "nvjet", "cutlass", "xmma", "gemv", "splitk")),
     ("softmax", ("softmax",)),
@@ -2827,6 +2846,316 @@ def asr_phase(torch, tmp: str, llm_dir: str):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------- the vision stage (phase 23)
+
+def vision_config_files() -> dict:
+    """Each family's config.json as published (openai/clip-vit-large-patch14: a
+    whole CLIPModel whose vision_config leaves image_size 224, quick_gelu and
+    1e-5 to HF's defaults; facebook/dinov2-base; MCG-NJU/videomae-base, a
+    VideoMAEForPreTraining checkpoint without mean pooling; timm's
+    eva02_base_patch14_224.mim_in22k, whose config names no widths)."""
+    return {
+        "clip": {"architectures": ["CLIPModel"], "model_type": "clip", "projection_dim": 768,
+                 "logit_scale_init_value": 2.6592,
+                 "text_config": {"hidden_size": 768, "intermediate_size": 3072,
+                                 "num_attention_heads": 12, "num_hidden_layers": 12,
+                                 "projection_dim": 768},
+                 "vision_config": {"hidden_size": 1024, "intermediate_size": 4096,
+                                   "num_attention_heads": 16, "num_hidden_layers": 24,
+                                   "patch_size": 14, "projection_dim": 768}},
+        "dinov2": {"architectures": ["Dinov2Model"], "model_type": "dinov2", "hidden_act": "gelu",
+                   "hidden_size": 768, "image_size": 518, "layer_norm_eps": 1e-6,
+                   "layerscale_value": 1.0, "mlp_ratio": 4, "num_attention_heads": 12,
+                   "num_channels": 3, "num_hidden_layers": 12, "patch_size": 14, "qkv_bias": True,
+                   "use_swiglu_ffn": False},
+        "videomae": {"architectures": ["VideoMAEForPreTraining"], "model_type": "videomae",
+                     "decoder_hidden_size": 384, "decoder_intermediate_size": 1536,
+                     "decoder_num_attention_heads": 6, "decoder_num_hidden_layers": 4,
+                     "hidden_act": "gelu", "hidden_size": 768, "image_size": 224,
+                     "intermediate_size": 3072, "layer_norm_eps": 1e-12, "norm_pix_loss": True,
+                     "num_attention_heads": 12, "num_channels": 3, "num_frames": 16,
+                     "num_hidden_layers": 12, "patch_size": 16, "qkv_bias": True,
+                     "tubelet_size": 2, "use_mean_pooling": False},
+        "eva02": {"architecture": "eva02_base_patch14_224", "num_classes": 0,
+                  "pretrained_cfg": {"tag": "mim_in22k", "input_size": [3, 224, 224],
+                                     "interpolation": "bicubic"}},
+    }
+
+
+def seeded_vision_state_dict(torch, model, seed: int) -> dict:
+    """``model``'s state dict (on the CPU) with every parameter drawn
+    normal(0, 0.02) on the card (HF's init range), LayerNorm weights and
+    DINOv2's LayerScale about 1."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    model = model.to(DEVICE)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+            if name.endswith("lambda1"):
+                p.add_(1.0)
+        for m in model.modules():
+            if isinstance(m, torch.nn.LayerNorm):
+                m.weight.add_(1.0)
+    return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def write_vision_models(torch, root: str) -> dict:
+    """Seeded weights of each family at its published config, in the format
+    its loader reads, with the tensors a published file carries beside the
+    encoder (CLIP's text tower, VideoMAE's pretraining decoder, DINOv2's
+    mask token, ResNet's fc head), which the loaders must skip. Returns
+    {family: the flags that name them}."""
+    from sdumc_tpu_torch.convert.hf_clip import config_from_hf as clip_config
+    from sdumc_tpu_torch.convert.hf_dinov2 import config_from_hf as dinov2_config
+    from sdumc_tpu_torch.convert.hf_videomae import config_from_hf as videomae_config
+    from sdumc_tpu_torch.convert.safetensors_io import save_file
+    from sdumc_tpu_torch.models.clip_vit import CLIPVisionTower
+    from sdumc_tpu_torch.models.dinov2 import Dinov2Model
+    from sdumc_tpu_torch.models.eva02 import Eva02Config, Eva02Model
+    from sdumc_tpu_torch.models.manet import init_weights
+    from sdumc_tpu_torch.models.resnet import ResNetEmbedding
+    from sdumc_tpu_torch.models.videomae import VideoMAEModel
+
+    configs, flags = vision_config_files(), {}
+    r = torch.Generator().manual_seed(23)
+    extra = {
+        "clip": {"text_model.final_layer_norm.weight": torch.ones(768),
+                 "text_model.final_layer_norm.bias": torch.zeros(768),
+                 "text_projection.weight": torch.randn(768, 768, generator=r) * 0.02,
+                 "logit_scale": torch.tensor(2.6592)},
+        "dinov2": {"embeddings.mask_token": torch.zeros(1, 768)},
+        "videomae": {"encoder_to_decoder.weight": torch.randn(384, 768, generator=r) * 0.02,
+                     "mask_token": torch.zeros(1, 1, 384),
+                     "decoder.norm.weight": torch.ones(384), "decoder.norm.bias": torch.zeros(384),
+                     "decoder.head.weight": torch.randn(1536, 384, generator=r) * 0.02,
+                     "decoder.head.bias": torch.zeros(1536)},
+    }
+    models = {"clip": CLIPVisionTower(clip_config(configs["clip"])),
+              "dinov2": Dinov2Model(dinov2_config(configs["dinov2"])),
+              "videomae": VideoMAEModel(videomae_config(configs["videomae"])),
+              "eva02": Eva02Model(Eva02Config())}
+    for seed, (family, model) in enumerate(models.items()):
+        sd = seeded_vision_state_dict(torch, model, 30 + seed)
+        if family == "videomae":
+            sd = {"videomae." + k: v for k, v in sd.items()}
+        if family == "eva02":          # a MIM export's final norm, which the loader takes as fc_norm
+            sd["norm.weight"], sd["norm.bias"] = sd.pop("fc_norm.weight"), sd.pop("fc_norm.bias")
+        path = os.path.join(root, family)
+        os.makedirs(path)
+        save_file({**sd, **extra.get(family, {})}, os.path.join(path, "model.safetensors"))
+        with open(os.path.join(path, "config.json"), "w") as f:
+            json.dump(configs[family], f, indent=2)
+        flags[family] = ["--model_dir", path]
+    models.clear()
+    resnet = init_weights(ResNetEmbedding(), 34)    # ResNet's init, BN drawn as for phase 15
+    gen = torch.Generator().manual_seed(35)
+    with torch.no_grad():
+        for m in resnet.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    sd = dict(resnet.state_dict())
+    sd["fc.weight"], sd["fc.bias"] = torch.randn(1000, 512, generator=r) * 0.02, torch.zeros(1000)
+    torch.save(sd, os.path.join(root, "resnet18.pth"))      # torchvision's: a bare state dict
+    flags["imagenet"] = ["--checkpoint", os.path.join(root, "resnet18.pth")]
+    return flags
+
+
+def vision_macs(torch, model, family: str, cfg) -> int:
+    """Multiply-accumulates of one sample (a frame; VideoMAE a window)
+    through every Linear and convolution (forward hooks) plus the attention
+    products, 2 T^2 D a layer (q.k^T and p.v over all heads)."""
+    macs = []
+
+    def hook(mod, inp, out):
+        if isinstance(mod, torch.nn.Linear):
+            k = mod.in_features
+        else:
+            k = mod.in_channels // mod.groups * math.prod(mod.kernel_size)
+        macs.append(out.numel() * k)
+
+    kinds = (torch.nn.Linear, torch.nn.Conv2d, torch.nn.Conv3d)
+    hooks = [m.register_forward_hook(hook) for m in model.modules() if isinstance(m, kinds)]
+    dev = next(model.parameters()).device
+    size = 224 if cfg is None else cfg.image_size
+    x = (torch.zeros(1, cfg.num_frames, 3, size, size, device=dev) if family == "videomae"
+         else torch.zeros(1, 3, size, size, device=dev))
+    with torch.inference_mode():
+        out = model(x)
+    for h in hooks:
+        h.remove()
+    attention = 0
+    if isinstance(out, dict):
+        _, T, D = out["last_hidden_state"].shape
+        attention = 2 * T * T * D * cfg.num_layers
+    return sum(macs) + attention
+
+
+VISION_OP_FAMILIES = (
+    ("GEMMs (Linear)", ("aten::addmm", "aten::mm")),
+    ("attention einsums (q.k^T, p.v)", ("aten::bmm", "aten::baddbmm")),
+    ("convolutions", ("aten::cudnn_convolution", "aten::_convolution", "aten::convolution")),
+    ("softmax", ("aten::_softmax",)),
+    ("memory copies", ("aten::copy_", "aten::_to_copy")),
+)
+
+
+def print_op_families(prof, wall: float, title: str, card: str) -> dict:
+    """Device time by the operator that launched each kernel (so an
+    attention product tells itself from a Linear's though both are cuBLAS
+    GEMMs), and the device's idle share of the host-clock window `wall`."""
+    from torch.autograd import DeviceType
+
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    families = {}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU or e.self_device_time_total <= 0:
+            continue
+        family = next((f for f, ops in VISION_OP_FAMILIES if e.key in ops),
+                      "elementwise, norms and the rest")
+        families[family] = families.get(family, 0.0) + e.self_device_time_total / 1e3
+    if busy <= 0:
+        raise AssertionError(f"{title}: the profiler saw no device time")
+    print(f"  {title}: {wall!r} s host clock, device busy {busy / 1e3!r} s, idle share "
+          f"{1 - busy / 1e3 / wall!r} ({card}); device time by family:")
+    for family, ms in sorted(families.items(), key=lambda kv: -kv[1]):
+        print(f"    {ms:10.3f} ms {ms / busy:7.2%}  {family}")
+    return {"busy_ms": busy, **families}
+
+
+def vision_phase(torch, tmp: str, card: str):
+    """Phase 23: ``cli.extract vision`` for each family (its defaults:
+    FRAME, every 5th frame, batch 32) on phase 15's BMP crops, with seeded
+    weights at the published configs; shapes and finiteness; the launch
+    counters (no kernel of the port runs); one batch card against CPU per
+    family on the same host-resized pixels, and a TF32 control that the
+    CLIP check must refuse; a warm run (frames/s, decode-and-resize apart,
+    peak memory), a profiled warm run of the shortest clips (device time
+    by family, idle share) and the f32 bound."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdumc_tpu_torch.cli import extract
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.extract import vision_hf
+
+    face_dir = os.path.join(tmp, "faces")
+    frames = {v: len(os.listdir(os.path.join(face_dir, v))) for v in sorted(os.listdir(face_dir))}
+    t0 = time.perf_counter()
+    flags = write_vision_models(torch, os.path.join(tmp, "vision_models"))
+    print(f"seeded clip-vit-large-patch14 (whole CLIPModel config, text tensors beside), "
+          f"dinov2-base, videomae-base (pretraining layout), eva02_base_patch14_224 (timm) and "
+          f"resnet18 (torchvision .pth) written in {time.perf_counter() - t0!r} s; "
+          f"{len(frames)} clips of {sum(frames.values())} crops from phase 15")
+    shortest = sorted(frames, key=frames.get)
+    sub_dir = os.path.join(tmp, "faces_vision_profiled")
+    os.makedirs(sub_dir)
+    for v in shortest[:VISION_PROFILED_CLIPS]:
+        os.symlink(os.path.join(face_dir, v), os.path.join(sub_dir, v))
+    reset_counts()
+    for family in VISION_FAMILIES:
+        base = ["vision", "--model", family, *flags[family], "--face_dir", face_dir]
+        out = extract.main(base + ["--save_dir", os.path.join(tmp, "vision", family)])
+        torch.cuda.reset_peak_memory_stats()        # the warm run's peak: its model alone
+        warm = extract.main(base + ["--save_dir", os.path.join(tmp, "vision", family + "_warm")])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        def encoder(dev):
+            named = flags[family][1]
+            return vision_hf.build_encoder(family, None if family == "imagenet" else named,
+                                           named if family == "imagenet" else None,
+                                           torch.device(dev))
+
+        def rows(n):        # a clip's saved rows: every 5th frame, VideoMAE's windows of them
+            r = -(-n // 5)
+            return max(-(-r // cfg.num_frames), 1) if family == "videomae" else r
+
+        model, cfg, key, size, mean, std, dim = encoder(DEVICE)
+        for vid, n in frames.items():
+            feat = np.load(os.path.join(out["save_dir"], f"{vid}.npy"))
+            if feat.shape != (rows(n), dim) or feat.dtype != np.float32 \
+                    or not np.isfinite(feat).all():
+                raise AssertionError(f"vision {family} {vid}: {feat.shape} {feat.dtype} "
+                                     f"(want ({rows(n)}, {dim})) or non-finite")
+        # card against CPU on the same host-resized pixels: 4 frames (VideoMAE one window)
+        vid = max(frames, key=frames.get)
+        clip_dir = os.path.join(face_dir, vid)
+        paths = vision_hf.resample_frames([os.path.join(clip_dir, f)
+                                           for f in sorted(os.listdir(clip_dir))])
+        n_px = cfg.num_frames if family == "videomae" else VISION_CHECK_FRAMES
+        px = [vision_hf.load_normalized(p, size, mean, std) for p in paths[:n_px]]
+        cpu_model = encoder("cpu")[0]
+
+        def embed_px(m, dev):
+            return vision_hf.make_embed(family, m, cfg, key, torch.device(dev), 32)(px)
+
+        ref = embed_px(cpu_model, "cpu")
+        top = float(np.abs(ref).max())
+
+        def check(x):
+            err = float(np.abs(x - ref).max())
+            return err, err <= VISION_REL * top
+
+        err, ok = check(embed_px(model, DEVICE))
+        print(f"vision {family}: {len(px)} frames of {vid}, card vs CPU max abs diff {err!r}, "
+              f"{err / top!r} of max |embedding| {top!r} (limit {VISION_REL}: f32 reassociation "
+              f"through the encoder) ({card})")
+        if not ok:
+            raise AssertionError(f"vision {family}: card and CPU embeddings disagree")
+        if family == "clip":
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32_err, tf32_ok = check(embed_px(model, DEVICE))
+            finally:
+                set_matmul_precision("highest")
+            print(f"  control, the same frames with torch.backends.cuda.matmul.allow_tf32 = "
+                  f"True: max abs diff {tf32_err!r}, {tf32_err / top!r} of max |embedding| "
+                  f"(must be refused)")
+            if tf32_ok:
+                raise AssertionError("the vision check does not see TF32 in the products")
+            utt = extract.main(base + ["--feature_level", "UTTERANCE", "--save_dir",
+                                       os.path.join(tmp, "vision", "clip_utt")])
+            for v in frames:
+                u = np.load(os.path.join(utt["save_dir"], f"{v}.npy"))
+                f = np.load(os.path.join(out["save_dir"], f"{v}.npy"))
+                if u.shape != (dim,) or not np.allclose(u, f.mean(axis=0), rtol=1e-5, atol=1e-6):
+                    raise AssertionError(f"vision clip UTTERANCE {v}: {u.shape}, not the frames' mean")
+        del cpu_model
+        # the stage's loop on the encoder already on the card (a run of the CLI would
+        # put the upload of its weights into the window)
+        embed = vision_hf.make_embed(family, model, cfg, key, torch.device(DEVICE), 32)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            sub = vision_hf.extract_dir(embed, sub_dir, os.path.join(tmp, "vision", family + "_prof"),
+                                        image_size=size, mean=mean, std=std, dim=dim)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        samples = sum(rows(frames[v]) for v in shortest[:VISION_PROFILED_CLIPS])
+        print(f"vision {family} ({card}): cold run {out['frames']} frames in {out['seconds']!r} s; "
+              f"warm run {warm['frames']} frames in {warm['seconds']!r} s host clock, "
+              f"{warm['frames'] / warm['seconds']!r} frames/s, reading and resizing "
+              f"{warm['decode_seconds']!r} s of it; peak memory {peak!r} GiB")
+        fams = print_op_families(prof, wall, f"profiled warm run of the {VISION_PROFILED_CLIPS} "
+                                 f"shortest clips ({sub['frames']} frames, {samples} samples; "
+                                 f"reading and resizing {sub['decode_seconds']!r} s)", card)
+        macs = vision_macs(torch, model, family, cfg)
+        bound = 1e3 * 2 * macs * samples / PEAK_F32_FLOPS
+        print(f"  {family}: {macs} MACs per {'window' if family == 'videomae' else 'frame'}; f32 "
+              f"bound for {samples} {bound!r} ms ({PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s, TF32 off), "
+              f"device time {fams['busy_ms']!r} ms ({bound / fams['busy_ms']:.1%} of the bound) "
+              f"({card})")
+        del model
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    print(f"launches of the port's kernels over phase 23's runs: {counts}")
+    if any(counts.values()):
+        raise AssertionError(f"the vision path launched a kernel of the port: {counts}")
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3, 17 and 19 (without the gradient checks) with the kernels
     of the checkout at `root`, built from its own sources into its own
@@ -2932,6 +3261,7 @@ def main() -> int:
         phase(20, flash_grad_phase, torch, flash_wavlm)
         bf16_counts = phase(21, bf16_extraction_phase, torch, work, feats_dir, f32_rate)
         phase(22, asr_phase, torch, work, llm_dir)
+        phase(23, vision_phase, torch, work, card)
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():

@@ -3,6 +3,8 @@
     python -m sdumc_tpu_torch.cli.extract audio --model_dir ... --audio_dir ... --save_dir ...
     python -m sdumc_tpu_torch.cli.extract text --model_dir ... --trans_path ... --save_dir ...
     python -m sdumc_tpu_torch.cli.extract visual --checkpoint ... --face_dir ... --save_dir ...
+    python -m sdumc_tpu_torch.cli.extract vision --model clip|dinov2|videomae|eva02|imagenet \
+        [--model_dir ... | --checkpoint ...] --face_dir ... --save_dir ...
     python -m sdumc_tpu_torch.cli.extract manet_train --data ...
     python -m sdumc_tpu_torch.cli.extract feat4 --llm_dir ... --projector_path ... \
         --wavlm_dir ... --save_dir ...
@@ -11,15 +13,17 @@
     python -m sdumc_tpu_torch.cli.extract asr --model_dir ... --audio_dir ... \
         --save_csv ... [--vad]
 
-Seven stages are ported: ``audio`` (WavLM, extract/audio.py), ``text``
-(the LLaMA family, extract/text.py), ``visual`` (MANet, extract/visual.py),
-``manet_train`` (MANet's RAF-DB trainer, extract/manet_train.py),
+Every stage of the JAX package's extraction CLI is ported: ``audio``
+(WavLM, extract/audio.py), ``text`` (the LLaMA family, extract/text.py),
+``visual`` (MANet, extract/visual.py), ``vision`` (the other visual
+encoders: CLIP, DINOv2, VideoMAE, EVA-02, ImageNet ResNet-18,
+extract/vision_hf.py), ``manet_train`` (MANet's RAF-DB trainer,
+extract/manet_train.py),
 ``feat4`` (the Vicuna pseudo-text decode, extract/llm4wav.py), ``pack``
 (a directory of ``.npy`` features into one packed store, data/packed.py,
 that cli.train and cli.infer read when it sits in the features directory
 as ``{feature}.bin`` / ``.json``) and ``asr`` (Whisper transcripts,
-extract/asr.py). The JAX package's other stage is still to port (ROADMAP
-queue 1): ``vision`` (the other visual encoders).
+extract/asr.py).
 """
 
 from __future__ import annotations
@@ -31,14 +35,13 @@ STAGES = {
     "audio": "sdumc_tpu_torch.extract.audio",
     "text": "sdumc_tpu_torch.extract.text",
     "visual": "sdumc_tpu_torch.extract.visual",
+    "vision": "sdumc_tpu_torch.extract.vision_hf",
     "manet_train": "sdumc_tpu_torch.extract.manet_train",
     "feat4": "sdumc_tpu_torch.extract.llm4wav",
     "pack": "sdumc_tpu_torch.data.packed",
     "asr": "sdumc_tpu_torch.extract.asr",
 }
-NOT_PORTED = {
-    "vision": "the other visual encoders",
-}
+NOT_PORTED: dict = {}     # stage -> its ROADMAP queue 1 item, while one is left to port
 
 
 def main(argv=None):

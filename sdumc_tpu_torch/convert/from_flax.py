@@ -2,14 +2,16 @@
 
 For the fusion net, the inverse of the reference-key table in
 ``sdumc_tpu/convert/torch_to_jax.py``, kept here as the port's own copy;
-for WavLM, LLaMA, MANet and Whisper, the inverses of
-``sdumc_tpu/convert/hf_wavlm.py``, ``sdumc_tpu/convert/hf_llama.py``,
-``sdumc_tpu/convert/torch_manet.py`` and ``sdumc_tpu/convert/hf_whisper.py``.
+for WavLM, LLaMA, MANet, Whisper and the vision encoders (CLIP, DINOv2,
+VideoMAE, EVA-02, ResNet), the inverses of the JAX package's
+``convert/{hf_wavlm,hf_llama,torch_manet,hf_whisper,hf_clip,hf_dinov2,
+hf_videomae,timm_eva02,torch_resnet}.py``.
 The port names its submodules after the reference torch (or HF)
 state_dict, so the keys produced here are those keys: Dense ``kernel``
 [in, out] transposes to Linear ``weight`` [out, in], a Flax conv kernel
-[k, in/groups, out] to a torch Conv1d weight [out, in/groups, k] (MANet's
-2-d [kh, kw, in, out] to Conv2d's [out, in, kh, kw]).
+[k, in/groups, out] to a torch Conv1d weight [out, in/groups, k] (a 2-d
+[kh, kw, in, out] to Conv2d's [out, in, kh, kw], VideoMAE's 3-d
+[kt, kh, kw, in, out] to Conv3d's [out, in, kt, kh, kw]).
 """
 
 from __future__ import annotations
@@ -268,3 +270,94 @@ def whisper_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
             arr = arr.T
         out[whisper_key_for(path)] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def resnet_state_dict_from_flax(variables) -> Dict[str, torch.Tensor]:
+    """JAX ResNetEmbedding's ``{"params", "batch_stats"}`` as the port's
+    (torchvision's) state dict: its scopes (``layer2_0/downsample_conv``,
+    ``bn1/bn``) are MANet's, so the MANet mapping carries them."""
+    return manet_state_dict_from_flax(variables)
+
+
+# the vision transformers: Flax scope -> the port's (HF's / timm's) module name.
+# A key of the tables is either a first scope, renamed, or a whole path
+# (leaf included) for the params that sit on a module of their own in torch.
+_TORCH_LAYOUT = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}   # Dense, Conv2d, Conv3d
+_VIT = {
+    "clip": ({("class_embedding",): "vision_model.embeddings.class_embedding",
+              ("position_embedding",): "vision_model.embeddings.position_embedding.weight",
+              "patch_embedding": "vision_model.embeddings.patch_embedding",
+              "pre_layernorm": "vision_model.pre_layrnorm",
+              "post_layernorm": "vision_model.post_layernorm"},
+             ("layers_", "vision_model.encoder.layers"),
+             {"fc1": "mlp.fc1", "fc2": "mlp.fc2"}),
+    "dinov2": ({("cls_token",): "embeddings.cls_token",
+                ("position_embeddings",): "embeddings.position_embeddings",
+                "patch_embed": "embeddings.patch_embeddings.projection"},
+               ("layers_", "encoder.layer"),
+               {("layer_scale1",): "layer_scale1.lambda1",
+                ("layer_scale2",): "layer_scale2.lambda1",
+                "query": "attention.attention.query", "key": "attention.attention.key",
+                "value": "attention.attention.value", "attn_out": "attention.output.dense",
+                "fc1": "mlp.fc1", "fc2": "mlp.fc2",
+                "weights_in": "mlp.weights_in", "weights_out": "mlp.weights_out"}),
+    "videomae": ({("patch_kernel",): "embeddings.patch_embeddings.projection.weight",
+                  ("patch_bias",): "embeddings.patch_embeddings.projection.bias"},
+                 ("layers_", "encoder.layer"),
+                 {("query", "bias"): "attention.attention.q_bias",
+                  ("value", "bias"): "attention.attention.v_bias",
+                  "query": "attention.attention.query", "key": "attention.attention.key",
+                  "value": "attention.attention.value", "attn_out": "attention.output.dense",
+                  "fc1": "intermediate.dense", "fc2": "output.dense"}),
+    "eva02": ({("cls_token",): "cls_token", ("pos_embed",): "pos_embed",
+               "patch_embed": "patch_embed.proj"},
+              ("blocks_", "blocks"),
+              {"q_proj": "attn.q_proj", "k_proj": "attn.k_proj", "v_proj": "attn.v_proj",
+               "proj": "attn.proj", "fc1_g": "mlp.fc1_g", "fc1_x": "mlp.fc1_x",
+               "mlp_norm": "mlp.norm", "fc2": "mlp.fc2"}),
+}
+
+
+def vit_key_for(family: str, path: Tuple[str, ...]) -> str:
+    """The port's key of one Flax param path of a JAX vision transformer
+    (``clip``, ``dinov2``, ``videomae``, ``eva02``):
+    ``layers_3/attn_out/kernel`` -> ``encoder.layer.3.attention.output.dense.weight``."""
+    top, (flax_layer, torch_layer), sub = _VIT[family]
+    table, base, rest = top, [], path
+    if path[0].startswith(flax_layer):
+        table, base, rest = sub, [f"{torch_layer}.{path[0][len(flax_layer):]}"], path[1:]
+    if rest in table:
+        return ".".join(base + [table[rest]])
+    if len(rest) < 2 or rest[-1] not in {**_LEAF, **_NORM_LEAF}:
+        raise KeyError(f"no port key for flax {family} param {'/'.join(path)}")
+    return ".".join(base + [table.get(rest[0], rest[0]), *rest[1:-1],
+                            {**_LEAF, **_NORM_LEAF}[rest[-1]]])
+
+
+def vit_state_dict_from_flax(family: str, params) -> Dict[str, torch.Tensor]:
+    """A JAX vision transformer's params as the port's state dict: Dense
+    kernels [in, out] -> [out, in], conv kernels HWIO -> OIHW (VideoMAE's
+    DHWIO -> OIDHW)."""
+    out = {}
+    for path, value in _leaves(params):
+        arr = np.array(value, dtype=np.float32)
+        if path[-1] in ("kernel", "patch_kernel"):
+            arr = arr.transpose(_TORCH_LAYOUT[arr.ndim])
+        out[vit_key_for(family, path)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def clip_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    return vit_state_dict_from_flax("clip", params)
+
+
+def dinov2_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    return vit_state_dict_from_flax("dinov2", params)
+
+
+def videomae_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    return vit_state_dict_from_flax("videomae", params)
+
+
+def eva02_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    return vit_state_dict_from_flax("eva02", params)

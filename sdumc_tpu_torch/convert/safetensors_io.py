@@ -11,6 +11,9 @@ tensor is used); ``save_file`` writes the format, for seeded checkpoints.
 ``model.safetensors``, or the shards that either's index maps),
 ``load_weight_file`` reads one of them, and ``load_hf_weights`` all of
 them into one dict; every HF loader of the port reads through these.
+``base_model_weights`` keeps a base model's tensors of a checkpoint with a
+head or a decoder, ``assign_weights`` puts tensors into a model built on
+the meta device, and ``load_hf_model`` does both for an HF directory.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import json
 import mmap
 import os
 import struct
-from typing import Dict, List, Mapping
+from typing import Callable, Dict, List, Mapping, Tuple
 
 import torch
 
@@ -86,13 +89,52 @@ def load_hf_weights(model_dir: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def base_model_weights(state_dict: Mapping[str, torch.Tensor], prefix: str,
+                       keep: Tuple[str, ...]) -> Dict[str, torch.Tensor]:
+    """The base model's tensors, f32, as ``from_pretrained`` takes them into
+    it: ``prefix`` (HF's ``base_model_prefix``, ``dinov2.``) stripped where
+    the checkpoint has it, and only the keys that start with one of
+    ``keep`` (a head's or a pretraining decoder's dropped)."""
+    if any(k.startswith(prefix) for k in state_dict):
+        state_dict = {k[len(prefix):]: v for k, v in state_dict.items() if k.startswith(prefix)}
+    return {k: v.float() for k, v in state_dict.items() if k.startswith(keep)}
+
+
+def assign_weights(model: torch.nn.Module, state_dict: Mapping[str, torch.Tensor],
+                   source: str) -> torch.nn.Module:
+    """``model`` (built on the meta device) with ``state_dict``'s tensors
+    assigned, in eval mode. Raises naming ``source`` if a weight of the
+    model is missing or a key is one the model does not know."""
+    result = model.load_state_dict(state_dict, strict=False, assign=True)
+    if result.missing_keys or result.unexpected_keys:
+        raise KeyError(f"{source}: missing {result.missing_keys}, "
+                       f"unexpected {result.unexpected_keys}")
+    return model.eval()
+
+
+def load_hf_model(model_dir: str, config_from_hf: Callable, model_cls, prefix: str,
+                  keep: Tuple[str, ...], ignored: Tuple[str, ...] = ()):
+    """(config, model in eval mode on the CPU) from an HF directory:
+    ``config_from_hf`` of its ``config.json``, the model built on the meta
+    device and given the base model's tensors (``base_model_weights``)
+    less the ``ignored`` keys."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        cfg = config_from_hf(json.load(f))
+    with torch.device("meta"):                     # no init work: every weight is loaded
+        model = model_cls(cfg)
+    sd = base_model_weights(load_hf_weights(model_dir), prefix, keep)
+    for key in ignored:
+        sd.pop(key, None)
+    return cfg, assign_weights(model, sd, model_dir)
+
+
 def save_file(tensors: Mapping[str, torch.Tensor], path: str) -> None:
     """Write ``tensors`` (contiguous copies, in name order) as one
     .safetensors file."""
     header, blobs, offset = {}, [], 0
     for name in sorted(tensors):
         t = tensors[name].detach().cpu().contiguous()
-        raw = t.view(torch.uint8).numpy().tobytes() if t.numel() else b""
+        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes() if t.numel() else b""
         header[name] = {"dtype": NAMES[t.dtype], "shape": list(t.shape),
                         "data_offsets": [offset, offset + len(raw)]}
         blobs.append(raw)

@@ -1,5 +1,5 @@
 """Image input of the visual stages without Pillow: a BMP / PNG reader and
-a bilinear resize equal to the bit to Pillow's.
+bilinear and bicubic resizes equal to the bit to Pillow's.
 
 The JAX package opens face crops with PIL (``Image.open(path).convert("RGB")
 .resize((224, 224), Image.BILINEAR)``); the card's machine has no Pillow.
@@ -14,11 +14,12 @@ port reads them itself:
   goes to Pillow,
   imported here only, which raises naming the format where it is missing.
 
-``resize_bilinear`` is Pillow's two-pass separable resample for 8-bit
-images (``libImaging/Resample.c``): triangle-filter coefficients with the
-support scaled by the downsampling factor, normalised per output pixel,
-fixed-point at 22 bits; the horizontal pass rounds and clips to uint8, then
-the vertical pass runs on that. Each pass is one integer matrix product,
+``resize_bilinear`` and ``resize_bicubic`` are Pillow's two-pass separable
+resample for 8-bit images (``libImaging/Resample.c``): the filter's
+coefficients (triangle, support 1; cubic with a = -0.5, support 2) with
+the support scaled by the downsampling factor, normalised per output
+pixel, fixed-point at 22 bits; the horizontal pass rounds and clips to
+uint8, then the vertical pass runs on that. Each pass is one integer matrix product,
 computed exactly in float64 (every partial sum is an integer below 2**31).
 
 ``load_face`` is the visual stages' ``Resize((224, 224))`` + ``ToTensor``.
@@ -151,14 +152,32 @@ def read_image(path: str) -> np.ndarray:
     return out if out is not None else _read_with_pillow(path, fmt)
 
 
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(1.0 - np.abs(x), 0.0)
+
+
+def _cubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic_filter, a = -0.5 (Keys' cubic convolution)."""
+    a, x = -0.5, np.abs(x)
+    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1.0
+    far = (((x - 5.0) * x + 8.0) * x - 4.0) * a
+    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
+
+
+# Pillow's filters for 8-bit resampling: (function, support at scale 1)
+FILTERS = {"bilinear": (_triangle, 1.0), "bicubic": (_cubic, 2.0)}
+
+
 @functools.lru_cache(maxsize=32)
-def _coefficients(in_size: int, out_size: int) -> np.ndarray:
-    """Pillow's fixed-point bilinear coefficients as a dense [out, in]
-    float64 matrix of integers (precompute_coeffs + normalize_coeffs_8bpc,
-    operation for operation, in float64 as Pillow computes them)."""
+def _coefficients(in_size: int, out_size: int, kind: str = "bilinear") -> np.ndarray:
+    """Pillow's fixed-point coefficients of filter ``kind`` as a dense [out,
+    in] float64 matrix of integers (precompute_coeffs +
+    normalize_coeffs_8bpc, operation for operation, in float64 as Pillow
+    computes them)."""
+    fn, base_support = FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
-    support = 1.0 * filterscale
+    support = base_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     xx = np.arange(out_size)
     center = (xx + 0.5) * scale
@@ -166,7 +185,7 @@ def _coefficients(in_size: int, out_size: int) -> np.ndarray:
     xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
     taps = np.arange(ksize)
     arg = (taps[None, :] + xmin[:, None] - center[:, None] + 0.5) * (1.0 / filterscale)
-    w = np.where(taps[None, :] < xmax[:, None], np.maximum(1.0 - np.abs(arg), 0.0), 0.0)
+    w = np.where(taps[None, :] < xmax[:, None], fn(arg), 0.0)
     total = np.zeros(out_size)
     for j in range(ksize):         # Pillow sums the weights in tap order
         total = total + w[:, j]
@@ -182,25 +201,36 @@ def _coefficients(in_size: int, out_size: int) -> np.ndarray:
 
 def _pass(coeffs: np.ndarray, x: np.ndarray) -> np.ndarray:
     """One resample pass along the first axis of x [in, n] (uint8): the
-    product with the [out, in] coefficients, rounded, shifted and clipped.
-    The triangle filter's weights and the pixels are >= 0, so the product
-    is too and truncation is Pillow's arithmetic shift."""
+    product with the [out, in] coefficients, rounded, shifted and clipped
+    to 0..255 as Pillow's ``clip8`` does (the bicubic filter's negative
+    lobes can take a sum below 0; the shift of a negative sum floors, and
+    the clip then gives 0)."""
     acc = coeffs @ x.astype(np.float64) + (1 << (PRECISION_BITS - 1))
-    return np.minimum(acc.astype(np.int64) >> PRECISION_BITS, 255).astype(np.uint8)
+    return np.clip(acc.astype(np.int64) >> PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def _resize(img: np.ndarray, size: Tuple[int, int], kind: str) -> np.ndarray:
+    out_w, out_h = size
+    h, w, c = img.shape
+    x = img
+    if out_w != w:                 # horizontal pass, over [W, H * C]
+        x = _pass(_coefficients(w, out_w, kind), x.transpose(1, 0, 2).reshape(w, h * c))
+        x = x.reshape(out_w, h, c).transpose(1, 0, 2)
+    if out_h != h:                 # vertical pass, over [H, w * C]
+        x = _pass(_coefficients(h, out_h, kind), x.reshape(h, -1)).reshape(out_h, out_w, c)
+    return np.ascontiguousarray(x)
 
 
 def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """[H, W, C] uint8 -> [h, w, C] uint8 for ``size = (w, h)``, equal to the
     bit to Pillow's ``Image.resize(size, Image.BILINEAR)``."""
-    out_w, out_h = size
-    h, w, c = img.shape
-    x = img
-    if out_w != w:                 # horizontal pass, over [W, H * C]
-        x = _pass(_coefficients(w, out_w), x.transpose(1, 0, 2).reshape(w, h * c))
-        x = x.reshape(out_w, h, c).transpose(1, 0, 2)
-    if out_h != h:                 # vertical pass, over [H, w * C]
-        x = _pass(_coefficients(h, out_h), x.reshape(h, -1)).reshape(out_h, out_w, c)
-    return np.ascontiguousarray(x)
+    return _resize(img, size, "bilinear")
+
+
+def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """[H, W, C] uint8 -> [h, w, C] uint8 for ``size = (w, h)``, equal to the
+    bit to Pillow's ``Image.resize(size, Image.BICUBIC)``."""
+    return _resize(img, size, "bicubic")
 
 
 def load_face(path: str, size: int = 224) -> np.ndarray:

@@ -31,7 +31,9 @@ bf16 instance is held to its plain version to ``flash_wavlm.bf16_tolerance``
 and ``flash_wavlm.BF16_MISMATCH_LIMIT`` (both round p against the running max
 of 128-key tiles), its gradient (the autograd.Function's
 chunked backward) against the plain version's autograd, and a tiny bf16
-WavLM extraction card against CPU.
+WavLM extraction card against CPU. The vision stage's encoders (CLIP,
+DINOv2, VideoMAE, EVA-02, ResNet-18; no kernel of the port) are held to
+the CPU at tiny sizes, alone and through ``cli.extract vision``.
 """
 
 import math
@@ -937,3 +939,122 @@ def test_manet_train_step_on_card_matches_cpu(cuda):
         assert (g_card[k] - g).abs().max().item() <= 1e-9 * gmax, k
     for k, b in b_cpu.items():
         torch.testing.assert_close(b_card[k], b, rtol=1e-10, atol=1e-12)
+
+
+# ---------------------------------------------------------------- the vision stage
+
+def _vision_tiny(kind):
+    """(a tiny seeded encoder of family ``kind`` in eval mode, its input
+    shape, its config.json or None): parameters normal(0, 0.1), LayerNorm
+    weights about 1, BN statistics drawn at random."""
+    from sdumc_tpu_torch.models import clip_vit, dinov2, eva02, resnet, videomae
+
+    torch.manual_seed(11)
+    if kind == "clip":
+        c = clip_vit.CLIPVisionConfig.tiny()
+        model, shape = clip_vit.CLIPVisionTower(c), (3, 3, 32, 32)
+        config = {"model_type": "clip_vision_model", "hidden_size": c.hidden_size,
+                  "intermediate_size": c.intermediate_size, "num_hidden_layers": c.num_layers,
+                  "num_attention_heads": c.num_heads, "image_size": c.image_size,
+                  "patch_size": c.patch_size, "projection_dim": c.projection_dim}
+    elif kind == "dinov2":
+        c = dinov2.Dinov2Config.tiny()
+        model, shape = dinov2.Dinov2Model(c), (2, 3, 28, 28)
+        config = {"model_type": "dinov2", "hidden_size": c.hidden_size,
+                  "num_hidden_layers": c.num_layers, "num_attention_heads": c.num_heads,
+                  "image_size": c.image_size, "patch_size": c.patch_size}
+    elif kind == "videomae":
+        c = videomae.VideoMAEConfig.tiny(use_mean_pooling=False)
+        model, shape = videomae.VideoMAEModel(c), (2, 4, 3, 16, 16)
+        config = {"model_type": "videomae", "hidden_size": c.hidden_size,
+                  "num_hidden_layers": c.num_layers, "num_attention_heads": c.num_heads,
+                  "intermediate_size": c.intermediate_size, "image_size": c.image_size,
+                  "patch_size": c.patch_size, "num_frames": c.num_frames,
+                  "tubelet_size": c.tubelet_size, "use_mean_pooling": False}
+    elif kind == "eva02":
+        model, shape, config = eva02.Eva02Model(eva02.Eva02Config.tiny(
+            hidden_size=128, num_heads=2, mlp_hidden=64, ref_grid=(4, 4))), (2, 3, 28, 28), None
+    else:
+        model, shape, config = resnet.ResNetEmbedding(resnet.ResNetConfig.tiny()), (3, 3, 64, 64), None
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.1)
+        for m in model.modules():
+            if isinstance(m, (torch.nn.LayerNorm, torch.nn.BatchNorm2d)):
+                m.weight.add_(1.0)
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    return model.eval(), shape, config
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["clip", "dinov2", "videomae", "eva02", "imagenet"])
+def test_tiny_vision_encoder_on_card_matches_cpu(cuda, kind):
+    """Each vision encoder, f32 with TF32 off, card against CPU: every
+    output to 1e-4 of its largest value."""
+    import copy
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+
+    set_matmul_precision("highest")
+    model, shape, _ = _vision_tiny(kind)
+    x = torch.from_numpy(np.random.default_rng(13).normal(size=shape).astype(np.float32))
+    card = copy.deepcopy(model).to(cuda)
+    with torch.inference_mode():
+        want, got = model(x), card(x.to(cuda))
+    if not isinstance(want, dict):
+        want, got = {"embedding": want}, {"embedding": got}
+    for key, w in want.items():
+        assert (got[key].cpu() - w).abs().max().item() <= 1e-4 * w.abs().max().item(), key
+
+
+def _write_bmp(path, rgb):
+    """A 24-bit bottom-up BMP (OpenFace's crop format), without Pillow."""
+    import struct
+
+    h, w, _ = rgb.shape
+    stride = (3 * w + 3) & ~3
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :3 * w] = rgb[::-1, :, ::-1].reshape(h, 3 * w)
+    header = (struct.pack("<2sIHHI", b"BM", 54 + rows.size, 0, 0, 54)
+              + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0))
+    path.write_bytes(header + rows.tobytes())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["clip", "dinov2", "videomae", "eva02", "imagenet"])
+def test_cli_extract_vision_on_card_matches_cpu(cuda, tmp_path, kind):
+    """``cli.extract vision`` on the card (its default device) against
+    ``--device cpu``, on seeded tiny weights written in each family's
+    format and 112x112 BMP crops: every file to 1e-4 of its largest value."""
+    import json
+
+    from sdumc_tpu_torch.cli import extract
+    from sdumc_tpu_torch.convert import safetensors_io
+
+    model, _, config = _vision_tiny(kind)
+    weights = tmp_path / "m"
+    weights.mkdir()
+    if kind == "imagenet":
+        torch.save(model.state_dict(), weights / "r.pth")
+        flags = ["--checkpoint", str(weights / "r.pth")]
+    else:
+        safetensors_io.save_file(model.state_dict(), str(weights / "model.safetensors"))
+        (weights / "config.json").write_text(json.dumps(config or {"architecture": "eva02"}))
+        flags = ["--model_dir", str(weights)]
+    rng = np.random.default_rng(14)
+    for vid, n in (("v_a", 23), ("v_b", 1), ("v_c", 0)):
+        (tmp_path / "faces" / vid).mkdir(parents=True)
+        for i in range(n):
+            _write_bmp(tmp_path / "faces" / vid / f"f_{i:03d}.bmp",
+                       rng.integers(0, 256, size=(112, 112, 3), dtype=np.uint8))
+    argv = ["vision", "--model", kind, *flags, "--face_dir", str(tmp_path / "faces"),
+            "--batch_size", "2"]
+    extract.main(argv + ["--save_dir", str(tmp_path / "card")])
+    extract.main(argv + ["--save_dir", str(tmp_path / "cpu"), "--device", "cpu"])
+    for vid in ("v_a", "v_b", "v_c"):
+        got, want = np.load(tmp_path / "card" / f"{vid}.npy"), np.load(tmp_path / "cpu" / f"{vid}.npy")
+        assert got.shape == want.shape and np.isfinite(got).all()
+        assert np.abs(got - want).max() <= 1e-4 * max(np.abs(want).max(), 1e-30)

@@ -12,6 +12,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "sdumc_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sdumc_tpu", "transformers", "safetensors")
@@ -79,3 +81,19 @@ def test_only_the_image_reader_names_pillow():
              for mod, fn in _imports(ast.parse(path.read_text()))
              if mod.split(".")[0] in HOST_LIBS}
     assert sites == {("sdumc_tpu_torch/extract/image_io.py", "_read_with_pillow")}, sites
+
+
+VISION_MODULES = ("models/vit.py", "models/clip_vit.py", "models/dinov2.py",
+                  "models/videomae.py", "models/eva02.py", "models/resnet.py",
+                  "convert/hf_clip.py", "convert/hf_dinov2.py", "convert/hf_videomae.py",
+                  "convert/timm_eva02.py", "convert/torch_resnet.py", "extract/vision_hf.py")
+# all that the vision stage's modules import: the standard library's few, numpy, torch
+# and the port itself (the bicubic resize is image_io's, whose Pillow fallback is lazy)
+VISION_IMPORTS = {"__future__", "argparse", "dataclasses", "glob", "json", "math", "os", "time",
+                  "typing", "numpy", "torch", "sdumc_tpu_torch"}
+
+
+@pytest.mark.parametrize("rel", VISION_MODULES)
+def test_vision_modules_import_only_numpy_torch_and_the_port(rel):
+    mods = {mod.split(".")[0] for mod, _ in _imports(ast.parse((PACKAGE / rel).read_text()))}
+    assert mods <= VISION_IMPORTS, mods - VISION_IMPORTS

@@ -270,6 +270,10 @@ def test_cli_refusals_without_a_card(tmp_path, monkeypatch, capsys):
     assert resolve_attention_impl("auto", torch.device("cuda")) == "flash"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         resolve_attention_impl("ring", torch.device("cpu"))
-    assert extract.main(["vision"]) == 1
-    assert "ROADMAP queue 1, the other visual encoders" in capsys.readouterr().out
-    assert set(extract.NOT_PORTED) == {"vision"}
+    # every stage of the JAX CLI is ported; an unknown stage prints the stage list
+    assert extract.NOT_PORTED == {} and "vision" in extract.STAGES
+    capsys.readouterr()
+    assert extract.main(["no_such_stage"]) == 1
+    printed = capsys.readouterr().out
+    assert "unknown stage 'no_such_stage'" in printed
+    assert all(f"cli.extract {stage} " in printed for stage in extract.STAGES)
