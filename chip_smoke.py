@@ -157,7 +157,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      family a warm run (frames/s, reading and resizing apart, peak
      memory), a profiled warm run of the 2 shortest clips (device time by
      the operator that launched it, idle share) and the f32 bound from
-     the forward's MACs.
+     the forward's MACs;
+ 24. the baseline zoo: each of the JAX package's ten baseline families
+     (tfn, lmf, attention, misa, mmim, mfn, graph_mfn, mfm, mctn, mult) at
+     ModelConfig's widths through ``cli.train --synthetic --model NAME``
+     (one epoch at the inference path's width and batch) and its
+     best_full.pt through ``cli.infer --model NAME``, every logged loss
+     finite, the MAE reproduced and the launch counters at 0 for every
+     kernel of the port (no kernel lies on these models); tfn once more
+     with --feature_dtype bfloat16; one train step card vs CPU (dropout
+     off) for tfn, mfn, mctn and mult (the GEMM, LSTM, GRU and attention
+     paths) with a TF32 control that each check must refuse; per family a
+     warm step timed by CUDA events, its peak memory, and one profiled
+     step (device time by the operator that launched it, idle share,
+     launches).
 Each phase prints its seconds. The second-to-last line is {"kernels":
 [...]}, the last line {"ok": true, "device": {...}}. Imports nothing of JAX
 or sdumc_tpu.
@@ -3002,11 +3015,16 @@ VISION_OP_FAMILIES = (
 )
 
 
-def print_op_families(prof, wall: float, title: str, card: str) -> dict:
+def print_op_families(prof, wall: float, title: str, card: str,
+                      op_families=VISION_OP_FAMILIES) -> dict:
     """Device time by the operator that launched each kernel (so an
     attention product tells itself from a Linear's though both are cuBLAS
-    GEMMs), and the device's idle share of the host-clock window `wall`."""
+    GEMMs), and the device's idle share of the host-clock window `wall`.
+    An operator name ending in ``*`` is a prefix."""
     from torch.autograd import DeviceType
+
+    def matches(key, ops):
+        return any(key == op or (op.endswith("*") and key.startswith(op[:-1])) for op in ops)
 
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA) / 1e3
@@ -3014,7 +3032,7 @@ def print_op_families(prof, wall: float, title: str, card: str) -> dict:
     for e in prof.key_averages():
         if e.device_type != DeviceType.CPU or e.self_device_time_total <= 0:
             continue
-        family = next((f for f, ops in VISION_OP_FAMILIES if e.key in ops),
+        family = next((f for f, ops in op_families if matches(e.key, ops)),
                       "elementwise, norms and the rest")
         families[family] = families.get(family, 0.0) + e.self_device_time_total / 1e3
     if busy <= 0:
@@ -3023,6 +3041,8 @@ def print_op_families(prof, wall: float, title: str, card: str) -> dict:
           f"{1 - busy / 1e3 / wall!r} ({card}); device time by family:")
     for family, ms in sorted(families.items(), key=lambda kv: -kv[1]):
         print(f"    {ms:10.3f} ms {ms / busy:7.2%}  {family}")
+    rest = busy - sum(families.values())
+    print(f"    {rest:10.3f} ms {rest / busy:7.2%}  (kernels the trace ties to no operator)")
     return {"busy_ms": busy, **families}
 
 
@@ -3156,6 +3176,203 @@ def vision_phase(torch, tmp: str, card: str):
         raise AssertionError(f"the vision path launched a kernel of the port: {counts}")
 
 
+# ---------------------------------------------------------------- the baseline zoo (phase 24)
+
+# the JAX package's ten registered baseline families, at ModelConfig's widths (what
+# ``cli.train --model NAME`` runs in JAX too), on the synthetic store at the published
+# input widths, one epoch each
+BASELINES = ("tfn", "lmf", "attention", "misa", "mmim", "mfn", "graph_mfn", "mfm", "mctn", "mult")
+BASELINE_ARGV = MAIN_ARGV + ["--epochs", "1"]
+# one train step card vs CPU on the first rows of the first train batch, dropout off:
+# the GEMM (tfn), LSTM (mfn), GRU (mctn, teacher forcing 1 so that no draw enters) and
+# attention (mult) paths, with each one's GRAD_RTOL; MulT's CPU step at 8 rows (its
+# [rows, 4, 2048, 2048] scores). MulT's gradients sum over 2048 keys, softmax and
+# LayerNorm in another order: a sound step read 2.8e-5 of the largest gradient, its
+# TF32 control 5.8e-2 (an H100 80GB HBM3 at 700.00 W); 1e-4 lies between
+BASELINE_PARITY = (("tfn", 32, GRAD_RTOL), ("mfn", 32, GRAD_RTOL), ("mctn", 32, GRAD_RTOL),
+                   ("mult", 8, 1e-4))
+# a recurrent family's step launches 12-26 thousand kernels; the profiler's reading of
+# 3 steps took most of phase 24 (an H100 80GB HBM3 at 700.00 W), so 1
+BASELINE_PROFILED_STEPS = 1
+TRAIN_OP_FAMILIES = (
+    ("GEMMs (Linear, the cells' products)", ("aten::addmm", "aten::mm")),
+    ("batched products (attention q.k^T and p.v, TFN / LMF einsums)",
+     ("aten::bmm", "aten::baddbmm")),
+    ("convolutions (MulT)", ("aten::cudnn_convolution", "aten::_convolution",
+                             "aten::convolution", "aten::convolution_backward")),
+    ("softmax", ("aten::_softmax", "aten::_softmax_backward_data", "aten::_log_softmax",
+                 "aten::_log_softmax_backward_data")),
+    ("Adam (foreach)", ("aten::_foreach_*", "aten::_fused_adam*")),
+    ("memory copies", ("aten::copy_", "aten::_to_copy")),
+)
+
+
+def head_rows(batch, rows: int):
+    """The first `rows` clips of a host batch (its t_max kept)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        batch, audio=batch.audio[:rows], text=batch.text[:rows], video=batch.video[:rows],
+        feat4=batch.feat4[:rows], lengths=batch.lengths[:, :rows], emos=batch.emos[:rows],
+        vals=batch.vals[:rows], names=batch.names[:rows], pinned=())
+
+
+def baseline_cli_runs(torch, tmp: str, card: str) -> None:
+    """Each family through cli.train (one epoch) and its best_full.pt
+    through cli.infer, with the launch counters around both; then tfn with
+    --feature_dtype bfloat16."""
+    from sdumc_tpu_torch.cli import infer, train
+
+    for name, dtype in [(n, "float32") for n in BASELINES] + [("tfn", "bfloat16")]:
+        bf16 = dtype == "bfloat16"
+        ck = os.path.join(tmp, name + ("_bf16" if bf16 else ""))
+        argv = BASELINE_ARGV + ["--model", name, "--feature_dtype", dtype]
+        reset_counts()
+        t0 = time.perf_counter()
+        result = train.main(argv + ["--checkpoint_dir", ck, "--save_root", ck])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        (h,) = result["history"]
+        values = [h["train_loss"], h["train_mse_full"], h["train_mse_missing"],
+                  h["eval_mse_full"], h["test"]["full"]["mae"], h["test"]["missing"]["mae"]]
+        if not all(map(math.isfinite, values)):
+            raise AssertionError(f"{name}: non-finite training log: {h}")
+        out = infer.main(MAIN_ARGV + ["--model", name, "--feature_dtype", dtype,
+                                      "--checkpoint", os.path.join(ck, "best_full.pt")])
+        counts = read_counts()
+        mae, best = out["full"]["mae"], result["best_full"]["mae"]
+        print(f"baseline {name}{' (bf16 streams)' if bf16 else ''}: cli.train 1 epoch in "
+              f"{seconds!r} s host clock (data generation included), train_loss="
+              f"{h['train_loss']!r} test_mae_full={h['test']['full']['mae']!r} "
+              f"test_mae_missing={h['test']['missing']['mae']!r}; best_full.pt through "
+              f"cli.infer: test MAE {mae!r} (recorded {best!r}, rtol {CKPT_MAE_RTOL}); "
+              f"launches of the port's kernels {counts} ({card})")
+        if any(counts.values()):
+            raise AssertionError(f"{name}: a baseline launched a kernel of the port: {counts}")
+        if abs(mae - best) > CKPT_MAE_RTOL * abs(best):
+            raise AssertionError(f"{name}: the best checkpoint does not reproduce its MAE")
+
+
+def baseline_parity(torch, cfg, batch, dims, card: str) -> None:
+    """One train step (dual-view loss, backward, Adam) with dropout off from
+    the same seeded weights, card against CPU, per BASELINE_PARITY; then the
+    card's step with TF32 allowed, which the check must refuse."""
+    import dataclasses
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.models import get_model
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    for name, rows, rtol in BASELINE_PARITY:
+        sub = head_rows(batch, rows)
+        mcfg = dataclasses.replace(cfg.model, name=name, input_dims=dims, dropout=0.0,
+                                   mctn_teacher_forcing=1.0)
+
+        def run(dev):
+            model = get_model(mcfg, torch.Generator().manual_seed(cfg.train.seed)).to(dev)
+            metrics = make_step(torch, cfg, model)(batch_to_device_dict(sub, dev))
+            return (metrics["loss"].item(),
+                    {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None})
+
+        def worst_ratio(g_ref, g):
+            if g_ref.keys() != g.keys():
+                raise AssertionError(f"{name}: card and CPU steps give gradients to different "
+                                     "parameters")
+            return max(((g[k] - ref).abs().max().item()
+                        / (rtol * ref.abs().max().item() + GRAD_ATOL), k)
+                       for k, ref in g_ref.items())
+
+        (loss_cpu, g_cpu), (loss_card, g_card) = run("cpu"), run(DEVICE)
+        worst, worst_key = worst_ratio(g_cpu, g_card)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            loss_tf32, g_tf32 = run(DEVICE)
+        finally:
+            set_matmul_precision(cfg.model.matmul_precision)
+        tf32_worst, tf32_key = worst_ratio(g_cpu, g_tf32)
+        print(f"baseline {name}: one train step card vs CPU ({rows} rows, dropout off): loss "
+              f"{loss_card!r} vs {loss_cpu!r} (rtol {STEP_LOSS_RTOL}); {len(g_cpu)} gradients, "
+              f"worst max-abs-diff / ({rtol} max|grad| + {GRAD_ATOL}) = {worst!r} at "
+              f"{worst_key} (must be <= 1); control with TF32 allowed (matmul and cuDNN): loss "
+              f"{loss_tf32!r}, worst ratio {tf32_worst!r} at {tf32_key} (must be > 1) ({card})")
+        if abs(loss_card - loss_cpu) > STEP_LOSS_RTOL * abs(loss_cpu) or worst > 1.0:
+            raise AssertionError(f"{name}: card and CPU train steps disagree")
+        if tf32_worst <= 1.0:
+            raise AssertionError(f"{name}: the gradient check does not see TF32 in the step")
+
+
+def baseline_timing(torch, cfg, batch, dims, card: str) -> dict:
+    """A warm train step per family (live dropouts) on the card's copy of
+    the first train batch: CUDA events over TIMED_STEPS steps, peak memory,
+    then BASELINE_PROFILED_STEPS under torch.profiler: device time by the
+    operator that launched it, the idle share, launches per step."""
+    import dataclasses
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdumc_tpu_torch.models import get_model
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    d = batch_to_device_dict(batch, DEVICE)
+    summary = {}
+    for name in BASELINES:
+        mcfg = dataclasses.replace(cfg.model, name=name, input_dims=dims)
+        model = get_model(mcfg, torch.Generator().manual_seed(cfg.train.seed)).to(DEVICE)
+        step = make_step(torch, cfg, model)
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: step(d), iters=TIMED_STEPS, warmup=3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(BASELINE_PROFILED_STEPS):
+                step(d)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = sum(e.count for e in prof.key_averages()
+                       if e.device_type == DeviceType.CPU and "LaunchKernel" in e.key)
+        print(f"baseline {name}: warm train step {ms!r} ms (CUDA events, {TIMED_STEPS} steps, "
+              f"batch {batch.audio.shape[0]}, T = {batch.audio.shape[1]} / "
+              f"{max(batch.text.shape[1], batch.feat4.shape[1])} / {batch.video.shape[1]}), "
+              f"{launches / BASELINE_PROFILED_STEPS!r} kernel launches per step, peak device memory "
+              f"{peak!r} GiB, {sum(p.numel() for p in model.parameters())} parameters")
+        fams = print_op_families(prof, wall, f"{name}: {BASELINE_PROFILED_STEPS} profiled warm "
+                                 f"step(s)", card, TRAIN_OP_FAMILIES)
+        summary[name] = {"ms": ms, "device_ms": fams["busy_ms"] / BASELINE_PROFILED_STEPS,
+                         "idle": 1 - fams["busy_ms"] / 1e3 / wall,
+                         "launches": launches / BASELINE_PROFILED_STEPS, "peak_gib": peak}
+        del model, step, prof
+        torch.cuda.empty_cache()
+    return summary
+
+
+def baseline_phase(torch, tmp: str, card: str) -> dict:
+    """Phase 24: the baseline zoo. Each of the ten families through
+    ``cli.train --model NAME`` (one epoch) and ``cli.infer --model
+    NAME --checkpoint best_full.pt``, with no kernel of the port launched;
+    tfn once more with bf16 streams; one train step card vs CPU for tfn,
+    mfn, mctn and mult with a refused TF32 control; a timed and profiled
+    warm step per family."""
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.data.pipeline import get_loaders
+
+    cfg = main_path_config()
+    set_matmul_precision(cfg.model.matmul_precision)
+    baseline_cli_runs(torch, os.path.join(tmp, "baselines"), card)
+    train_ds, _, _ = get_loaders(cfg.data.dataset, cfg.data, cfg.paths, synthetic=True)
+    batch = first_train_batch(cfg, train_ds)
+    dims = tuple(train_ds.input_dims()[:3])
+    baseline_parity(torch, cfg, batch, dims, card)
+    reset_counts()
+    summary = baseline_timing(torch, cfg, batch, dims, card)
+    counts = read_counts()
+    if any(counts.values()):
+        raise AssertionError(f"the baseline steps launched a kernel of the port: {counts}")
+    print(f"phase 24 summary ({card}): {json.dumps(summary)}")
+    return summary
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3, 17 and 19 (without the gradient checks) with the kernels
     of the checkout at `root`, built from its own sources into its own
@@ -3262,6 +3479,7 @@ def main() -> int:
         bf16_counts = phase(21, bf16_extraction_phase, torch, work, feats_dir, f32_rate)
         phase(22, asr_phase, torch, work, llm_dir)
         phase(23, vision_phase, torch, work, card)
+        phase(24, baseline_phase, torch, work, card)
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():

@@ -160,8 +160,9 @@ def set_matmul_precision(precision: str) -> None:
 
 
 def build_model(cfg: ExperimentConfig, input_dims, device, checkpoint=None):
-    """The fusion model with seeded init (or a reference .pt), in eval mode
-    on `device`."""
+    """The model named by ``--model`` (the fusion net or a baseline family,
+    at ModelConfig's widths) with seeded init (or a reference-format .pt),
+    in eval mode on `device`."""
     import dataclasses
 
     from sdumc_tpu_torch.models import get_model

@@ -1,7 +1,8 @@
 """Inference / evaluation entry point.
 
-Loads a reference ``.pt`` checkpoint (or seeds the weights), runs both
-views over the test split, prints ``eval_mosei_metric`` for the full and
+Loads a reference-format ``.pt`` checkpoint of the model named by
+``--model`` (the fusion net or a baseline family; ``cli.train`` writes
+them) or seeds its weights, runs both views over the test split, prints ``eval_mosei_metric`` for the full and
 the text-missing view, and with ``--savewhole`` dumps the 8 embedding
 streams. Runs on CUDA unless ``--device cpu`` is given. Reads packed stores
 as cli.train does; ``--feature_dtype bfloat16``, a bf16 store or an int8

@@ -1,5 +1,6 @@
 """Training entry point: dual-view (teacher/student) self-distillation of
-the fusion net with best-test-MAE model selection.
+the fusion net, or of a baseline family (``--model tfn|lmf|attention|misa|
+mmim|mfn|graph_mfn|mfm|mctn|mult``), with best-test-MAE model selection.
 
 The flags are the JAX package's (``sdumc_tpu/cli/train.py``), so the
 canonical ICASSP recipe ports by changing the module name:

@@ -5,7 +5,8 @@ For the fusion net, the inverse of the reference-key table in
 for WavLM, LLaMA, MANet, Whisper and the vision encoders (CLIP, DINOv2,
 VideoMAE, EVA-02, ResNet), the inverses of the JAX package's
 ``convert/{hf_wavlm,hf_llama,torch_manet,hf_whisper,hf_clip,hf_dinov2,
-hf_videomae,timm_eva02,torch_resnet}.py``.
+hf_videomae,timm_eva02,torch_resnet}.py``; for the baseline families, their
+flax param paths (``baseline_state_dict_from_flax``).
 The port names its submodules after the reference torch (or HF)
 state_dict, so the keys produced here are those keys: Dense ``kernel``
 [in, out] transposes to Linear ``weight`` [out, in], a Flax conv kernel
@@ -361,3 +362,38 @@ def videomae_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
 
 def eva02_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
     return vit_state_dict_from_flax("eva02", params)
+
+
+# flax names a cell built inline and handed to nn.RNN after its class, in
+# the scope of the module that built it; the port names it after its RNN
+_CELL_NAMES = {
+    "mfm": {"OptimizedLSTMCell_0": "enc_a", "OptimizedLSTMCell_1": "enc_t",
+            "OptimizedLSTMCell_2": "enc_v",
+            "GRUCell_0": "dec_a", "GRUCell_1": "dec_t", "GRUCell_2": "dec_v"},
+    "mctn": {"GRUCell_0": "enc1", "GRUCell_1": "enc2"},
+    "lstm_encoder": {"LSTMCell_0": "fwd", "LSTMCell_1": "bwd"},
+}
+
+
+def baseline_state_dict_from_flax(name: str, params) -> Dict[str, torch.Tensor]:
+    """The params of a JAX baseline family (``name`` as registered, or
+    ``"lstm_encoder"`` / any other name for a module of
+    ``models/modules``) as the port's state_dict. The port's modules carry
+    flax's names, so a key is the param's path joined with dots, an
+    inline cell renamed after its RNN (``_CELL_NAMES``); a Dense kernel
+    [in, out] becomes ``weight`` [out, in], a Conv kernel [K, in, out]
+    ``weight`` [out, in, K], a LayerNorm ``scale`` ``weight``; LMF's
+    ``factor_i``, ``fusion_weights`` and ``fusion_bias`` keep their shape."""
+    renames = _CELL_NAMES.get(name, {})
+    out = {}
+    for path, value in _leaves(params):
+        *mods, leaf = path
+        mods = [renames.get(m, m) for m in mods]
+        arr = np.array(value, dtype=np.float32)
+        if leaf == "kernel":
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        out[".".join(mods + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out

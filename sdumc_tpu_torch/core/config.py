@@ -68,7 +68,8 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Fusion-model hyperparameters (reference model defaults)."""
+    """Model hyperparameters: the fusion net's (the reference model's
+    defaults) and the baseline families'."""
 
     name: str = "wengnet_mosei_mult_views_text_missing"
     input_dims: Tuple[int, int, int] = (1024, 4096, 1024)  # audio, text, video
@@ -76,6 +77,26 @@ class ModelConfig:
     layers: Tuple[int, ...] = (256, 128)
     fused_layers: Tuple[int, ...] = (256, 256)
     output_dim: int = 1
+    # the baseline families (models/baselines.py: tfn, lmf, attention, misa,
+    # mmim; models/baselines_seq.py: mfn, graph_mfn, mfm, mctn, mult), with
+    # the JAX package's defaults; core/tuner.py's grids reach other widths
+    baseline_hidden_dim: int = 32
+    baseline_rank: int = 4
+    baseline_mem_dim: int = 32       # MFN / Graph-MFN memory, MFM factors
+    baseline_align_t: int = 32       # the align-only families' resampled length
+    baseline_layers: int = 2         # MulT depth, MMIM's CPC critic depth
+    baseline_heads: int = 4          # MulT attention heads
+    baseline_kernel_size: int = 3    # MulT conv1d temporal kernel
+    # the families' own loss weights
+    misa_sim_w: float = 0.1
+    misa_diff_w: float = 0.1
+    misa_recon_w: float = 0.1
+    mmim_alpha: float = 0.1
+    mmim_beta: float = 0.1
+    mfm_recon_w: float = 0.1
+    mfm_mmd_w: float = 1.0
+    mctn_cycle_w: float = 0.3
+    mctn_teacher_forcing: float = 0.5
     # the reference CLI parses --dropout=0.5 but never forwards it into the
     # model; the model's own default 0.3 is what actually runs
     dropout: float = 0.3

@@ -108,6 +108,10 @@ def _row_lengths(t_gt, t_ps, B: int, device) -> torch.Tensor:
 
 @MODELS.register("wengnet_mosei_mult_views_text_missing")
 class SDUMCFusion(nn.Module):
+    # train/step.py runs the teacher and student views as one [2B]-row
+    # forward (``dual=True``) for a model that sets this
+    dual_view_fusable = True
+
     def __init__(self, cfg: ModelConfig, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.cfg = cfg

@@ -45,26 +45,48 @@ class Linear(nn.Linear):
         return F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
 
 
-class _RandomDrop(nn.Module):
-    """Dropout whose draws come from an explicit ``torch.Generator``, never
-    from torch's global stream: the train step seeds one generator per step
-    from (seed, step) and hands it to every such module of the model
-    (``use_generator``), so a resumed run draws the same masks. The
-    identity in eval mode and at rate 0."""
+class Draws(nn.Module):
+    """A parameterless module whose random draws come from an explicit
+    ``torch.Generator``, never from torch's global stream: the train step
+    seeds one generator per step from (seed, step) and hands it to every
+    such module of the model (``use_generator``), so a resumed run draws
+    the same values."""
+
+    def __init__(self):
+        super().__init__()
+        self.generator: Optional[torch.Generator] = None
+
+    def _generator(self) -> torch.Generator:
+        if self.generator is None:
+            raise RuntimeError("a draw in training mode comes from the train step's "
+                               "generator; set one with models.layers.use_generator")
+        return self.generator
+
+    def normal(self, shape, dtype=torch.float32):
+        """Standard normal values of `shape` on the generator's device."""
+        g = self._generator()
+        return torch.randn(shape, generator=g, device=g.device, dtype=dtype)
+
+    def uniform(self, shape):
+        """U[0, 1) f32 values of `shape` on the generator's device."""
+        g = self._generator()
+        return torch.rand(shape, generator=g, device=g.device)
+
+
+class _RandomDrop(Draws):
+    """Dropout on the explicit generator (``Draws``). The identity in eval
+    mode and at rate 0."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
-        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x):
         if not self.training or self.rate <= 0:
             return x
         if self.rate >= 1:
             return x * 0.0                  # zeros, with a zero (finite) gradient
-        if self.generator is None:
-            raise RuntimeError("dropout in training mode draws from the train step's "
-                               "generator; set one with models.layers.use_generator")
+        self._generator()
         keep, keep_p = self._keep(x)
         scale = 1.0 / keep_p
         if x.dtype != torch.float32:     # scale in x's dtype, as the JAX layers do
@@ -103,9 +125,9 @@ class FrameDropout(_RandomDrop):
 
 
 def use_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Point every dropout of `model` at `generator`."""
+    """Point every dropout and every other ``Draws`` of `model` at `generator`."""
     for m in model.modules():
-        if isinstance(m, _RandomDrop):
+        if isinstance(m, Draws):
             m.generator = generator
 
 

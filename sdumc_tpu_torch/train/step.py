@@ -9,16 +9,20 @@ the teacher into the student:
        + w_tqf  * RMSE(text_query_feat_1, sg(text_query_feat_0))
        + w_f    * RMSE(features_1, features_0)      # the teacher is NOT detached
        + w_rnc  * RnC(stack(rnc_0, rnc_1), vals)
+       + model_loss_0 + model_loss_1                # a baseline family's own terms
 
-The two views run as ONE [2B]-row forward that shares the audio/video input
-projections (models/fusion.py ``dual=True``) whenever ``use_imagination`` is
-off; per-row results equal two single-view forwards. The train step returns
-metric sums as device tensors, so the loop reads them back once per epoch.
+The fusion net runs the two views as ONE [2B]-row forward that shares the
+audio/video input projections (models/fusion.py ``dual=True``) whenever
+``use_imagination`` is off; per-row results equal two single-view
+forwards. Every other model runs two forwards (``_fusable``). The train
+step returns metric sums as device tensors, so the loop reads them back
+once per epoch.
 
-Every random draw of a train step (frame dropout and dropout) comes from
-one ``torch.Generator`` on the step's device, seeded from (train seed,
-step): a resumed run draws the same masks as an uninterrupted one. The
-masks differ from the JAX package's, whose bit generator is another.
+Every random draw of a train step (frame dropout, dropout, MFM's prior
+samples, MCTN's teacher-forcing mask) comes from one ``torch.Generator``
+on the step's device, seeded from (train seed, step): a resumed run draws
+the same masks as an uninterrupted one. The masks differ from the JAX
+package's, whose bit generator is another.
 """
 
 from __future__ import annotations
@@ -53,12 +57,21 @@ def dequant_features(batch: Dict) -> Dict:
     return out
 
 
+def _fusable(model) -> bool:
+    """True when the two views can run as one [2B]-row forward: the model
+    opts in (``dual_view_fusable``) and nothing conditions its compute on
+    the missing flag (``use_imagination`` substitutes only then). The
+    baseline families run two forwards: their ``aux["model_loss"]`` reduces
+    over the batch, which a row-stacked forward would halve, and their text
+    and feat4 views have different ``t_max``."""
+    return (getattr(model, "dual_view_fusable", False)
+            and not getattr(model.cfg, "use_imagination", False))
+
+
 def _apply_views(model, batch: Dict):
-    """Run the teacher and student views; returns (vals0, aux0, vals1, aux1).
-    One fused [2B]-row forward unless the imagination substitution makes the
-    views differ in their compute."""
+    """Run the teacher and student views; returns (vals0, aux0, vals1, aux1)."""
     ta, tt, tv, tf4 = batch["t_max"]
-    if not model.cfg.use_imagination:
+    if _fusable(model):
         vals01, aux01 = model(batch["audio"], (batch["text"], batch["feat4"]),
                               batch["video"], t_max=(ta, (tt, tf4), tv), dual=True)
         B = batch["audio"].shape[0]
@@ -92,6 +105,8 @@ def dual_view_loss(model, batch: Dict, loss_cfg: LossConfig):
         * rmse_loss(aux1["text_query_feat"], aux0["text_query_feat"].detach())
         + loss_cfg.features_w * rmse_loss(aux1["features"], aux0["features"])
         + loss_cfg.rnc_w * rnc
+        + aux0.get("model_loss", 0.0)
+        + aux1.get("model_loss", 0.0)
     )
     with torch.no_grad():
         metrics = {

@@ -33,7 +33,10 @@ of 128-key tiles), its gradient (the autograd.Function's
 chunked backward) against the plain version's autograd, and a tiny bf16
 WavLM extraction card against CPU. The vision stage's encoders (CLIP,
 DINOv2, VideoMAE, EVA-02, ResNet-18; no kernel of the port) are held to
-the CPU at tiny sizes, alone and through ``cli.extract vision``.
+the CPU at tiny sizes, alone and through ``cli.extract vision``. So are
+the baseline families' train steps (tfn, mfn, mctn, mult: the GEMM, LSTM,
+GRU and attention paths; no kernel of the port), and ``cli.train`` /
+``cli.infer --model`` for tfn and mfn.
 """
 
 import math
@@ -1058,3 +1061,75 @@ def test_cli_extract_vision_on_card_matches_cpu(cuda, tmp_path, kind):
         got, want = np.load(tmp_path / "card" / f"{vid}.npy"), np.load(tmp_path / "cpu" / f"{vid}.npy")
         assert got.shape == want.shape and np.isfinite(got).all()
         assert np.abs(got - want).max() <= 1e-4 * max(np.abs(want).max(), 1e-30)
+
+
+# ------------------------------------------------------------ the baseline zoo
+
+def _baseline_batch(dims, seed=15):
+    rng = np.random.default_rng(seed)
+    batch = {k: torch.from_numpy(rng.normal(size=(6, n, d)).astype(np.float32))
+             for k, n, d in (("audio", 70, dims[0]), ("text", 20, dims[1]),
+                             ("video", 40, dims[2]), ("feat4", 12, dims[1]))}
+    batch["vals"] = torch.from_numpy(rng.uniform(-3, 3, size=6).astype(np.float32))
+    batch["t_max"] = (65, 17, 33, 12)
+    return batch
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name, rtol", [("tfn", 1e-5), ("mfn", 1e-5), ("mctn", 1e-5),
+                                        ("mult", 1e-4)])
+def test_baseline_train_step_on_card_matches_cpu(cuda, name, rtol):
+    """One dual-view loss and backward of a baseline family at a small
+    width (dims 32 / 64 / 32, hidden 16, align_t 8; dropout off, MCTN
+    teacher-forced so that no draw enters): card vs CPU. Loss rtol 1e-4;
+    each gradient max abs diff <= rtol max |grad| + 1e-6 (1e-5; MulT's
+    softmax over the padded keys and its LayerNorms 1e-4, as chip_smoke's
+    phase 24). No kernel of the port is launched."""
+    import copy
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.core.config import LossConfig, ModelConfig
+    from sdumc_tpu_torch.models import get_model
+    from sdumc_tpu_torch.models.layers import use_generator
+    from sdumc_tpu_torch.train.step import dual_view_loss
+
+    set_matmul_precision("highest")
+    dims = (32, 64, 32)
+    cfg = ModelConfig(name=name, input_dims=dims, baseline_hidden_dim=16, baseline_mem_dim=16,
+                      baseline_align_t=8, dropout=0.0, mctn_teacher_forcing=1.0)
+    model = get_model(cfg, torch.Generator().manual_seed(0)).train()
+    card = copy.deepcopy(model).to(cuda)
+    use_generator(model, torch.Generator().manual_seed(1))
+    use_generator(card, torch.Generator(device=cuda).manual_seed(1))
+    batch = _baseline_batch(dims)
+    loss_cfg = LossConfig(text_feat_w=0.1, text_query_feat_w=0.7)
+    ref, _ = dual_view_loss(model, batch, loss_cfg)
+    ref.backward()
+    fused_cross.reset_launches()
+    flash_wavlm.reset_launches()
+    got, _ = dual_view_loss(card, {k: v.to(cuda) if torch.is_tensor(v) else v
+                                   for k, v in batch.items()}, loss_cfg)
+    got.backward()
+    assert not any(fused_cross.LAUNCHES.values()) and flash_wavlm.LAUNCHES == 0
+    torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=0)
+    for (key, p), pc in zip(model.named_parameters(), card.parameters()):
+        err = (pc.grad.cpu() - p.grad).abs().max().item()
+        assert err <= rtol * p.grad.abs().max().item() + 1e-6, (key, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tfn", "mfn"])
+def test_cli_train_baseline_on_card(cuda, tmp_path, name):
+    """cli.train --model NAME on the card (its default device) for one
+    epoch of the small synthetic store: finite losses, and best_full.pt
+    through cli.infer --model NAME reproduces the logged test MAE."""
+    from sdumc_tpu_torch.cli import infer, train
+
+    common = ["--synthetic", "--feat_scale", "16", "--batch_size", "8", "--model", name]
+    result = train.main(common + ["--epochs", "1", "--checkpoint_dir", str(tmp_path / "ck"),
+                                  "--save_root", str(tmp_path / "saved")])
+    (h,) = result["history"]
+    assert all(np.isfinite(h[k]) for k in ("train_loss", "train_mse_full", "eval_mse_full"))
+    assert next(result["state"].model.parameters()).is_cuda
+    out = infer.main(common + ["--checkpoint", str(tmp_path / "ck" / "best_full.pt")])
+    assert out["full"]["mae"] == pytest.approx(result["best_full"]["mae"], rel=1e-6)

@@ -5,7 +5,8 @@ safetensors included, and the tokenizers' files themselves),
 nor Pillow or pandas (the card's machine has neither), nor ml_dtypes (JAX's
 dependency: the port keeps bf16 on the host as uint16 bit patterns), and
 its sources name none of them in an import, save one: the image reader
-imports Pillow lazily for the formats it does not read itself."""
+imports Pillow lazily for the formats it does not read itself. pyyaml is
+not imported either: the tuner imports it lazily, to read a grid file."""
 
 import ast
 import subprocess
@@ -18,6 +19,7 @@ REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "sdumc_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sdumc_tpu", "transformers", "safetensors")
 HOST_LIBS = ("PIL", "pandas", "ml_dtypes")   # not known on the card's machine
+LAZY_LIBS = ("yaml",)                        # imported only inside the one function that reads it
 
 _PROBE = """
 import importlib, pkgutil, sys
@@ -40,7 +42,8 @@ def _forbidden(module: str) -> bool:
 
 def test_importing_every_module_pulls_in_no_jax():
     run = subprocess.run(
-        [sys.executable, "-c", _PROBE.format(repo=str(REPO), forbidden=FORBIDDEN + HOST_LIBS)],
+        [sys.executable, "-c", _PROBE.format(repo=str(REPO),
+                                             forbidden=FORBIDDEN + HOST_LIBS + LAZY_LIBS)],
         capture_output=True, text=True, timeout=300)
     assert run.returncode == 0, run.stderr
     count, bad = run.stdout.split(" ", 1)
@@ -81,6 +84,35 @@ def test_only_the_image_reader_names_pillow():
              for mod, fn in _imports(ast.parse(path.read_text()))
              if mod.split(".")[0] in HOST_LIBS}
     assert sites == {("sdumc_tpu_torch/extract/image_io.py", "_read_with_pillow")}, sites
+
+
+def test_only_the_tuner_names_yaml_lazily():
+    """pyyaml is imported in one place, inside the function that reads a
+    grid file (the card's machine may lack it)."""
+    sites = {(str(path.relative_to(REPO)), fn)
+             for path in sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             for mod, fn in _imports(ast.parse(path.read_text()))
+             if mod.split(".")[0] in LAZY_LIBS}
+    assert sites == {("sdumc_tpu_torch/core/tuner.py", "load_grids")}, sites
+
+
+BASELINE_MODULES = ("models/baselines.py", "models/baselines_seq.py",
+                    "models/modules/__init__.py", "models/modules/linen.py",
+                    "models/modules/transformer_encoder.py", "core/tuner.py",
+                    "core/model_registry.py", "losses.py")
+
+
+def test_the_walk_imports_the_baseline_modules():
+    """pkgutil's walk reaches the baseline zoo's modules, models/modules
+    included (so the probe above covers them)."""
+    import pkgutil
+
+    import sdumc_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(sdumc_tpu_torch.__path__, "sdumc_tpu_torch.")}
+    for rel in BASELINE_MODULES:
+        name = "sdumc_tpu_torch." + rel[:-3].replace("/", ".").removesuffix(".__init__")
+        assert name in names, name
 
 
 VISION_MODULES = ("models/vit.py", "models/clip_vit.py", "models/dinov2.py",
