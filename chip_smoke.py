@@ -170,8 +170,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      paths) with a TF32 control that each check must refuse; per family a
      warm step timed by CUDA events, its peak memory, and one profiled
      step (device time by the operator that launched it, idle share,
-     launches).
-Each phase prints its seconds. The second-to-last line is {"kernels":
+     launches);
+ 25. the other text families: for each of bert-base-uncased (vocab.txt),
+     roberta-large and deberta-large (v1; vocab.json + merges.txt),
+     albert-base-v2 (tokenizer.json: Unigram, a small precompiled charsmap),
+     bloom-7b1 (tokenizer.json) and chatglm2-6b (tokenizer.model, THUDM's
+     fused layout in pytorch_model.bin) at its published config, seeded on
+     the card and written in its on-disk format (the encoders at full depth,
+     the two decoders at 2 layers, the large ones in bf16):
+     ``cli.extract text --family F`` with its defaults on phase 13's
+     transcripts, every output's shape (the probe's span stripped), dtype
+     and finiteness, the launch counters at 0, then one batch card vs CPU
+     at f32 with TF32 off; then bloom-7b1 (30 layers) and chatglm2-6b (28
+     layers) at full depth, f32, seeded on the card, through
+     extract_text_features: sentences/s, one 16-row batch by CUDA events
+     beside its bound (max of the f32 flops of the real tokens and the f32
+     weight bytes), peak memory, device time by family.
+Each phase prints its seconds, and the total of phases 2-25 follows. The second-to-last line is {"kernels":
 [...]}, the last line {"ok": true, "device": {...}}. Imports nothing of JAX
 or sdumc_tpu.
 
@@ -3373,6 +3388,474 @@ def baseline_phase(torch, tmp: str, card: str) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------- the other text families (phase 25)
+
+# each checkpoint: (name, --family, layers kept at step 1 or None for all, on-disk dtype);
+# its config.json and tokenizer layout below
+TEXT_FAMILY_DIRS = (
+    ("bert-base-uncased", "bert", None, "float32"),
+    ("roberta-large", "bert", None, "bfloat16"),
+    ("albert-base-v2", "albert", None, "float32"),
+    ("deberta-large", "deberta", None, "bfloat16"),
+    ("bloom-7b1", "bloom", 2, "bfloat16"),
+    ("chatglm2-6b", "glm", 2, "bfloat16"),
+)
+TEXT_FAMILY_SPANS = {"bert-base-uncased": (1, -1), "roberta-large": (1, -1),
+                     "albert-base-v2": (1, -1), "deberta-large": (1, -1), "bloom-7b1": (0, 0),
+                     "chatglm2-6b": (2, 0)}
+FULL_DEPTH_DECODERS = ("bloom-7b1", "chatglm2-6b")
+# a small precompiled charsmap for ALBERT's files (NFKC-style folds)
+ALBERT_CHARSMAP = {"ｆ": "f", "ｕ": "u", "ｌ": "l", "ﬁ": "fi", "…": "...", "　": " ", "™": "TM"}
+BLOOM_SPLIT = " ?[^(\\s|[.,!?…。，、।۔،])]+"
+
+
+def text_family_config_files() -> dict:
+    """Each checkpoint's config.json as published (bloom-7b1's and
+    chatglm2-6b's layer counts are cut at step 1, in the directory only)."""
+    return {
+        "bert-base-uncased": {
+            "architectures": ["BertForMaskedLM"], "model_type": "bert", "hidden_act": "gelu",
+            "hidden_size": 768, "intermediate_size": 3072, "layer_norm_eps": 1e-12,
+            "max_position_embeddings": 512, "num_attention_heads": 12, "num_hidden_layers": 12,
+            "pad_token_id": 0, "type_vocab_size": 2, "vocab_size": 30522},
+        "roberta-large": {
+            "architectures": ["RobertaForMaskedLM"], "model_type": "roberta", "bos_token_id": 0,
+            "eos_token_id": 2, "hidden_act": "gelu", "hidden_size": 1024,
+            "intermediate_size": 4096, "layer_norm_eps": 1e-5, "max_position_embeddings": 514,
+            "num_attention_heads": 16, "num_hidden_layers": 24, "pad_token_id": 1,
+            "type_vocab_size": 1, "vocab_size": 50265},
+        "albert-base-v2": {
+            "architectures": ["AlbertForMaskedLM"], "model_type": "albert", "embedding_size": 128,
+            "hidden_act": "gelu_new", "hidden_size": 768, "inner_group_num": 1,
+            "intermediate_size": 3072, "layer_norm_eps": 1e-12, "max_position_embeddings": 512,
+            "num_attention_heads": 12, "num_hidden_groups": 1, "num_hidden_layers": 12,
+            "pad_token_id": 0, "type_vocab_size": 2, "vocab_size": 30000},
+        "deberta-large": {
+            "model_type": "deberta", "hidden_act": "gelu", "hidden_size": 1024,
+            "intermediate_size": 4096, "max_position_embeddings": 512, "relative_attention": True,
+            "pos_att_type": "c2p|p2c", "layer_norm_eps": 1e-7, "max_relative_positions": -1,
+            "position_biased_input": False, "num_attention_heads": 16, "num_hidden_layers": 24,
+            "type_vocab_size": 0, "vocab_size": 50265},
+        "bloom-7b1": {
+            "architectures": ["BloomForCausalLM"], "model_type": "bloom",
+            "apply_residual_connection_post_layernorm": False, "bos_token_id": 1,
+            "eos_token_id": 2, "hidden_size": 4096, "layer_norm_epsilon": 1e-5, "n_head": 32,
+            "n_layer": 30, "offset_alibi": 100, "pad_token_id": 3, "unk_token_id": 0,
+            "vocab_size": 250880},
+        "chatglm2-6b": {
+            "architectures": ["ChatGLMModel"], "model_type": "chatglm", "add_bias_linear": False,
+            "add_qkv_bias": True, "apply_residual_connection_post_layernorm": False,
+            "ffn_hidden_size": 13696, "hidden_size": 4096, "kv_channels": 128,
+            "layernorm_epsilon": 1e-5, "multi_query_attention": True, "multi_query_group_num": 2,
+            "num_attention_heads": 32, "num_layers": 28, "padded_vocab_size": 65024,
+            "post_layer_norm": True, "rmsnorm": True, "seq_length": 32768,
+            "torch_dtype": "float16", "eos_token_id": 2, "pad_token_id": 0},
+    }
+
+
+def _family_words():
+    return list(dict.fromkeys(list(MOSEI_WORDS) + NON_ASCII.split()))
+
+
+def _byte_bpe(specials, words):
+    """A byte-level BPE vocabulary (the specials, the 256 byte characters,
+    each word and ' ' + word built up left to right) and its merges."""
+    from sdumc_tpu_torch.convert.hf_tokenizer import BYTE_CHARS
+
+    vocab = {t: i for i, t in enumerate(specials)}
+    for c in BYTE_CHARS.values():
+        vocab.setdefault(c, len(vocab))
+    merges = []
+    for w in words:
+        for variant in (w, " " + w):
+            b = "".join(BYTE_CHARS[x] for x in variant.encode("utf-8"))
+            for n in range(2, len(b) + 1):
+                if b[:n] not in vocab:
+                    vocab[b[:n]] = len(vocab)
+                    merges.append((b[:n - 1], b[n - 1]))
+    return vocab, merges
+
+
+def added_token(i: int, content: str) -> dict:
+    """One special entry of a tokenizer.json's added_tokens, every field
+    written."""
+    return {"id": i, "content": content, "single_word": False, "lstrip": False,
+            "rstrip": False, "normalized": False, "special": True}
+
+
+def _protobuf(fields) -> bytes:
+    """A protobuf message of (field, value) pairs: int -> varint, float ->
+    fixed32, bytes / str -> length-delimited."""
+    def varint(v):
+        out = bytearray()
+        while True:
+            out.append((v & 0x7F) | (0x80 if v > 0x7F else 0))
+            v >>= 7
+            if not v:
+                return bytes(out)
+
+    out = bytearray()
+    for field, value in fields:
+        if isinstance(value, bool) or isinstance(value, int):
+            out += varint(field << 3) + varint(int(value))
+        elif isinstance(value, float):
+            out += varint(field << 3 | 5) + struct.pack("<f", value)
+        else:
+            value = value.encode("utf-8") if isinstance(value, str) else value
+            out += varint(field << 3 | 2) + varint(len(value)) + value
+    return bytes(out)
+
+
+def write_family_tokenizer(path: str, name: str) -> None:
+    """Each family's tokenizer files in its published layout, covering the
+    transcripts' words: bert-base-uncased's vocab.txt (30522 lines,
+    [unused] fillers), roberta-large's and deberta-large's vocab.json +
+    merges.txt (byte-level BPE), albert-base-v2's tokenizer.json (Unigram,
+    ALBERT's normalizers with a small precompiled charsmap), bloom-7b1's
+    tokenizer.json (its Split regex, ByteLevel, BPE), chatglm2-6b's
+    tokenizer.model (SentencePiece BPE with byte fallback, protobuf written
+    by hand)."""
+    from sdumc_tpu_torch.convert.hf_tokenizer import build_precompiled_charsmap
+
+    words, space = _family_words(), "▁"
+
+    def dump(fname, obj):
+        with open(os.path.join(path, fname), "w", encoding="utf-8") as f:
+            json.dump(obj, f, ensure_ascii=False)
+
+    if name == "bert-base-uncased":
+        chars = sorted(set("".join(words)) | set("abcdefghijklmnopqrstuvwxyz0123456789.,!?'"))
+        lines = (["[PAD]"] + [f"[unused{i}]" for i in range(99)] + ["[UNK]", "[CLS]", "[SEP]",
+                                                                   "[MASK]"]
+                 + list(dict.fromkeys(chars + ["##" + c for c in chars] + words)))
+        lines += [f"[unused{i}]" for i in range(99, 99 + 30522 - len(lines))]
+        with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+        dump("tokenizer_config.json", {"tokenizer_class": "BertTokenizer", "do_lower_case": True})
+    elif name in ("roberta-large", "deberta-large"):
+        specials = (("<s>", "<pad>", "</s>", "<unk>") if name == "roberta-large"
+                    else ("[PAD]", "[CLS]", "[SEP]", "[UNK]"))
+        vocab, merges = _byte_bpe(specials, words)
+        vocab["<mask>" if name == "roberta-large" else "[MASK]"] = 50264
+        dump("vocab.json", vocab)
+        with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+            f.write("#version: 0.2\n" + "".join(f"{a} {b}\n" for a, b in merges))
+        dump("tokenizer_config.json", {"tokenizer_class": "RobertaTokenizer" if name ==
+                                       "roberta-large" else "DebertaTokenizer"})
+    elif name == "albert-base-v2":
+        import base64
+
+        pieces = [["<pad>", 0.0], ["<unk>", 0.0], ["[CLS]", 0.0], ["[SEP]", 0.0], ["[MASK]", 0.0],
+                  [space, -2.0]]
+        for i, w in enumerate(words):
+            pieces.append([space + w, -3.0 - 0.01 * i])
+        for c in sorted(set("".join(words)) | set("abcdefghijklmnopqrstuvwxyz0123456789")):
+            pieces.append([c, -12.0])
+        blob = build_precompiled_charsmap(ALBERT_CHARSMAP)
+        cls, sep = ({"SpecialToken": {"id": t, "type_id": 0}} for t in ("[CLS]", "[SEP]"))
+        template = {"single": [cls, {"Sequence": {"id": "A", "type_id": 0}}, sep],
+                    "pair": [cls, {"Sequence": {"id": "A", "type_id": 0}}, sep,
+                             {"Sequence": {"id": "B", "type_id": 1}}, sep],
+                    "special_tokens": {"[CLS]": {"id": "[CLS]", "ids": [2], "tokens": ["[CLS]"]},
+                                       "[SEP]": {"id": "[SEP]", "ids": [3], "tokens": ["[SEP]"]}}}
+        dump("tokenizer.json", {
+            "version": "1.0", "added_tokens": [
+                added_token(i, t) for i, t in
+                enumerate(("<pad>", "<unk>", "[CLS]", "[SEP]", "[MASK]"))],
+            "normalizer": {"type": "Sequence", "normalizers": [
+                {"type": "Replace", "pattern": {"String": "``"}, "content": '"'},
+                {"type": "Replace", "pattern": {"String": "''"}, "content": '"'},
+                {"type": "NFKD"}, {"type": "StripAccents"}, {"type": "Lowercase"},
+                {"type": "Precompiled",
+                 "precompiled_charsmap": base64.b64encode(blob).decode("ascii")},
+                {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+            "pre_tokenizer": {"type": "Metaspace", "replacement": space,
+                              "prepend_scheme": "always", "split": True},
+            "post_processor": {"type": "TemplateProcessing", **template},
+            "decoder": {"type": "Metaspace", "replacement": space, "prepend_scheme": "always",
+                        "split": True},
+            "model": {"type": "Unigram", "unk_id": 1, "vocab": pieces, "byte_fallback": False}})
+        dump("tokenizer_config.json", {"tokenizer_class": "AlbertTokenizer"})
+    elif name == "bloom-7b1":
+        specials = ("<unk>", "<s>", "</s>", "<pad>")
+        vocab, merges = _byte_bpe(specials, words)
+        dump("tokenizer.json", {
+            "version": "1.0", "added_tokens": [added_token(i, t) for i, t in enumerate(specials)],
+            "normalizer": None,
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": BLOOM_SPLIT}, "behavior": "Isolated",
+                 "invert": False},
+                {"type": "ByteLevel", "add_prefix_space": False, "trim_offsets": True,
+                 "use_regex": False}]},
+            "post_processor": {"type": "ByteLevel", "add_prefix_space": True,
+                               "trim_offsets": False, "use_regex": False},
+            "decoder": {"type": "ByteLevel", "add_prefix_space": True, "trim_offsets": True,
+                        "use_regex": True},
+            "model": {"type": "BPE", "dropout": None, "unk_token": None, "fuse_unk": False,
+                      "byte_fallback": False, "vocab": vocab,
+                      "merges": [[a, b] for a, b in merges]}})
+        dump("tokenizer_config.json", {"tokenizer_class": "BloomTokenizerFast"})
+    else:                                           # chatglm2-6b: SentencePiece BPE
+        pieces = [("<unk>", 0.0, 2), ("<s>", 0.0, 3), ("</s>", 0.0, 3)]
+        pieces += [(f"<0x{b:02X}>", 0.0, 6) for b in range(256)]
+        seen = {p for p, _, _ in pieces}
+        marked = [space + w for w in words]
+        for c in sorted(set("".join(marked))):
+            seen.add(c)
+            pieces.append((c, -1000.0, 1))
+        rank = 0
+        for w in marked:
+            for n in range(2, len(w) + 1):
+                if w[:n] not in seen:
+                    seen.add(w[:n])
+                    pieces.append((w[:n], -float(rank), 1))
+                    rank += 1
+        proto = [(1, _protobuf([(1, p), (2, s), (3, t)])) for p, s, t in pieces]
+        proto.append((2, _protobuf([(3, 2), (35, 1), (40, 0), (41, 1), (42, 2)])))
+        proto.append((3, _protobuf([(1, "identity"), (3, 1), (4, 0), (5, 1)])))
+        with open(os.path.join(path, "tokenizer.model"), "wb") as f:
+            f.write(_protobuf(proto))
+        dump("tokenizer_config.json", {"tokenizer_class": "ChatGLMTokenizer"})
+
+
+def text_family_model(torch, name: str, layers=None):
+    """(config, the port's model on the card) of checkpoint ``name``, built
+    on the meta device (``layers`` kept) and seeded there: every weight
+    normal(0, 0.02) from one generator, norms at scale 1 and bias 0."""
+    import dataclasses
+
+    from sdumc_tpu_torch.convert import hf_albert, hf_bert, hf_bloom, hf_deberta, hf_glm
+    from sdumc_tpu_torch.models import albert, bert, bloom, deberta, glm
+
+    family = next(f for n, f, _, _ in TEXT_FAMILY_DIRS if n == name)
+    config_of, cls = {"bert": (hf_bert.config_from_hf, bert.BertModel),
+                      "albert": (hf_albert.config_from_hf, albert.AlbertModel),
+                      "deberta": (hf_deberta.config_from_hf, deberta.DebertaModel),
+                      "bloom": (hf_bloom.config_from_hf, bloom.BloomModel),
+                      "glm": (hf_glm.config_from_chatglm, glm.GlmModel)}[family]
+    cfg = config_of(text_family_config_files()[name])
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    with torch.device("meta"):
+        model = cls(cfg)
+    model = model.to_empty(device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(25)
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+        for m in model.modules():
+            if isinstance(m, torch.nn.LayerNorm) or type(m).__name__ == "RMSNorm":
+                m.weight.fill_(1.0)
+                if getattr(m, "bias", None) is not None:
+                    m.bias.zero_()
+    return cfg, model.eval()
+
+
+def write_family_dir(torch, root: str, name: str) -> str:
+    """checkpoint ``name``'s directory at step 1's depth: config.json (the
+    layer count cut for the decoders), its tokenizer files and its seeded
+    weights in the published layout and dtype (bf16 for the large ones;
+    chatglm2's THUDM names with the fused QKV and gate|up, the lm head
+    included, in pytorch_model.bin)."""
+    from sdumc_tpu_torch.convert import safetensors_io
+
+    _, family, layers, dtype = next(d for d in TEXT_FAMILY_DIRS if d[0] == name)
+    path = os.path.join(root, name)
+    os.makedirs(path)
+    raw = dict(text_family_config_files()[name])
+    if layers:
+        raw["n_layer" if family == "bloom" else "num_layers"] = layers
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(raw, f, indent=1)
+    write_family_tokenizer(path, name)
+    cfg, model = text_family_model(torch, name, layers)
+    dt = getattr(torch, dtype)
+    sd = {k: v.to(dt).cpu() for k, v in model.state_dict().items()}
+    del model
+    if family == "glm":
+        out = {"transformer.embedding.word_embeddings.weight": sd["embed_tokens.weight"],
+               "transformer.encoder.final_layernorm.weight": sd["norm.weight"],
+               "transformer.output_layer.weight": sd["embed_tokens.weight"].clone()}
+        for i in range(cfg.num_layers):
+            src, dst = f"layers.{i}.", f"transformer.encoder.layers.{i}."
+            for kind in ("weight", "bias"):
+                out[dst + f"self_attention.query_key_value.{kind}"] = torch.cat(
+                    [sd[src + f"self_attn.{p}_proj.{kind}"] for p in "qkv"])
+            out[dst + "self_attention.dense.weight"] = sd[src + "self_attn.o_proj.weight"]
+            out[dst + "mlp.dense_h_to_4h.weight"] = sd[src + "mlp.gate_up_proj.weight"]
+            out[dst + "mlp.dense_4h_to_h.weight"] = sd[src + "mlp.down_proj.weight"]
+            for ln in ("input_layernorm", "post_attention_layernorm"):
+                out[dst + f"{ln}.weight"] = sd[src + f"{ln}.weight"]
+        sd = out
+    if name in ("roberta-large", "deberta-large", "chatglm2-6b"):
+        torch.save(sd, os.path.join(path, "pytorch_model.bin"))
+    else:
+        safetensors_io.save_file(sd, os.path.join(path, "model.safetensors"))
+    torch.cuda.empty_cache()
+    return path
+
+
+def family_cli_run(torch, path: str, name: str, rows, csv_path: str, tmp: str):
+    """Step 1 for one checkpoint: ``cli.extract text --family F`` with its
+    defaults, every output checked; then one batch (the 16 shortest
+    transcripts) card vs CPU at f32 with TF32 off. Returns the port's
+    tokenizer."""
+    import numpy as np
+
+    from sdumc_tpu_torch.cli import extract
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.convert.vocab_tokenizers import load_tokenizer
+    from sdumc_tpu_torch.extract.text import LOADERS, extract_text_features, find_token_span
+
+    _, family, layers, dtype = next(d for d in TEXT_FAMILY_DIRS if d[0] == name)
+    tok = load_tokenizer(path)
+    start, end = find_token_span(tok)
+    if (start, end) != TEXT_FAMILY_SPANS[name]:
+        raise AssertionError(f"{name}: probe span {(start, end)}, want {TEXT_FAMILY_SPANS[name]}")
+    save_dir = os.path.join(tmp, f"text-{name}")
+    reset_counts()
+    out = extract.main(["text", "--family", family, "--model_dir", path, "--trans_path",
+                        csv_path, "--save_dir", save_dir])
+    torch.cuda.synchronize()
+    counts = read_counts()
+    hidden = text_family_config_files()[name]["hidden_size"]
+    n_tok = {n: len(tok(s)["input_ids"]) if s.strip() else 0 for n, s in rows}
+    for n, _ in rows:
+        feat = np.load(os.path.join(save_dir, f"{n}.npy"))
+        want = (n_tok[n] - start + end, hidden) if n_tok[n] else (1, hidden)
+        if (feat.shape != want or feat.dtype != np.float32 or not np.isfinite(feat).all()
+                or (not n_tok[n] and feat.any())):
+            raise AssertionError(f"{name} {n}: {feat.shape} {feat.dtype} (want {want}) or "
+                                 "non-finite")
+    if any(counts.values()):
+        raise AssertionError(f"{name}: the port's kernels launched {counts}")
+    print(f"  {name} (--family {family}, {layers or 'all'} layers, {dtype} on disk, width "
+          f"{hidden}): {out['rows']} transcripts, {sum(n_tok.values())} tokens (longest "
+          f"{max(n_tok.values())}), span ({start}, {end}), {out['seconds']!r} s host clock "
+          f"(weights loaded before it), {out['rows'] / out['seconds']!r} sentences/s; "
+          f"launches {counts}")
+    short = sorted((n_tok[n], s) for n, s in rows if n_tok[n])[:TEXT_BATCH]
+    set_matmul_precision("highest")
+    feats = {}
+    for dev in ("cpu", DEVICE):
+        _, model = LOADERS[family](path, device=dev)
+        feats[dev] = extract_text_features(model, tok, [s for _, s in short])
+        del model
+        torch.cuda.empty_cache()
+    err = max(float(np.abs(g - r).max()) for g, r in zip(feats[DEVICE], feats["cpu"]))
+    top = max(float(np.abs(r).max()) for r in feats["cpu"])
+    print(f"    one batch ({len(short)} transcripts of {short[0][0]}-{short[-1][0]} tokens), f32, "
+          f"TF32 off, card vs CPU: max abs diff {err!r}, max |feature| {top!r} (tolerance "
+          f"rtol={LLAMA_RTOL} atol={LLAMA_ATOL}: f32 reassociation)")
+    if not all(np.allclose(g, r, rtol=LLAMA_RTOL, atol=LLAMA_ATOL)
+               for g, r in zip(feats[DEVICE], feats["cpu"])):
+        raise AssertionError(f"{name}: card and CPU disagree")
+    return tok
+
+
+def family_full_depth(torch, name: str, tok, rows) -> None:
+    """Step 2 for one decoder: the trunk at its published depth, f32, seeded
+    on the card, through extract_text_features on the transcripts:
+    sentences/s, one 16-row batch by CUDA events beside its bound, peak
+    memory, device time by family of a profiled run."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.extract.text import BUCKETS, extract_text_features, run_batch
+
+    set_matmul_precision("highest")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model = text_family_model(torch, name)
+    torch.cuda.synchronize()
+    n_all = sum(p.numel() for p in model.parameters())
+    body = [p for n, p in model.named_parameters()
+            if not n.startswith(("word_embeddings.", "embed_tokens."))]
+    n_body = sum(p.numel() for p in body)
+    wbytes = sum(p.numel() * p.element_size() for p in body)
+    print(f"  {name} at full depth ({cfg.num_layers} layers, f32, {n_all} parameters, "
+          f"{n_body} outside the embedding, {wbytes / 1e9!r} GB), seeded on the card in "
+          f"{time.perf_counter() - t0!r} s")
+    sents = [s for _, s in rows]
+    with torch.inference_mode():
+        extract_text_features(model, tok, sents)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = extract_text_features(model, tok, sents)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    if not all(np.isfinite(f).all() and f.shape[1] == cfg.hidden_size for f in feats):
+        raise AssertionError(f"{name}: non-finite features or wrong width")
+    print(f"    {len(sents)} transcripts in {seconds!r} s host clock (tokenizing included, warm), "
+          f"{len(sents) / seconds!r} sentences/s")
+    ids_of = [tok(s)["input_ids"] for s in sents if s.strip()]
+    bucket_of = [next((b for b in BUCKETS if len(i) <= b), len(i)) for i in ids_of]
+    bucket = max(set(bucket_of), key=bucket_of.count)
+    chunk = [i for i, b in zip(ids_of, bucket_of) if b == bucket][:TEXT_BATCH]
+    ids = torch.zeros(TEXT_BATCH, bucket, dtype=torch.long)
+    for j, row in enumerate(chunk):
+        ids[j, :len(row)] = torch.tensor(row)
+    lengths = torch.tensor([len(r) for r in chunk] + [0] * (TEXT_BATCH - len(chunk)))
+    ids, lengths = ids.to(DEVICE), lengths.to(DEVICE)
+    with torch.inference_mode():
+        ms = time_ms(lambda: run_batch(model, ids, lengths, TEXT_TAPS[1]), iters=5, warmup=1)
+    real = int(lengths.sum())
+    ops_ms = 1e3 * 2 * n_body * real / PEAK_F32_FLOPS
+    bytes_ms = 1e3 * wbytes / PEAK_HBM_BYTES
+    bound = max(ops_ms, bytes_ms)
+    padded_ms = 1e3 * 2 * n_body * TEXT_BATCH * bucket / PEAK_F32_FLOPS
+    print(f"    one batch ({len(chunk)} transcripts in bucket {bucket}, {real} real of "
+          f"{TEXT_BATCH * bucket} tokens, taps -4..-1): {ms!r} ms (CUDA events, 5 runs); bound "
+          f"{bound!r} ms = max(2 x {n_body} x {real} flops at {PEAK_F32_FLOPS / 1e12:.0f} "
+          f"TFLOP/s f32 = {ops_ms!r}, {wbytes / 1e9!r} GB at {PEAK_HBM_BYTES / 1e12} TB/s = "
+          f"{bytes_ms!r}), {bound / ms:.1%} of it (the padded tokens' flops: {padded_ms!r} ms)")
+    print(f"    peak device memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CPU,
+                                                     ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        extract_text_features(model, tok, sents)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_device_time(prof, wall, f"    profiled {name} extraction (taps -4..-1, warm)",
+                      TEXT_FAMILIES, "elementwise, norms, rope / ALiBi, casts and the tap sum",
+                      top=8)
+    del model, feats
+    torch.cuda.empty_cache()
+
+
+def text_families_phase(torch, tmp: str, rows):
+    """Phase 25: the other text families. Step 1: each checkpoint of
+    TEXT_FAMILY_DIRS at its published width (the decoders at 2 layers) in
+    its on-disk format through ``cli.extract text --family F`` on phase 13's
+    transcripts, then one batch card vs CPU; step 2: bloom-7b1 and
+    chatglm2-6b at full depth, timed and profiled."""
+    import csv
+    import shutil
+
+    csv_path = os.path.join(tmp, "family_transcripts.csv")
+    with open(csv_path, "w", newline="", encoding="utf-8") as f:
+        writer = csv.writer(f)
+        writer.writerow(["name", "sentence"])
+        writer.writerows(rows)
+    root = os.path.join(tmp, "families")
+    os.makedirs(root)
+    toks = {}
+    print("step 1: cli.extract text --family F with its defaults (FRAME, taps -4..-1, batch "
+          f"{TEXT_BATCH}) on {len(rows)} transcripts, each checkpoint at its published width")
+    for name, *_ in TEXT_FAMILY_DIRS:
+        t0 = time.perf_counter()
+        path = write_family_dir(torch, root, name)
+        written = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        print(f"  {name}: directory written in {written!r} s ({size / 1e9!r} GB)")
+        toks[name] = family_cli_run(torch, path, name, rows, csv_path, tmp)
+        shutil.rmtree(path)
+    print("step 2: the decoders at full depth, f32, seeded on the card")
+    for name in FULL_DEPTH_DECODERS:
+        family_full_depth(torch, name, toks[name], rows)
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3, 17 and 19 (without the gradient checks) with the kernels
     of the checkout at `root`, built from its own sources into its own
@@ -3456,6 +3939,7 @@ def main() -> int:
         return result
 
     lengths = main_path_lengths(main_path_config())
+    t_phases = time.perf_counter()
     totals = phase(2, kernel_phase, torch, fused_cross, fused_pool, lengths)
     flash = phase(3, flash_phase, torch, flash_wavlm)
     infer_launches = phase(4, main_path_phase, torch, fused_cross)
@@ -3480,6 +3964,8 @@ def main() -> int:
         phase(22, asr_phase, torch, work, llm_dir)
         phase(23, vision_phase, torch, work, card)
         phase(24, baseline_phase, torch, work, card)
+        phase(25, text_families_phase, torch, work, rows)
+    print(f"phases 2-25: {time.perf_counter() - t_phases!r} s")
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():

@@ -6,7 +6,10 @@ for WavLM, LLaMA, MANet, Whisper and the vision encoders (CLIP, DINOv2,
 VideoMAE, EVA-02, ResNet), the inverses of the JAX package's
 ``convert/{hf_wavlm,hf_llama,torch_manet,hf_whisper,hf_clip,hf_dinov2,
 hf_videomae,timm_eva02,torch_resnet}.py``; for the baseline families, their
-flax param paths (``baseline_state_dict_from_flax``).
+flax param paths (``baseline_state_dict_from_flax``); for the text families
+(BERT, ALBERT, DeBERTa, BLOOM, GLM), the inverses of
+``convert/hf_{bert,albert,deberta,bloom,glm}.py``
+(``{family}_state_dict_from_flax``).
 The port names its submodules after the reference torch (or HF)
 state_dict, so the keys produced here are those keys: Dense ``kernel``
 [in, out] transposes to Linear ``weight`` [out, in], a Flax conv kernel
@@ -397,3 +400,100 @@ def baseline_state_dict_from_flax(name: str, params) -> Dict[str, torch.Tensor]:
             leaf = "weight"
         out[".".join(mods + [leaf])] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+# the text families: {flax module path (joined with "/"): HF module name} at
+# the top, the flax layer prefix and HF's, and the table inside a layer
+_TEXT_EMBED = {"word_embeddings": "embeddings.word_embeddings",
+               "position_embeddings": "embeddings.position_embeddings",
+               "token_type_embeddings": "embeddings.token_type_embeddings",
+               "embeddings_ln": "embeddings.LayerNorm"}
+_TEXT_POST_LN = {"attn_output": "attention.output.dense",
+                 "attn_ln": "attention.output.LayerNorm",
+                 "intermediate": "intermediate.dense", "output": "output.dense",
+                 "output_ln": "output.LayerNorm"}
+_ALBERT_LAYER = "encoder.albert_layer_groups.0.albert_layers.0."
+_TEXT = {
+    "bert": (_TEXT_EMBED, ("layers_", "encoder.layer"),
+             {"self_attn/query": "attention.self.query", "self_attn/key": "attention.self.key",
+              "self_attn/value": "attention.self.value", **_TEXT_POST_LN}),
+    "albert": ({**_TEXT_EMBED, "embedding_projection": "encoder.embedding_hidden_mapping_in",
+                **{f"layer/{k}": _ALBERT_LAYER + v for k, v in (
+                    ("query", "attention.query"), ("key", "attention.key"),
+                    ("value", "attention.value"), ("attn_dense", "attention.dense"),
+                    ("attn_ln", "attention.LayerNorm"), ("ffn", "ffn"),
+                    ("ffn_output", "ffn_output"), ("full_layer_ln", "full_layer_layer_norm"))}},
+               None, {}),
+    "deberta": ({**_TEXT_EMBED, "rel_embeddings": "encoder.rel_embeddings.weight"},
+                ("layers_", "encoder.layer"),
+                {"self_attn/in_proj": "attention.self.in_proj",
+                 "self_attn/q_bias": "attention.self.q_bias",
+                 "self_attn/v_bias": "attention.self.v_bias",
+                 "self_attn/pos_proj": "attention.self.pos_proj",
+                 "self_attn/pos_q_proj": "attention.self.pos_q_proj", **_TEXT_POST_LN}),
+    "bloom": ({"word_embeddings": "word_embeddings",
+               "word_embeddings_layernorm": "word_embeddings_layernorm", "ln_f": "ln_f"},
+              ("h_", "h"),
+              {"input_layernorm": "input_layernorm",
+               "post_attention_layernorm": "post_attention_layernorm",
+               "self_attention/query_key_value": "self_attention.query_key_value",
+               "self_attention/dense": "self_attention.dense",
+               "dense_h_to_4h": "mlp.dense_h_to_4h", "dense_4h_to_h": "mlp.dense_4h_to_h"}),
+    "glm": ({"embed_tokens": "embed_tokens", "norm": "norm"}, ("layers_", "layers"),
+            {"input_layernorm": "input_layernorm",
+             "post_attention_layernorm": "post_attention_layernorm",
+             **{f"self_attn/{p}": f"self_attn.{p}" for p in ("q_proj", "k_proj", "v_proj",
+                                                              "o_proj")},
+             "mlp/gate_up_proj": "mlp.gate_up_proj", "mlp/down_proj": "mlp.down_proj"}),
+}
+_TEXT_LEAF = {"kernel": "weight", "bias": "bias", "scale": "weight", "embedding": "weight"}
+
+
+def text_key_for(family: str, path: Tuple[str, ...]) -> str:
+    """The port's (HF's) key of one Flax param path of a JAX text family:
+    ``layers_3/self_attn/query/kernel`` -> ``encoder.layer.3.attention.self.query.weight``;
+    a bare param (DeBERTa's ``rel_embeddings``, ``q_bias``) maps whole."""
+    top, layer, sub = _TEXT[family]
+    table, base, rest = top, "", path
+    if layer is not None and path[0].startswith(layer[0]):
+        table, base, rest = sub, f"{layer[1]}.{path[0][len(layer[0]):]}.", path[1:]
+    joined = "/".join(rest)
+    if joined in table:                          # a bare param
+        return base + table[joined]
+    module = "/".join(rest[:-1])
+    if module not in table or rest[-1] not in _TEXT_LEAF:
+        raise KeyError(f"no port key for flax {family} param {'/'.join(path)}")
+    return f"{base}{table[module]}.{_TEXT_LEAF[rest[-1]]}"
+
+
+def text_state_dict_from_flax(family: str, params) -> Dict[str, torch.Tensor]:
+    """A JAX text family's params (``bert``, ``albert``, ``deberta``,
+    ``bloom``, ``glm``) as the port's state dict: Dense kernels [in, out] ->
+    [out, in]. ALBERT's one shared layer maps once."""
+    out = {}
+    for path, value in _leaves(params):
+        arr = np.array(value, dtype=np.float32)
+        if path[-1] == "kernel":
+            arr = arr.T
+        out[text_key_for(family, path)] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def bert_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    return text_state_dict_from_flax("bert", params)
+
+
+def albert_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    return text_state_dict_from_flax("albert", params)
+
+
+def deberta_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    return text_state_dict_from_flax("deberta", params)
+
+
+def bloom_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    return text_state_dict_from_flax("bloom", params)
+
+
+def glm_state_dict_from_flax(params) -> Dict[str, torch.Tensor]:
+    return text_state_dict_from_flax("glm", params)

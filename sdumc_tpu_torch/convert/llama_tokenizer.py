@@ -6,10 +6,12 @@ The port's stand-in for ``transformers.AutoTokenizer`` (the JAX package,
 ``sdumc_tpu/extract/llm4wav.py:286``): neither ``transformers`` nor
 ``sentencepiece`` is a dependency of the port. It reads, in this order:
 
-* ``tokenizer.json`` (HF's fast format): a BPE model with byte fallback,
-  merges applied lowest rank first (leftmost on a tie), the normalizer
-  (``Prepend`` / ``Replace`` in a ``Sequence``) and the ``Metaspace``
-  pre-tokenizer of LLaMA's files;
+* ``tokenizer.json`` (HF's fast format), through ``convert/hf_tokenizer.py``:
+  a BPE model with byte fallback, merges applied lowest rank first
+  (leftmost on a tie), the normalizer (``Prepend`` / ``Replace`` in a
+  ``Sequence``) or the ``Metaspace`` pre-tokenizer of LLaMA's files; its
+  post-processor is not applied (BOS and EOS follow
+  ``tokenizer_config.json``, as ``LlamaTokenizerFast`` resets them);
 * else ``tokenizer.model`` (SentencePiece BPE, as the public
   Vicuna-7B-v1.5 directory ships it): the pieces (piece, score, type) and
   the normalizer flags are read with a minimal protobuf wire-format reader;
@@ -24,10 +26,11 @@ tokens written inside it are not recognised.
 ``decode(ids)`` is ``tokenizer.decode(ids)`` with special tokens kept (the
 default, which the text stage's probe relies on): each id becomes its token,
 a special token its content. A ``tokenizer.json`` decodes as its
-``decoder`` says: none joins the tokens with a space, as the ``tokenizers``
-package does; LLaMA's ``Sequence`` of ``Replace("▁" -> " ")``,
-``ByteFallback``, ``Fuse`` and ``Strip`` is applied step by step; any other
-decoder raises. A ``tokenizer.model`` decodes as SentencePiece does: the
+``decoder`` says (``hf_tokenizer``: none joins the tokens with a space, as
+the ``tokenizers`` package does; LLaMA's ``Sequence`` of
+``Replace("▁" -> " ")``, ``ByteFallback``, ``Fuse`` and ``Strip`` is
+applied step by step; a decoder it does not read raises at the first
+decode). A ``tokenizer.model`` decodes as SentencePiece does: the
 pieces joined, ``▁`` turned into a space, runs of byte pieces joined into
 UTF-8, one leading space dropped.
 """
@@ -39,7 +42,8 @@ import os
 import struct
 from typing import Callable, Dict, List, Optional, Tuple
 
-SPACE = "▁"      # "▁", SentencePiece's whitespace mark
+from sdumc_tpu_torch.convert.hf_tokenizer import (SPACE, HFTokenizer, _byte_fallback, _merge_loop,
+                                                  _strip)
 
 _SP_NORMAL, _SP_UNKNOWN, _SP_CONTROL, _SP_USER, _SP_UNUSED, _SP_BYTE = 1, 2, 3, 4, 5, 6
 _SP_BPE = 2
@@ -50,164 +54,10 @@ def _byte_pieces(text: str, vocab: Dict[str, int]) -> Optional[List[int]]:
     return None if None in ids else ids
 
 
-def _byte_of(token: str) -> Optional[int]:
-    """The byte of a ``<0xNN>`` byte-fallback token, else None."""
-    if len(token) == 6 and token.startswith("<0x") and token.endswith(">"):
-        try:
-            return int(token[3:5], 16)
-        except ValueError:
-            return None
-    return None
-
-
-def _byte_fallback(tokens: List[str]) -> List[str]:
-    """Each run of byte tokens as the UTF-8 text of its bytes; a run that
-    is not valid UTF-8 as one U+FFFD per byte (``tokenizers``' ByteFallback)."""
-    out: List[str] = []
-    run = bytearray()
-
-    def flush():
-        if run:
-            try:
-                out.append(run.decode("utf-8"))
-            except UnicodeDecodeError:
-                out.extend("�" * len(run))
-            run.clear()
-
-    for tok in tokens:
-        byte = _byte_of(tok)
-        if byte is None:
-            flush()
-            out.append(tok)
-        else:
-            run.append(byte)
-    flush()
-    return out
-
-
-def _strip(text: str, content: str, start: int, stop: int) -> str:
-    """Up to ``start`` leading and ``stop`` trailing ``content`` characters
-    removed (``tokenizers``' Strip decoder)."""
-    lo = 0
-    while lo < min(start, len(text)) and text[lo] == content:
-        lo += 1
-    hi = len(text)
-    while len(text) - hi < stop and hi > lo and text[hi - 1] == content:
-        hi -= 1
-    return text[lo:hi]
-
-
 def _sentencepiece_text(tokens: List[str]) -> str:
     """LLaMA's decoder: ``▁`` -> space, byte runs -> UTF-8, joined, one
     leading space dropped."""
     return _strip("".join(_byte_fallback([t.replace(SPACE, " ") for t in tokens])), " ", 1, 0)
-
-
-def _merge_loop(symbols: List[str], best: Callable[[str, str], Optional[Tuple]]) -> List[str]:
-    """Merge adjacent symbols while any pair is mergeable: each round takes
-    the pair with the smallest ``best`` key (its first element the priority,
-    the left position breaking ties)."""
-    while len(symbols) > 1:
-        cands = [(key, i) for i in range(len(symbols) - 1)
-                 if (key := best(symbols[i], symbols[i + 1])) is not None]
-        if not cands:
-            break
-        _, i = min(cands)
-        symbols[i:i + 2] = [symbols[i] + symbols[i + 1]]
-    return symbols
-
-
-class _HFBPE:
-    """The BPE model of an HF ``tokenizer.json``."""
-
-    def __init__(self, spec: dict):
-        model = spec["model"]
-        if model.get("type") != "BPE":
-            raise NotImplementedError(f"tokenizer.json model {model.get('type')!r}; only BPE")
-        self.vocab: Dict[str, int] = dict(model["vocab"])
-        merges = [tuple(m.split(" ", 1)) if isinstance(m, str) else tuple(m)
-                  for m in model["merges"]]
-        self.ranks = {pair: r for r, pair in enumerate(merges)}
-        self.byte_fallback = bool(model.get("byte_fallback", False))
-        self.unk = model.get("unk_token")
-        for tok in spec.get("added_tokens", []):
-            self.vocab.setdefault(tok["content"], tok["id"])
-        self.normalizers = self._normalizers(spec.get("normalizer"))
-        self.pre = spec.get("pre_tokenizer")
-        if self.pre is not None and self.pre.get("type") != "Metaspace":
-            raise NotImplementedError(f"pre_tokenizer {self.pre.get('type')!r}; only Metaspace")
-        self.decoder = spec.get("decoder")
-        self.tokens = {i: t for t, i in self.vocab.items()}
-
-    def decode_tokens(self, tokens: List[str]) -> str:
-        if self.decoder is None:
-            return " ".join(tokens)
-        steps = self.decoder["decoders"] if self.decoder["type"] == "Sequence" else [self.decoder]
-        for step in steps:
-            kind = step["type"]
-            if kind == "Replace" and "String" in step["pattern"]:
-                tokens = [t.replace(step["pattern"]["String"], step["content"]) for t in tokens]
-            elif kind == "ByteFallback":
-                tokens = _byte_fallback(tokens)
-            elif kind == "Fuse":
-                tokens = ["".join(tokens)]
-            elif kind == "Strip":
-                tokens = [_strip(t, step["content"], step["start"], step["stop"]) for t in tokens]
-            else:
-                raise NotImplementedError(f"tokenizer.json decoder step {kind!r}; only "
-                                          "Replace (string), ByteFallback, Fuse and Strip")
-        return "".join(tokens)
-
-    @staticmethod
-    def _normalizers(spec) -> List[dict]:
-        if spec is None:
-            return []
-        items = spec["normalizers"] if spec["type"] == "Sequence" else [spec]
-        for n in items:
-            if n["type"] not in ("Prepend", "Replace"):
-                raise NotImplementedError(f"normalizer {n['type']!r}; only Prepend and Replace")
-        return items
-
-    def _words(self, text: str) -> List[str]:
-        for n in self.normalizers:
-            if n["type"] == "Prepend":
-                text = n["prepend"] + text if text else text
-            else:
-                text = text.replace(n["pattern"]["String"], n["content"])
-        if self.pre is None:
-            return [text] if text else []
-        rep = self.pre.get("replacement", SPACE)
-        scheme = self.pre.get("prepend_scheme",
-                              "always" if self.pre.get("add_prefix_space", True) else "never")
-        text = text.replace(" ", rep)
-        if scheme in ("always", "first") and text and not text.startswith(rep):
-            text = rep + text
-        if not self.pre.get("split", True):
-            return [text] if text else []
-        words, cur = [], ""
-        for ch in text:
-            if ch == rep and cur:
-                words.append(cur)
-                cur = ""
-            cur += ch
-        return words + ([cur] if cur else [])
-
-    def encode(self, text: str) -> List[int]:
-        ids: List[int] = []
-        for word in self._words(text):
-            pieces = _merge_loop(list(word), lambda a, b: (
-                (self.ranks[(a, b)],) if (a, b) in self.ranks else None))
-            for p in pieces:
-                if p in self.vocab:
-                    ids.append(self.vocab[p])
-                    continue
-                fallback = _byte_pieces(p, self.vocab) if self.byte_fallback else None
-                if fallback is None:
-                    if self.unk is None or self.unk not in self.vocab:
-                        raise KeyError(f"{p!r} is not in the vocabulary and has no unk token")
-                    fallback = [self.vocab[self.unk]]
-                ids.extend(fallback)
-        return ids
 
 
 def _varint(buf: bytes, pos: int) -> Tuple[int, int]:
@@ -246,31 +96,36 @@ def _int32(v: int) -> int:
     return v - (1 << 64) if v >= 1 << 63 else v
 
 
+def sentencepiece_proto(blob: bytes) -> Tuple[List[Tuple[str, float, int]], dict, dict]:
+    """(pieces as (piece, score, type), trainer_spec fields, normalizer_spec
+    fields) of a SentencePiece ModelProto."""
+    pieces, trainer, norm = [], {}, {}
+    for field, _, value in _fields(blob):
+        if field == 1:
+            piece, score, kind = "", 0.0, _SP_NORMAL
+            for f, _, v in _fields(value):
+                if f == 1:
+                    piece = v.decode("utf-8")
+                elif f == 2:
+                    score = struct.unpack("<f", v)[0]
+                elif f == 3:
+                    kind = v
+            pieces.append((piece, score, kind))
+        elif field == 2:
+            trainer.update({f: v for f, w, v in _fields(value) if w == 0})
+        elif field == 3:
+            norm.update({f: v for f, _, v in _fields(value)})
+    return pieces, trainer, norm
+
+
 class _SentencePieceBPE:
     """A SentencePiece BPE ``tokenizer.model`` (ModelProto: pieces = 1,
     trainer_spec = 2, normalizer_spec = 3)."""
 
     def __init__(self, blob: bytes):
-        self.pieces: Dict[str, Tuple[int, float, int]] = {}
-        trainer: Dict[int, int] = {}
-        norm: Dict[int, object] = {}
-        n = 0
-        for field, _, value in _fields(blob):
-            if field == 1:
-                piece, score, kind = "", 0.0, _SP_NORMAL
-                for f, _, v in _fields(value):
-                    if f == 1:
-                        piece = v.decode("utf-8")
-                    elif f == 2:
-                        score = struct.unpack("<f", v)[0]
-                    elif f == 3:
-                        kind = v
-                self.pieces[piece] = (n, score, kind)
-                n += 1
-            elif field == 2:
-                trainer.update({f: v for f, w, v in _fields(value) if w == 0})
-            elif field == 3:
-                norm.update({f: v for f, _, v in _fields(value)})
+        pieces, trainer, norm = sentencepiece_proto(blob)
+        self.pieces: Dict[str, Tuple[int, float, int]] = {
+            p: (i, score, kind) for i, (p, score, kind) in enumerate(pieces)}
         if trainer.get(3, 1) != _SP_BPE:
             raise NotImplementedError(f"SentencePiece model_type {trainer.get(3, 1)}; only BPE (2)")
         if norm.get(2):
@@ -340,7 +195,7 @@ class LlamaTokenizer:
         sp_path = os.path.join(model_dir, "tokenizer.model")
         if os.path.exists(json_path):
             with open(json_path, encoding="utf-8") as f:
-                model = _HFBPE(json.load(f))
+                model = HFTokenizer(json.load(f))
             bos, eos = model.vocab.get("<s>"), model.vocab.get("</s>")
         elif os.path.exists(sp_path):
             with open(sp_path, "rb") as f:

@@ -1,29 +1,38 @@
-"""Text (ground-truth transcript) features from an LLM: the teacher view's
-text stream.
+"""Text (ground-truth transcript) features from a language model: the
+teacher view's text stream.
 
-The port of ``sdumc_tpu/extract/text.py`` for the LLaMA family (Vicuna,
-LLaMA-2, Alpaca). Reference (feature_extraction/text/
-extract_text_embedding_huggingface.py): per row, tokenizer -> LLM forward,
-hidden states [-4..-1] summed, the special-token span stripped by a
-tokenizer probe, fp16 LLMs. The default text stream of the fusion net,
+The port of ``sdumc_tpu/extract/text.py``. Reference (feature_extraction/
+text/extract_text_embedding_huggingface.py): per row, tokenizer -> model
+forward, hidden states [-4..-1] summed, the special-token span stripped by
+a tokenizer probe, fp16 LLMs. The default text stream of the fusion net,
 ``vicuna-7b-v1.5-FRA-wavlm2vicuna-half-gt``, is Vicuna-7B over the
 transcript tapped at layer -3 (``--layer_ids -3``).
+
+``--family`` picks the model, as in JAX: ``llama`` (Vicuna, LLaMA-2,
+Alpaca; bf16), ``bert`` (BERT, RoBERTa, MacBERT, SimBERT), ``albert``,
+``deberta`` (v1), ``bloom`` and ``glm`` (THUDM chatglm2 and HF-native
+GLM), the last five at f32 with TF32 off, as JAX's loaders widen them.
+The tokenizer is read from the directory's own files
+(``convert/vocab_tokenizers.load_tokenizer``: ``tokenizer.json``,
+``vocab.txt``, ``vocab.json`` + ``merges.txt``, ``spiece.model`` or
+``tokenizer.model``), where JAX calls ``AutoTokenizer``.
 
 As in JAX: every sentence is tokenized first, rows are grouped into length
 buckets (16/32/64/128/256; a longer row runs at its exact length), each
 bucket runs in fixed batches of ``batch_size`` rows (the last chunk padded
-with dummy rows), with positions ``arange(L)`` and a causal plus
-key-padding mask, additive at -1e30. The tap sum is taken in the model
-dtype (bf16 for Vicuna), over the returned hidden states in sorted index
-order, as JAX sums them. An empty or NaN transcript gives zeros ([1, D] for
-FRAME, [D] for UTTERANCE). UTTERANCE is the mean of the span in f32 (JAX
-takes it in bf16, which numpy accumulates in bf16: ROADMAP §3).
-
-The other families (BERT, ALBERT, DeBERTa, BLOOM, GLM) and ``--tp > 1``
-raise, naming their ROADMAP items.
+with dummy rows of length 0). LLaMA runs with positions ``arange(L)`` and a
+causal plus key-padding mask, additive at -1e30; the other families take
+the key-padding mask ``arange(L) < lengths`` (BLOOM and GLM build their
+causal mask from it). Every mask is finite, so a dummy row's softmax is
+uniform, not NaN. The tap sum is taken in the model dtype over the
+returned hidden states in sorted index order, as JAX sums them. An empty
+or NaN transcript gives zeros ([1, D] for FRAME, [D] for UTTERANCE).
+UTTERANCE is the mean of the span in f32 (JAX takes it in the model dtype:
+for bf16 numpy accumulates in bf16, ROADMAP §3). ``--tp > 1`` raises,
+naming its ROADMAP item.
 
     python -m sdumc_tpu_torch.cli.extract text --model_dir DIR --trans_path CSV \\
-        --save_dir OUT [--layer_ids -3] [--device cpu]
+        --save_dir OUT [--family bert] [--layer_ids -3] [--device cpu]
 """
 
 from __future__ import annotations
@@ -37,9 +46,15 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sdumc_tpu_torch.models.llama import NEG_MASK, tap_indices
+from sdumc_tpu_torch.convert import hf_albert, hf_bert, hf_bloom, hf_deberta, hf_glm
+from sdumc_tpu_torch.models.llama import NEG_MASK, LlamaModel, tap_indices
 
 BUCKETS = (16, 32, 64, 128, 256)
+# --family -> its loader (model_dir, device) -> (config, model), the pad-mask families
+LOADERS = {"bert": hf_bert.load_hf_bert, "albert": hf_albert.load_hf_albert,
+           "deberta": hf_deberta.load_hf_deberta, "bloom": hf_bloom.load_hf_bloom,
+           "glm": hf_glm.load_hf_glm}
+FAMILIES = ("llama",) + tuple(LOADERS)
 
 
 def find_token_span(tokenizer, probe: str = "today is a good day") -> Tuple[int, int]:
@@ -78,16 +93,21 @@ def read_transcripts(csv_path: str, language: str = "english") -> List[Tuple[str
 def run_batch(model, ids: torch.Tensor, lengths: torch.Tensor,
               layer_ids: Sequence[int]) -> torch.Tensor:
     """(ids [B, L], lengths [B]) -> the tap sum [B, L, D] in the model
-    dtype: causal plus key-padding mask [B, 1, L, L], positions arange(L),
-    the selected hidden states summed in sorted order."""
+    dtype, the selected hidden states summed in sorted order: JAX's two
+    runners. A LlamaModel takes a causal plus key-padding mask [B, 1, L, L]
+    and positions arange(L); every other family the key-padding mask
+    ``arange(L) < lengths``."""
     B, L = ids.shape
     dev = ids.device
-    positions = torch.arange(L, device=dev)[None].expand(B, L)
-    causal = torch.ones(L, L, dtype=torch.bool, device=dev).tril()
     key_valid = torch.arange(L, device=dev)[None, :] < lengths[:, None]
-    mask = torch.where(causal[None] & key_valid[:, None, :], 0.0, NEG_MASK)[:, None]
-    hs = model(input_ids=ids, positions=positions, attn_mask=mask,
-               output_hidden_states=True)["hidden_states"]
+    if isinstance(model, LlamaModel):
+        positions = torch.arange(L, device=dev)[None].expand(B, L)
+        causal = torch.ones(L, L, dtype=torch.bool, device=dev).tril()
+        mask = torch.where(causal[None] & key_valid[:, None, :], 0.0, NEG_MASK)[:, None]
+        hs = model(input_ids=ids, positions=positions, attn_mask=mask,
+                   output_hidden_states=True)["hidden_states"]
+    else:
+        hs = model(ids, pad_mask=key_valid, output_hidden_states=True)["hidden_states"]
     return sum(hs[i] for i in tap_indices(len(hs), layer_ids))
 
 
@@ -106,11 +126,12 @@ def extract_text_features(
     batch_size: int = 16,
 ) -> List[np.ndarray]:
     """One f32 array per sentence: the token span [T, D] (FRAME) or its
-    mean [D] (UTTERANCE). ``model`` is a LlamaModel on the device it runs
-    on."""
+    mean [D] (UTTERANCE). ``model`` is a trunk of one of the families
+    (LlamaModel, BertModel, AlbertModel, DebertaModel, BloomModel,
+    GlmModel) on the device it runs on."""
     start, end = find_token_span(tokenizer)
     dim = model.cfg.hidden_size
-    dev = model.norm.weight.device
+    dev = next(model.parameters()).device
     results: List[Optional[np.ndarray]] = [None] * len(sentences)
     all_ids: List[List[int]] = []
     by_bucket = {}
@@ -151,20 +172,20 @@ def main(argv=None) -> dict:
     the host-clock seconds of the extraction (weights loaded before it)."""
     from sdumc_tpu_torch.cli.common import resolve_device, set_matmul_precision
     from sdumc_tpu_torch.convert.hf_llama import load_hf_llama_trunk
-    from sdumc_tpu_torch.convert.llama_tokenizer import LlamaTokenizer
+    from sdumc_tpu_torch.convert.vocab_tokenizers import load_tokenizer
 
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model_dir", type=str, required=True,
-                        help="HF-format LLaMA directory: config.json, the weights and "
-                             "tokenizer.json or tokenizer.model")
+                        help="HF-format model directory of the family: config.json, the "
+                             "weights and the tokenizer's files")
     parser.add_argument("--trans_path", type=str, required=True,
                         help="transcription csv (name,sentence)")
     parser.add_argument("--save_dir", type=str, required=True)
     parser.add_argument("--model_name", type=str, default="vicuna-7b-v1.5",
                         help="parsed for recipe parity and not read (as in JAX)")
-    parser.add_argument("--family", type=str, default="llama",
-                        choices=["llama", "bert", "albert", "deberta", "bloom", "glm"],
-                        help="llama covers vicuna/llama2/alpaca; only llama is ported")
+    parser.add_argument("--family", type=str, default="llama", choices=list(FAMILIES),
+                        help="llama covers vicuna/llama2/alpaca; bert covers "
+                             "bert/roberta/macbert/simbert; glm covers chatglm2-6b/glm-4")
     parser.add_argument("--language", type=str, default="english",
                         choices=["english", "chinese"])
     parser.add_argument("--feature_level", type=str, default="FRAME")
@@ -175,16 +196,16 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="cuda (the default) raises when no card is present")
     args = parser.parse_args(argv)
-    if args.family != "llama":
-        raise NotImplementedError(f"--family {args.family} is not ported yet: ROADMAP queue 1, "
-                                  "the other text families")
     if args.tp > 1:
         raise NotImplementedError("--tp > 1 is not ported yet: ROADMAP queue 1, multi-device")
 
     device = resolve_device(args.device)
     set_matmul_precision("highest")
-    _, model = load_hf_llama_trunk(args.model_dir, device=device)
-    tokenizer = LlamaTokenizer.from_dir(args.model_dir)
+    if args.family == "llama":
+        _, model = load_hf_llama_trunk(args.model_dir, device=device)
+    else:
+        _, model = LOADERS[args.family](args.model_dir, device=device)
+    tokenizer = load_tokenizer(args.model_dir)
     rows = read_transcripts(args.trans_path, language=args.language)
     os.makedirs(args.save_dir, exist_ok=True)
     t0 = time.perf_counter()

@@ -36,7 +36,11 @@ DINOv2, VideoMAE, EVA-02, ResNet-18; no kernel of the port) are held to
 the CPU at tiny sizes, alone and through ``cli.extract vision``. So are
 the baseline families' train steps (tfn, mfn, mctn, mult: the GEMM, LSTM,
 GRU and attention paths; no kernel of the port), and ``cli.train`` /
-``cli.infer --model`` for tfn and mfn.
+``cli.infer --model`` for tfn and mfn. The other text families (BERT,
+RoBERTa, ALBERT, DeBERTa, BLOOM, GLM; no kernel of the port) run at 2
+layers through extract_text_features, card against CPU, and
+``cli.extract text --family bert|glm`` on a directory written without
+transformers, card against ``--device cpu``.
 """
 
 import math
@@ -1133,3 +1137,142 @@ def test_cli_train_baseline_on_card(cuda, tmp_path, name):
     assert next(result["state"].model.parameters()).is_cuda
     out = infer.main(common + ["--checkpoint", str(tmp_path / "ck" / "best_full.pt")])
     assert out["full"]["mae"] == pytest.approx(result["best_full"]["mae"], rel=1e-6)
+
+
+def _seeded(model, seed, std=0.05):
+    """Every weight normal(0, std), 1-D norm scales 1 + normal(0, std),
+    drawn on the CPU from one generator."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            noise = torch.randn(p.shape, generator=gen) * std
+            p.copy_(1 + noise if p.ndim == 1 and "norm" in name.lower() else noise)
+    return model.eval()
+
+
+def _text_family(kind, layers=2):
+    """A port model of each text family at a small width, 2 layers."""
+    from sdumc_tpu_torch.models import albert, bert, bloom, deberta, glm
+
+    return {
+        "bert": lambda: bert.BertModel(bert.BertConfig.tiny(num_layers=layers, vocab_size=120)),
+        "roberta": lambda: bert.BertModel(bert.BertConfig.tiny(num_layers=layers, vocab_size=120,
+                                                               position_offset=2)),
+        "albert": lambda: albert.AlbertModel(albert.AlbertConfig.tiny(num_layers=layers,
+                                                                      vocab_size=120)),
+        "deberta": lambda: deberta.DebertaModel(deberta.DebertaConfig.tiny(
+            num_layers=layers, vocab_size=120, max_relative_positions=8)),
+        "bloom": lambda: bloom.BloomModel(bloom.BloomConfig.tiny(num_layers=layers,
+                                                                 vocab_size=120)),
+        "glm": lambda: glm.GlmModel(glm.GlmConfig.tiny(num_layers=layers, vocab_size=120)),
+    }[kind]()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bert", "roberta", "albert", "deberta", "bloom", "glm"])
+def test_text_family_on_card_matches_cpu(cuda, kind):
+    """Each text family at 2 layers (f32, TF32 off) through
+    extract_text_features on the card against the CPU: length buckets, a
+    short last chunk padded with rows of length 0, an empty row; 1e-4."""
+    import copy
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.extract.text import extract_text_features
+
+    set_matmul_precision("highest")
+    model = _seeded(_text_family(kind), seed=7)
+    words = "today is a good day and the movie was really not bad at all".split()
+    rng = np.random.default_rng(8)
+    sents = [" ".join(rng.choice(words, size=n)) for n in (3, 9, 1, 14, 20, 5, 7)] + [""]
+    kw = dict(layer_ids=(-2, -1), buckets=(8, 16), batch_size=3)
+    cpu = extract_text_features(model, _WordTokenizer(), sents, **kw)
+    card = extract_text_features(copy.deepcopy(model).to(cuda), _WordTokenizer(), sents, **kw)
+    for c, g in zip(cpu, card):
+        assert c.shape == g.shape and np.isfinite(g).all()
+        np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4)
+
+
+def _write_family_dir(path, kind):
+    """A tiny directory the port's loaders read, written without
+    transformers: config.json, the model's state dict as model.safetensors
+    (the port's keys are HF's), and a tokenizer (BERT's vocab.txt; for
+    GLM a byte-level tokenizer.json with the [gMASK] <sop> template)."""
+    import json
+    import os
+
+    from sdumc_tpu_torch.convert import safetensors_io
+    from sdumc_tpu_torch.convert.hf_tokenizer import BYTE_CHARS
+
+    os.makedirs(path, exist_ok=True)
+    words = "today is a good day and the movie was really not bad at all".split()
+    if kind == "bert":
+        vocab = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words + list("abcdefghijklmnopqrstuvwxyz")
+        (path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+        config = {"model_type": "bert", "vocab_size": len(vocab), "hidden_size": 32,
+                  "num_hidden_layers": 2, "num_attention_heads": 4, "intermediate_size": 64,
+                  "max_position_embeddings": 64, "type_vocab_size": 2}
+        from sdumc_tpu_torch.convert.hf_bert import config_from_hf
+        from sdumc_tpu_torch.models.bert import BertModel as cls
+        tok_cfg = {"tokenizer_class": "BertTokenizer", "do_lower_case": True}
+    else:
+        vocab = {c: i for i, c in enumerate(BYTE_CHARS.values())}
+        merges = []
+        for w in words:
+            b = "".join(BYTE_CHARS[x] for x in (" " + w).encode())
+            for n in range(2, len(b) + 1):
+                if b[:n] not in vocab:
+                    vocab[b[:n]] = len(vocab)
+                    merges.append(f"{b[:n - 1]} {b[n - 1]}")
+        n = len(vocab)
+        spec = {"normalizer": None,
+                "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False},
+                "model": {"type": "BPE", "vocab": vocab, "merges": merges},
+                "post_processor": {"type": "TemplateProcessing", "single": [
+                    {"SpecialToken": {"id": "[gMASK]", "type_id": 0}},
+                    {"SpecialToken": {"id": "<sop>", "type_id": 0}},
+                    {"Sequence": {"id": "A", "type_id": 0}}],
+                    "pair": [{"Sequence": {"id": "A", "type_id": 0}},
+                             {"Sequence": {"id": "B", "type_id": 1}}],
+                    "special_tokens": {"[gMASK]": {"id": "[gMASK]", "ids": [n], "tokens": ["[gMASK]"]},
+                                       "<sop>": {"id": "<sop>", "ids": [n + 1], "tokens": ["<sop>"]}}},
+                "decoder": {"type": "ByteLevel"},
+                "added_tokens": [{"id": n + i, "content": t, "single_word": False,
+                                  "lstrip": False, "rstrip": False, "normalized": False,
+                                  "special": True} for i, t in enumerate(("[gMASK]", "<sop>"))]}
+        (path / "tokenizer.json").write_text(json.dumps(spec))
+        config = {"model_type": "glm", "vocab_size": n + 2, "hidden_size": 48,
+                  "intermediate_size": 80, "num_hidden_layers": 2, "num_attention_heads": 4,
+                  "num_key_value_heads": 2, "head_dim": 12, "rms_norm_eps": 1e-5}
+        from sdumc_tpu_torch.convert.hf_glm import config_from_hf
+        from sdumc_tpu_torch.models.glm import GlmModel as cls
+        tok_cfg = {"tokenizer_class": "PreTrainedTokenizerFast"}
+    (path / "config.json").write_text(json.dumps(config))
+    (path / "tokenizer_config.json").write_text(json.dumps(tok_cfg))
+    model = _seeded(cls(config_from_hf(config)), seed=9)
+    safetensors_io.save_file(model.state_dict(), str(path / "model.safetensors"))
+    return words
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["bert", "glm"])
+def test_cli_extract_text_family_on_card_matches_cpu(cuda, tmp_path, kind):
+    """``cli.extract text --family bert|glm`` on the card (its default
+    device) against ``--device cpu`` on the same directory: every feature
+    finite, of the same shape, within 1e-4."""
+    import csv
+
+    from sdumc_tpu_torch.cli import extract
+
+    words = _write_family_dir(tmp_path / "model", kind)
+    rng = np.random.default_rng(10)
+    rows = [(f"u{i}", " ".join(rng.choice(words, size=n))) for i, n in enumerate((2, 7, 12, 30))]
+    with open(tmp_path / "t.csv", "w", newline="") as f:
+        csv.writer(f).writerows([("name", "sentence")] + rows + [("empty", "")])
+    common = ["text", "--family", kind, "--model_dir", str(tmp_path / "model"),
+              "--trans_path", str(tmp_path / "t.csv")]
+    extract.main(common + ["--save_dir", str(tmp_path / "card")])
+    extract.main(common + ["--save_dir", str(tmp_path / "cpu"), "--device", "cpu"])
+    for name, _ in rows + [("empty", "")]:
+        g, c = (np.load(tmp_path / d / f"{name}.npy") for d in ("card", "cpu"))
+        assert g.shape == c.shape and np.isfinite(g).all()
+        np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4)

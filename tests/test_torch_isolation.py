@@ -1,7 +1,10 @@
 """sdumc_tpu_torch stands alone: importing every one of its modules pulls in
 neither JAX (jax, flax, optax), nor anything of the JAX package sdumc_tpu,
 nor transformers or safetensors (its HF loaders read the checkpoint files,
-safetensors included, and the tokenizers' files themselves),
+safetensors included, and the tokenizers' files themselves), nor
+tokenizers, sentencepiece or regex (the card's machine has none of them:
+the tokenizer readers parse tokenizer.json, vocab files and SentencePiece
+models themselves and translate the regexes to ``re``),
 nor Pillow or pandas (the card's machine has neither), nor ml_dtypes (JAX's
 dependency: the port keeps bf16 on the host as uint16 bit patterns), and
 its sources name none of them in an import, save one: the image reader
@@ -17,7 +20,8 @@ import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "sdumc_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sdumc_tpu", "transformers", "safetensors")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sdumc_tpu", "transformers", "safetensors",
+             "tokenizers", "sentencepiece", "regex")
 HOST_LIBS = ("PIL", "pandas", "ml_dtypes")   # not known on the card's machine
 LAZY_LIBS = ("yaml",)                        # imported only inside the one function that reads it
 
@@ -129,3 +133,33 @@ VISION_IMPORTS = {"__future__", "argparse", "dataclasses", "glob", "json", "math
 def test_vision_modules_import_only_numpy_torch_and_the_port(rel):
     mods = {mod.split(".")[0] for mod, _ in _imports(ast.parse((PACKAGE / rel).read_text()))}
     assert mods <= VISION_IMPORTS, mods - VISION_IMPORTS
+
+
+TEXT_MODULES = ("models/bert.py", "models/albert.py", "models/deberta.py", "models/bloom.py",
+                "models/glm.py", "convert/hf_text.py", "convert/hf_bert.py",
+                "convert/hf_albert.py", "convert/hf_deberta.py", "convert/hf_bloom.py",
+                "convert/hf_glm.py", "convert/hf_tokenizer.py", "convert/vocab_tokenizers.py",
+                "data/raw_text.py", "extract/text.py")
+# all that the text families' modules import: the standard library's few, numpy, torch
+# and the port itself
+TEXT_IMPORTS = {"__future__", "argparse", "base64", "csv", "dataclasses", "functools", "glob",
+                "hashlib", "importlib", "json", "math", "os", "re", "struct", "sys", "time",
+                "typing", "unicodedata", "numpy", "torch", "sdumc_tpu_torch"}
+
+
+def test_the_walk_imports_the_text_family_modules():
+    """pkgutil's walk reaches the text families' modules (models, loaders,
+    tokenizer readers, raw_text), so the probe above covers them."""
+    import pkgutil
+
+    import sdumc_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(sdumc_tpu_torch.__path__, "sdumc_tpu_torch.")}
+    for rel in TEXT_MODULES:
+        assert "sdumc_tpu_torch." + rel[:-3].replace("/", ".") in names, rel
+
+
+@pytest.mark.parametrize("rel", TEXT_MODULES)
+def test_text_modules_import_only_numpy_torch_and_the_port(rel):
+    mods = {mod.split(".")[0] for mod, _ in _imports(ast.parse((PACKAGE / rel).read_text()))}
+    assert mods <= TEXT_IMPORTS, mods - TEXT_IMPORTS
