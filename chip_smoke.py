@@ -2,9 +2,9 @@
 """Smoke run of the PyTorch/CUDA port (sdumc_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py                 # every phase, as below
-    python3 chip_smoke.py --ab OTHER      # phases 2-3, 17 and 19 only, for this
-                                          # checkout's kernels and OTHER's (the
-                                          # root of another checkout), in turns
+    python3 chip_smoke.py --ab OTHER      # phases 2-3, 9, 17 and 19 only, for
+                                          # this checkout and OTHER (the root of
+                                          # another checkout), in turns
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. environment: the card's name and power limit, then the kernel build
@@ -63,8 +63,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (the decode runs no kernel of the port), every output checked, and one
      4-clip chunk against its clips decoded alone;
  12. Vicuna-7B at full depth (32 layers, bf16, seeded on the card) through
-     Feat4Extractor.extract_many on the same features: host-clock rate and
-     peak memory, a chunk's ms per decode step (CUDA events) beside its
+     Feat4Extractor.extract_many on 9 of the same features (8 short clips
+     and the 60 s one; cut from 17 to hold the script's time): host-clock
+     rate and peak memory, a chunk's ms per decode step (CUDA events) beside its
      weight-and-KV-stream bound, device time by family, idle share and host
      launches per step from torch.profiler, then 32-step runs of the same
      chunk with --quant int8, --quant w8a8 and --kv_quant int8, timed, and
@@ -185,8 +186,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
      layers) at full depth, f32, seeded on the card, through
      extract_text_features: sentences/s, one 16-row batch by CUDA events
      beside its bound (max of the f32 flops of the real tokens and the f32
-     weight bytes), peak memory, device time by family.
-Each phase prints its seconds, and the total of phases 2-25 follows. The second-to-last line is {"kernels":
+     weight bytes), peak memory, device time by family;
+ 26. serving export: ``python -m sdumc_tpu_torch.cli.export`` with its
+     defaults (input widths 1024/4096/1024/4096, batch 128, combos
+     64x64x64x64, 256x64x256x64, 512x64x512x64) on phase 7's best_full.pt,
+     the bundle's bytes, every program checked for 0 weights, 0 constants
+     and 6 sdumc::fused_cross nodes; then a fresh process that imports only
+     sdumc_tpu_torch.serve loads the bundle and serves a partial batch (100
+     rows) in each combo and a second request in one combo at other lengths,
+     3 + 3 f32 launches each, and refuses lengths that fit no combo; every
+     answer held to make_eval_step on the same padded batch and checkpoint
+     on the card; a warm request per combo by host clock (numpy to numpy),
+     its padding and copy alone and the program alone (CUDA events) beside
+     the eager step, peak memory, one profiled request.
+Each phase prints its seconds, and the total of phases 2-26 follows. The second-to-last line is {"kernels":
 [...]}, the last line {"ok": true, "device": {...}}. Imports nothing of JAX
 or sdumc_tpu.
 
@@ -1045,9 +1058,10 @@ def extraction_phase(torch, flash_wavlm, tmp: str):
     return counts, out["save_dir"], out["audio_seconds"] / out["seconds"]
 
 
-def training_phase(torch, fused_cross):
+def training_phase(torch, fused_cross, ckpt_dir: str):
     """cli.train --synthetic for TRAIN_EPOCHS epochs at full width, with the
-    launch counters around it; its best_full.pt through cli.infer."""
+    launch counters around it, its checkpoints in `ckpt_dir` (phase 26
+    exports best_full.pt); its best_full.pt through cli.infer."""
     from sdumc_tpu_torch.cli import infer, train
     from sdumc_tpu_torch.data.pipeline import get_loaders
 
@@ -1055,41 +1069,41 @@ def training_phase(torch, fused_cross):
     bs = cfg.data.batch_size
     train_ds, val_ds, test_ds = get_loaders(cfg.data.dataset, cfg.data, cfg.paths, synthetic=True)
     per_epoch = len(train_ds) // bs + math.ceil(len(val_ds) / bs) + math.ceil(len(test_ds) / bs)
-    with tempfile.TemporaryDirectory() as tmp:
-        reset_counts()
-        t0 = time.perf_counter()
-        result = train.main(TRAIN_ARGV + ["--checkpoint_dir", tmp, "--save_root", tmp])
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        counts = read_counts()
-        launches = dict(fused_cross.LAUNCHES)
-        for q_count in REPLACES:
-            want = 3 * TRAIN_EPOCHS * per_epoch
-            if launches.get(q_count, 0) != want:
-                raise AssertionError(
-                    f"{REPLACES[q_count][0]}: {launches.get(q_count, 0)} launches on the training "
-                    f"path, expected 3 x {TRAIN_EPOCHS} epochs x {per_epoch} batches = {want}")
-        for h in result["history"]:
-            values = [h["train_loss"], h["train_mse_full"], h["train_mse_missing"],
-                      h["eval_mse_full"], h["test"]["full"]["mae"], h["test"]["missing"]["mae"]]
-            if not all(map(math.isfinite, values)):
-                raise AssertionError(f"non-finite training log: {h}")
-            print(f"  epoch {h['epoch'] + 1}: train_loss={h['train_loss']!r} "
-                  f"train_mse_full={h['train_mse_full']!r} test_mae_full="
-                  f"{h['test']['full']['mae']!r} test_mae_missing={h['test']['missing']['mae']!r} "
-                  f"{h['clips_per_sec']!r} clips/s host clock (collation and copies included)")
-        print(f"training path: {TRAIN_EPOCHS} epochs of {len(train_ds) // bs} steps at batch {bs} "
-              f"(+ eval {len(val_ds)} and test {len(test_ds)} clips per epoch), {seconds!r} s "
-              f"host clock (data generation, model init and checkpoints included); "
-              f"launches {counts}")
+    os.makedirs(ckpt_dir, exist_ok=True)
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train.main(TRAIN_ARGV + ["--checkpoint_dir", ckpt_dir, "--save_root", ckpt_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    launches = dict(fused_cross.LAUNCHES)
+    for q_count in REPLACES:
+        want = 3 * TRAIN_EPOCHS * per_epoch
+        if launches.get(q_count, 0) != want:
+            raise AssertionError(
+                f"{REPLACES[q_count][0]}: {launches.get(q_count, 0)} launches on the training "
+                f"path, expected 3 x {TRAIN_EPOCHS} epochs x {per_epoch} batches = {want}")
+    for h in result["history"]:
+        values = [h["train_loss"], h["train_mse_full"], h["train_mse_missing"],
+                  h["eval_mse_full"], h["test"]["full"]["mae"], h["test"]["missing"]["mae"]]
+        if not all(map(math.isfinite, values)):
+            raise AssertionError(f"non-finite training log: {h}")
+        print(f"  epoch {h['epoch'] + 1}: train_loss={h['train_loss']!r} "
+              f"train_mse_full={h['train_mse_full']!r} test_mae_full="
+              f"{h['test']['full']['mae']!r} test_mae_missing={h['test']['missing']['mae']!r} "
+              f"{h['clips_per_sec']!r} clips/s host clock (collation and copies included)")
+    print(f"training path: {TRAIN_EPOCHS} epochs of {len(train_ds) // bs} steps at batch {bs} "
+          f"(+ eval {len(val_ds)} and test {len(test_ds)} clips per epoch), {seconds!r} s "
+          f"host clock (data generation, model init and checkpoints included); "
+          f"launches {counts}")
 
-        out = infer.main(MAIN_ARGV + ["--checkpoint", os.path.join(tmp, "best_full.pt")])
-        mae, best = out["full"]["mae"], result["best_full"]["mae"]
-        print(f"best_full.pt (epoch {result['best_full']['epoch'] + 1}) through cli.infer: test MAE "
-              f"{mae!r}, the loop recorded {best!r} (tolerance rtol={CKPT_MAE_RTOL}: the same "
-              f"kernels on the same batches)")
-        if abs(mae - best) > CKPT_MAE_RTOL * abs(best):
-            raise AssertionError("the best checkpoint does not reproduce its MAE")
+    out = infer.main(MAIN_ARGV + ["--checkpoint", os.path.join(ckpt_dir, "best_full.pt")])
+    mae, best = out["full"]["mae"], result["best_full"]["mae"]
+    print(f"best_full.pt (epoch {result['best_full']['epoch'] + 1}) through cli.infer: test MAE "
+          f"{mae!r}, the loop recorded {best!r} (tolerance rtol={CKPT_MAE_RTOL}: the same "
+          f"kernels on the same batches)")
+    if abs(mae - best) > CKPT_MAE_RTOL * abs(best):
+        raise AssertionError("the best checkpoint does not reproduce its MAE")
     return launches
 
 
@@ -1547,9 +1561,12 @@ def profile_decode(torch, model, cfg, prompts, lens, first: int = PROFILE_FROM,
         print(f"    {ms:9.4f} ms {ms / total:7.2%}  {fam}")
 
 
+FULL_DEPTH_CLIPS = 8          # phase 12's short clips, beside the 60 s one
+
+
 def full_depth_phase(torch, llm_dir: str, proj_path: str, feats_dir: str):
     """Phase 12: Vicuna-7B at 32 layers in bf16 (seeded on the card) through
-    Feat4Extractor.extract_many on phase 5's features at --gen_batch 4; a
+    Feat4Extractor.extract_many on 9 of phase 5's features at --gen_batch 4; a
     timed and profiled chunk; then one chunk of 32 steps with int8, w8a8
     and int8-KV, each against bf16."""
     import dataclasses
@@ -1581,19 +1598,22 @@ def full_depth_phase(torch, llm_dir: str, proj_path: str, feats_dir: str):
                         gen_batch=GEN_BATCH)
     files = sorted(glob.glob(os.path.join(feats_dir, "*.npy")))
     feats = [np.load(p) for p in files]
+    # depth cut to hold the script's time: the first FULL_DEPTH_CLIPS short clips and the
+    # 60 s one (the timed chunk below still picks from all of them)
+    run = list(range(FULL_DEPTH_CLIPS)) + [len(files) - 1]
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results = ex.extract_many(feats)
+    results = ex.extract_many([feats[i] for i in run])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
     n_tok = sum(len(r["taps"]) for r in results)
-    for path, r in zip(files, results):
+    for path, r in zip([files[i] for i in run], results):
         if r["taps"].shape[1] != cfg.hidden_size or not np.isfinite(r["taps"]).all():
             raise AssertionError(f"{path}: taps {r['taps'].shape} or non-finite")
     per_clip = sorted({len(r["taps"]) for r in results})
-    print(f"full depth, Feat4Extractor.extract_many on {len(feats)} clips at --gen_batch "
+    print(f"full depth, Feat4Extractor.extract_many on {len(run)} clips at --gen_batch "
           f"{GEN_BATCH}: {n_tok} taps rows (steps per clip {per_clip}), {seconds!r} s host "
           f"clock, {n_tok / seconds!r} clip-tokens/s; peak device memory {peak!r} GiB")
 
@@ -2533,8 +2553,8 @@ def bf16_layer_holds(torch, cpu_model, cfg, wav, cpu_tap):
     wav_t = torch.from_numpy(batch).bfloat16()
 
     def f32_attention(q, k, v, gate, rel_embed, kvalid, bias_diag, **kw):
-        return flash_wavlm.launch(q.float(), k.float(), v.float(), gate.float(),
-                                  bias_diag.float(), kvalid).to(q.dtype)
+        return torch.ops.sdumc.flash_wavlm(q.float(), k.float(), v.float(), gate.float(),
+                                           bias_diag.float(), kvalid).to(q.dtype)
 
     runs = {"sound": {}, "control: the f32 instance on widened inputs": {
                 "flash_gated_attention": f32_attention},
@@ -3856,11 +3876,282 @@ def text_families_phase(torch, tmp: str, rows):
         family_full_depth(torch, name, toks[name], rows)
 
 
+# ---------------------------------------------------------------- serving (phase 26)
+
+# cli.export's defaults (JAX's): the published input widths, batch 128, three combos
+SERVE_DIMS = (1024, 4096, 1024, 4096)
+SERVE_BATCH = 128
+SERVE_COMBOS = ((64, 64, 64, 64), (256, 64, 256, 64), (512, 64, 512, 64))
+# (label, lengths, rows): a partial batch for each combo, then a second request in
+# the middle combo at other lengths; UNFIT_LENGTHS fits no combo
+SERVE_REQUESTS = (("64 combo", (50, 40, 64, 30), 100),
+                  ("256 combo", (200, 64, 180, 50), 100),
+                  ("512 combo", (512, 60, 400, 64), 100),
+                  ("256 combo, other lengths", (130, 20, 256, 9), 37))
+UNFIT_LENGTHS = (600, 10, 10, 10)
+SERVE_TIMED = 10
+SERVE_FAMILIES = (
+    ("fusion kernel", ("cross_partial", "cross_combine", "split_w")),
+    ("cuBLAS GEMMs (frame and query projections, MLPs)",
+     ("gemm", "nvjet", "cutlass", "sm80_xmma", "sm90_xmma")),
+    ("memory copies (the request to the card, the answers back)", ("memcpy", "memset")),
+)
+
+
+def serve_request(i: int) -> dict:
+    """Request i of SERVE_REQUESTS (numpy f32 streams [rows, T_m, D_m]), made
+    from seed i in bulk; i = -1 is the request that fits no combo."""
+    import numpy as np
+
+    lens, rows = (UNFIT_LENGTHS, 2) if i < 0 else SERVE_REQUESTS[i][1:]
+    rng = np.random.default_rng(100 + i)
+    return {k: rng.standard_normal((rows, t, d), dtype=np.float32)
+            for k, t, d in zip(("audio", "text", "video", "feat4"), lens, SERVE_DIMS)}
+
+
+def served_kernel_vs_plain(torch, fused_cross, calls) -> list:
+    """Each fusion-kernel launch of one served request (``calls``: the
+    arguments ``fused_cross.launch`` got from the op and what it returned)
+    held against its plain version on the same inputs, on the card:
+    [{"q": Q, "shape": [B, T, D], "t_max": [...], "nsplit": n,
+    "max_abs_err": e, "ok": allclose at KERNEL_RTOL / KERNEL_ATOL}]."""
+    rows = []
+    with torch.no_grad():
+        for (q, x, weight, bias, t_max, scale), kw, got in calls:
+            if kw["q_batched"]:
+                ref = fused_cross.fused_cross_attention_plain(q, x, weight, bias, t_max, scale)
+            else:
+                ref = fused_cross.fused_attention_pool_plain(x, weight, bias, q[0], t_max,
+                                                             scale)[:, None]
+            B, T, _ = x.shape
+            rows.append({"q": q.shape[-2], "shape": list(x.shape),
+                         "t_max": (t_max.reshape(-1).tolist() if isinstance(t_max, torch.Tensor)
+                                   else t_max),
+                         "t_max_form": (f"{t_max.ndim}-d {t_max.dtype} on {t_max.device.type}"
+                                        if isinstance(t_max, torch.Tensor) else type(t_max).__name__),
+                         "nsplit": fused_cross._splits(x.device, B, T),
+                         "max_abs_err": (got - ref).abs().max().item(),
+                         "ok": bool(got.shape == ref.shape and torch.isfinite(got).all()
+                                    and torch.allclose(got, ref, rtol=KERNEL_RTOL,
+                                                       atol=KERNEL_ATOL))})
+    return rows
+
+
+def serve_worker(torch, bundle_dir: str, out_dir: str) -> None:
+    """The serving process of phase 26: imports sdumc_tpu_torch.serve alone,
+    loads the bundle, answers SERVE_REQUESTS with the launch counters around
+    each and the unfittable one, times a warm request per combo (host clock,
+    numpy to numpy; the padding and copy alone; CUDA events around the
+    program alone), its peak memory and one profiled request. Writes
+    answers.npz and report.json to `out_dir`."""
+    import numpy as np
+
+    from sdumc_tpu_torch.ops.kernels import fused_cross
+    from sdumc_tpu_torch.serve import ServingBundle
+
+    t0 = time.perf_counter()
+    bundle = ServingBundle.load(bundle_dir)
+    torch.cuda.synchronize()
+    report = {"load_s": time.perf_counter() - t0, "requests": []}
+    answers, batches = {}, []
+    launch = fused_cross.launch
+    for i, (label, lens, rows) in enumerate(SERVE_REQUESTS):
+        batch = serve_request(i)
+        batches.append(batch)
+        calls = []
+
+        def recorded(*a, **kw):   # the op's CUDA implementation looks launch up per call
+            out = launch(*a, **kw)
+            calls.append((a, kw, out))
+            return out
+
+        fused_cross.launch = recorded
+        fused_cross.reset_launches()
+        try:
+            answers[f"full{i}"], answers[f"missing{i}"] = bundle(batch)
+        finally:
+            fused_cross.launch = launch
+        report["requests"].append({"label": label, "combo": list(bundle._pick(lens)),
+                                   "launches": dict(fused_cross.LAUNCHES),
+                                   "launches_bf16": dict(fused_cross.LAUNCHES_BF16),
+                                   "kernel_vs_plain": served_kernel_vs_plain(torch, fused_cross,
+                                                                             calls)})
+        del calls
+    try:
+        bundle(serve_request(-1))
+        report["unfit"] = None
+    except ValueError as e:
+        report["unfit"] = str(e)
+    torch.cuda.reset_peak_memory_stats()
+    report["timing"] = []
+    for i, batch in enumerate(batches[:len(SERVE_COMBOS)]):
+        for _ in range(3):
+            bundle(batch)
+        host, pad = [], []
+        for _ in range(SERVE_TIMED):
+            t0 = time.perf_counter()
+            bundle(batch)
+            host.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            combo, inputs, _ = bundle.pad(batch)
+            torch.cuda.synchronize()
+            pad.append((time.perf_counter() - t0) * 1e3)
+        program_ms = time_ms(lambda: bundle.run(combo, inputs), iters=SERVE_TIMED)
+        nbytes = sum(x.nbytes for x in batch.values())
+        report["timing"].append({"combo": list(combo), "rows": batch["audio"].shape[0],
+                                 "request_bytes": nbytes,
+                                 "host_ms": sorted(host)[len(host) // 2],
+                                 "pad_copy_ms": sorted(pad)[len(pad) // 2],
+                                 "program_ms": program_ms})
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bundle(batches[2])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report["profile"] = print_device_time(
+        prof, wall, f"profiled served request ({SERVE_REQUESTS[2][0]}, warm, numpy to numpy)",
+        SERVE_FAMILIES, "elementwise, softmax and the rest")
+    report["profile_launches"] = sum(e.count for e in prof.key_averages()
+                                     if e.device_type == DeviceType.CPU and "LaunchKernel" in e.key)
+    report["models_imported"] = sorted(m for m in sys.modules
+                                       if m.startswith("sdumc_tpu_torch.models"))
+    np.savez(os.path.join(out_dir, "answers.npz"), **answers)
+    with open(os.path.join(out_dir, "report.json"), "w") as f:
+        json.dump(report, f)
+
+
+def serve_phase(torch, work: str, ckpt: str, card: str) -> dict:
+    """Phase 26: ``python -m sdumc_tpu_torch.cli.export`` with its defaults on
+    phase 7's best_full.pt; every program without weights or constants and
+    with 6 fusion-op nodes; a fresh process (``serve_worker``) serves
+    SERVE_REQUESTS from the bundle; every answer against make_eval_step on
+    the same padded batch, the same checkpoint, on the card; the timings.
+    Returns the launches of one served request, {query count: n}."""
+    import numpy as np
+
+    from sdumc_tpu_torch.cli.common import build_model, set_matmul_precision
+    from sdumc_tpu_torch.core.config import ExperimentConfig
+    from sdumc_tpu_torch.train.step import make_eval_step
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    bundle_dir, out_dir = os.path.join(work, "bundle"), os.path.join(work, "served")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sdumc_tpu_torch.cli.export", "--checkpoint",
+                           ckpt, "--out_dir", bundle_dir], cwd=here, capture_output=True,
+                          text=True, timeout=900)
+    print(proc.stdout.rstrip())
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError("cli.export failed")
+    sizes = {f: os.path.getsize(os.path.join(bundle_dir, f))
+             for f in sorted(os.listdir(bundle_dir))}
+    print(f"cli.export (defaults: dims {SERVE_DIMS}, batch {SERVE_BATCH}, combos "
+          f"{SERVE_COMBOS}, the card): {time.perf_counter() - t0!r} s (process start, model "
+          f"build and checkpoint load included); bundle {sum(sizes.values())!r} bytes: {sizes}")
+    for name in sizes:
+        if name.endswith(".pt2"):
+            program = torch.export.load(os.path.join(bundle_dir, name))
+            ops = sum(n.target is torch.ops.sdumc.fused_cross.default for n in program.graph.nodes)
+            if len(program.state_dict) or len(program.constants) or ops != 6:
+                raise AssertionError(f"{name}: {len(program.state_dict)} weights, "
+                                     f"{len(program.constants)} constants, {ops} fusion-op nodes "
+                                     "(expected 0, 0, 6)")
+    print("every program: 0 weights, 0 constants, 6 sdumc::fused_cross nodes")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve", bundle_dir,
+                           "--serve-out", out_dir], cwd=here, capture_output=True, text=True,
+                          timeout=900)
+    print(proc.stdout.rstrip())
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError("the serving process failed")
+    with open(os.path.join(out_dir, "report.json")) as f:
+        report = json.load(f)
+    answers = np.load(os.path.join(out_dir, "answers.npz"))
+    print(f"served from a fresh process: {time.perf_counter() - t0!r} s, bundle load "
+          f"{report['load_s']!r} s; sdumc_tpu_torch.models modules imported there: "
+          f"{report['models_imported']}")
+    if report["models_imported"]:
+        raise AssertionError("the serving process imported model code")
+    if not report["unfit"] or "bucket" not in report["unfit"]:
+        raise AssertionError(f"lengths {UNFIT_LENGTHS} did not raise ValueError: {report['unfit']}")
+    print(f"lengths {UNFIT_LENGTHS}: ValueError({report['unfit']!r})")
+
+    set_matmul_precision("highest")
+    model = build_model(ExperimentConfig(), SERVE_DIMS, torch.device("cuda"), ckpt)
+    eval_step = make_eval_step(model)
+    eager_ms = {}
+    worst = 0.0
+    for i, ((label, lens, rows), req) in enumerate(zip(SERVE_REQUESTS, report["requests"])):
+        if req["launches"] != {"1": 3, "7": 3} or any(req["launches_bf16"].values()):
+            raise AssertionError(f"{label}: launches {req['launches']} (bf16 "
+                                 f"{req['launches_bf16']}), expected 3 + 3 f32 and no bf16")
+        batch, combo = serve_request(i), tuple(req["combo"])
+        d = {}
+        for k, t_b in zip(("audio", "text", "video", "feat4"), combo):
+            x = batch[k]
+            padded = np.zeros((SERVE_BATCH, t_b, x.shape[2]), np.float32)
+            padded[:rows, : x.shape[1]] = x
+            d[k] = torch.from_numpy(padded).cuda()
+        d["t_max"] = lens
+        v0, v1 = (v[:rows].cpu() for v in eval_step(d))
+        if i < len(SERVE_COMBOS):
+            eager_ms[combo] = time_ms(lambda: eval_step(d), iters=SERVE_TIMED)
+        for view, ref, got in (("full", v0, answers[f"full{i}"]),
+                               ("missing", v1, answers[f"missing{i}"])):
+            got = torch.from_numpy(got)
+            if got.shape != ref.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"{label} {view}: shape {tuple(got.shape)} or non-finite")
+            err = (got - ref).abs().max().item()
+            worst = max(worst, err)
+            if not torch.allclose(got, ref, rtol=MODEL_RTOL, atol=MODEL_ATOL):
+                raise AssertionError(f"{label} {view}: served and eager disagree by {err!r}")
+        print(f"  {label}: {rows} rows, lengths {lens} -> combo {combo}; launches "
+              f"{req['launches']} (bf16 none)")
+        del d
+    print(f"served vs eager make_eval_step on the card (same checkpoint, same padded batch): "
+          f"largest abs diff {worst!r} (tolerance rtol={MODEL_RTOL} atol={MODEL_ATOL})")
+    print(f"each fusion-kernel launch of each served request vs its plain version on the same "
+          f"inputs, on the card (tolerance rtol={KERNEL_RTOL} atol={KERNEL_ATOL}):")
+    worst_kernel = 0.0
+    for (label, _, _), req in zip(SERVE_REQUESTS, report["requests"]):
+        calls = req["kernel_vs_plain"]
+        if len(calls) != 6:
+            raise AssertionError(f"{label}: {len(calls)} fusion-kernel launches recorded, not 6")
+        for c in calls:
+            worst_kernel = max(worst_kernel, c["max_abs_err"])
+            print(f"  {label}: Q={c['q']} x {c['shape']}, t_max {c['t_max_form']} "
+                  f"{c['t_max'][:1] if isinstance(c['t_max'], list) else c['t_max']}, "
+                  f"{c['nsplit']} blocks per row: max abs err {c['max_abs_err']!r}")
+            if not c["ok"]:
+                raise AssertionError(f"{label}: the fusion kernel (Q={c['q']}, x {c['shape']}) "
+                                     f"disagrees with its plain version by {c['max_abs_err']!r}")
+    print(f"served fusion kernel vs plain: largest abs err {worst_kernel!r}")
+    print(f"warm served requests ({card}; medians of {SERVE_TIMED}; host clock numpy to numpy, "
+          "the padding and copy alone, CUDA events around the program alone, beside CUDA events "
+          "around the eager make_eval_step on the same padded batch on the card):")
+    for t in report["timing"]:
+        combo = tuple(t["combo"])
+        print(f"  {'x'.join(map(str, combo))}: {t['rows']} rows ({t['request_bytes']!r} request "
+              f"bytes): served {t['host_ms']!r} ms, padding and copy {t['pad_copy_ms']!r} ms, "
+              f"program {t['program_ms']!r} ms, eager {eager_ms[combo]!r} ms")
+    print(f"serving process peak device memory {report['peak_gib']!r} GiB; the profiled request: "
+          f"{report['profile_launches']} kernel launches")
+    return {int(q): n for q, n in report["requests"][0]["launches"].items()}
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3, 17 and 19 (without the gradient checks) with the kernels
     of the checkout at `root`, built from its own sources into its own
-    build/kernels/, each held to that checkout's own plain versions;
-    per-kernel totals."""
+    build/kernels/, each held to that checkout's own plain versions, and
+    phase 9's warm train step on that checkout's package; per-kernel
+    totals and the step's ms."""
     sys.path.insert(0, os.path.abspath(root))
     from sdumc_tpu_torch.ops.kernels import build, flash_wavlm, fused_cross, fused_pool
 
@@ -3870,11 +4161,12 @@ def kernels_only(torch, root: str, lengths: dict) -> dict:
     bf16 = kernel_phase(torch, fused_cross, fused_pool, lengths, grads=False, bf16=True)
     return {REPLACES[7][0]: totals[7], REPLACES[1][0]: totals[1], FLASH["name"]: flash,
             REPLACES_BF16[7][0]: bf16[7], REPLACES_BF16[1][0]: bf16[1],
-            FLASH_BF16["name"]: flash_bf16_phase(torch, flash_wavlm, flash)}
+            FLASH_BF16["name"]: flash_bf16_phase(torch, flash_wavlm, flash),
+            "train_step_ms": step_timing_phase(torch)}
 
 
 def ab_phase(other: str) -> None:
-    """Phases 2-3, 17 and 19 for OTHER's kernels and this checkout's, each in
+    """Phases 2-3, 9, 17 and 19 for OTHER's checkout and this one, each in
     its own process, in the order OTHER, this, this, OTHER, on one card; the
     inputs and the timing are this script's in every run."""
     here = os.path.dirname(os.path.abspath(__file__))
@@ -3897,6 +4189,8 @@ def ab_phase(other: str) -> None:
         for call in runs[0][1][name]["calls"]:
             print(f"{name:12s} {call:12s} " + "  ".join(
                 f"{label}={res[name]['calls'][call]!r}" for label, res in runs))
+    print("train step (phase 9, ms) " + "  ".join(
+        f"{label}={res['train_step_ms']!r}" for label, res in runs))
     print(json.dumps({"ab": [{"run": label, **res} for label, res in runs]}))
 
 
@@ -3905,9 +4199,11 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ab", metavar="OTHER",
-                        help="time phases 2-3, 17 and 19 against OTHER's kernels")
+                        help="time phases 2-3, 9, 17 and 19 against OTHER's checkout")
     parser.add_argument("--kernels-from", help=argparse.SUPPRESS)
     parser.add_argument("--lengths", help=argparse.SUPPRESS)
+    parser.add_argument("--serve", help=argparse.SUPPRESS)
+    parser.add_argument("--serve-out", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3917,6 +4213,9 @@ def main() -> int:
         print(json.dumps(kernels_only(torch, args.kernels_from, lengths)))
         return 0
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.serve:
+        serve_worker(torch, args.serve, args.serve_out)
+        return 0
     if args.ab:
         print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
         ab_phase(args.ab)
@@ -3946,7 +4245,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         extract_counts, feats_dir, f32_rate = phase(5, extraction_phase, torch, flash_wavlm,
                                                      work)
-        launches = phase(7, training_phase, torch, fused_cross)
+        launches = phase(7, training_phase, torch, fused_cross, os.path.join(work, "train"))
         phase(8, step_parity_phase, torch)
         phase(9, step_timing_phase, torch)
         phase(10, llama_parity_phase, torch)
@@ -3965,7 +4264,9 @@ def main() -> int:
         phase(23, vision_phase, torch, work, card)
         phase(24, baseline_phase, torch, work, card)
         phase(25, text_families_phase, torch, work, rows)
-    print(f"phases 2-25: {time.perf_counter() - t_phases!r} s")
+        served = phase(26, serve_phase, torch, work, os.path.join(work, "train", "best_full.pt"),
+                       card)
+    print(f"phases 2-26: {time.perf_counter() - t_phases!r} s")
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():
@@ -4012,7 +4313,9 @@ def main() -> int:
           "mask gate * bias + keymask, built outside the timed region. "
           "Launches are counted on each kernel's own path: cli.train for "
           "fused_cross / fused_pool (cli.infer: "
-          f"{ {REPLACES[q][0]: n for q, n in infer_launches.items()} }), cli.extract audio "
+          f"{ {REPLACES[q][0]: n for q, n in infer_launches.items()} }; a request served "
+          "from cli.export's bundle, phase 26: "
+          f"{ {REPLACES[q][0]: n for q, n in served.items()} }), cli.extract audio "
           "for flash_wavlm, cli.train --feature_dtype bfloat16 on the bf16 store for the "
           "bf16 instances (the int8 store's run: "
           f"{ {REPLACES_BF16[q][0]: n for q, n in store_launches['int8'].items()} }), "

@@ -17,8 +17,13 @@ carries it across its layers. Its buckets are always computed on the CPU,
 so the kernel and the plain version see the same ones whatever the device's
 ``log`` rounds to. The kernel (``csrc/flash_wavlm.cu``) streams key tiles
 through an online softmax and never stores the [T, T] scores; its header
-says what bounds it on an H100. A tensor on the CPU takes the plain version
-below; a tensor on the card takes the kernel or raises.
+says what bounds it on an H100. Python reaches the kernel through one
+``torch.library`` custom op, ``sdumc::flash_wavlm``: its CUDA
+implementation is ``launch`` (the only caller of the ``ctypes`` entry
+points), its CPU implementation the plain version below, and its fake
+implementation gives ``torch.export`` the output's shape. So a tensor on
+the CPU takes the plain version, and a tensor on the card takes the kernel
+or raises.
 
 q, k, v are f32, or bf16 (``cli.extract audio --dtype bfloat16``): the bf16
 instance computes what the Pallas kernel computes at bf16 inputs. The gate
@@ -36,8 +41,8 @@ that differ at all, which catches a p rounded against another max, an
 unrounded p or a row sum of the unrounded p (see its comment).
 
 The gradient (``FlashGatedAttention``) is the port of JAX's
-``flash_gated_attention_trainable``: the forward is the kernel (the plain
-version on the CPU), the backward is ``_flash_bwd_scan`` (flash_wavlm.py:
+``flash_gated_attention_trainable``: the forward is the op (the kernel, or
+the plain version on the CPU), the backward is ``_flash_bwd_scan`` (flash_wavlm.py:
 435-486) as torch ops over query chunks, in O(T * chunk) memory. JAX's
 backward is XLA, not Pallas, so there is no backward kernel here either.
 """
@@ -46,6 +51,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
@@ -215,15 +221,27 @@ def flash_gated_attention(q, k, v, gate, rel_embed, kvalid=None, bias_diag=None,
         bias_diag = bias_diag_for(rel_embed, q.shape[1], num_buckets, max_distance)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, gate, bias_diag)):
         return FlashGatedAttention.apply(q, k, v, gate, bias_diag, kvalid)
-    return _forward(q, k, v, gate, bias_diag, kvalid)
+    return torch.ops.sdumc.flash_wavlm(q, k, v, gate, bias_diag, kvalid)
 
 
-def _forward(q, k, v, gate, bias_diag, kvalid):
-    """The kernel for a CUDA q, the plain version for a CPU one."""
-    if q.device.type == "cpu":
-        return flash_gated_attention_plain(q, k, v, gate, None, kvalid, bias_diag,
-                                           num_buckets=0, max_distance=0)
+@torch.library.custom_op("sdumc::flash_wavlm", mutates_args=(), device_types="cpu")
+def _flash_wavlm_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, gate: torch.Tensor,
+                    bias_diag: torch.Tensor, kvalid: Optional[torch.Tensor]) -> torch.Tensor:
+    """out [B, T, H, hd] in q's dtype: the kernel for a CUDA q, the plain
+    version (this body) for a CPU one. No gradient formula of its own:
+    ``flash_gated_attention`` puts ``FlashGatedAttention`` around it."""
+    return flash_gated_attention_plain(q, k, v, gate, None, kvalid, bias_diag,
+                                       num_buckets=0, max_distance=0).contiguous()
+
+
+@_flash_wavlm_op.register_kernel("cuda")
+def _flash_wavlm_cuda(q, k, v, gate, bias_diag, kvalid):
     return launch(q, k, v, gate, bias_diag, kvalid)
+
+
+@_flash_wavlm_op.register_fake
+def _flash_wavlm_fake(q, k, v, gate, bias_diag, kvalid):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
 
 
 class FlashGatedAttention(torch.autograd.Function):
@@ -243,7 +261,7 @@ class FlashGatedAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, gate, bias_diag, kvalid):
-        out = _forward(q, k, v, gate, bias_diag, kvalid)
+        out = torch.ops.sdumc.flash_wavlm(q, k, v, gate, bias_diag, kvalid)
         ctx.save_for_backward(q, k, v, gate, bias_diag, kvalid, out)
         return out
 

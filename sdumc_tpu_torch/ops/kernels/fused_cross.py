@@ -22,10 +22,21 @@ tensor cores: W is cut into three bf16 parts (``split_w_bf16``), each x .
 part is exact in f32, and the keys are their f32 sum (``keys_bf16_order``
 is that order in plain torch).
 
+Python reaches the kernel through one ``torch.library`` custom op,
+``sdumc::fused_cross`` (called through ``op``): its CUDA implementation is
+``launch`` (the only caller of the ``ctypes`` entry points), its CPU
+implementation the plain version, and its fake implementation gives
+``torch.export`` the output's shape without running either. The wrappers
+call the op on both devices, so a program exported on the CPU holds the
+same node as one exported on the card. A schema takes no union, so the op
+takes ``t_max`` as an optional tensor (0-d or [B]) beside an optional host
+int. The op itself has no gradient formula: ``call_op`` wraps it in
+``Recomputed`` when autograd wants one.
+
 The gradient is the JAX package's: its ``custom_vjp`` recomputes the
 forward through the einsum formulation and differentiates that, so no
-backward kernel exists there either. Here ``Recomputed`` saves the
-kernel's inputs, and its backward runs the plain version under
+backward kernel exists there either. Here ``Recomputed`` wraps the op: it
+saves the op's inputs, and its backward runs the plain version under
 ``torch.enable_grad()`` and takes ``torch.autograd.grad`` of it (cuBLAS
 products and elementwise ops on the card; launch counts are unchanged).
 """
@@ -34,11 +45,12 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
+from sdumc_tpu_torch.ops.attention_pool import attention_pool
 from sdumc_tpu_torch.ops.kernels import build, check_operand
 from sdumc_tpu_torch.ops.masking import mask_time_scores
 
@@ -76,6 +88,19 @@ def fused_cross_attention_plain(q, x, weight, bias, t_max=None,
     return torch.einsum("btd,btq->bqd", x, attn)
 
 
+def fused_attention_pool_plain(x, weight, bias, context, t_max=None,
+                               softmax_scale: float = 0.3):
+    """The Q = 1 case with the pool's context [D] as the query
+    (ops/attention_pool.py; ``fused_pool`` re-exports it): the CPU path and
+    the kernel's oracle. A bf16 x computes in f32 on the widened inputs and
+    rounds the output to bf16."""
+    if x.dtype == torch.bfloat16:
+        return fused_attention_pool_plain(x.float(), weight.float(), bias.float(),
+                                          context.float(), t_max, softmax_scale).to(x.dtype)
+    return attention_pool(x, weight, bias, context,
+                          softmax_scale=softmax_scale, t_max=t_max)[0]
+
+
 def split_w_bf16(weight: torch.Tensor):
     """(hi, mid, lo), the bf16 instance's parts of an f32 W: each part is
     the bf16 rounding toward zero (the top 16 bits) of what the earlier
@@ -111,15 +136,69 @@ def fused_cross_attention(q, x, weight, bias, t_max=None,
     """out [B, Q, D]: each projected query attends over x's time axis.
 
     ``weight``/``bias`` are the key projection in nn.Linear layout
-    ([out, in]); ``t_max`` is None, an int, or a per-row [B] tensor.
+    ([out, in]); ``t_max`` is None, an int, a 0-d or a per-row [B] tensor.
     """
-    if x.device.type == "cpu":
-        return fused_cross_attention_plain(q, x, weight, bias, t_max,
-                                           softmax_scale)
     if q.dim() != 3:
         raise ValueError(f"q must be [B, Q, D], got {tuple(q.shape)}")
-    return Recomputed.apply(_kernel, fused_cross_attention_plain, q, x, weight, bias,
-                            t_max, softmax_scale)
+    return call_op(op, fused_cross_attention_plain, q, x, weight, bias, t_max,
+                   softmax_scale)
+
+
+def call_op(kernel, plain, q, x, weight, bias, t_max, softmax_scale):
+    """``kernel(q, x, weight, bias, t_max, softmax_scale)``, a function that
+    calls ``sdumc::fused_cross``, on either device: through ``Recomputed``
+    (whose backward differentiates ``plain``) when autograd wants a
+    gradient, else directly."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, x, weight, bias)):
+        return Recomputed.apply(kernel, plain, q, x, weight, bias, t_max, softmax_scale)
+    return kernel(q, x, weight, bias, t_max, softmax_scale)
+
+
+def op(q, x, weight, bias, t_max, softmax_scale, q_batched: bool = True):
+    """``sdumc::fused_cross`` with ``t_max`` in any of its four forms: out
+    [B, Q, D] for ``q`` [B, Q, D], or pooled [B, D] for the pool's context
+    ``q`` [D] shared by every row when ``q_batched`` is False."""
+    if isinstance(t_max, torch.Tensor):
+        tensor, scalar = t_max, None
+    else:
+        tensor, scalar = None, None if t_max is None else int(t_max)
+    if q_batched:
+        return torch.ops.sdumc.fused_cross(q, x, weight, bias, tensor, scalar,
+                                           float(softmax_scale), True)
+    return torch.ops.sdumc.fused_cross(q.reshape(1, -1), x, weight, bias, tensor, scalar,
+                                       float(softmax_scale), False)[:, 0]
+
+
+def _t_max(t_max: Optional[torch.Tensor], t_max_scalar: Optional[int]):
+    return t_max if t_max is not None else t_max_scalar
+
+
+@torch.library.custom_op("sdumc::fused_cross", mutates_args=(), device_types="cpu")
+def _fused_cross_op(q: torch.Tensor, x: torch.Tensor, weight: torch.Tensor,
+                    bias: torch.Tensor, t_max: Optional[torch.Tensor],
+                    t_max_scalar: Optional[int], softmax_scale: float,
+                    q_batched: bool) -> torch.Tensor:
+    """out [B, Q, D] in x's dtype. ``q`` is [B, Q, D], or the pool's context
+    [1, D] shared by every row when ``q_batched`` is False; ``t_max`` a 0-d
+    or [B] integer tensor, else ``t_max_scalar`` a host int, else None (no
+    mask). The CPU implementation: the plain version."""
+    t = _t_max(t_max, t_max_scalar)
+    if q_batched:
+        return fused_cross_attention_plain(q, x, weight, bias, t, softmax_scale).contiguous()
+    if q.shape[0] != 1:
+        raise ValueError(f"a shared query is the pool's one context [1, D], got {tuple(q.shape)}")
+    return fused_attention_pool_plain(x, weight, bias, q[0], t, softmax_scale)[:, None].contiguous()
+
+
+@_fused_cross_op.register_kernel("cuda")
+def _fused_cross_cuda(q, x, weight, bias, t_max, t_max_scalar, softmax_scale, q_batched):
+    return launch(q, x, weight, bias, _t_max(t_max, t_max_scalar), softmax_scale,
+                  q_batched=q_batched)
+
+
+@_fused_cross_op.register_fake
+def _fused_cross_fake(q, x, weight, bias, t_max, t_max_scalar, softmax_scale, q_batched):
+    return x.new_empty((x.shape[0], q.shape[-2], x.shape[2]))
 
 
 class Recomputed(torch.autograd.Function):
@@ -151,10 +230,6 @@ class Recomputed(torch.autograd.Function):
             wanted = [t for t in inputs if t.requires_grad]
             grads = iter(torch.autograd.grad(out, wanted, grad) if wanted else ())
         return (None, None, *(next(grads) if need else None for need in needs), None, None)
-
-
-def _kernel(q, x, weight, bias, t_max, softmax_scale):
-    return launch(q, x, weight, bias, t_max, softmax_scale, q_batched=True)
 
 
 def _lib() -> ctypes.CDLL:

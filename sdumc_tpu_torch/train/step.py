@@ -150,6 +150,18 @@ def make_train_step(state: TrainState, loss_cfg: LossConfig, seed: int):
     return train_step
 
 
+def dual_view_eval(model, audio, text, video, feat4, t_max):
+    """(preds_full [B], preds_missing [B]) of the four streams [B, T_m, D_m]
+    and their four ``t_max`` (host ints, or integer tensors: a traced
+    program takes tensors, so the lengths stay inputs). It sets no mode
+    and no grad mode: ``make_eval_step`` runs it under
+    ``torch.inference_mode``, ``serve.export`` traces it under
+    ``torch.no_grad`` in eval mode."""
+    vals0, _, vals1, _ = _apply_views(model, {"audio": audio, "text": text, "video": video,
+                                              "feat4": feat4, "t_max": tuple(t_max)})
+    return vals0.reshape(-1), vals1.reshape(-1)
+
+
 def make_eval_step(model):
     """Returns batch -> (preds_full [B], preds_missing [B]) on the batch's
     device. Every call puts the model in eval mode (dropout off) and runs
@@ -158,8 +170,8 @@ def make_eval_step(model):
     def eval_step(batch):
         model.eval()
         with torch.inference_mode():
-            vals0, _, vals1, _ = _apply_views(model, dequant_features(batch))
-        return vals0.reshape(-1), vals1.reshape(-1)
+            batch = dequant_features(batch)
+            return dual_view_eval(model, *(batch[k] for k in FEATURES), batch["t_max"])
 
     return eval_step
 

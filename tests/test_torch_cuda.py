@@ -40,7 +40,12 @@ GRU and attention paths; no kernel of the port), and ``cli.train`` /
 RoBERTa, ALBERT, DeBERTa, BLOOM, GLM; no kernel of the port) run at 2
 layers through extract_text_features, card against CPU, and
 ``cli.extract text --family bert|glm`` on a directory written without
-transformers, card against ``--device cpu``.
+transformers, card against ``--device cpu``. The fusion kernel's custom op
+``sdumc::fused_cross`` is called as an exported program calls it, with each
+form of t_max, against its plain version; a ``ServingBundle`` exported on
+the card at D = 256 answers as the eager eval with 3 + 3 launches a
+request; and ``cli.export`` on the card serves from a fresh process that
+imports no model code.
 """
 
 import math
@@ -1276,3 +1281,143 @@ def test_cli_extract_text_family_on_card_matches_cpu(cuda, tmp_path, kind):
         g, c = (np.load(tmp_path / d / f"{name}.npy") for d in ("card", "cpu"))
         assert g.shape == c.shape and np.isfinite(g).all()
         np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["none", "int", "0-d", "rows"])
+@pytest.mark.parametrize("q_count", [7, 1])
+def test_fused_cross_op_on_card_matches_plain(cuda, form, q_count):
+    """``sdumc::fused_cross`` called as an op (what an exported program
+    calls) with each form of t_max, f32 and bf16 x, against the plain
+    version; one launch a call, counted by its instance."""
+    B, T = 6, 129
+    x, w, b, q, c = (t.to(cuda) for t in _inputs(B, T, 7))
+    tensor, scalar = {"none": (None, None), "int": (None, 70),
+                      "0-d": (torch.tensor(37, dtype=torch.int32, device=cuda), None),
+                      "rows": (torch.tensor([T, 64, 1, 0, T + 3, 65], dtype=torch.int32,
+                                            device=cuda), None)}[form]
+    t_max = tensor if tensor is not None else scalar
+    query = q if q_count == 7 else c.reshape(1, D)
+    for xx in (x, x.bfloat16()):
+        fused_cross.reset_launches()
+        with torch.inference_mode():
+            got = torch.ops.sdumc.fused_cross(query, xx, w, b, tensor, scalar, 0.3, q_count == 7)
+            if q_count == 7:
+                ref = fused_cross.fused_cross_attention_plain(query, xx, w, b, t_max)
+            else:
+                ref = fused_pool.fused_attention_pool_plain(xx, w, b, c, t_max)[:, None]
+        counts = fused_cross.LAUNCHES_BF16 if xx.dtype == torch.bfloat16 else fused_cross.LAUNCHES
+        assert counts[q_count] == 1 and sum(fused_cross.LAUNCHES.values()) + sum(
+            fused_cross.LAUNCHES_BF16.values()) == 1
+        assert got.dtype == ref.dtype == xx.dtype and got.shape == (B, q_count, D)
+        got, ref = got.float(), ref.float()
+        bound = RTOL * ref.abs() + ATOL
+        if xx.dtype == torch.bfloat16:
+            bound = bound + _bf16_ulp(torch.maximum(got.abs(), ref.abs()))
+        assert ((got - ref).abs() <= bound).all(), (xx.dtype, (got - ref).abs().max().item())
+
+
+def _serve_request(rng, rows, lens, dims):
+    return {k: rng.normal(size=(rows, t, d)).astype(np.float32)
+            for k, t, d in zip(("audio", "text", "video", "feat4"), lens, dims)}
+
+
+def _serve_eager(model, batch, combo, rows, device):
+    """The eager eval step on the request padded to (rows, combo)."""
+    from sdumc_tpu_torch.train.step import make_eval_step
+
+    d = {}
+    for k, t_b in zip(("audio", "text", "video", "feat4"), combo):
+        x = batch[k]
+        p = np.zeros((rows, t_b, x.shape[2]), np.float32)
+        p[: x.shape[0], : x.shape[1]] = x
+        d[k] = torch.from_numpy(p).to(device)
+    d["t_max"] = tuple(batch[k].shape[1] for k in ("audio", "text", "video", "feat4"))
+    n = batch["audio"].shape[0]
+    return tuple(v[:n].cpu().numpy() for v in make_eval_step(model)(d))
+
+
+@pytest.mark.cuda
+def test_serving_bundle_on_card_matches_eager(cuda, tmp_path):
+    """A bundle exported on the card at the fusion net's width (D = 256)
+    answers as the eager eval on the card and as the same model on the CPU
+    (where the op runs its plain version), at two lengths in one combo, with
+    3 + 3 f32 launches a request; its programs hold no weights."""
+    import copy
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.core.config import ModelConfig
+    from sdumc_tpu_torch.models.fusion import SDUMCFusion
+    from sdumc_tpu_torch.serve import ServingBundle
+
+    set_matmul_precision("highest")
+    dims, combos, rows = (32, 64, 32, 64), [(64, 16, 32, 16), (128, 16, 32, 16)], 8
+    model = SDUMCFusion(ModelConfig(input_dims=dims[:3]), torch.Generator().manual_seed(0))
+    cpu_model = copy.deepcopy(model).eval()
+    model.to(cuda).eval()
+    ServingBundle.build(model, dims, combos, rows).save(str(tmp_path / "b"))
+    bundle = ServingBundle.load(str(tmp_path / "b"))
+    assert bundle.device.type == "cuda"
+    assert all(len(p.state_dict) == 0 and len(p.constants) == 0 for p in bundle._programs.values())
+    rng = np.random.default_rng(11)
+    for lens in ((40, 16, 9, 5), (64, 3, 32, 16), (100, 12, 20, 16)):
+        batch = _serve_request(rng, 5, lens, dims)
+        fused_cross.reset_launches()
+        got = bundle(batch)
+        assert fused_cross.LAUNCHES == {1: 3, 7: 3}, fused_cross.LAUNCHES
+        assert sum(fused_cross.LAUNCHES_BF16.values()) == 0
+        ref = _serve_eager(model, batch, bundle._pick(lens), rows, cuda)
+        plain = _serve_eager(cpu_model, batch, bundle._pick(lens), rows, torch.device("cpu"))
+        for g, r, c in zip(got, ref, plain):
+            assert g.shape == (5,) and np.isfinite(g).all()
+            np.testing.assert_allclose(g, r, rtol=RTOL, atol=ATOL)
+            np.testing.assert_allclose(g, c, rtol=1e-4, atol=1e-4)
+
+
+_CARD_SERVER = """
+import json, sys
+import numpy as np
+sys.path.insert(0, {repo!r})
+from sdumc_tpu_torch.ops.kernels import fused_cross
+from sdumc_tpu_torch.serve import ServingBundle
+bundle = ServingBundle.load({bundle!r})
+req = np.load({req!r})
+fused_cross.reset_launches()
+full, missing = bundle({{k: req[k] for k in ("audio", "text", "video", "feat4")}})
+np.savez({out!r}, full=full, missing=missing)
+print(json.dumps({{"launches": fused_cross.LAUNCHES, "device": bundle.device.type,
+                   "models": [m for m in sys.modules if m.startswith("sdumc_tpu_torch.models")]}}))
+"""
+
+
+@pytest.mark.cuda
+def test_cli_export_on_card_serves_in_a_fresh_process(cuda, tmp_path):
+    """``cli.export`` (its default device, the card) at small widths, then a
+    process that imports only ``sdumc_tpu_torch.serve`` loads the bundle and
+    answers through the kernel; the answers equal the eager eval's."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from sdumc_tpu_torch.cli import export as export_cli
+    from sdumc_tpu_torch.cli.common import build_model
+    from sdumc_tpu_torch.core.config import ExperimentConfig
+
+    dims = (32, 64, 32, 64)
+    assert export_cli.main(["--out_dir", str(tmp_path / "b"), "--batch_size", "4",
+                            "--input_dims", "32,64,32,64", "--combos", "16x8x16x8"]) == 0
+    batch = _serve_request(np.random.default_rng(12), 3, (11, 8, 5, 6), dims)
+    np.savez(tmp_path / "req.npz", **batch)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = _CARD_SERVER.format(repo=repo, bundle=str(tmp_path / "b"),
+                               req=str(tmp_path / "req.npz"), out=str(tmp_path / "out.npz"))
+    run = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr
+    info = json.loads(run.stdout.strip().splitlines()[-1])
+    assert info == {"launches": {"1": 3, "7": 3}, "device": "cuda", "models": []}
+    model = build_model(ExperimentConfig(), dims, cuda)
+    ref = _serve_eager(model, batch, (16, 8, 16, 8), 4, cuda)
+    out = np.load(tmp_path / "out.npz")
+    np.testing.assert_allclose(out["full"], ref[0], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(out["missing"], ref[1], rtol=RTOL, atol=ATOL)

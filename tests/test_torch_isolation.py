@@ -163,3 +163,29 @@ def test_the_walk_imports_the_text_family_modules():
 def test_text_modules_import_only_numpy_torch_and_the_port(rel):
     mods = {mod.split(".")[0] for mod, _ in _imports(ast.parse((PACKAGE / rel).read_text()))}
     assert mods <= TEXT_IMPORTS, mods - TEXT_IMPORTS
+
+
+SERVE_MODULES = ("serve/__init__.py", "serve/export.py", "cli/export.py")
+
+
+def test_the_walk_imports_the_serving_modules():
+    """pkgutil's walk reaches the serving export and its CLI, so the probe
+    above covers them."""
+    import pkgutil
+
+    import sdumc_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(sdumc_tpu_torch.__path__, "sdumc_tpu_torch.")}
+    for rel in SERVE_MODULES:
+        assert "sdumc_tpu_torch." + rel[:-3].replace("/", ".").removesuffix(".__init__") in names, rel
+
+
+def test_the_serving_module_imports_no_model_code_at_load():
+    """serve/export.py names no module of sdumc_tpu_torch.models at its top
+    level (a process that loads a bundle imports none; the export itself
+    reaches the model through train.step, inside the function that traces
+    it), and it registers the fusion kernel's op there."""
+    tree = ast.parse((PACKAGE / "serve/export.py").read_text())
+    top = [mod for mod, fn in _imports(tree) if fn is None]
+    assert "sdumc_tpu_torch.ops.kernels" in top
+    assert not any(m.startswith(("sdumc_tpu_torch.models", "sdumc_tpu_torch.train")) for m in top)
