@@ -198,8 +198,29 @@ Phases, each fatal on failure (non-zero exit, no result line):
      answer held to make_eval_step on the same padded batch and checkpoint
      on the card; a warm request per combo by host clock (numpy to numpy),
      its padding and copy alone and the program alone (CUDA events) beside
-     the eager step, peak memory, one profiled request.
-Each phase prints its seconds, and the total of phases 2-26 follows. The second-to-last line is {"kernels":
+     the eager step, peak memory, one profiled request;
+ 27. decode serving: ``python -m sdumc_tpu_torch.cli.export --decode`` on
+     phase 11's 2-layer Vicuna (bf16, prompt buckets 64, 128 and 256,
+     --gen_batch 4, 200 new tokens; a prefill, a step and a finalize
+     program a bucket): export time and bytes; a fresh process that imports
+     only sdumc_tpu_torch.serve serves a chunk in each bucket (the launch
+     counters around each at 0: the decode runs no kernel of the port) and
+     refuses a prompt that fits no bucket; every chunk held to the engine's
+     functions run eagerly on the served arithmetic (served_path_eager: the
+     step index a 0-d tensor, the generated cache read whole and masked;
+     tokens and step counts equal, taps to phase 11's bf16 tolerance); the
+     eager beam_generate_batched's sliced decode of the same padded prompts
+     printed beside it, not held: at bf16 the two pick other beams where
+     the logits tie exactly (eager's near-tie gap printed); ms per step
+     served and eager; 32-step int8, w8a8 and int8-KV bundles built
+     in-process, each held to served_path_eager on its model; an f32 bundle
+     held to the eager beam_generate_batched at phase 10's tolerance; then
+     Vicuna-7B at 32 layers (phase 12's seed): bucket 256 built in-process
+     (nothing saved), held to served_path_eager, the sliced decode printed
+     beside it, ms per step of served, served_path_eager and eager beside
+     the bound, and a profiled window of served steps (device time by
+     family, idle share, launches).
+Each phase prints its seconds, and the total of phases 2-27 follows. The second-to-last line is {"kernels":
 [...]}, the last line {"ok": true, "device": {...}}. Imports nothing of JAX
 or sdumc_tpu.
 
@@ -1496,10 +1517,11 @@ def decode_bound_ms(cfg, wbytes: int, C: int, P: int, steps: int) -> float:
                      2 * n_weights * C * BEAMS / PEAK_BF16_FLOPS)
 
 
-def time_decode(torch, model, cfg, prompts, lens, steps: int):
+def time_decode(torch, model, cfg, prompts, lens, steps: int, trace=None):
     """(ms per decode step by CUDA events, the run's outputs): a run of
     `steps` new tokens minus a run of 1 (the prefill and the first
-    selection), over the steps-1 decode forwards."""
+    selection), over the steps-1 decode forwards. `trace`, if a dict,
+    receives the timed run's candidate gap."""
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     beam_chunk(torch, model, cfg, prompts, lens, 2)             # warm
     torch.cuda.synchronize()
@@ -1507,7 +1529,7 @@ def time_decode(torch, model, cfg, prompts, lens, steps: int):
     beam_chunk(torch, model, cfg, prompts, lens, 1)
     ev[1].record()
     ev[2].record()
-    out = beam_chunk(torch, model, cfg, prompts, lens, steps)
+    out = beam_chunk(torch, model, cfg, prompts, lens, steps, trace=trace)
     ev[3].record()
     torch.cuda.synchronize()
     n = int(out["n_steps"].max())
@@ -4146,6 +4168,372 @@ def serve_phase(torch, work: str, ckpt: str, card: str) -> dict:
     return {int(q): n for q, n in report["requests"][0]["launches"].items()}
 
 
+# ---------------------------------------------------------------- decode serving (phase 27)
+
+# cli.export --decode's buckets, at the feat4 CLI's gen_batch and token count
+DECODE_BUCKETS = (64, 128, 256)
+# (bucket, real prompt lengths): a chunk in each bucket, the 128 one partial
+DECODE_REQUESTS = ((64, (41, 57, 64, 33)), (128, (100, 77, 128)), (256, (200, 129, 256, 180)))
+DECODE_UNFIT = 300
+DECODE_TIMED_BUCKET = 256
+# A served bf16 answer is held to the engine's functions run eagerly on the served
+# arithmetic (``served_path_eager``: the step index a 0-d tensor, the generated cache
+# read whole, masked, and reordered whole): the same ops on the same card, so equal to
+# the bit is expected; phase 11's bf16 tolerance (a few bf16 ulps of a tap) bounds it.
+# Against the eager engine's sliced read the f32 attention sums differ in order, and
+# bf16 logits tie exactly (the gap between the 4th and 5th candidate is often 0.0 on
+# seeded weights), so a flipped rounding can pick another beam: that comparison is
+# held at f32 (an f32 bundle, phase 10's tolerance) and printed at bf16.
+DECODE_RTOL, DECODE_ATOL = BF16_RTOL, BF16_ATOL
+DECODE_PROFILED_STEPS = 8
+
+
+def decode_prompts(bucket_lens, hidden: int):
+    """A chunk's prompts, [P_i, hidden] f32 numpy, made from a seed per
+    chunk in bulk (0.5 x normal, as phase 10's)."""
+    import numpy as np
+
+    bucket, lens = bucket_lens
+    rng = np.random.default_rng(270 + bucket)
+    return [(0.5 * rng.standard_normal((n, hidden), dtype=np.float32)) for n in lens]
+
+
+def served_step_ms(torch, bundle, prompts) -> tuple:
+    """(ms per decode step of a served chunk by CUDA events, its outputs on
+    the card): ``bundle.run`` on the padded chunk minus its prefill program
+    alone, over the step calls (max_new - 1: seeded weights never emit
+    EOS, so no check ends the loop early)."""
+    bucket, pe, pl = bundle.pad(prompts)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    prog = bundle._modules[bucket]
+    with torch.inference_mode():
+        state = prog["prefill"](bundle._params, pe, pl)             # warm: every shape once
+        prog["step"](bundle._params, state, pl, bundle._its[0])
+        prog["finalize"]({k: v for k, v in state.items() if k != "caches"})
+        del state
+        torch.cuda.synchronize()
+        ev[0].record()
+        prog["prefill"](bundle._params, pe, pl)
+        ev[1].record()
+        ev[2].record()
+        out = bundle.run(bucket, pe, pl)
+        ev[3].record()
+    torch.cuda.synchronize()
+    if int(out["n_steps"].max()) != bundle.max_new:
+        raise AssertionError(f"served chunk stopped at {out['n_steps'].tolist()} steps")
+    return (ev[2].elapsed_time(ev[3]) - ev[0].elapsed_time(ev[1])) / (bundle.max_new - 1), out
+
+
+def decode_serve_worker(torch, bundle_dir: str, out_dir: str) -> None:
+    """The serving process of phase 27: imports sdumc_tpu_torch.serve alone,
+    loads the decode bundle, answers DECODE_REQUESTS with the launch
+    counters around them and a prompt that fits no bucket, times each
+    chunk's steps (``served_step_ms``). Writes answers.npz and report.json
+    to `out_dir`."""
+    import numpy as np
+
+    from sdumc_tpu_torch.serve import DecodeBundle
+
+    t0 = time.perf_counter()
+    bundle = DecodeBundle.load(bundle_dir)
+    torch.cuda.synchronize()
+    report = {"load_s": time.perf_counter() - t0, "chunks": []}
+    answers = {}
+    torch.cuda.reset_peak_memory_stats()
+    for req in DECODE_REQUESTS:
+        prompts = decode_prompts(req, bundle.hidden_size)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = bundle(prompts)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        for k, v in out.items():
+            answers[f"{k}{req[0]}"] = v
+        step_ms, _ = served_step_ms(torch, bundle, prompts)
+        report["chunks"].append({"bucket": bundle.pad(prompts)[0], "clips": len(prompts),
+                                 "seconds": seconds, "step_ms": step_ms, "launches": counts})
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    try:
+        bundle([np.zeros((DECODE_UNFIT, bundle.hidden_size), np.float32)])
+        report["unfit"] = None
+    except ValueError as e:
+        report["unfit"] = str(e)
+    report["models_imported"] = sorted(m for m in sys.modules
+                                       if m.startswith("sdumc_tpu_torch.models"))
+    np.savez(os.path.join(out_dir, "answers.npz"), **answers)
+    with open(os.path.join(out_dir, "report.json"), "w") as f:
+        json.dump(report, f)
+
+
+def eager_padded(torch, bucket_lens, hidden: int):
+    """The chunk as DecodeBundle.pad makes it, on the card: (prompts [C, P,
+    D] left-padded, zero rows at length 1 up to GEN_BATCH, prompt_len)."""
+    bucket, lens = bucket_lens
+    pe = torch.zeros(GEN_BATCH, bucket, hidden)
+    pl = torch.ones(GEN_BATCH, dtype=torch.int64)
+    for i, p in enumerate(decode_prompts(bucket_lens, hidden)):
+        pe[i, bucket - len(p):] = torch.from_numpy(p)
+        pl[i] = len(p)
+    return pe.to(DEVICE), pl.to(DEVICE)
+
+
+def hold_served(torch, label, got, ref, n, gap=None, rtol=DECODE_RTOL, atol=DECODE_ATOL
+                ) -> float:
+    """Served outputs (numpy, n clips) against an eager run's (card
+    tensors): tokens and step counts equal, taps to rtol / atol. Returns
+    the taps' max abs diff."""
+    same = all(torch.equal(torch.from_numpy(got[k]), ref[k][:n].cpu())
+               for k in ("tokens", "n_tokens", "n_steps"))
+    taps = torch.from_numpy(got["taps"])
+    ref_taps = ref["taps"][:n].float().cpu()
+    err = (taps - ref_taps).abs().max().item()
+    print(f"  {label}: tokens and step counts equal {same}, taps max abs diff {err!r} (max "
+          f"|tap| {ref_taps.abs().max().item()!r})"
+          + ("" if gap is None else f"; eager's smallest gap between the {BEAMS}th and "
+             f"{BEAMS + 1}th candidate score {gap[:n].tolist()}"))
+    if not same or not torch.isfinite(taps).all() or not torch.allclose(
+            taps, ref_taps, rtol=rtol, atol=atol):
+        raise AssertionError(f"{label}: served and eager decodes disagree")
+    return err
+
+
+def served_path_eager(torch, model, cfg, pe, pl, max_new, timing=None):
+    """(outputs, gap): ``beam_prefill`` / ``beam_step`` / ``beam_finalize``
+    run eagerly as the bundle's programs run them: each step's index a 0-d
+    tensor, so the generated cache is read whole with the unwritten slots
+    masked and reordered whole; ``done`` read every 8 steps. `timing`, if a
+    dict, receives ``step_ms``: the steps and the finalize by CUDA events,
+    over max_new - 1 (as ``served_step_ms`` counts)."""
+    from sdumc_tpu_torch.models.generation import beam_finalize, beam_prefill, beam_step
+    from sdumc_tpu_torch.models.llama import SplitCache
+
+    its = torch.arange(max(max_new - 1, 1), device=pe.device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    with torch.inference_mode():
+        state = beam_prefill(model, pe, cfg, prompt_len=pl, num_beams=BEAMS,
+                             max_new_tokens=max_new, eos_id=2, trace=True)
+        flat = state["caches"].tensors()
+        ev[0].record()
+        for it in range(max_new - 1):
+            if it and it % 8 == 0 and not bool(live.any()):
+                break
+            state["caches"] = SplitCache.from_tensors(flat, its[it])
+            live = beam_step(model, state, its[it], embed_fn=model.model.embed_tokens, eos_id=2)
+        out = beam_finalize(state)
+        ev[1].record()
+    if timing is not None:
+        torch.cuda.synchronize()
+        timing["step_ms"] = ev[0].elapsed_time(ev[1]) / max(max_new - 1, 1)
+    return out, state["gap"]
+
+
+def print_sliced(torch, label, got, ref, n, gap) -> None:
+    """Served outputs against the eager engine's sliced decode, printed, not
+    held: whether the best hypotheses' tokens agree, the first column where
+    they part, and eager's smallest candidate gap."""
+    tokens = torch.from_numpy(got["tokens"])
+    ref_tokens = ref["tokens"][:n].cpu()
+    parted = [int((a != b).nonzero()[0]) if not torch.equal(a, b) else None
+              for a, b in zip(tokens, ref_tokens)]
+    print(f"  {label}, against the eager engine's sliced read: tokens equal "
+          f"{torch.equal(tokens, ref_tokens)} (first differing column per clip {parted}); "
+          f"eager's smallest gap between the {BEAMS}th and {BEAMS + 1}th candidate score "
+          f"{gap[:n].tolist()}")
+
+
+def decode_serve_phase(torch, work: str, llm_dir: str, card: str) -> None:
+    """Phase 27: ``python -m sdumc_tpu_torch.cli.export --decode`` on phase
+    11's 2-layer Vicuna (bf16, DECODE_BUCKETS, --gen_batch 4, 200 new
+    tokens): export time and bytes; a fresh process (``decode_serve_worker``)
+    serves a chunk per bucket, each held to the eager engine on the same
+    padded prompts, the bucket-256 chunk's ms per step beside eager's; 32-step
+    int8 / w8a8 / int8-KV bundles built in-process, each against its eager
+    decode; then Vicuna-7B at 32 layers (phase 12's seed, on the card): one
+    bucket built in-process, its ms per step beside eager's and the bound,
+    and a profiled window of served steps."""
+    import dataclasses
+
+    import numpy as np
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.convert.hf_llama import load_hf_llama
+    from sdumc_tpu_torch.models.llama import LlamaForCausalLM, init_weights, model_from_state_dict
+    from sdumc_tpu_torch.ops.quant import quantize_params
+    from sdumc_tpu_torch.serve import DecodeBundle
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    bundle_dir, out_dir = os.path.join(work, "decode_bundle"), os.path.join(work, "decode_served")
+    os.makedirs(out_dir)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sdumc_tpu_torch.cli.export", "--decode",
+                           "--llm_dir", llm_dir, "--out_dir", bundle_dir, "--prompt_buckets",
+                           ",".join(map(str, DECODE_BUCKETS)), "--gen_batch", str(GEN_BATCH),
+                           "--max_new_tokens", str(MAX_NEW)], cwd=here, capture_output=True,
+                          text=True, timeout=900)
+    print(proc.stdout.rstrip())
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError("cli.export --decode failed")
+    sizes = {f: os.path.getsize(os.path.join(bundle_dir, f))
+             for f in sorted(os.listdir(bundle_dir))}
+    print(f"cli.export --decode ({CLI_LAYERS}-layer Vicuna-7B-v1.5 widths, bf16, buckets "
+          f"{DECODE_BUCKETS}, --gen_batch {GEN_BATCH}, {MAX_NEW} new tokens, the card; {card}): "
+          f"{time.perf_counter() - t0!r} s (process start and the checkpoint's load included); "
+          f"bundle {sum(sizes.values())!r} bytes, params.safetensors "
+          f"{sizes['params.safetensors']!r}: {sizes}")
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-decode",
+                           bundle_dir, "--serve-out", out_dir], cwd=here, capture_output=True,
+                          text=True, timeout=900)
+    print(proc.stdout.rstrip())
+    if proc.returncode:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise RuntimeError("the decode serving process failed")
+    with open(os.path.join(out_dir, "report.json")) as f:
+        report = json.load(f)
+    answers = np.load(os.path.join(out_dir, "answers.npz"))
+    print(f"served from a fresh process: {time.perf_counter() - t0!r} s, bundle load "
+          f"{report['load_s']!r} s, peak device memory {report['peak_gib']!r} GiB; "
+          f"sdumc_tpu_torch.models modules imported there: {report['models_imported']}")
+    if report["models_imported"]:
+        raise AssertionError("the decode serving process imported model code")
+    if not report["unfit"] or "bucket" not in report["unfit"]:
+        raise AssertionError(f"a {DECODE_UNFIT}-long prompt did not raise: {report['unfit']}")
+    print(f"a {DECODE_UNFIT}-long prompt: ValueError({report['unfit']!r})")
+
+    set_matmul_precision("highest")
+    cfg, model = load_hf_llama(llm_dir, device=DEVICE)
+    print(f"served vs the engine run eagerly on the served arithmetic (served_path_eager), "
+          f"the same padded chunk and checkpoint, on the card (tolerance rtol={DECODE_RTOL} "
+          f"atol={DECODE_ATOL}):")
+    eager_ms = None
+    for req, chunk in zip(DECODE_REQUESTS, report["chunks"]):
+        if any(chunk["launches"].values()):
+            raise AssertionError(f"bucket {req[0]}: kernels of the port launched {chunk}")
+        pe, pl = eager_padded(torch, req, cfg.hidden_size)
+        got = {k: answers[f"{k}{req[0]}"] for k in ("tokens", "n_tokens", "taps", "n_steps")}
+        label = (f"bucket {req[0]} ({len(req[1])} clips, lengths {req[1]}, "
+                 f"{chunk['seconds']!r} s served, launches {chunk['launches']})")
+        hold_served(torch, label, got, served_path_eager(torch, model, cfg, pe, pl, MAX_NEW)[0],
+                    len(req[1]))
+        trace = {}
+        if req[0] == DECODE_TIMED_BUCKET:
+            eager_ms, ref = time_decode(torch, model, cfg, pe, pl, MAX_NEW, trace=trace)
+        else:
+            ref = beam_chunk(torch, model, cfg, pe, pl, MAX_NEW, trace=trace)
+        print_sliced(torch, f"bucket {req[0]}", got, ref, len(req[1]), trace["gap"])
+    print(f"  ms per decode step ({card}; CUDA events, {MAX_NEW - 1} steps): served "
+          + ", ".join(f"bucket {c['bucket']} {c['step_ms']!r}" for c in report["chunks"])
+          + f"; eager bucket {DECODE_TIMED_BUCKET} {eager_ms!r}")
+
+    # the quantized bundles: built in-process, one bucket, QUANT_STEPS tokens
+    req = DECODE_REQUESTS[0]
+    prompts = decode_prompts(req, cfg.hidden_size)
+    pe, pl = eager_padded(torch, req, cfg.hidden_size)
+    for quant, kv_quant in (("int8", None), ("w8a8", None), (None, "int8")):
+        qcfg = dataclasses.replace(cfg, quant=quant, kv_quant=kv_quant)
+        sd = dict(model.state_dict())
+        qmodel = model_from_state_dict(qcfg, quantize_params(sd, quant) if quant else sd)
+        t0 = time.perf_counter()
+        qbundle = DecodeBundle.build(qmodel, buckets=(req[0],), gen_batch=GEN_BATCH,
+                                     max_new_tokens=QUANT_STEPS)
+        seconds = time.perf_counter() - t0
+        got = qbundle(prompts)
+        ref, _ = served_path_eager(torch, qmodel, qcfg, pe, pl, QUANT_STEPS)
+        hold_served(torch, f"--quant {quant} --kv_quant {kv_quant}, bucket {req[0]}, "
+                    f"{QUANT_STEPS} steps (built in {seconds!r} s)", got, ref, len(req[1]))
+        del qbundle, qmodel, sd
+    del model
+    torch.cuda.empty_cache()
+
+    # f32 (TF32 off): the served masked read against the eager engine's sliced one
+    cfg32, model32 = load_hf_llama(llm_dir, device=DEVICE, dtype=torch.float32)
+    bundle32 = DecodeBundle.build(model32, buckets=(req[0],), gen_batch=GEN_BATCH,
+                                  max_new_tokens=PARITY_STEPS)
+    trace = {}
+    ref = beam_chunk(torch, model32, cfg32, pe, pl, PARITY_STEPS, trace=trace)
+    print(f"f32 bundle (bucket {req[0]}, {PARITY_STEPS} steps) against the eager engine "
+          f"(tolerance rtol={LLAMA_RTOL} atol={LLAMA_ATOL}, phase 10's):")
+    hold_served(torch, "served vs eager beam_generate_batched", bundle32(prompts), ref,
+                len(req[1]), trace["gap"], rtol=LLAMA_RTOL, atol=LLAMA_ATOL)
+    del bundle32, model32
+    torch.cuda.empty_cache()
+
+    # full depth: phase 12's seeded model, one bucket built in-process, nothing saved
+    cfg = feat4_config(torch, VICUNA_LAYERS)
+    with torch.device("meta"):
+        model = LlamaForCausalLM(cfg)
+    t0 = time.perf_counter()
+    model = init_weights(model.to_empty(device=DEVICE), seed=3).eval()
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    wbytes = weight_bytes(model)
+    req = next(r for r in DECODE_REQUESTS if r[0] == DECODE_TIMED_BUCKET)
+    t0 = time.perf_counter()
+    bundle = DecodeBundle.build(model, buckets=(req[0],), gen_batch=GEN_BATCH,
+                                max_new_tokens=MAX_NEW)
+    export_s = time.perf_counter() - t0
+    prompts = decode_prompts(req, cfg.hidden_size)
+    served_ms, got = served_step_ms(torch, bundle, prompts)
+    got = {k: v[:len(prompts)].cpu().numpy() for k, v in got.items()}
+    pe, pl = eager_padded(torch, req, cfg.hidden_size)
+    trace = {}
+    eager_ms, ref = time_decode(torch, model, cfg, pe, pl, MAX_NEW, trace=trace)
+    bound = decode_bound_ms(cfg, wbytes, GEN_BATCH, req[0], MAX_NEW)
+    print(f"full depth ({cfg.num_layers} layers, bf16, seed 3 as phase 12, seeded on the card in "
+          f"{seed_s!r} s), bucket {req[0]} built in-process in {export_s!r} s (3 programs):")
+    if got["taps"].shape != (len(prompts), MAX_NEW, cfg.hidden_size) or not np.isfinite(
+            got["taps"]).all():
+        raise AssertionError(f"full depth: served taps {got['taps'].shape} or non-finite")
+    timing = {}
+    hold_served(torch, f"served vs served_path_eager, {len(prompts)} clips, {MAX_NEW} new "
+                f"tokens", got, served_path_eager(torch, model, cfg, pe, pl, MAX_NEW,
+                                                  timing=timing)[0], len(prompts))
+    print_sliced(torch, f"{len(prompts)} clips, {MAX_NEW} new tokens", got, ref, len(prompts),
+                 trace["gap"])
+    print(f"  ms per decode step ({card}; CUDA events, {MAX_NEW - 1} steps): served "
+          f"{served_ms!r}, served_path_eager {timing['step_ms']!r} (the eager step on a 0-d "
+          f"tensor index), eager {eager_ms!r} (served / eager {served_ms / eager_ms!r}); bound "
+          f"{bound!r} ms ({wbytes / 1e9!r} GB of weights + the KV cache at "
+          f"{PEAK_HBM_BYTES / 1e12} TB/s; the served step reads the generated cache whole: "
+          f"{decode_bound_ms(cfg, wbytes, GEN_BATCH, req[0], 2 * MAX_NEW - 1)!r} ms)")
+    profile_served_steps(torch, bundle, prompts)
+    del bundle, model
+    torch.cuda.empty_cache()
+
+
+def profile_served_steps(torch, bundle, prompts, first: int = PROFILE_FROM,
+                         steps: int = DECODE_PROFILED_STEPS) -> None:
+    """Device time by family, host launches and the idle share of served
+    step calls first .. first+steps-1 under torch.profiler (the prefill and
+    the earlier steps run before it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    bucket, pe, pl = bundle.pad(prompts)
+    prog = bundle._modules[bucket]
+    with torch.inference_mode():
+        state = prog["prefill"](bundle._params, pe, pl)
+        for it in range(first):
+            prog["step"](bundle._params, state, pl, bundle._its[it])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for it in range(first, first + steps):
+                prog["step"](bundle._params, state, pl, bundle._its[it])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU and "LaunchKernel" in e.key)
+    fams = print_device_time(prof, wall, f"profiled served steps {first}-{first + steps - 1} "
+                             f"(the step program, bucket {bucket})", DECODE_FAMILIES,
+                             "elementwise and reductions (norms, rope, casts, attention math)",
+                             top=10)
+    print(f"  per step: device {sum(fams.values()) / steps!r} ms, {launches / steps!r} host "
+          f"kernel launches, host clock {wall * 1e3 / steps!r} ms")
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3, 17 and 19 (without the gradient checks) with the kernels
     of the checkout at `root`, built from its own sources into its own
@@ -4204,6 +4592,7 @@ def main() -> int:
     parser.add_argument("--lengths", help=argparse.SUPPRESS)
     parser.add_argument("--serve", help=argparse.SUPPRESS)
     parser.add_argument("--serve-out", help=argparse.SUPPRESS)
+    parser.add_argument("--serve-decode", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4215,6 +4604,9 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.serve:
         serve_worker(torch, args.serve, args.serve_out)
+        return 0
+    if args.serve_decode:
+        decode_serve_worker(torch, args.serve_decode, args.serve_out)
         return 0
     if args.ab:
         print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4266,7 +4658,8 @@ def main() -> int:
         phase(25, text_families_phase, torch, work, rows)
         served = phase(26, serve_phase, torch, work, os.path.join(work, "train", "best_full.pt"),
                        card)
-    print(f"phases 2-26: {time.perf_counter() - t_phases!r} s")
+        phase(27, decode_serve_phase, torch, work, llm_dir, card)
+    print(f"phases 2-27: {time.perf_counter() - t_phases!r} s")
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():

@@ -17,8 +17,8 @@ The engine is batched over clips (leading axis C), C clips x B beams in
 lockstep, per-clip ``done`` freezing only the small state (tokens, taps,
 scores, pools); the caches free-run for done clips. The KV cache is split
 (models/llama.py): the per-clip prompt part [C, P] is read shared and never
-copied or reordered; the beam-ancestry reorder gathers only the written
-slots of the generated part [C*B, G].
+copied or reordered; eagerly, the beam-ancestry reorder gathers only the
+written slots of the generated part [C*B, G].
 
 JAX's ``while_loop`` becomes a Python loop over at most max_new_tokens - 1
 steps that reads ``done`` on the host only every ``check_every`` steps (one
@@ -26,6 +26,13 @@ synchronisation per check). A step taken after every clip is done changes
 nothing the engine returns: the frozen state stays frozen (a clip counts as
 live while it is not done and has steps left, which is the loop condition
 of JAX's engine), so any ``check_every`` gives the results of 1.
+
+The engine is three functions over one state dict, ``beam_prefill``,
+``beam_step`` (the loop body, in place on the state) and
+``beam_finalize``, so that the serving bundle (``serve/export.py
+DecodeBundle``) exports each as a program and runs the same loop on the
+host; there the step index is a 0-d tensor, and the generated cache is
+read and reordered whole, the unwritten slots masked.
 
 Top-k is ``exact_topk``: k argmax sweeps, ties to the lowest index
 (``torch.argmax`` returns the first maximum), the order ``lax.top_k`` gives;
@@ -57,13 +64,18 @@ def exact_topk(x: torch.Tensor, k: int):
     return torch.cat(vals, dim=-1), torch.cat(idxs, dim=-1)
 
 
-def _gather_caches(caches, rows: torch.Tensor, n: int) -> None:
-    """Beam-ancestry reorder of a split cache, in place: only the written
-    slots [0, n) of the generated part move, one gather per stack. The
-    prompt part is the same for every beam of a clip and the row map never
-    crosses clips, so it stays as it is."""
+def _gather_caches(caches, rows: torch.Tensor, n) -> None:
+    """Beam-ancestry reorder of a split cache, in place, one gather per
+    stack. With a host int ``n`` only the written slots [0, n) of the
+    generated part move; with a 0-d tensor (a traced step) all of them do,
+    as in JAX: a slot not yet written is masked until it is. The prompt part
+    is the same for every beam of a clip and the row map never crosses
+    clips, so it stays as it is."""
     for stack in caches.stacks.values():
-        stack[:, :, :n] = stack[:, rows, :n]
+        if isinstance(n, torch.Tensor):
+            stack.copy_(stack[:, rows])
+        else:
+            stack[:, :, :n] = stack[:, rows, :n]
 
 
 def _slot_mask(cur_slots: torch.Tensor, max_len: int, offset: torch.Tensor) -> torch.Tensor:
@@ -72,6 +84,180 @@ def _slot_mask(cur_slots: torch.Tensor, max_len: int, offset: torch.Tensor) -> t
     slots = torch.arange(max_len, device=cur_slots.device)[None, None, None, :]
     ok = (slots <= cur_slots[:, None, :, None]) & (slots >= offset[:, None, None, None])
     return torch.where(ok, 0.0, -1e30)
+
+
+def beam_prefill(apply_fn: Callable, prompt_embeds: torch.Tensor, cfg: LlamaConfig, *,
+                 prompt_len, num_beams: int = 4, max_new_tokens: int = 200, eos_id: int = 2,
+                 trace: bool = False) -> Dict:
+    """The prefill of ``beam_generate_batched`` and its first selection.
+
+    Returns the decode state, a dict of tensors on the prompt's device:
+    ``caches`` (the split cache), ``pmask`` [C, P] (the prompt's additive
+    mask), ``prompt_len`` [C] int64, ``beam_scores`` [C, B], ``last_tokens``
+    [C, B], ``tokens`` [C, B, max_new] (EOS-filled past the step), ``step``
+    [C] (tokens chosen so far), ``taps`` [C, max_new, D] f32, the hypothesis
+    pool ``hyp_scores`` [C, B], ``hyp_tokens`` [C, B, max_new], ``hyp_lens``
+    [C, B], ``done`` [C]; and ``gap`` [C] when ``trace``."""
+    B = num_beams
+    C, P, D = prompt_embeds.shape
+    dev = prompt_embeds.device
+    prompt_len = torch.as_tensor(prompt_len, dtype=torch.int64, device=dev).expand(C)
+    offset = P - prompt_len                                          # [C]
+    arange_p = torch.arange(P, device=dev)
+
+    # ---- prefill: C streams, not C*B; the prompt cache becomes the shared
+    # prompt part of the split decode cache as it is
+    prefill = init_cache(cfg, C, P, dev)
+    pos = torch.clamp(arange_p[None] - offset[:, None], min=0)      # [C, P]
+    out = apply_fn(inputs_embeds=prompt_embeds, positions=pos,
+                   attn_mask=_slot_mask(arange_p[None].expand(C, P), P, offset),
+                   caches=prefill, last_logit_only=True)
+    caches = split_cache_from_prefill(cfg, prefill, B, max_new_tokens)
+    del prefill, out["caches"]
+    logp = torch.log_softmax(out["logits"][:, -1].float(), dim=-1)  # [C, V]
+    V = logp.shape[-1]
+
+    # HF init: only beam 0 counts on the first selection
+    init_bias = torch.where(torch.arange(B, device=dev) == 0, 0.0, NEG)
+    scores0 = logp[:, None, :] + init_bias[None, :, None]           # [C, B, V]
+    beam_scores, top_idx = exact_topk(scores0.reshape(C, B * V), B)
+    last_tokens = top_idx % V                                       # [C, B]
+    tokens = torch.full((C, B, max_new_tokens), eos_id, dtype=torch.int64, device=dev)
+    tokens[:, :, 0] = last_tokens
+    state = {"caches": caches,
+             "pmask": torch.where(arange_p[None] >= offset[:, None], 0.0, -1e30),
+             "prompt_len": prompt_len, "beam_scores": beam_scores, "last_tokens": last_tokens,
+             "tokens": tokens, "step": torch.ones(C, dtype=torch.int64, device=dev),
+             "taps": torch.zeros(C, max_new_tokens, D, device=dev),
+             "hyp_scores": torch.full((C, B), NEG, device=dev),
+             "hyp_tokens": torch.full((C, B, max_new_tokens), eos_id, dtype=torch.int64,
+                                      device=dev),
+             "hyp_lens": torch.zeros(C, B, dtype=torch.int64, device=dev),
+             "done": torch.zeros(C, dtype=torch.bool, device=dev)}
+    if trace:
+        state["gap"] = torch.full((C,), float("inf"), device=dev)
+    return state
+
+
+def beam_live(state: Dict) -> torch.Tensor:
+    """[C] bool: the clips still decoding (not done, steps left), the loop
+    condition of JAX's engine."""
+    return ~state["done"] & (state["step"] < state["tokens"].shape[2])
+
+
+def _take(x, idx):
+    """take_along_axis over the beam / candidate axis (1)."""
+    return torch.gather(x, 1, idx.view(*idx.shape, *([1] * (x.dim() - 2))).expand(
+        *idx.shape, *x.shape[2:]))
+
+
+def beam_step(apply_fn: Callable, state: Dict, it, *, embed_fn: Callable, eos_id: int = 2,
+              length_penalty: float = 1.0,
+              tap_layers: Sequence[int] = (-4, -3, -2, -1)) -> torch.Tensor:
+    """Step ``it`` of the loop (one token per clip and beam), in place on
+    ``state`` (``beam_prefill``'s): its tensors and the caches are written,
+    none is rebound. Frozen clips (not ``beam_live``) keep their small state;
+    the caches free-run. ``it`` is a host int eagerly, where the generated
+    cache is read and reordered up to its written slots, or a 0-d int64
+    tensor in a traced program, where the whole generated cache is, the
+    slots at and past ``it`` masked. Returns ``beam_live`` of the new state,
+    which the loop reads on the host every ``check_every`` steps."""
+    s, caches = state, state["caches"]
+    C, B = s["beam_scores"].shape
+    D = s["taps"].shape[2]
+    dev = s["step"].device
+    lp = length_penalty
+    step = s["step"]
+    live = beam_live(s)                                             # [C]
+    frozen = ~live
+    cidx = torch.arange(C, device=dev)
+    rank = torch.arange(2 * B, device=dev)
+
+    # ---- one token per (clip, beam) row; rope position from the real prompt length
+    rpos = (s["prompt_len"] + step - 1)[:, None].expand(C, B).reshape(C * B, 1)
+    out = apply_fn(inputs_embeds=embed_fn(s["last_tokens"].reshape(C * B, 1)),
+                   positions=rpos, attn_mask=s["pmask"], caches=caches,
+                   tap_sum_layers=tuple(tap_layers))
+    tap = out["tap_sum"][:, 0].reshape(C, B, D)[:, 0]                # leading beam, [C, D]
+    taps, row = s["taps"], step - 1
+    taps[cidx, row] = torch.where(live[:, None], tap, taps[cidx, row])
+
+    logp = torch.log_softmax(out["logits"][:, -1].float(), dim=-1)
+    V = logp.shape[-1]
+    cand = s["beam_scores"][:, :, None] + logp.reshape(C, B, V)
+    top_vals, top_idx = exact_topk(cand.reshape(C, B * V), 2 * B)
+    new = {}
+    if "gap" in s:
+        new["gap"] = torch.where(live, torch.minimum(s["gap"], top_vals[:, B - 1] - top_vals[:, B]),
+                                 s["gap"])
+    cand_beam = top_idx // V                                        # [C, 2B]
+    cand_tok = top_idx % V
+    is_eos = cand_tok == eos_id
+
+    # ---- EOS candidates ranked < B enter the pool: one top-B merge of
+    # (pool | pushable candidates), ties pool-first, then by rank
+    cur_len = step.float()
+    hyp_cand_score = top_vals / (cur_len[:, None] ** lp)
+    push = is_eos & (rank[None] < B) & live[:, None]
+    merged = torch.cat([s["hyp_scores"], torch.where(push, hyp_cand_score, NEG)], dim=1)
+    new["hyp_scores"], sel_idx = exact_topk(merged, B)
+    cand_seqs = _take(s["tokens"], cand_beam)                       # [C, 2B, N]
+    new["hyp_tokens"] = _take(torch.cat([s["hyp_tokens"], cand_seqs], dim=1), sel_idx)
+    all_lens = torch.cat([s["hyp_lens"], step[:, None].expand(C, 2 * B)], dim=1)
+    new["hyp_lens"] = torch.gather(all_lens, 1, sel_idx)
+
+    # ---- the first B non-EOS candidates continue as running beams
+    live_rank = torch.cumsum((~is_eos).to(torch.int64), dim=1) - 1
+    slot_of = torch.where(~is_eos, live_rank, 2 * B)
+    sel = torch.argmax((slot_of[:, None, :] == torch.arange(B, device=dev)[None, :, None])
+                       .to(torch.int8), dim=2)                      # [C, B]
+    new["beam_scores"] = torch.gather(top_vals, 1, sel)
+    new_beam_idx = torch.gather(cand_beam, 1, sel)
+    new["last_tokens"] = torch.gather(cand_tok, 1, sel)
+    col_ids = torch.arange(s["tokens"].shape[2], device=dev)
+    new["tokens"] = torch.where(col_ids[None, None, :] == step[:, None, None],
+                                new["last_tokens"][:, :, None], _take(s["tokens"], new_beam_idx))
+    rows = (cidx[:, None] * B + new_beam_idx).reshape(-1)          # [C*B]
+    _gather_caches(caches, rows, it + 1)
+
+    # ---- HF is_done (early_stopping=False, lp > 0)
+    n_hyps = (new["hyp_scores"] > NEG / 2).sum(dim=1)
+    best_attainable = new["beam_scores"].max(dim=1).values / ((cur_len + 1.0) ** lp)
+    done_now = (n_hyps >= B) & (new["hyp_scores"].min(dim=1).values >= best_attainable)
+    new["step"] = step + 1
+    new["done"] = s["done"] | (done_now & live)
+
+    # every new value is computed before any is written
+    for key, value in new.items():
+        old = s[key]
+        keep = frozen.view(C, *([1] * (old.dim() - 1))) if key not in ("gap", "done") else None
+        old.copy_(value if keep is None else torch.where(keep, old, value))
+    return beam_live(s)
+
+
+def beam_finalize(state: Dict, length_penalty: float = 1.0) -> Dict:
+    """HF's finalize: the pool filled with the running beams, then each
+    clip's best hypothesis. Returns tokens [C, max_new] (EOS-padded),
+    n_tokens [C], taps [C, max_new, D] f32 (rows >= n_steps zero), n_steps
+    [C] and score [C]; ``state`` is not changed."""
+    step = state["step"]
+    C, B = state["beam_scores"].shape
+    cidx = torch.arange(C, device=step.device)
+    hyp_scores, hyp_tokens, hyp_lens = (state[k].clone() for k in
+                                        ("hyp_scores", "hyp_tokens", "hyp_lens"))
+    tokens = state["tokens"]
+    run_score = state["beam_scores"] / (step.float()[:, None] ** length_penalty)   # [C, B]
+    for i in range(B):
+        worst = torch.argmin(hyp_scores, dim=1)
+        worst_val = hyp_scores[cidx, worst]
+        better = run_score[:, i] > worst_val
+        hyp_scores[cidx, worst] = torch.where(better, run_score[:, i], worst_val)
+        hyp_tokens[cidx, worst] = torch.where(better[:, None], tokens[:, i],
+                                              hyp_tokens[cidx, worst])
+        hyp_lens[cidx, worst] = torch.where(better, step, hyp_lens[cidx, worst])
+    best = torch.argmax(hyp_scores, dim=1)
+    return {"tokens": hyp_tokens[cidx, best], "n_tokens": hyp_lens[cidx, best],
+            "taps": state["taps"], "n_steps": step, "score": hyp_scores[cidx, best]}
 
 
 def beam_generate_batched(
@@ -89,7 +275,9 @@ def beam_generate_batched(
     check_every: int = 8,
     trace: Optional[Dict] = None,
 ):
-    """Beam-search decode a batch of clips in lockstep.
+    """Beam-search decode a batch of clips in lockstep: ``beam_prefill``,
+    ``beam_step`` for each step while a clip is live (read on the host every
+    ``check_every`` steps), ``beam_finalize``.
 
     Args:
       apply_fn: the model (a ``LlamaForCausalLM``, or any callable taking its
@@ -109,133 +297,17 @@ def beam_generate_batched(
       taps [C, max_new, D] f32: per-step tap sum of the leading beam (rows
       >= n_steps are zero), n_steps [C], score [C].
     """
-    B = num_beams
-    C, P, D = prompt_embeds.shape
-    dev = prompt_embeds.device
-    lp = length_penalty
-    prompt_len = torch.as_tensor(prompt_len, dtype=torch.int64, device=dev).expand(C)
-    offset = P - prompt_len                                          # [C]
-    cidx = torch.arange(C, device=dev)
-    arange_p = torch.arange(P, device=dev)
-
-    # ---- prefill: C streams, not C*B; the prompt cache becomes the shared
-    # prompt part of the split decode cache as it is
-    prefill = init_cache(cfg, C, P, dev)
-    pos = torch.clamp(arange_p[None] - offset[:, None], min=0)      # [C, P]
-    out = apply_fn(inputs_embeds=prompt_embeds, positions=pos,
-                   attn_mask=_slot_mask(arange_p[None].expand(C, P), P, offset),
-                   caches=prefill, last_logit_only=True)
-    caches = split_cache_from_prefill(cfg, prefill, B, max_new_tokens)
-    del prefill, out["caches"]
-    pmask = torch.where(arange_p[None] >= offset[:, None], 0.0, -1e30)
-    logp = torch.log_softmax(out["logits"][:, -1].float(), dim=-1)  # [C, V]
-    V = logp.shape[-1]
-
-    # HF init: only beam 0 counts on the first selection
-    init_bias = torch.where(torch.arange(B, device=dev) == 0, 0.0, NEG)
-    scores0 = logp[:, None, :] + init_bias[None, :, None]           # [C, B, V]
-    beam_scores, top_idx = exact_topk(scores0.reshape(C, B * V), B)
-    last_tokens = top_idx % V                                       # [C, B]
-
-    tokens = torch.full((C, B, max_new_tokens), eos_id, dtype=torch.int64, device=dev)
-    tokens[:, :, 0] = last_tokens
-    step = torch.ones(C, dtype=torch.int64, device=dev)
-    taps = torch.zeros(C, max_new_tokens, D, device=dev)
-    hyp_scores = torch.full((C, B), NEG, device=dev)
-    hyp_tokens = torch.full((C, B, max_new_tokens), eos_id, dtype=torch.int64, device=dev)
-    hyp_lens = torch.zeros(C, B, dtype=torch.int64, device=dev)
-    done = torch.zeros(C, dtype=torch.bool, device=dev)
-    gap = torch.full((C,), float("inf"), device=dev) if trace is not None else None
-    col_ids = torch.arange(max_new_tokens, device=dev)
-    rank = torch.arange(2 * B, device=dev)
-    slot_ids = torch.arange(B, device=dev)
-
-    def take(x, idx):                      # take_along_axis over the beam/candidate axis
-        return torch.gather(x, 1, idx.view(*idx.shape, *([1] * (x.dim() - 2))).expand(
-            *idx.shape, *x.shape[2:]))
-
+    state = beam_prefill(apply_fn, prompt_embeds, cfg, prompt_len=prompt_len,
+                         num_beams=num_beams, max_new_tokens=max_new_tokens, eos_id=eos_id,
+                         trace=trace is not None)
     for it in range(max_new_tokens - 1):
-        live = ~done & (step < max_new_tokens)                      # [C]
         if it and it % check_every == 0 and not bool(live.any()):
             break
-        frozen = ~live
-
-        # ---- one token per (clip, beam) row; rope position from the real prompt length
-        rpos = (prompt_len + step - 1)[:, None].expand(C, B).reshape(C * B, 1)
-        out = apply_fn(inputs_embeds=embed_fn(last_tokens.reshape(C * B, 1)),
-                       positions=rpos, attn_mask=pmask, caches=caches,
-                       tap_sum_layers=tuple(tap_layers))
-        tap = out["tap_sum"][:, 0].reshape(C, B, D)[:, 0]            # leading beam, [C, D]
-        row = step - 1
-        taps[cidx, row] = torch.where(live[:, None], tap, taps[cidx, row])
-
-        logp = torch.log_softmax(out["logits"][:, -1].float(), dim=-1).reshape(C, B, V)
-        cand = beam_scores[:, :, None] + logp
-        top_vals, top_idx = exact_topk(cand.reshape(C, B * V), 2 * B)
-        if gap is not None:
-            gap = torch.where(live, torch.minimum(gap, top_vals[:, B - 1] - top_vals[:, B]), gap)
-        cand_beam = top_idx // V                                    # [C, 2B]
-        cand_tok = top_idx % V
-        is_eos = cand_tok == eos_id
-
-        # ---- EOS candidates ranked < B enter the pool: one top-B merge of
-        # (pool | pushable candidates), ties pool-first, then by rank
-        cur_len = step.float()
-        hyp_cand_score = top_vals / (cur_len[:, None] ** lp)
-        push = is_eos & (rank[None] < B) & live[:, None]
-        merged = torch.cat([hyp_scores, torch.where(push, hyp_cand_score, NEG)], dim=1)
-        new_hyp_scores, sel_idx = exact_topk(merged, B)
-        cand_seqs = take(tokens, cand_beam)                         # [C, 2B, N]
-        new_hyp_tokens = take(torch.cat([hyp_tokens, cand_seqs], dim=1), sel_idx)
-        all_lens = torch.cat([hyp_lens, step[:, None].expand(C, 2 * B)], dim=1)
-        new_hyp_lens = torch.gather(all_lens, 1, sel_idx)
-
-        # ---- the first B non-EOS candidates continue as running beams
-        live_rank = torch.cumsum((~is_eos).to(torch.int64), dim=1) - 1
-        slot_of = torch.where(~is_eos, live_rank, 2 * B)
-        sel = torch.argmax((slot_of[:, None, :] == slot_ids[None, :, None]).to(torch.int8),
-                           dim=2)                                   # [C, B]
-        new_scores = torch.gather(top_vals, 1, sel)
-        new_beam_idx = torch.gather(cand_beam, 1, sel)
-        new_tok = torch.gather(cand_tok, 1, sel)
-        new_tokens = take(tokens, new_beam_idx)
-        new_tokens = torch.where(col_ids[None, None, :] == step[:, None, None],
-                                 new_tok[:, :, None], new_tokens)
-        rows = (cidx[:, None] * B + new_beam_idx).reshape(-1)       # [C*B]
-        _gather_caches(caches, rows, it + 1)
-
-        # ---- HF is_done (early_stopping=False, lp > 0)
-        n_hyps = (new_hyp_scores > NEG / 2).sum(dim=1)
-        best_attainable = new_scores.max(dim=1).values / ((cur_len + 1.0) ** lp)
-        done_now = (n_hyps >= B) & (new_hyp_scores.min(dim=1).values >= best_attainable)
-
-        def frz(new, old):
-            return torch.where(frozen.view(C, *([1] * (new.dim() - 1))), old, new)
-
-        step = frz(step + 1, step)
-        last_tokens = frz(new_tok, last_tokens)
-        beam_scores = frz(new_scores, beam_scores)
-        tokens = frz(new_tokens, tokens)
-        hyp_scores = frz(new_hyp_scores, hyp_scores)
-        hyp_tokens = frz(new_hyp_tokens, hyp_tokens)
-        hyp_lens = frz(new_hyp_lens, hyp_lens)
-        done = done | (done_now & live)
-
-    # ---- finalize: fill the pool with the running beams (HF finalize)
-    run_score = beam_scores / (step.float()[:, None] ** lp)         # [C, B]
-    for i in range(B):
-        worst = torch.argmin(hyp_scores, dim=1)
-        worst_val = hyp_scores[cidx, worst]
-        better = run_score[:, i] > worst_val
-        hyp_scores[cidx, worst] = torch.where(better, run_score[:, i], worst_val)
-        hyp_tokens[cidx, worst] = torch.where(better[:, None], tokens[:, i],
-                                              hyp_tokens[cidx, worst])
-        hyp_lens[cidx, worst] = torch.where(better, step, hyp_lens[cidx, worst])
-    best = torch.argmax(hyp_scores, dim=1)
+        live = beam_step(apply_fn, state, it, embed_fn=embed_fn, eos_id=eos_id,
+                         length_penalty=length_penalty, tap_layers=tap_layers)
     if trace is not None:
-        trace["gap"] = gap
-    return {"tokens": hyp_tokens[cidx, best], "n_tokens": hyp_lens[cidx, best],
-            "taps": taps, "n_steps": step, "score": hyp_scores[cidx, best]}
+        trace["gap"] = state["gap"]
+    return beam_finalize(state, length_penalty)
 
 
 def beam_generate(apply_fn: Callable, prompt_embeds: torch.Tensor, cfg: LlamaConfig, *,

@@ -13,7 +13,12 @@ the probabilities cast to the model dtype before P.V; decode attention
 (one query row) entirely in f32; logits from a model-dtype matmul, then f32.
 
 Caches are updated in place (JAX returns new ones): each layer's cache is a
-dict whose ``index`` is a host int, the number of slots written.
+dict whose ``index`` is the number of slots written. Eagerly it is a host
+int, and only the written slots are read and moved. In a traced decode
+step (``serve/export.py``) the generated part's index is a 0-d int64
+tensor, an input of the program: the step then writes with ``index_copy_``
+and reads the whole generated part with the slots at and past the index
+masked to -1e30, as JAX does (they add exact zeros).
 
 * Monolithic cache (``init_cache``): ``k``/``v`` [B, S, KV, hd]; attention
   runs over the written slots plus the current chunk (``_cached_attention``).
@@ -182,17 +187,18 @@ def _cached_attention(c: LlamaConfig, q, k_new, v_new, k_old, v_old, idx: int, m
     return out.reshape(B, T, c.num_heads, hd)
 
 
-def _split_attention(c: LlamaConfig, q, k_new, v_new, pk, pv, gk, gv, gidx: int, pmask,
+def _split_attention(c: LlamaConfig, q, k_new, v_new, pk, pv, gk, gv, gidx, pmask,
                      pk_scale=None, pv_scale=None, gk_scale=None, gv_scale=None):
     """Decode attention (one query row per beam) over a prompt-shared +
     per-beam generated split cache, in f32.
 
     q/k_new/v_new: [R, 1, (KV-)H, hd], rows clip-major (R = C*B). pk/pv:
     [C, P, KV, hd] prompt cache, read once per clip for all its beams; gk/gv:
-    [R, G, KV, hd] generated cache of which slots [0, gidx) are written (the
-    rest is not read: JAX masks it to -1e30, exact zeros). pmask: [C, P]
-    additive prompt mask (left-pad slots -1e30). *_scale: int8-KV scales
-    ([C, P, KV] / [R, G, KV]) folded outside the head_dim reductions.
+    [R, G, KV, hd] generated cache of which slots [0, gidx) are written. A
+    host-int ``gidx`` reads only those; a 0-d tensor (a traced step) reads
+    all G with the rest masked to -1e30 as JAX does (exact zeros). pmask:
+    [C, P] additive prompt mask (left-pad slots -1e30). *_scale: int8-KV
+    scales ([C, P, KV] / [R, G, KV]) folded outside the head_dim reductions.
     Returns [R, 1, H, hd] in the model dtype."""
     R = q.shape[0]
     C, P = pk.shape[:2]
@@ -200,28 +206,38 @@ def _split_attention(c: LlamaConfig, q, k_new, v_new, pk, pv, gk, gv, gidx: int,
     scale = math.sqrt(hd)
     qf = _grouped(q[:, 0].float(), KV)                      # [R, KV, rep, hd]
     rep = qf.shape[2]
-    gk, gv = gk[:, :gidx], gv[:, :gidx]
+    stale = None
+    if isinstance(gidx, torch.Tensor):
+        stale = torch.arange(gk.shape[1], device=gk.device) >= gidx
+    else:
+        gk, gv = gk[:, :gidx], gv[:, :gidx]
+        if gk_scale is not None:
+            gk_scale, gv_scale = gk_scale[:, :gidx], gv_scale[:, :gidx]
+    G = gk.shape[1]
 
     # prompt scores: beams grouped by clip, so each clip's prompt cache is read once
     s_p = torch.einsum("cbgrd,cpgd->cbgrp", qf.reshape(C, B, KV, rep, hd), pk.float())
     if pk_scale is not None:
         s_p = s_p * pk_scale.permute(0, 2, 1)[:, None, :, None, :]
     s_p = (s_p / scale + pmask[:, None, None, None, :]).reshape(R, KV, rep, P)
-    s_g = torch.einsum("rgkd,rngd->rgkn", qf, gk.float())   # [R, KV, rep, gidx]
+    s_g = torch.einsum("rgkd,rngd->rgkn", qf, gk.float())   # [R, KV, rep, G]
     if gk_scale is not None:
-        s_g = s_g * gk_scale[:, :gidx].permute(0, 2, 1)[:, :, None, :]
+        s_g = s_g * gk_scale.permute(0, 2, 1)[:, :, None, :]
+    s_g = s_g / scale
+    if stale is not None:
+        s_g = torch.where(stale, NEG_MASK, s_g)
     s_self = (qf * k_new[:, 0].float()[:, :, None, :]).sum(dim=-1, keepdim=True)
-    probs = torch.softmax(torch.cat([s_p, s_g / scale, s_self / scale], dim=-1), dim=-1)
+    probs = torch.softmax(torch.cat([s_p, s_g, s_self / scale], dim=-1), dim=-1)
 
     pp = probs[..., :P].reshape(C, B, KV, rep, P)
     if pv_scale is not None:
         pp = pp * pv_scale.permute(0, 2, 1)[:, None, :, None, :]
     out = torch.einsum("cbgrp,cpgd->cbgrd", pp, pv.float()).reshape(R, KV, rep, hd)
-    pg = probs[..., P:P + gidx]
+    pg = probs[..., P:P + G]
     if gv_scale is not None:
-        pg = pg * gv_scale[:, :gidx].permute(0, 2, 1)[:, :, None, :]
+        pg = pg * gv_scale.permute(0, 2, 1)[:, :, None, :]
     out = out + torch.einsum("rgkn,rngd->rgkd", pg, gv.float())
-    out = out + probs[..., P + gidx:] * v_new[:, 0].float()[:, :, None, :]
+    out = out + probs[..., P + G:] * v_new[:, 0].float()[:, :, None, :]
     return out.reshape(R, 1, c.num_heads, hd).to(c.dtype)
 
 
@@ -231,14 +247,20 @@ def _linear(c: LlamaConfig, d_in: int, d_out: int, device=None) -> nn.Module:
     return nn.Linear(d_in, d_out, bias=False, dtype=c.dtype, device=device)
 
 
-def _write(cache: Dict, key: str, idx: int, value: torch.Tensor) -> None:
-    cache[key][:, idx:idx + value.shape[1]] = value.to(cache[key].dtype)
+def _write(cache: Dict, key: str, idx, value: torch.Tensor) -> None:
+    buf = cache[key]
+    if isinstance(idx, torch.Tensor):
+        slots = idx.reshape(1) + torch.arange(value.shape[1], device=buf.device)
+        buf.index_copy_(1, slots, value.to(buf.dtype))
+    else:
+        buf[:, idx:idx + value.shape[1]] = value.to(buf.dtype)
 
 
-def _append(cache: Dict, prefix: str, idx: int, k: torch.Tensor, v: torch.Tensor) -> None:
+def _append(cache: Dict, prefix: str, idx, k: torch.Tensor, v: torch.Tensor) -> None:
     """Write the chunk k/v [B, T, KV, hd] at slots [idx, idx+T) of the
     ``{prefix}k``/``{prefix}v`` buffers (as int8 codes + scales when the
-    cache holds scales) and advance the index."""
+    cache holds scales) and advance the index (a host int, or a 0-d int64
+    tensor in a traced step)."""
     if f"{prefix}k_scale" in cache:
         (k, ks), (v, vs) = quantize_kv(k), quantize_kv(v)
         _write(cache, f"{prefix}k_scale", idx, ks)
@@ -452,6 +474,30 @@ class SplitCache(tuple):
 
     stacks: Dict[str, torch.Tensor]
 
+    def tensors(self) -> Dict[str, Any]:
+        """The cache as plain tensors, none a view of another: each prompt
+        key's per-layer list (``pk``, ``pv``, and ``pk_scale``, ``pv_scale``
+        under int8-KV) and the generated stacks (``gk``, ``gv``, ...)."""
+        out: Dict[str, Any] = {k: [layer[k] for layer in self]
+                               for k in self[0] if k.startswith("p")}
+        out.update(self.stacks)
+        return out
+
+    @staticmethod
+    def from_tensors(flat: Dict[str, Any], index) -> "SplitCache":
+        """The cache of ``tensors()``, each layer's generated part a view of
+        its stack and its index ``index`` (a host int or a 0-d tensor)."""
+        stacks = {k: t for k, t in flat.items() if k.startswith("g")}
+        layers = []
+        for i in range(len(flat["pk"])):
+            layer = {k: t[i] for k, t in flat.items() if k.startswith("p")}
+            layer.update({k: t[i] for k, t in stacks.items()})
+            layer["index"] = index
+            layers.append(layer)
+        out = SplitCache(layers)
+        out.stacks = stacks
+        return out
+
 
 def split_cache_from_prefill(cfg: LlamaConfig, prefill_caches, beams: int,
                              gen_max: int) -> SplitCache:
@@ -462,16 +508,10 @@ def split_cache_from_prefill(cfg: LlamaConfig, prefill_caches, beams: int,
     L = len(prefill_caches)
     first = prefill_caches[0]["k"]
     R = first.shape[0] * beams
-    stacks = {f"g{k}": t for k, t in _kv_buffers(cfg, (L, R, gen_max), first.device).items()}
-    layers = []
-    for i, pc in enumerate(prefill_caches):
-        layer = {f"p{k}": pc[k] for k in pc if k != "index"}
-        layer.update({k: t[i] for k, t in stacks.items()})
-        layer["index"] = 0
-        layers.append(layer)
-    out = SplitCache(layers)
-    out.stacks = stacks
-    return out
+    flat: Dict[str, Any] = {f"p{k}": [pc[k] for pc in prefill_caches]
+                            for k in prefill_caches[0] if k != "index"}
+    flat.update({f"g{k}": t for k, t in _kv_buffers(cfg, (L, R, gen_max), first.device).items()})
+    return SplitCache.from_tensors(flat, 0)
 
 
 def cache_mask(query_positions: torch.Tensor, max_len: int) -> torch.Tensor:

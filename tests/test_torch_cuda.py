@@ -45,7 +45,9 @@ transformers, card against ``--device cpu``. The fusion kernel's custom op
 form of t_max, against its plain version; a ``ServingBundle`` exported on
 the card at D = 256 answers as the eager eval with 3 + 3 launches a
 request; and ``cli.export`` on the card serves from a fresh process that
-imports no model code.
+imports no model code. A tiny ``DecodeBundle`` exported on the card (its
+step program writing the decode state in place) answers as the eager
+beam engine on the card and as the bundle exported on the CPU.
 """
 
 import math
@@ -1421,3 +1423,57 @@ def test_cli_export_on_card_serves_in_a_fresh_process(cuda, tmp_path):
     out = np.load(tmp_path / "out.npz")
     np.testing.assert_allclose(out["full"], ref[0], rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(out["missing"], ref[1], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,kv_quant", [(None, None), ("w8a8", "int8")])
+def test_decode_bundle_on_card_matches_eager_and_cpu(cuda, tmp_path, quant, kv_quant):
+    """A tiny DecodeBundle (f32, TF32 off; w8a8 runs the padded int32 product
+    in the programs) exported on the card, saved and loaded: its step
+    program writes its inputs in place on the card's torch (a step writes
+    generated-cache slot 0 of the state the prefill program returned), and
+    a partial batch answers as the eager engine on the card and as the same
+    bundle exported on the CPU (tokens and step counts equal, taps to
+    1e-4)."""
+    import copy
+    import dataclasses
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.models.generation import beam_generate_batched
+    from sdumc_tpu_torch.models.llama import model_from_state_dict
+    from sdumc_tpu_torch.ops.quant import quantize_params
+    from sdumc_tpu_torch.serve import DecodeBundle
+
+    set_matmul_precision("highest")
+    cfg, model = _tiny_llama(seed=4)
+    if quant or kv_quant:
+        cfg = dataclasses.replace(cfg, quant=quant, kv_quant=kv_quant)
+        sd = dict(model.state_dict())
+        model = model_from_state_dict(cfg, quantize_params(sd, quant) if quant else sd)
+    card_model = copy.deepcopy(model).to(cuda)
+    rng = np.random.default_rng(21)
+    prompts = [(rng.normal(size=(n, 48)) * 0.5).astype(np.float32) for n in (12, 7, 16)]
+    outs = {}
+    for dev, m in (("cpu", model), ("cuda", card_model)):
+        DecodeBundle.build(m, buckets=(8, 16), gen_batch=4,
+                           max_new_tokens=10).save(str(tmp_path / dev))
+        bundle = DecodeBundle.load(str(tmp_path / dev))
+        assert bundle.device.type == dev
+        outs[dev] = bundle(prompts)
+    bucket, pe, pl = bundle.pad(prompts)
+    assert bucket == 16 and pe.device.type == "cuda"
+    prog = bundle._modules[bucket]
+    with torch.inference_mode():
+        state = prog["prefill"](bundle._params, pe, pl)
+        assert state["caches"]["gk"].abs().sum().item() == 0
+        prog["step"](bundle._params, state, pl, bundle._its[0])
+        written = state["caches"]["gk"].float().abs().sum(dim=(-2, -1))
+        assert (written[:, :, 0] > 0).all() and (written[:, :, 1:] == 0).all()
+        assert state["step"].tolist() == [2] * 4
+        eager = beam_generate_batched(card_model, pe, cfg, embed_fn=card_model.model.embed_tokens,
+                                      prompt_len=pl, num_beams=4, max_new_tokens=10)
+    eager = {k: v[:3].cpu().numpy() for k, v in eager.items()}
+    for ref in (eager, outs["cpu"]):
+        for key in ("tokens", "n_tokens", "n_steps"):
+            np.testing.assert_array_equal(outs["cuda"][key], ref[key], err_msg=key)
+        np.testing.assert_allclose(outs["cuda"]["taps"], ref["taps"], rtol=1e-4, atol=1e-4)

@@ -251,8 +251,9 @@ def test_cli_export_on_cpu_serves_the_seeded_model(tmp_path, capsys):
 
 
 def test_cli_export_refusals(tmp_path, monkeypatch, capsys):
-    assert export_cli.main(["--decode", "--llm_dir", "x", "--out_dir", str(tmp_path)]) == 1
-    assert "not ported yet: ROADMAP queue 1, item 3" in capsys.readouterr().out
+    with pytest.raises(SystemExit):          # --decode needs --llm_dir, as JAX's assert
+        export_cli.main(["--decode", "--out_dir", str(tmp_path / "d")])
+    assert "--decode needs --llm_dir" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         export_cli.main(["--out_dir", str(tmp_path / "b"), "--input_dims", "16,32,16,32"])
