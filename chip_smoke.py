@@ -219,8 +219,21 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (nothing saved), held to served_path_eager, the sliced decode printed
      beside it, ms per step of served, served_path_eager and eager beside
      the bound, and a profiled window of served steps (device time by
-     family, idle share, launches).
-Each phase prints its seconds, and the total of phases 2-27 follows. The second-to-last line is {"kernels":
+     family, idle share, launches);
+ 28. data-parallel training: two ranks on the card over gloo (NCCL takes
+     one rank a device), each started as ``chip_smoke.py --dp-worker``
+     with the SDUMC_* environment: (a) from the seeded weights with
+     dropout off, the 2-rank step on the first train batch (16 rows each,
+     the global-batch loss) against the single-process step (32 rows) on
+     the card, the loss to STEP_LOSS_RTOL and every gradient to phase 8's
+     ratio, which the control (each rank's own loss, gradients averaged)
+     must exceed; the warm DP step and the gradient all_reduce timed
+     (CUDA events) beside phase 9's step; (b) ``cli.train --multihost
+     --synthetic --epochs 1`` in the two processes: identical metrics on
+     both ranks, within JAX's 0.05 of phase 7's first epoch, each rank's
+     fusion launches 3 a batch and Q, and rank 0's best_full.pt (rank 0
+     alone writes) through cli.infer reproducing its MAE.
+Each phase prints its seconds, and the total of phases 2-28 follows. The second-to-last line is {"kernels":
 [...]}, the last line {"ok": true, "device": {...}}. Imports nothing of JAX
 or sdumc_tpu.
 
@@ -1125,7 +1138,7 @@ def training_phase(torch, fused_cross, ckpt_dir: str):
           f"kernels on the same batches)")
     if abs(mae - best) > CKPT_MAE_RTOL * abs(best):
         raise AssertionError("the best checkpoint does not reproduce its MAE")
-    return launches
+    return launches, result["history"]
 
 
 def first_train_batch(cfg, train_ds):
@@ -1137,12 +1150,12 @@ def first_train_batch(cfg, train_ds):
                                    drop_remainder=True)))
 
 
-def make_step(torch, cfg, model):
+def make_step(torch, cfg, model, axis=None):
     from sdumc_tpu_torch.train.state import create_train_state
     from sdumc_tpu_torch.train.step import make_train_step
 
     state = create_train_state(model, cfg.train, 8)
-    return make_train_step(state, cfg.loss, cfg.train.seed)
+    return make_train_step(state, cfg.loss, cfg.train.seed, axis)
 
 
 def step_parity_phase(torch):
@@ -4534,6 +4547,246 @@ def profile_served_steps(torch, bundle, prompts, first: int = PROFILE_FROM,
           f"kernel launches, host clock {wall * 1e3 / steps!r} ms")
 
 
+# ---------------------------------------------------------------- data parallel (phase 28)
+
+DP_WORLD = 2                 # two ranks on the one card, over gloo
+DP_ARGV = MAIN_ARGV + ["--epochs", "1", "--multihost"]
+DP_METRIC_ATOL = 0.05        # JAX's bound against a single process (tests/test_multihost.py:119-121)
+DP_TIMED = 10
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dropout_off_step(torch, cfg, dims, d, axis=None, local_loss: bool = False):
+    """One train step from the seeded weights with dropout off on the card's
+    batch dict `d` (a rank's rows under `axis`); returns (model, step, loss,
+    {name: gradient on the CPU}). ``local_loss``: the control, the rank's
+    own loss with the gradients averaged over the ranks."""
+    import dataclasses
+
+    from sdumc_tpu_torch.models import get_model
+    from sdumc_tpu_torch.parallel import reduce_gradients
+    from sdumc_tpu_torch.train.step import dual_view_loss
+
+    mcfg = dataclasses.replace(cfg.model, input_dims=dims[:3], dropout=0.0, attn_dropout=0.0)
+    model = get_model(mcfg, torch.Generator().manual_seed(cfg.train.seed)).to("cuda")
+    step = make_step(torch, cfg, model, axis)
+    if local_loss:
+        model.train()
+        loss, _ = dual_view_loss(model, d, cfg.loss)
+        loss.backward()
+        reduce_gradients(model.parameters(), axis)
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad /= axis.world
+        loss = loss.item()
+    else:
+        loss = step(d)["loss"].item()
+    return model, step, loss, {k: p.grad.cpu() for k, p in model.named_parameters()
+                               if p.grad is not None}
+
+
+def dp_worker(torch, work: str) -> None:
+    """One rank of phase 28, started with the SDUMC_* environment: (a) the
+    DP step, its timing and the local-loss control on this rank's rows of
+    the first train batch; (b) ``cli.train --multihost`` for one epoch on
+    a second rendezvous (SDUMC_COORDINATOR_LOOP). Rank 0 saves the step's
+    gradients; every rank writes rank{r}.json."""
+    import torch.distributed as dist
+
+    from sdumc_tpu_torch.cli import train
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.data.pipeline import get_loaders
+    from sdumc_tpu_torch.parallel import (initialize_from_env, make_data_axis,
+                                          reduce_gradients, shard_batch, shutdown)
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    rank, world = initialize_from_env(device="cuda")
+    axis = make_data_axis(torch.device("cuda", torch.cuda.current_device()))
+    cfg = main_path_config()
+    set_matmul_precision(cfg.model.matmul_precision)
+    train_ds, _, _ = get_loaders(cfg.data.dataset, cfg.data, cfg.paths, synthetic=True)
+    dims = train_ds.input_dims()
+    local = shard_batch(batch_to_device_dict(first_train_batch(cfg, train_ds), "cuda"),
+                        rank, world)
+    report = {"rank": rank, "rows": int(local["vals"].shape[0])}
+    model, step, report["loss"], grads = dropout_off_step(torch, cfg, dims, local, axis)
+    if rank == 0:
+        torch.save(grads, os.path.join(work, "dp_grads.pt"))
+    report["step_ms"] = time_ms(lambda: step(local), iters=DP_TIMED, warmup=3)
+    report["allreduce_ms"] = time_ms(lambda: reduce_gradients(model.parameters(), axis),
+                                     iters=DP_TIMED, warmup=3)
+    del model, step
+    _, _, report["control_loss"], grads = dropout_off_step(torch, cfg, dims, local, axis,
+                                                           local_loss=True)
+    if rank == 0:
+        torch.save(grads, os.path.join(work, "control_grads.pt"))
+    x = torch.full((2,), float(rank), device="cuda")
+    try:        # gloo's all_gather on CUDA tensors, for the record (the port gathers by all_reduce)
+        out = [torch.empty(2, device="cuda") for _ in range(world)]
+        dist.all_gather(out, x)
+        report["gloo_all_gather_cuda"] = f"works: {[t.tolist() for t in out]}"
+    except (RuntimeError, ValueError) as e:
+        report["gloo_all_gather_cuda"] = f"raises {type(e).__name__}: {str(e).splitlines()[0]}"
+    shutdown()
+
+    os.environ["SDUMC_COORDINATOR"] = os.environ["SDUMC_COORDINATOR_LOOP"]
+    reset_counts()
+    result = train.main(DP_ARGV + ["--checkpoint_dir", os.path.join(work, f"ck{rank}"),
+                                   "--save_root", os.path.join(work, f"saved{rank}")])
+    from sdumc_tpu_torch.ops.kernels import fused_cross
+
+    report.update(history=result["history"], best_full=result["best_full"],
+                  best_missing=result["best_missing"], launches=dict(fused_cross.LAUNCHES),
+                  counts=read_counts())
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f, default=float)
+
+
+def dp_phase(torch, work: str, single_epoch: dict, single_step_ms: float, card: str) -> dict:
+    """Phase 28: data-parallel training, two ranks on the card over gloo.
+    (a) From the seeded weights with dropout off, on the first train batch,
+    the 2-rank step (16 rows each) against the single-process step (32
+    rows) on the card: the loss to STEP_LOSS_RTOL, every gradient to phase
+    8's ratio; the control (each rank's own loss, gradients averaged) must
+    exceed it. (b) ``cli.train --multihost --synthetic --epochs 1`` in two
+    processes: identical metrics on both ranks, within DP_METRIC_ATOL of
+    phase 7's first epoch, 3 launches per batch and Q on each rank, rank
+    0's best_full.pt through cli.infer reproducing its MAE. Returns the
+    launches of each rank."""
+    from sdumc_tpu_torch.cli import infer
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.data.pipeline import get_loaders
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    work = os.path.join(work, "dp")
+    os.makedirs(work)
+    cfg = main_path_config()
+    set_matmul_precision(cfg.model.matmul_precision)
+    train_ds, val_ds, test_ds = get_loaders(cfg.data.dataset, cfg.data, cfg.paths, synthetic=True)
+    batch = first_train_batch(cfg, train_ds)
+    model, _, loss, g_single = dropout_off_step(torch, cfg, train_ds.input_dims(),
+                                                batch_to_device_dict(batch, "cuda"))
+    del model
+    torch.cuda.empty_cache()
+
+    first, loop = free_port(), free_port()
+    procs = []
+    for rank in range(DP_WORLD):
+        env = dict(os.environ, SDUMC_COORDINATOR=f"127.0.0.1:{first}",
+                   SDUMC_COORDINATOR_LOOP=f"127.0.0.1:{loop}", SDUMC_NUM_PROCESSES=str(DP_WORLD),
+                   SDUMC_PROCESS_ID=str(rank), SDUMC_SHUTDOWN_TIMEOUT="180")
+        log = open(os.path.join(work, f"rank{rank}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
+                                        work], stdout=log, stderr=subprocess.STDOUT, env=env,
+                                       cwd=os.path.dirname(os.path.abspath(__file__))), log))
+    failed, deadline = [], time.perf_counter() + 600
+    try:        # a rank that fails ends the phase: the others would wait in a collective
+        while not failed and any(p.poll() is None for p, _ in procs):
+            if time.perf_counter() > deadline:
+                raise RuntimeError("phase 28's ranks ran past 600 s")
+            failed = [r for r, (p, _) in enumerate(procs) if p.poll()]
+            time.sleep(0.5)
+        failed = [r for r, (p, _) in enumerate(procs) if p.poll()]
+    finally:
+        for p, log in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            log.close()
+    for rank in range(DP_WORLD):
+        with open(os.path.join(work, f"rank{rank}.log")) as f:
+            lines = f.read().splitlines()
+        shown = [ln for ln in lines if ln.startswith(("multihost:", "epoch:", "best_test"))]
+        print("\n".join(f"  rank {rank}: {ln}" for ln in shown))
+        if failed:
+            print("\n".join(lines[-40:]), file=sys.stderr)
+    if failed:
+        raise RuntimeError(f"phase 28's ranks {failed} failed")
+    reports = []
+    for rank in range(DP_WORLD):
+        with open(os.path.join(work, f"rank{rank}.json")) as f:
+            reports.append(json.load(f))
+
+    def worst_ratio(g):
+        if g.keys() != g_single.keys():
+            raise AssertionError("DP and single-process steps give gradients to different "
+                                 "parameters")
+        return max(((g[k] - ref).abs().max().item() / (GRAD_RTOL * ref.abs().max().item()
+                                                        + GRAD_ATOL), k)
+                   for k, ref in g_single.items())
+
+    dp_loss = reports[0]["loss"]
+    worst, worst_key = worst_ratio(torch.load(os.path.join(work, "dp_grads.pt")))
+    ctrl, ctrl_key = worst_ratio(torch.load(os.path.join(work, "control_grads.pt")))
+    print(f"(a) one train step, {DP_WORLD} ranks x {reports[0]['rows']} rows vs one process x "
+          f"{batch.size} (dropout off, seeded weights, the card): loss {dp_loss!r} vs {loss!r} "
+          f"(rtol {STEP_LOSS_RTOL}, rank 1: {reports[1]['loss']!r}); {len(g_single)} gradients, "
+          f"worst max-abs-diff / (GRAD_RTOL max|grad| + GRAD_ATOL) = {worst!r} at {worst_key} "
+          f"(must be <= 1)")
+    print(f"    control, each rank's own loss with averaged gradients: losses "
+          f"{[r['control_loss'] for r in reports]!r}, worst ratio {ctrl!r} at {ctrl_key} "
+          f"(must be > 1)")
+    if abs(dp_loss - loss) > STEP_LOSS_RTOL * abs(loss) or worst > 1.0:
+        raise AssertionError("the data-parallel step is not the single-process step")
+    if ctrl <= 1.0:
+        raise AssertionError("the gradient check does not tell the local-loss step apart")
+    step_ms = [r["step_ms"] for r in reports]
+    ar_ms = [r["allreduce_ms"] for r in reports]
+    print(f"    warm DP step (2 x 16 rows, gloo through the host, one card; CUDA events over "
+          f"{DP_TIMED} steps): {step_ms!r} ms per step by rank, against phase 9's single-process "
+          f"step (32 rows) {single_step_ms!r} ms; the gradient all_reduce alone "
+          f"{ar_ms!r} ms ({ar_ms[0] / step_ms[0]:.1%} of rank 0's step) ({card}). Two ranks "
+          f"on one card show correctness, not scaling.")
+    print(f"    gloo all_gather on CUDA tensors (torch {torch.__version__}): "
+          f"{reports[0]['gloo_all_gather_cuda']}")
+
+    def logged(r):
+        return ([{k: v for k, v in h.items() if k != "clips_per_sec"} for h in r["history"]],
+                r["best_full"], r["best_missing"])
+
+    if any(logged(r) != logged(reports[0]) for r in reports[1:]):
+        raise AssertionError(f"the ranks log different metrics: {[logged(r) for r in reports]}")
+    (h,) = reports[0]["history"]
+    pairs = {"train_mse_full": (h["train_mse_full"], single_epoch["train_mse_full"]),
+             "train_mse_missing": (h["train_mse_missing"], single_epoch["train_mse_missing"]),
+             "eval_mse_full": (h["eval_mse_full"], single_epoch["eval_mse_full"]),
+             "test_mae_full": (h["test"]["full"]["mae"], single_epoch["test"]["full"]["mae"]),
+             "test_mae_missing": (h["test"]["missing"]["mae"],
+                                  single_epoch["test"]["missing"]["mae"])}
+    print(f"(b) cli.train --multihost, {DP_WORLD} processes, 1 epoch (live dropouts): both ranks "
+          f"log the same metrics; against phase 7's first epoch (atol {DP_METRIC_ATOL}): "
+          + ", ".join(f"{k} {a!r} vs {b!r}" for k, (a, b) in pairs.items()))
+    if any(abs(a - b) > DP_METRIC_ATOL for a, b in pairs.values()):
+        raise AssertionError("the data-parallel epoch is too far from the single-process one")
+    bs = cfg.data.batch_size // DP_WORLD
+    for r in reports:
+        n = ((len(train_ds) // DP_WORLD) // bs + sum(
+            math.ceil(len(range(r["rank"], len(ds), DP_WORLD)) / bs) for ds in (val_ds, test_ds)))
+        for q_count, (name, _) in REPLACES.items():
+            got = r["launches"].get(str(q_count), 0)
+            if got != 3 * n:
+                raise AssertionError(f"rank {r['rank']}: {name} launched {got} times, expected "
+                                     f"3 x {n} batches = {3 * n}")
+        print(f"    rank {r['rank']}: {n} batches of {bs} rows, launches {r['counts']}")
+    ckpt = os.path.join(work, "ck0", "best_full.pt")
+    if os.path.exists(os.path.join(work, "ck1")) or not os.path.exists(ckpt):
+        raise AssertionError("rank 0 alone writes the checkpoints")
+    out = infer.main(MAIN_ARGV + ["--checkpoint", ckpt])
+    mae, best = out["full"]["mae"], reports[0]["best_full"]["mae"]
+    print(f"    rank 0's best_full.pt through cli.infer (one process): test MAE {mae!r}, the "
+          f"ranks recorded {best!r} (rtol {CKPT_MAE_RTOL})")
+    if abs(mae - best) > CKPT_MAE_RTOL * abs(best):
+        raise AssertionError("rank 0's checkpoint does not reproduce its MAE")
+    return {r["rank"]: r["launches"] for r in reports}
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3, 17 and 19 (without the gradient checks) with the kernels
     of the checkout at `root`, built from its own sources into its own
@@ -4593,6 +4846,7 @@ def main() -> int:
     parser.add_argument("--serve", help=argparse.SUPPRESS)
     parser.add_argument("--serve-out", help=argparse.SUPPRESS)
     parser.add_argument("--serve-decode", help=argparse.SUPPRESS)
+    parser.add_argument("--dp-worker", help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4607,6 +4861,9 @@ def main() -> int:
         return 0
     if args.serve_decode:
         decode_serve_worker(torch, args.serve_decode, args.serve_out)
+        return 0
+    if args.dp_worker:
+        dp_worker(torch, args.dp_worker)
         return 0
     if args.ab:
         print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4637,9 +4894,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as work:
         extract_counts, feats_dir, f32_rate = phase(5, extraction_phase, torch, flash_wavlm,
                                                      work)
-        launches = phase(7, training_phase, torch, fused_cross, os.path.join(work, "train"))
+        launches, history = phase(7, training_phase, torch, fused_cross,
+                                  os.path.join(work, "train"))
         phase(8, step_parity_phase, torch)
-        phase(9, step_timing_phase, torch)
+        step_ms = phase(9, step_timing_phase, torch)
         phase(10, llama_parity_phase, torch)
         llm_dir, proj_path = phase(11, feat4_cli_phase, torch, work, feats_dir)
         phase(12, full_depth_phase, torch, llm_dir, proj_path, feats_dir)
@@ -4659,7 +4917,8 @@ def main() -> int:
         served = phase(26, serve_phase, torch, work, os.path.join(work, "train", "best_full.pt"),
                        card)
         phase(27, decode_serve_phase, torch, work, llm_dir, card)
-    print(f"phases 2-27: {time.perf_counter() - t_phases!r} s")
+        dp_launches = phase(28, dp_phase, torch, work, history[0], step_ms, card)
+    print(f"phases 2-28: {time.perf_counter() - t_phases!r} s")
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():
@@ -4708,7 +4967,10 @@ def main() -> int:
           "fused_cross / fused_pool (cli.infer: "
           f"{ {REPLACES[q][0]: n for q, n in infer_launches.items()} }; a request served "
           "from cli.export's bundle, phase 26: "
-          f"{ {REPLACES[q][0]: n for q, n in served.items()} }), cli.extract audio "
+          f"{ {REPLACES[q][0]: n for q, n in served.items()} }; each rank of cli.train "
+          "--multihost over 2 processes, phase 28: "
+          f"{ {r: {REPLACES[int(q)][0]: n for q, n in c.items()} for r, c in dp_launches.items()} }"
+          "), cli.extract audio "
           "for flash_wavlm, cli.train --feature_dtype bfloat16 on the bf16 store for the "
           "bf16 instances (the int8 store's run: "
           f"{ {REPLACES_BF16[q][0]: n for q, n in store_launches['int8'].items()} }), "

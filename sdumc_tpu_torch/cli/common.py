@@ -13,8 +13,8 @@ import contextlib
 
 import torch
 
-from sdumc_tpu_torch.core.config import (DataConfig, ExperimentConfig, LossConfig, ModelConfig,
-                                         PathsConfig, TrainConfig)
+from sdumc_tpu_torch.core.config import (DataConfig, ExperimentConfig, LossConfig, MeshConfig,
+                                         ModelConfig, PathsConfig, TrainConfig)
 
 
 def add_reference_args(p: argparse.ArgumentParser) -> None:
@@ -71,9 +71,10 @@ def add_runtime_args(p: argparse.ArgumentParser) -> None:
                    help="use the deterministic synthetic feature store "
                         "(no dataset on disk required)")
     p.add_argument("--data_parallel", type=int, default=-1,
-                   help="parsed for recipe parity; this path runs on one device")
+                   help="cli.train: the data-parallel processes, -1 (all) or the "
+                        "number of processes (1 without --multihost)")
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="parsed for recipe parity; this path runs on one device")
+                   help="parsed for recipe parity; not read yet")
     p.add_argument("--length_pool", type=int, default=0,
                    help="parsed for recipe parity; inference batches in order")
     p.add_argument("--matmul_precision", type=str, default="highest",
@@ -121,6 +122,10 @@ def args_to_config(args) -> ExperimentConfig:
             epochs=args.epochs,
             seed=args.seed,
             checkpoint_dir=args.checkpoint_dir,
+        ),
+        mesh=MeshConfig(
+            data_parallel=args.data_parallel,
+            model_parallel=args.model_parallel,
         ),
     )
 

@@ -16,7 +16,16 @@ canonical ICASSP recipe ports by changing the module name:
         --text_query_feat_loss_w=0 --features_loss_w=0.13 --rnc_loss_w=0.5
 
 Runs on CUDA unless ``--device cpu`` is given; ``--synthetic`` runs without
-a dataset on disk. A packed store (``cli.extract pack``) in the features
+a dataset on disk. ``--multihost`` trains data-parallel across processes
+started with the SDUMC_* environment (``parallel/multihost.py``), one
+device each, as the single-process step on the global batch; every rank
+logs the same metrics and rank 0 writes the checkpoints:
+
+    SDUMC_COORDINATOR=127.0.0.1:29500 SDUMC_NUM_PROCESSES=2 SDUMC_PROCESS_ID=0 \
+        python -m sdumc_tpu_torch.cli.train --multihost --synthetic &
+    SDUMC_COORDINATOR=127.0.0.1:29500 SDUMC_NUM_PROCESSES=2 SDUMC_PROCESS_ID=1 \
+        python -m sdumc_tpu_torch.cli.train --multihost --synthetic
+ A packed store (``cli.extract pack``) in the features
 directory is read in place of the ``.npy`` directory of the same name;
 ``--feature_dtype bfloat16``, a bf16 store or an int8 store run the fusion
 net's bf16 frame streams. Checkpoints (``--checkpoint_dir``) are reference-format
@@ -41,13 +50,40 @@ def main(argv=None):
     parser.add_argument("--resume", type=str, default=None,
                         help="a latest.pt checkpoint to resume from")
     parser.add_argument("--multihost", action="store_true",
-                        help="multi-host data parallelism (not ported yet)")
+                        help="data parallelism across processes: the rendezvous from "
+                             "SDUMC_COORDINATOR (host:port), SDUMC_NUM_PROCESSES and "
+                             "SDUMC_PROCESS_ID; each process reads its shard of every batch")
     args = parser.parse_args(argv)
     cfg = args_to_config(args)
+
+    from sdumc_tpu_torch.models import MODELS
+    from sdumc_tpu_torch.parallel import make_data_axis
+
+    if args.multihost and getattr(MODELS.get(cfg.model.name), "has_model_loss", False):
+        raise ValueError(f"--model {cfg.model.name} adds a model_loss computed from the whole "
+                         "batch inside the model: --multihost is not ported for it "
+                         "(ROADMAP.md queue 1)")
     if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet (ROADMAP.md queue 1, "
-                                  "multi-device)")
-    device = resolve_device(args.device, args.gpu)
+        import torch
+
+        from sdumc_tpu_torch.parallel.multihost import initialize_from_env
+
+        rank, world = initialize_from_env(device=args.device)
+        print(f"multihost: process {rank}/{world}")
+        device = resolve_device(args.device, torch.cuda.current_device()
+                                if args.device == "cuda" else 0)
+    else:
+        device = resolve_device(args.device, args.gpu)
+    try:
+        return _train(args, cfg, device, make_data_axis(device, cfg.mesh.data_parallel))
+    finally:
+        if args.multihost:
+            from sdumc_tpu_torch.parallel import shutdown
+
+            shutdown()
+
+
+def _train(args, cfg, device, axis):
     set_matmul_precision(cfg.model.matmul_precision)
 
     from sdumc_tpu_torch.data.pipeline import get_loaders
@@ -67,11 +103,14 @@ def main(argv=None):
 
     t0 = time.time()
     with bf16_full_precision_reduction():
-        result = train(cfg, model, train_ds, eval_ds, test_ds, device, resume_from=args.resume)
+        result = train(cfg, model, train_ds, eval_ds, test_ds, device, resume_from=args.resume,
+                       axis=axis)
     print(f">>>>> Finish: training duration {time.time() - t0:.1f}s >>>>>")
     print("best_test_full:", result["best_full"])
     print("best_test_missing:", result["best_missing"])
 
+    if axis.rank:
+        return result
     # the reference's ablation append-log
     os.makedirs(args.save_root, exist_ok=True)
     with open(os.path.join(args.save_root, "features_ablation_study.txt"), "a") as f:

@@ -140,9 +140,21 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The device layout. The fusion net trains data-parallel across
+    processes (``cli.train --multihost``), one device a process:
+    ``data_parallel`` is -1 (every process) or the number of processes.
+    ``model_parallel`` is kept for recipe parity and not read yet."""
+
+    data_parallel: int = -1          # -1: every process
+    model_parallel: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
 class ExperimentConfig:
     paths: PathsConfig = dataclasses.field(default_factory=PathsConfig.from_env)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)

@@ -96,11 +96,18 @@ class BatchIterator:
         prefetch: int = 4,
         pin_memory: bool = False,
         drop_remainder: bool = False,
+        shard_index: int = 0,
+        shard_count: int = 1,
     ):
         """``pin_memory`` collates the padded features into page-locked
         memory, so copies to a card run asynchronously (needs CUDA);
         ``drop_remainder`` drops a last batch smaller than `batch_size`
-        (the train passes)."""
+        (the train passes). ``shard_index`` / ``shard_count`` keep the
+        epoch's order positions ``shard_index::shard_count`` (after the
+        shuffle, as the JAX package slices it): with a `batch_size` of
+        B / shard_count, the shards' k-th batches together hold the rows of
+        the unsharded k-th batch of B, in its order interleaved (row g of
+        it is row g // shard_count of shard g % shard_count)."""
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -110,12 +117,16 @@ class BatchIterator:
         self.prefetch = prefetch
         self.pin_memory = pin_memory
         self.drop_remainder = drop_remainder
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard {shard_index} of {shard_count}")
+        self.shard_index = shard_index
+        self.shard_count = shard_count
 
     def _order(self) -> np.ndarray:
         idx = np.arange(len(self.ds))
         if self.shuffle:
             np.random.default_rng((self.seed, self.epoch)).shuffle(idx)
-        return idx
+        return idx[self.shard_index::self.shard_count]
 
     def _packed_usable(self) -> bool:
         return self.ds.feat_scale <= 1 and all(
@@ -184,10 +195,13 @@ class BatchIterator:
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         sentinel = object()
         err: List[BaseException] = []
+        stop = threading.Event()
 
         def worker():
             try:
                 for b in self._batches():
+                    if stop.is_set():
+                        return
                     q.put(b)
             except BaseException as e:  # re-raised in the consumer below
                 err.append(e)
@@ -196,13 +210,21 @@ class BatchIterator:
 
         t = threading.Thread(target=worker, daemon=True)
         t.start()
-        while True:
-            item = q.get()
-            if item is sentinel:
-                if err:
-                    raise err[0]
-                return
-            yield item
+        try:
+            while True:
+                item = q.get()
+                if item is sentinel:
+                    if err:
+                        raise err[0]
+                    return
+                yield item
+        finally:
+            # a consumer that stops early (a preemption, a sharded epoch cut
+            # to the common step count) lets the producer finish and free
+            # its batches
+            stop.set()
+            while item is not sentinel:
+                item = q.get()
 
 
 def build_sources(cfg: DataConfig, paths: PathsConfig, synthetic: bool = False,

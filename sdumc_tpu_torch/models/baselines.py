@@ -62,6 +62,11 @@ class ModalityEncoder(nn.Module):
 class _BaselineBase(nn.Module):
     """The aux streams that the dual-view distillation loss reads."""
 
+    # True where aux["model_loss"] is computed inside the model from the whole
+    # batch (moments, negatives, one draw for all rows), which a data-parallel
+    # step cannot rebuild from gathered per-row outputs (train/step.py)
+    has_model_loss = False
+
     def __init__(self, cfg: ModelConfig, feat_dim: int, generator=None):
         super().__init__()
         self.cfg = cfg
@@ -193,6 +198,8 @@ class MISA(_BaselineBase):
     private + shared; the six vectors fuse through a small self-attention
     transformer."""
 
+    has_model_loss = True      # see _BaselineBase.has_model_loss
+
     def __init__(self, cfg: ModelConfig, generator=None):
         h = cfg.baseline_hidden_dim
         super().__init__(cfg, h, generator)
@@ -240,6 +247,8 @@ class MMIM(_BaselineBase):
     video at the input level; alpha-weighted CPC critics tie the fusion
     result back to each modality. The batch's other items are the
     negatives."""
+
+    has_model_loss = True      # see _BaselineBase.has_model_loss
 
     def __init__(self, cfg: ModelConfig, generator=None):
         h = cfg.baseline_hidden_dim

@@ -183,6 +183,8 @@ class MFM(_BaselineBase):
     (stop-gradient targets); in training mode an MMD matches every factor to
     N(0, I) samples. The prediction reads F_y only."""
 
+    has_model_loss = True      # see _BaselineBase.has_model_loss
+
     def __init__(self, cfg: ModelConfig, generator=None):
         h, m = cfg.baseline_hidden_dim, cfg.baseline_mem_dim
         super().__init__(cfg, h, generator)
@@ -266,6 +268,8 @@ class MCTN(_BaselineBase):
     translation and cycle losses (MSE in the projected space) weigh
     ``mctn_cycle_w``, with teacher forcing drawn per step at
     ``mctn_teacher_forcing`` in training."""
+
+    has_model_loss = True      # see _BaselineBase.has_model_loss
 
     def __init__(self, cfg: ModelConfig, generator=None):
         h = cfg.baseline_hidden_dim

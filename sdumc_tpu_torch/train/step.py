@@ -18,16 +18,27 @@ forwards. Every other model runs two forwards (``_fusable``). The train
 step returns metric sums as device tensors, so the loop reads them back
 once per epoch.
 
+Data-parallel (a ``DataAxis`` of more than one rank, each holding its rows
+of the global batch): the per-row outputs that the loss reads are gathered
+into the global batch's (``parallel.multihost.gather_rows``), every rank
+computes the global loss (RMSE and RnC are no means over samples, so the
+mean of local losses would be another loss), and the gradients are summed
+over the ranks after the backward: the step equals the single-process
+step on the global batch. A baseline family that adds an
+``aux["model_loss"]`` computed from the whole batch inside the model cannot
+be split so and raises.
+
 Every random draw of a train step (frame dropout, dropout, MFM's prior
 samples, MCTN's teacher-forcing mask) comes from one ``torch.Generator``
-on the step's device, seeded from (train seed, step): a resumed run draws
-the same masks as an uninterrupted one. The masks differ from the JAX
-package's, whose bit generator is another.
+on the step's device, seeded from (train seed, step), and the rank in a
+data-parallel run: a resumed run draws the same masks as an uninterrupted
+one. The masks differ from the JAX package's, whose bit generator is
+another.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -35,6 +46,8 @@ import torch
 from sdumc_tpu_torch.core.config import LossConfig
 from sdumc_tpu_torch.losses import mse_loss, rmse_loss, rnc_loss
 from sdumc_tpu_torch.models.layers import use_generator
+from sdumc_tpu_torch.parallel.mesh import DataAxis
+from sdumc_tpu_torch.parallel.multihost import gather_rows, reduce_gradients
 from sdumc_tpu_torch.train.state import TrainState
 
 AUX_KEYS = ("features", "rnc", "text_feat", "text_query_feat")
@@ -84,14 +97,29 @@ def _apply_views(model, batch: Dict):
     return vals0, aux0, vals1, aux1
 
 
-def dual_view_loss(model, batch: Dict, loss_cfg: LossConfig):
+def dual_view_loss(model, batch: Dict, loss_cfg: LossConfig, axis: Optional[DataAxis] = None):
     """(loss, metrics) of one batch dict (audio/text/video/feat4 [B, T, D],
     vals [B], t_max the 4 host ints). Dropout follows the model's mode, and
     in training mode draws from the generator that ``use_generator`` gave
-    the model. An int8 store's batch is dequantised first."""
+    the model. An int8 store's batch is dequantised first.
+
+    With an `axis` of more than one rank, `batch` holds this rank's rows of
+    the global batch (at its ``t_max``) and the loss and its metrics are the
+    global batch's; ``sq_err_*`` and ``count`` stay this rank's sums."""
     batch = dequant_features(batch)
     vals = batch["vals"]
     vals0, aux0, vals1, aux1 = _apply_views(model, batch)
+    local0, local1, local_vals = vals0, vals1, vals
+    if axis is not None and axis.world > 1:
+        if "model_loss" in aux0:
+            raise ValueError(f"{type(model).__name__} adds a model_loss computed from the "
+                             "whole batch inside the model: data-parallel training of it is "
+                             "not ported (ROADMAP.md queue 1)")
+        rows = gather_rows(axis, vals0, vals1, vals, *(aux0[k] for k in AUX_KEYS),
+                           *(aux1[k] for k in AUX_KEYS))
+        vals0, vals1, vals = rows[:3]
+        aux0 = dict(zip(AUX_KEYS, rows[3:3 + len(AUX_KEYS)]))
+        aux1 = dict(zip(AUX_KEYS, rows[3 + len(AUX_KEYS):]))
 
     mse0 = mse_loss(vals0, vals)
     mse1 = mse_loss(vals1, vals)
@@ -115,33 +143,45 @@ def dual_view_loss(model, batch: Dict, loss_cfg: LossConfig):
             "mse_missing": mse1.detach(),
             "rnc": rnc.detach(),
             # epoch MSE feed: sums of squared error and the count
-            "sq_err_full": torch.sum((vals0.reshape(-1) - vals) ** 2),
-            "sq_err_missing": torch.sum((vals1.reshape(-1) - vals) ** 2),
-            "count": torch.full((), float(vals.shape[0]), device=vals.device),
+            "sq_err_full": torch.sum((local0.reshape(-1) - local_vals) ** 2),
+            "sq_err_missing": torch.sum((local1.reshape(-1) - local_vals) ** 2),
+            "count": torch.full((), float(local_vals.shape[0]), device=vals.device),
         }
     return loss, metrics
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The 64-bit seed of one step's generator, a hash of (seed, step)."""
-    hi, lo = np.random.SeedSequence([seed, step]).generate_state(2)
+def step_seed(seed: int, step: int, rank: Optional[int] = None) -> int:
+    """The 64-bit seed of one step's generator, a hash of (seed, step), or
+    of (seed, step, rank) for a rank of a data-parallel run, whose rows
+    differ from the other ranks' and so need masks of their own."""
+    # rank + 1: SeedSequence hashes a trailing 0 as nothing, (seed, step, 0)
+    # as (seed, step)
+    hi, lo = np.random.SeedSequence(
+        [seed, step] if rank is None else [seed, step, rank + 1]).generate_state(2)
     return (int(hi) << 32) | int(lo)
 
 
-def make_train_step(state: TrainState, loss_cfg: LossConfig, seed: int):
+def make_train_step(state: TrainState, loss_cfg: LossConfig, seed: int,
+                    axis: Optional[DataAxis] = None):
     """Returns batch -> metrics (device tensors): one dual-view step, its
     backward, the Adam update and the schedule step, with the model in
-    training mode and the random stream of (seed, state.step)."""
+    training mode and the random stream of (seed, state.step). With an
+    `axis` of more than one rank, the batch is this rank's rows and the step
+    is the global batch's: the global loss, the gradients summed over the
+    ranks before the update, the stream of (seed, state.step, rank)."""
     model = state.model
     generator = torch.Generator(device=next(model.parameters()).device)
     use_generator(model, generator)
+    rank = axis.rank if axis is not None and axis.world > 1 else None
 
     def train_step(batch):
         model.train()
-        generator.manual_seed(step_seed(seed, state.step))
-        loss, metrics = dual_view_loss(model, batch, loss_cfg)
+        generator.manual_seed(step_seed(seed, state.step, rank))
+        loss, metrics = dual_view_loss(model, batch, loss_cfg, axis)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if rank is not None:
+            reduce_gradients(model.parameters(), axis)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1

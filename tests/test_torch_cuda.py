@@ -47,7 +47,9 @@ the card at D = 256 answers as the eager eval with 3 + 3 launches a
 request; and ``cli.export`` on the card serves from a fresh process that
 imports no model code. A tiny ``DecodeBundle`` exported on the card (its
 step program writing the decode state in place) answers as the eager
-beam engine on the card and as the bundle exported on the CPU.
+beam engine on the card and as the bundle exported on the CPU. Two ranks
+on the card over gloo (every collective of the data-parallel step on CUDA
+tensors) take the single-process step on the CPU.
 """
 
 import math
@@ -1477,3 +1479,88 @@ def test_decode_bundle_on_card_matches_eager_and_cpu(cuda, tmp_path, quant, kv_q
         for key in ("tokens", "n_tokens", "n_steps"):
             np.testing.assert_array_equal(outs["cuda"][key], ref[key], err_msg=key)
         np.testing.assert_allclose(outs["cuda"]["taps"], ref["taps"], rtol=1e-4, atol=1e-4)
+
+
+_DP_RANK = """
+import sys
+import numpy as np, torch
+from sdumc_tpu_torch.cli.common import set_matmul_precision
+from sdumc_tpu_torch.core.config import LossConfig, ModelConfig, TrainConfig
+from sdumc_tpu_torch.models.fusion import SDUMCFusion
+from sdumc_tpu_torch.ops.kernels import fused_cross
+from sdumc_tpu_torch.parallel import initialize_from_env, make_data_axis, shard_batch, shutdown
+from sdumc_tpu_torch.train.state import create_train_state
+from sdumc_tpu_torch.train.step import make_train_step
+
+work = sys.argv[1]
+set_matmul_precision("highest")
+rank, world = initialize_from_env(device="cuda")
+dev = torch.device("cuda", torch.cuda.current_device())
+data = np.load(work + "/case.npz")
+batch = {k: torch.from_numpy(data[k]).to(dev) for k in ("audio", "text", "video", "feat4", "vals")}
+batch["t_max"] = tuple(int(t) for t in data["t_max"])
+model = SDUMCFusion(ModelConfig(input_dims=tuple(int(d) for d in data["dims"]), dropout=0.0,
+                                attn_dropout=0.0), torch.Generator().manual_seed(0)).to(dev)
+state = create_train_state(model, TrainConfig(), 4)
+step = make_train_step(state, LossConfig(text_feat_w=0.1, text_query_feat_w=0.7), seed=0,
+                       axis=make_data_axis(dev))
+fused_cross.reset_launches()
+loss = step(shard_batch(batch, rank, world))["loss"].item()
+np.savez(work + f"/rank{rank}.npz", loss=loss,
+         launches=np.array([fused_cross.LAUNCHES.get(1, 0), fused_cross.LAUNCHES.get(7, 0)]),
+         **{"g/" + k: p.grad.cpu().numpy() for k, p in model.named_parameters()
+            if p.grad is not None})
+shutdown()
+"""
+
+
+@pytest.mark.cuda
+def test_two_rank_gloo_step_on_card_matches_cpu(cuda, tmp_path):
+    """Two ranks on the card over gloo (each collective of the step on CUDA
+    tensors), each with half the rows of a global batch of 4, take one
+    train step (dropout off): the global-batch loss and the summed
+    gradients equal the single-process step on the CPU, at the tolerance
+    of the card-vs-CPU step above; 3 + 3 fusion launches on each rank."""
+    import importlib.util
+    import pathlib
+    import sys
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.core.config import LossConfig, ModelConfig, TrainConfig
+    from sdumc_tpu_torch.models.fusion import SDUMCFusion
+    from sdumc_tpu_torch.train.state import create_train_state
+    from sdumc_tpu_torch.train.step import make_train_step
+
+    # the launcher of the CPU tests, loaded from its file (the card's machine
+    # may hold another top-level package named tests)
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_multihost", pathlib.Path(__file__).with_name("test_torch_multihost.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    set_matmul_precision("highest")
+    dims = (32, 64, 32)
+    rng = np.random.default_rng(5)
+    case = {k: rng.normal(size=(4, n, d)).astype(np.float32)
+            for k, n, d in (("audio", 70, dims[0]), ("text", 20, dims[1]),
+                            ("video", 40, dims[2]), ("feat4", 12, dims[1]))}
+    case["vals"] = rng.uniform(-3, 3, size=4).astype(np.float32)
+    t_max = (65, 17, 33, 12)
+    np.savez(tmp_path / "case.npz", t_max=np.array(t_max), dims=np.array(dims), **case)
+    helpers.run_ranks(2, [sys.executable, "-c", _DP_RANK, str(tmp_path)])
+
+    model = SDUMCFusion(ModelConfig(input_dims=dims, dropout=0.0, attn_dropout=0.0),
+                        torch.Generator().manual_seed(0))
+    state = create_train_state(model, TrainConfig(), 4)
+    batch = dict({k: torch.from_numpy(v) for k, v in case.items()}, t_max=t_max)
+    ref = make_train_step(state, LossConfig(text_feat_w=0.1, text_query_feat_w=0.7),
+                          seed=0)(batch)["loss"].item()
+    ranks = [np.load(tmp_path / f"rank{r}.npz") for r in range(2)]
+    for r in ranks:
+        assert r["launches"].tolist() == [3, 3]
+        assert float(r["loss"]) == pytest.approx(ref, rel=1e-4)
+        grads = {k[2:]: r[k] for k in r.files if k.startswith("g/")}
+        assert grads.keys() == {k for k, p in model.named_parameters() if p.grad is not None}
+        for name, p in model.named_parameters():
+            if p.grad is not None:
+                err = np.abs(grads[name] - p.grad.numpy()).max()
+                assert err <= 1e-5 * p.grad.abs().max().item() + 1e-6, (name, err)

@@ -189,3 +189,29 @@ def test_the_serving_module_imports_no_model_code_at_load():
     top = [mod for mod, fn in _imports(tree) if fn is None]
     assert "sdumc_tpu_torch.ops.kernels" in top
     assert not any(m.startswith(("sdumc_tpu_torch.models", "sdumc_tpu_torch.train")) for m in top)
+
+
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py")
+
+
+@pytest.mark.parametrize("rel", PARALLEL_MODULES)
+def test_the_walk_imports_the_parallel_modules(rel):
+    """pkgutil's walk reaches the data-parallel layer (so the probe above
+    covers it)."""
+    import pkgutil
+
+    import sdumc_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(sdumc_tpu_torch.__path__, "sdumc_tpu_torch.")}
+    assert "sdumc_tpu_torch." + rel[:-3].replace("/", ".").removesuffix(".__init__") in names
+
+
+def test_torch_distributed_is_imported_only_inside_functions():
+    """No module of the port imports torch.distributed when it is imported
+    (a torch built without it must still import the port): every import of
+    it sits in a function."""
+    sites = {(str(path.relative_to(REPO)), fn)
+             for path in sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             for mod, fn in _imports(ast.parse(path.read_text()))
+             if mod.startswith("torch.distributed")}
+    assert sites and all(fn is not None for _, fn in sites), sites

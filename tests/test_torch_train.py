@@ -535,11 +535,13 @@ def test_train_cli_synthetic_cpu_and_best_checkpoint_through_infer(tmp_path):
 
 
 @pytest.mark.parametrize("flags, error", [
-    pytest.param(["--multihost"], "multi-device", id="flags0-multi-device"),
+    pytest.param(["--multihost", "--model", "misa"], "--multihost is not ported",
+                 id="flags0-multi-device"),
     pytest.param(["--checkpoint", "orbax_dir"], "Orbax", id="flags2-Orbax"),
 ])
 def test_train_cli_refuses_what_is_not_ported(flags, error, tmp_path):
-    """--multihost and an Orbax --checkpoint raise."""
+    """--multihost for a family whose model_loss couples the batch, and an
+    Orbax --checkpoint, raise."""
     from sdumc_tpu_torch.cli import train
 
     with pytest.raises((NotImplementedError, ValueError), match=error):
