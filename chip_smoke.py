@@ -5,6 +5,8 @@
     python3 chip_smoke.py --ab OTHER      # phases 2-3, 9, 17 and 19 only, for
                                           # this checkout and OTHER (the root of
                                           # another checkout), in turns
+    python3 chip_smoke.py --tp-cli N      # phase 29 (a) alone at --tp N (on N
+                                          # cards: NCCL), from its own inputs
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. environment: the card's name and power limit, then the kernel build
@@ -232,8 +234,36 @@ Phases, each fatal on failure (non-zero exit, no result line):
      --synthetic --epochs 1`` in the two processes: identical metrics on
      both ranks, within JAX's 0.05 of phase 7's first epoch, each rank's
      fusion launches 3 a batch and Q, and rank 0's best_full.pt (rank 0
-     alone writes) through cli.infer reproducing its MAE.
-Each phase prints its seconds, and the total of phases 2-28 follows. The second-to-last line is {"kernels":
+     alone writes) through cli.infer reproducing its MAE;
+ 29. tensor parallelism: two ranks on the card over gloo. Its parts that
+     time nothing run beside phase 24's runs, which time nothing either
+     (phase 24 waits for them before it times its steps): (a) ``python -m
+     sdumc_tpu_torch.cli.extract text --tp 2`` on phase 13's transcripts
+     and ``... feat4 --tp 2`` on phase 5's features, both on phase 11's
+     2-layer Vicuna (bf16; two commands, each starting its two ranks);
+     two ranks started as ``chip_smoke.py --tp-worker``: (b) phase 10's
+     f32 decoder at Vicuna-7B width split in two against one process,
+     every hidden state and the logits to phase 10's 1e-4, a beam-4
+     decode's tokens and step counts equal and its taps to 1e-4; (d) phase
+     5's wavlm-large split in two (8 heads a rank) at f32 and bf16 on its
+     two shortest wavs, the last hidden state and tap -5 held to one
+     process at phase 5's and phase 21's tolerances, 24 flash launches a
+     rank, each rank's first at H = 8 held to its plain version; rank 0
+     computes (a)'s witness, each clip's first feat4 row at f32 in one
+     process. Phase 29 itself: with nothing else on the card, the ranks
+     run (c), the 32-layer bf16 model, each rank seeding its shards, phase
+     14's batch and 31 decode steps of phase 12's chunk, ms by CUDA events
+     beside phases 14 and 12, the collectives' ms and share of a run that
+     times each, each rank's peak memory beside phase 12's; then every
+     part is held, each rank's: (a)'s files written by rank 0, the text
+     taps within 4 bf16 ulps of the largest of phase 13's --tp 1 files,
+     every feat4 clip's first row (before any beam choice) within 4 bf16
+     ulps of the row's largest tap of phase 11's, at most 1% of those
+     elements outside phase 11's bf16 tolerance, and the first rows no
+     farther from the f32 witness than 1.25 times --tp 1's (relative L2),
+     the ranks' tokens checked equal after each chunk, and how far the
+     rest of each clip follows --tp 1 printed, not held; (b); (c); (d).
+Each phase prints its seconds, and the total of phases 2-29 follows. The second-to-last line is {"kernels":
 [...]}, the last line {"ok": true, "device": {...}}. Imports nothing of JAX
 or sdumc_tpu.
 
@@ -1599,11 +1629,25 @@ def profile_decode(torch, model, cfg, prompts, lens, first: int = PROFILE_FROM,
 FULL_DEPTH_CLIPS = 8          # phase 12's short clips, beside the 60 s one
 
 
+def timed_chunk(torch, ex, feats):
+    """Phase 12's timed chunk: the first GEN_BATCH clips of the 256 bucket
+    (else the largest full one), as (prompts [C, bucket, D], lengths,
+    bucket), their prompts made by `ex` (a Feat4Extractor)."""
+    lens_all = [ex.prompt_len_for(len(f)) for f in feats]
+    buckets = [next((b for b in ex.prompt_buckets if n <= b), n) for n in lens_all]
+    bucket = 256 if buckets.count(256) >= GEN_BATCH else max(
+        b for b in set(buckets) if buckets.count(b) >= GEN_BATCH)
+    pick = [i for i, b in enumerate(buckets) if b == bucket][:GEN_BATCH]
+    prompts = torch.stack([ex._padded_prompt(feats[i], bucket) for i in pick])
+    return prompts, [lens_all[i] for i in pick], bucket
+
+
 def full_depth_phase(torch, llm_dir: str, proj_path: str, feats_dir: str):
     """Phase 12: Vicuna-7B at 32 layers in bf16 (seeded on the card) through
     Feat4Extractor.extract_many on 9 of phase 5's features at --gen_batch 4; a
     timed and profiled chunk; then one chunk of 32 steps with int8, w8a8
-    and int8-KV, each against bf16."""
+    and int8-KV, each against bf16. Returns the bf16 chunk's ms per step
+    over QUANT_STEPS steps and the extraction's peak memory (GiB)."""
     import dataclasses
     import glob
 
@@ -1652,14 +1696,7 @@ def full_depth_phase(torch, llm_dir: str, proj_path: str, feats_dir: str):
           f"{GEN_BATCH}: {n_tok} taps rows (steps per clip {per_clip}), {seconds!r} s host "
           f"clock, {n_tok / seconds!r} clip-tokens/s; peak device memory {peak!r} GiB")
 
-    # the timed chunk: the first GEN_BATCH clips of the 256 bucket (else the largest full one)
-    lens_all = [ex.prompt_len_for(len(f)) for f in feats]
-    buckets = [next((b for b in ex.prompt_buckets if n <= b), n) for n in lens_all]
-    bucket = 256 if buckets.count(256) >= GEN_BATCH else max(
-        b for b in set(buckets) if buckets.count(b) >= GEN_BATCH)
-    pick = [i for i, b in enumerate(buckets) if b == bucket][:GEN_BATCH]
-    prompts = torch.stack([ex._padded_prompt(feats[i], bucket) for i in pick])
-    lens = [lens_all[i] for i in pick]
+    prompts, lens, bucket = timed_chunk(torch, ex, feats)
     ms, out = time_decode(torch, model, cfg, prompts, lens, MAX_NEW)
     steps = int(out["n_steps"].max())
     bound = decode_bound_ms(cfg, wbytes, GEN_BATCH, bucket, steps)
@@ -1706,6 +1743,7 @@ def full_depth_phase(torch, llm_dir: str, proj_path: str, feats_dir: str):
         torch.cuda.empty_cache()
     del model, ex
     torch.cuda.empty_cache()
+    return {"step_ms": ref_ms, "peak_gib": peak}
 
 
 # ---------------------------------------------------------------- text and visual (phases 13-16)
@@ -1788,17 +1826,34 @@ def text_cli_phase(torch, tmp: str, llm_dir: str):
     return rows
 
 
+def text_batch(torch, tok, sents):
+    """Phase 14's timed batch: one full batch of the most populated bucket,
+    as (ids [TEXT_BATCH, bucket], lengths, bucket) on the card."""
+    from sdumc_tpu_torch.extract.text import BUCKETS
+
+    ids_of = [tok(s)["input_ids"] for s in sents if s.strip()]
+    bucket_of = [next((b for b in BUCKETS if len(i) <= b), len(i)) for i in ids_of]
+    bucket = max(set(bucket_of), key=bucket_of.count)
+    chunk = [i for i, b in zip(ids_of, bucket_of) if b == bucket][:TEXT_BATCH]
+    ids = torch.zeros(TEXT_BATCH, bucket, dtype=torch.long)
+    for j, row in enumerate(chunk):
+        ids[j, :len(row)] = torch.tensor(row)
+    lengths = torch.tensor([len(r) for r in chunk] + [0] * (TEXT_BATCH - len(chunk)))
+    return ids.to(DEVICE), lengths.to(DEVICE), bucket
+
+
 def text_full_depth_phase(torch, llm_dir: str, rows):
     """Phase 14: the Vicuna-7B trunk at 32 layers in bf16 (seeded on the
     card) through extract_text_features on the transcripts, with each tap
     set: sentences/s, peak memory, ms per batch by CUDA events beside the
-    bound, and device time by family of a profiled run."""
+    bound, and device time by family of a profiled run. Returns the batch's
+    ms and the peak memory (GiB)."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
     from sdumc_tpu_torch.cli.common import set_matmul_precision
     from sdumc_tpu_torch.convert.llama_tokenizer import LlamaTokenizer
-    from sdumc_tpu_torch.extract.text import BUCKETS, extract_text_features, run_batch
+    from sdumc_tpu_torch.extract.text import extract_text_features, run_batch
     from sdumc_tpu_torch.models.llama import LlamaModel, init_weights
 
     set_matmul_precision("highest")
@@ -1828,18 +1883,11 @@ def text_full_depth_phase(torch, llm_dir: str, rows):
             raise AssertionError(f"taps {taps}: non-finite features or wrong width")
         print(f"  --layer_ids {','.join(map(str, taps))}: {len(sents)} transcripts in {seconds!r} s "
               f"host clock (tokenizing included, warm), {len(sents) / seconds!r} sentences/s")
-    print(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30!r} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  peak device memory {peak!r} GiB")
 
-    # one full batch of the most populated bucket, timed alone
-    ids_of = [tok(s)["input_ids"] for s in sents if s.strip()]
-    bucket_of = [next((b for b in BUCKETS if len(i) <= b), len(i)) for i in ids_of]
-    bucket = max(set(bucket_of), key=bucket_of.count)
-    chunk = [i for i, b in zip(ids_of, bucket_of) if b == bucket][:TEXT_BATCH]
-    ids = torch.zeros(TEXT_BATCH, bucket, dtype=torch.long)
-    for j, row in enumerate(chunk):
-        ids[j, :len(row)] = torch.tensor(row)
-    lengths = torch.tensor([len(r) for r in chunk] + [0] * (TEXT_BATCH - len(chunk)))
-    ids, lengths = ids.to(DEVICE), lengths.to(DEVICE)
+    ids, lengths, bucket = text_batch(torch, tok, sents)
+    chunk = [n for n in lengths.tolist() if n]
     with torch.inference_mode():
         ms = time_ms(lambda: run_batch(trunk, ids, lengths, TEXT_TAPS[0]), iters=10, warmup=2)
     real = int(lengths.sum())
@@ -1861,6 +1909,7 @@ def text_full_depth_phase(torch, llm_dir: str, rows):
                       "elementwise, norms, rope, casts and the tap sum", top=10)
     del trunk
     torch.cuda.empty_cache()
+    return {"batch_ms": ms, "peak_gib": peak}
 
 
 def write_bmp(path: str, rgb) -> None:
@@ -3417,13 +3466,14 @@ def baseline_timing(torch, cfg, batch, dims, card: str) -> dict:
     return summary
 
 
-def baseline_phase(torch, tmp: str, card: str) -> dict:
+def baseline_phase(torch, tmp: str, card: str, quiet=lambda: None) -> dict:
     """Phase 24: the baseline zoo. Each of the ten families through
     ``cli.train --model NAME`` (one epoch) and ``cli.infer --model
     NAME --checkpoint best_full.pt``, with no kernel of the port launched;
     tfn once more with bf16 streams; one train step card vs CPU for tfn,
-    mfn, mctn and mult with a refused TF32 control; a timed and profiled
-    warm step per family."""
+    mfn, mctn and mult with a refused TF32 control; then, once ``quiet()``
+    returns (nothing else on the card), a timed and profiled warm step per
+    family."""
     from sdumc_tpu_torch.cli.common import set_matmul_precision
     from sdumc_tpu_torch.data.pipeline import get_loaders
 
@@ -3434,6 +3484,7 @@ def baseline_phase(torch, tmp: str, card: str) -> dict:
     batch = first_train_batch(cfg, train_ds)
     dims = tuple(train_ds.input_dims()[:3])
     baseline_parity(torch, cfg, batch, dims, card)
+    quiet()
     reset_counts()
     summary = baseline_timing(torch, cfg, batch, dims, card)
     counts = read_counts()
@@ -4555,14 +4606,6 @@ DP_METRIC_ATOL = 0.05        # JAX's bound against a single process (tests/test_
 DP_TIMED = 10
 
 
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def dropout_off_step(torch, cfg, dims, d, axis=None, local_loss: bool = False):
     """One train step from the seeded weights with dropout off on the card's
     batch dict `d` (a rank's rows under `axis`); returns (model, step, loss,
@@ -4663,6 +4706,7 @@ def dp_phase(torch, work: str, single_epoch: dict, single_step_ms: float, card: 
     from sdumc_tpu_torch.cli import infer
     from sdumc_tpu_torch.cli.common import set_matmul_precision
     from sdumc_tpu_torch.data.pipeline import get_loaders
+    from sdumc_tpu_torch.parallel.multihost import LocalProcesses, free_port
     from sdumc_tpu_torch.train.step import batch_to_device_dict
 
     work = os.path.join(work, "dp")
@@ -4676,39 +4720,17 @@ def dp_phase(torch, work: str, single_epoch: dict, single_step_ms: float, card: 
     del model
     torch.cuda.empty_cache()
 
-    first, loop = free_port(), free_port()
-    procs = []
-    for rank in range(DP_WORLD):
-        env = dict(os.environ, SDUMC_COORDINATOR=f"127.0.0.1:{first}",
-                   SDUMC_COORDINATOR_LOOP=f"127.0.0.1:{loop}", SDUMC_NUM_PROCESSES=str(DP_WORLD),
-                   SDUMC_PROCESS_ID=str(rank), SDUMC_SHUTDOWN_TIMEOUT="180")
-        log = open(os.path.join(work, f"rank{rank}.log"), "w")
-        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--dp-worker",
-                                        work], stdout=log, stderr=subprocess.STDOUT, env=env,
-                                       cwd=os.path.dirname(os.path.abspath(__file__))), log))
-    failed, deadline = [], time.perf_counter() + 600
-    try:        # a rank that fails ends the phase: the others would wait in a collective
-        while not failed and any(p.poll() is None for p, _ in procs):
-            if time.perf_counter() > deadline:
-                raise RuntimeError("phase 28's ranks ran past 600 s")
-            failed = [r for r, (p, _) in enumerate(procs) if p.poll()]
-            time.sleep(0.5)
-        failed = [r for r, (p, _) in enumerate(procs) if p.poll()]
-    finally:
-        for p, log in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            log.close()
+    with LocalProcesses() as procs:     # a rank that fails ends the phase
+        procs.start_ranks([sys.executable, os.path.abspath(__file__), "--dp-worker", work],
+                          DP_WORLD, env={"SDUMC_COORDINATOR_LOOP": f"127.0.0.1:{free_port()}",
+                                         "SDUMC_SHUTDOWN_TIMEOUT": "180"},
+                          log_dir=work, cwd=os.path.dirname(os.path.abspath(__file__)))
+        procs.wait(timeout=600)
     for rank in range(DP_WORLD):
         with open(os.path.join(work, f"rank{rank}.log")) as f:
-            lines = f.read().splitlines()
-        shown = [ln for ln in lines if ln.startswith(("multihost:", "epoch:", "best_test"))]
+            shown = [ln for ln in f.read().splitlines()
+                     if ln.startswith(("multihost:", "epoch:", "best_test"))]
         print("\n".join(f"  rank {rank}: {ln}" for ln in shown))
-        if failed:
-            print("\n".join(lines[-40:]), file=sys.stderr)
-    if failed:
-        raise RuntimeError(f"phase 28's ranks {failed} failed")
     reports = []
     for rank in range(DP_WORLD):
         with open(os.path.join(work, f"rank{rank}.json")) as f:
@@ -4787,6 +4809,626 @@ def dp_phase(torch, work: str, single_epoch: dict, single_step_ms: float, card: 
     return {r["rank"]: r["launches"] for r in reports}
 
 
+# ---------------------------------------------------------------- tensor parallelism (phase 29)
+
+TP_WORLD = 2                 # two ranks on the one card, over gloo
+TP_WAVLM_CLIPS = 2           # (d): phase 5's shortest clips, in one padded batch
+TP_BATCH_RUNS = 3            # (c): timed runs of phase 14's batch (about 1.1 s each over gloo)
+TP_TIMED_STEPS = 8           # (c): decode steps run on with each collective timed
+TP_SIDE_SECONDS = 300        # phase 24's wait, past its own runs, for phase 29's work beside them
+TP_GO_SECONDS = 1200         # a rank's wait, past that work, for phase 29 to start (c)
+TP_FIRST_ROW_SHARE = 0.01    # (a): feat4 first-row elements outside phase 11's rtol / atol
+TP_WITNESS_RATIO = 1.25      # (a): --tp N's first rows no farther from f32 than this times --tp 1's
+TEXT_BF16_ULPS = 4           # the text stage's bf16 rule (tests/test_torch_text.py BF16_ULPS)
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at |x| (8 bits of mantissa)."""
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
+
+
+class TimedCollectives:
+    """Within it, every call of ``ModelAxis.all_reduce`` / ``gather_last``
+    is timed on the host clock between two synchronisations; ``ms`` lists
+    them. The synchronisations slow the run they time, so the share is of
+    that run's own host clock."""
+
+    def __init__(self, torch):
+        self.torch, self.ms = torch, []
+
+    def __enter__(self):
+        from sdumc_tpu_torch.parallel.mesh import ModelAxis
+
+        self.saved = ModelAxis.all_reduce, ModelAxis.gather_last
+
+        def timed(fn):
+            def run(axis, x):
+                self.torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(axis, x)
+                self.torch.cuda.synchronize()
+                self.ms.append(1e3 * (time.perf_counter() - t))
+                return out
+            return run
+
+        ModelAxis.all_reduce, ModelAxis.gather_last = (timed(f) for f in self.saved)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        from sdumc_tpu_torch.parallel.mesh import ModelAxis
+
+        self.torch.cuda.synchronize()
+        self.wall_ms = 1e3 * (time.perf_counter() - self.t0)
+        ModelAxis.all_reduce, ModelAxis.gather_last = self.saved
+        return False
+
+
+def tp_parity(torch, axis) -> dict:
+    """Phase 29 (b): phase 10's decoder (Vicuna-7B width, 2 layers, f32,
+    seeded on the card alike in every rank) whole and split over the ranks:
+    every hidden state and the logits of the full-sequence forward, then the
+    beam-4 decode of phase 10's 2 clips (the ranks' tokens checked equal)."""
+    import numpy as np
+
+    from sdumc_tpu_torch.models.llama import LlamaForCausalLM, init_weights
+    from sdumc_tpu_torch.parallel import shard_llama_model
+
+    cfg = feat4_config(torch, CLI_LAYERS, dtype=torch.float32)
+    with torch.device("meta"):
+        full = LlamaForCausalLM(cfg)
+    full = init_weights(full.to_empty(device=axis.device), seed=0).eval()
+    split = shard_llama_model(full.state_dict(), cfg, axis)
+    rng = np.random.default_rng(10)
+    bucket, lens = 64, [41, 57]
+    prompts = np.zeros((2, bucket, cfg.hidden_size), np.float32)
+    for c, n in enumerate(lens):
+        prompts[c, bucket - n:] = 0.5 * rng.standard_normal((n, cfg.hidden_size))
+    prompts = torch.from_numpy(prompts).to(axis.device)
+    outs = {}
+    for name, model, kw in (("single", full, {}), ("tp", split, {"axis": axis})):
+        with torch.inference_mode():
+            fwd = model(inputs_embeds=prompts[1:, bucket - lens[1]:], output_hidden_states=True)
+        beam = beam_chunk(torch, model, model.cfg, prompts, lens, PARITY_STEPS, **kw)
+        outs[name] = (fwd, beam)
+    (fwd, beam), (tfwd, tbeam) = outs["single"], outs["tp"]
+    hidden = [(t - r).abs().max().item() for t, r in zip(tfwd["hidden_states"],
+                                                         fwd["hidden_states"])]
+    hidden_ok = all(torch.allclose(t, r, rtol=LLAMA_RTOL, atol=LLAMA_ATOL)
+                    for t, r in zip(tfwd["hidden_states"], fwd["hidden_states"]))
+    report = {
+        "hidden_max_abs_diff": max(hidden), "hidden_ok": hidden_ok,
+        "hidden_top": max(h.abs().max().item() for h in fwd["hidden_states"]),
+        "logits_max_abs_diff": (tfwd["logits"] - fwd["logits"]).abs().max().item(),
+        "logits_ok": torch.allclose(tfwd["logits"], fwd["logits"], rtol=LLAMA_RTOL,
+                                    atol=LLAMA_ATOL),
+        "tokens_equal": torch.equal(tbeam["tokens"], beam["tokens"]),
+        "steps_equal": torch.equal(tbeam["n_steps"], beam["n_steps"]),
+        "n_steps": beam["n_steps"].tolist(),
+        "taps_max_abs_diff": (tbeam["taps"] - beam["taps"]).abs().max().item(),
+        "taps_ok": torch.allclose(tbeam["taps"], beam["taps"], rtol=LLAMA_RTOL, atol=LLAMA_ATOL),
+        "tokens": tbeam["tokens"][:, :PARITY_STEPS].tolist()}
+    del full, split, outs
+    torch.cuda.empty_cache()
+    return report
+
+
+def tp_full_depth(torch, axis, paths: dict) -> dict:
+    """Phase 29 (c), with nothing else on the card: Vicuna-7B at 32 layers
+    in bf16 split over the ranks, each seeding its own shards on the card;
+    phase 14's batch through the trunk and QUANT_STEPS - 1 decode steps (a
+    QUANT_STEPS-token run's) of phase 12's timed chunk at --gen_batch 4,
+    after its prefill and two warm steps, each timed by CUDA events, then
+    run on with every collective timed; the rank's peak memory over the
+    decode."""
+    import glob
+
+    import numpy as np
+
+    from sdumc_tpu_torch.convert.llama_tokenizer import LlamaTokenizer
+    from sdumc_tpu_torch.extract.llm4wav import Feat4Extractor
+    from sdumc_tpu_torch.extract.projector import load_projector
+    from sdumc_tpu_torch.extract.text import run_batch
+    from sdumc_tpu_torch.models.generation import beam_prefill, beam_step
+    from sdumc_tpu_torch.models.llama import (LlamaForCausalLM, init_weights,
+                                              tp_model_from_state_dict)
+    from sdumc_tpu_torch.parallel.sharding import llama_specs, rank_part
+
+    cfg = feat4_config(torch, VICUNA_LAYERS)
+    with torch.device("meta"):
+        whole = LlamaForCausalLM(cfg).state_dict()
+    specs = llama_specs(whole, cfg, axis.world)
+    local = {k: torch.empty(rank_part(t, specs[k], axis.rank, axis.world).shape, dtype=t.dtype,
+                            device=axis.device) for k, t in whole.items()}
+    model = init_weights(tp_model_from_state_dict(cfg, local, specs, axis), seed=3 + axis.rank)
+    report = {"rank_params": sum(p.numel() for p in model.parameters()),
+              "rank_weight_gb": sum(p.numel() * p.element_size()
+                                    for p in model.parameters()) / 1e9}
+    tok = LlamaTokenizer.from_dir(paths["llm_dir"])
+    ids, lengths, bucket = text_batch(torch, tok, [s for _, s in transcripts()])
+    ex = Feat4Extractor(model, load_projector(paths["proj_path"], device=axis.device), tok,
+                        max_new_tokens=MAX_NEW, gen_batch=GEN_BATCH, axis=axis)
+    feats = [np.load(p) for p in sorted(glob.glob(os.path.join(paths["feats_dir"], "*.npy")))]
+    prompts, lens, decode_bucket = timed_chunk(torch, ex, feats)
+    with torch.inference_mode():
+        report["batch_ms"] = time_ms(lambda: run_batch(model.model, ids, lengths, TEXT_TAPS[0]),
+                                     iters=TP_BATCH_RUNS, warmup=1)
+        with TimedCollectives(torch) as timed:
+            run_batch(model.model, ids, lengths, TEXT_TAPS[0])
+    report.update(batch_bucket=bucket, batch_rows=int((lengths > 0).sum()),
+                  batch_collectives=len(timed.ms), batch_collective_ms=sum(timed.ms),
+                  batch_timed_ms=timed.wall_ms)
+
+    steps = QUANT_STEPS - 1                  # the decode steps of a QUANT_STEPS-token run
+
+    def prefill():
+        return beam_prefill(model, prompts, model.cfg, prompt_len=lens, num_beams=BEAMS,
+                            max_new_tokens=MAX_NEW)
+
+    def step(state, it):
+        beam_step(model, state, it, embed_fn=model.model.embed_tokens)
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        state = prefill()
+        for it in range(2):                  # warm
+            step(state, it)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for it in range(2, 2 + steps):
+            step(state, it)
+        ev[1].record()
+        torch.cuda.synchronize()
+        report["step_ms"] = ev[0].elapsed_time(ev[1]) / steps
+        report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        with TimedCollectives(torch) as timed:       # more steps, each collective timed
+            for it in range(2 + steps, 2 + steps + TP_TIMED_STEPS):
+                step(state, it)
+    report.update(decode_bucket=decode_bucket, steps=QUANT_STEPS,
+                  step_collectives=len(timed.ms) / TP_TIMED_STEPS,
+                  step_collective_ms=sum(timed.ms) / TP_TIMED_STEPS,
+                  step_timed_ms=timed.wall_ms / TP_TIMED_STEPS)
+    del state, model, ex, local
+    torch.cuda.empty_cache()
+    return report
+
+
+def tp_wavlm(torch, axis, paths: dict) -> dict:
+    """Phase 29 (d): phase 5's seeded wavlm-large whole and split over the
+    ranks (8 of 16 heads a rank), at f32 and at bf16, on one padded batch of
+    phase 5's TP_WAVLM_CLIPS shortest wavs: the last hidden state and tap
+    -5 on the real frames, the split model's flash launches, the first of
+    them held to its plain version at H = 8."""
+    import copy
+
+    import numpy as np
+
+    from sdumc_tpu_torch.cli.common import bf16_full_precision_reduction
+    from sdumc_tpu_torch.convert.hf_wavlm import load_hf_wavlm
+    from sdumc_tpu_torch.extract.audio import BUCKETS, read_wav, zero_mean_unit_var
+    from sdumc_tpu_torch.ops.kernels import flash_wavlm
+    from sdumc_tpu_torch.parallel import shard_wavlm_model
+
+    cfg, cpu_model = load_hf_wavlm(paths["wavlm_dir"])
+    sd = {k: v.to(axis.device) for k, v in cpu_model.state_dict().items()}
+    audio = paths["audio_dir"]
+    wavs = sorted((read_wav(os.path.join(audio, f)) for f in os.listdir(audio)), key=len)
+    wavs = wavs[:TP_WAVLM_CLIPS]
+    bucket = next(b for b in BUCKETS if len(wavs[-1]) <= b)
+    batch = np.zeros((len(wavs), bucket), np.float32)
+    for i, w in enumerate(wavs):
+        batch[i, :len(w)] = zero_mean_unit_var(w)
+    frames = [cfg.output_length(len(w)) for w in wavs]
+    mask = torch.zeros(len(wavs), cfg.output_length(bucket), dtype=torch.bool)
+    for i, n in enumerate(frames):
+        mask[i, :n] = True
+    mask = mask.to(axis.device)
+    report = {"clips_s": [len(w) / 16000 for w in wavs], "frames": frames,
+              "layers": cfg.num_layers}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        single = copy.deepcopy(cpu_model).to(axis.device, dtype).eval()
+        split = shard_wavlm_model(sd, cfg, axis).to(dtype)
+        x = torch.from_numpy(batch).to(axis.device, dtype)
+        seen = []
+
+        def spy(*args, _launch=flash_wavlm.launch):
+            out = _launch(*args)
+            if not seen:
+                seen.append(([a.clone() if isinstance(a, torch.Tensor) else a for a in args],
+                             out.clone()))
+            return out
+
+        with torch.inference_mode(), bf16_full_precision_reduction():
+            ref = single(x, pad_mask=mask, output_hidden_states=True)
+            flash_wavlm.launch, saved = spy, flash_wavlm.launch
+            try:
+                reset_counts()
+                got = split(x, pad_mask=mask, output_hidden_states=True)
+                torch.cuda.synchronize()
+                counts = read_counts()
+            finally:
+                flash_wavlm.launch = saved
+            (q, k, v, gate, diag, kvalid), out = seen[0]
+            plain = flash_wavlm.flash_gated_attention_plain(
+                q, k, v, gate, None, kvalid, diag, num_buckets=cfg.num_buckets,
+                max_distance=cfg.max_bucket_distance)
+            diff = (out.float() - plain.float()).abs()
+            if dtype == torch.bfloat16:
+                flash_ok = bool((diff / flash_wavlm.bf16_tolerance(plain, v)).max() <= 1.0
+                                and flash_wavlm.bf16_mismatch_share(out, plain)
+                                <= flash_wavlm.BF16_MISMATCH_LIMIT)
+            else:
+                flash_ok = torch.allclose(out, plain, rtol=FLASH_RTOL, atol=FLASH_ATOL)
+            r = {"launches": counts, "flash_shape": list(q.shape), "flash_ok": flash_ok,
+                 "flash_max_abs_err": diff.max().item()}
+            for key, a, b in (("last", got["last_hidden_state"], ref["last_hidden_state"]),
+                              ("tap", got["hidden_states"][-5], ref["hidden_states"][-5])):
+                a = torch.cat([a[i, :n] for i, n in enumerate(frames)]).float()
+                b = torch.cat([b[i, :n] for i, n in enumerate(frames)]).float()
+                cos = (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+                r[key] = {"max_abs_diff": (a - b).abs().max().item(),
+                          "max_abs": b.abs().max().item(),
+                          "rel_l2": ((a - b).norm() / b.norm()).item(),
+                          "min_cos": cos.min().item(),
+                          "ok": (cos.min().item() > BF16_COS_MIN if dtype == torch.bfloat16
+                                 else torch.allclose(a, b, rtol=FEAT_RTOL, atol=FEAT_ATOL))}
+        report[tag] = r
+        del single, split, got, ref, seen
+        torch.cuda.empty_cache()
+    return report
+
+
+def tp_f32_first_rows(torch, device, paths: dict) -> dict:
+    """Phase 29 (a)'s witness: each clip's first feat4 row (the one before
+    any beam choice) from phase 11's Vicuna loaded at f32 in one process
+    (TF32 off), in the CLI's chunks and prompt buckets, two new tokens (the
+    first row is the step that reads the first token); saved to
+    `paths['tp_dir']`/f32_first.npz by the clip's file name."""
+    import glob
+
+    import numpy as np
+
+    from sdumc_tpu_torch.convert.hf_llama import load_hf_llama
+    from sdumc_tpu_torch.convert.llama_tokenizer import LlamaTokenizer
+    from sdumc_tpu_torch.extract.llm4wav import Feat4Extractor
+    from sdumc_tpu_torch.extract.projector import load_projector
+
+    files = sorted(glob.glob(os.path.join(paths["feats_dir"], "*.npy")))
+    _, model = load_hf_llama(paths["llm_dir"], device=device, dtype=torch.float32)
+    ex = Feat4Extractor(model, load_projector(paths["proj_path"], device=device),
+                        LlamaTokenizer.from_dir(paths["llm_dir"]), max_new_tokens=2,
+                        gen_batch=GEN_BATCH)
+    rows = ex.extract_many([np.load(f) for f in files])
+    np.savez(os.path.join(paths["tp_dir"], "f32_first.npz"),
+             **{os.path.basename(f): r["taps"][0] for f, r in zip(files, rows)})
+    del model, ex
+    torch.cuda.empty_cache()
+    return {"clips": len(files)}
+
+
+def tp_worker(torch, work: str) -> None:
+    """One rank of phase 29, started with the SDUMC_* environment beside
+    phase 24's runs: (b), (d) and, on rank 0, (a)'s f32 witness, after which
+    it writes side{r}.json; then, once the main process starts phase 29
+    (it writes `work`/go: nothing else runs on the card), (c); writes
+    rank{r}.json."""
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.parallel import initialize_from_env, make_model_axis, shutdown
+
+    with open(os.path.join(work, "paths.json")) as f:
+        paths = json.load(f)
+    rank, _ = initialize_from_env(device="cuda")
+    axis = make_model_axis(torch.device("cuda", torch.cuda.current_device()), TP_WORLD)
+    set_matmul_precision("highest")
+    report = {"rank": rank}
+    parts = [("parity", tp_parity, (axis,)), ("wavlm", tp_wavlm, (axis, paths))]
+    if rank == 0:
+        parts.append(("witness", tp_f32_first_rows, (axis.device, paths)))
+    for key, fn, args in parts:
+        t0 = time.perf_counter()
+        report[key] = fn(torch, *args)
+        report[key]["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(work, f"side{rank}.json"), "w") as f:
+        json.dump(report, f, default=float)
+    deadline = time.perf_counter() + TP_GO_SECONDS
+    while not os.path.exists(os.path.join(work, "go")):
+        if time.perf_counter() > deadline:
+            raise RuntimeError(f"phase 29 did not start within {TP_GO_SECONDS} s")
+        time.sleep(0.2)
+    t0 = time.perf_counter()
+    report["depth"] = tp_full_depth(torch, axis, paths)
+    report["depth"]["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f, default=float)
+    shutdown()
+
+
+def start_tp_clis(procs, work: str, tp_dir: str, llm_dir: str, proj_path: str, feats_dir: str,
+                  world: int) -> list:
+    """Phase 29 (a): ``python -m sdumc_tpu_torch.cli.extract text --tp N``
+    and ``... feat4 --tp N`` started in `procs` (a
+    ``multihost.LocalProcesses``) as two commands, each of which starts its
+    N ranks (the card's default bf16), on phases 13 and 11's inputs; their
+    files go to `tp_dir`/text and /feat4, their output to `tp_dir`/NAME.log.
+    Returns the two processes."""
+    argv = {"text": ["text", "--model_dir", llm_dir, "--trans_path",
+                     os.path.join(work, "transcripts.csv")],
+            "feat4": ["feat4", "--llm_dir", llm_dir, "--projector_path", proj_path,
+                      "--wavlm_dir", feats_dir]}
+    return [procs.start(f"cli.extract {name} --tp {world}",
+                        [sys.executable, "-m", "sdumc_tpu_torch.cli.extract", *args,
+                         "--save_dir", os.path.join(tp_dir, name), "--tp", str(world)],
+                        log=os.path.join(tp_dir, f"{name}.log"),
+                        cwd=os.path.dirname(os.path.abspath(__file__)))
+            for name, args in argv.items()]
+
+
+def start_tp_phase(procs, work: str, llm_dir: str, proj_path: str, feats_dir: str) -> tuple:
+    """Phase 29's work that times nothing, started in `procs` beside phase
+    24's runs (which time nothing either): (a)'s two commands
+    (``start_tp_clis``) and the phase's two ranks (``chip_smoke.py
+    --tp-worker``: (b), (d) and the witness, then (c) once phase 29
+    starts). Returns (the phase's directory, the commands' processes)."""
+    tp_dir = os.path.join(work, "tp")
+    os.makedirs(tp_dir)
+    with open(os.path.join(tp_dir, "paths.json"), "w") as f:
+        json.dump({"llm_dir": llm_dir, "proj_path": proj_path, "feats_dir": feats_dir,
+                   "wavlm_dir": os.path.join(work, "model"),
+                   "audio_dir": os.path.join(work, "wavs"), "tp_dir": tp_dir}, f)
+    clis = start_tp_clis(procs, work, tp_dir, llm_dir, proj_path, feats_dir, TP_WORLD)
+    procs.start_ranks([sys.executable, os.path.abspath(__file__), "--tp-worker", tp_dir],
+                      TP_WORLD, env={"SDUMC_SHUTDOWN_TIMEOUT": "180"}, log_dir=tp_dir,
+                      cwd=os.path.dirname(os.path.abspath(__file__)))
+    return tp_dir, clis
+
+
+def wait_tp_side(procs, tp_dir: str, clis: list) -> None:
+    """Phase 24's wait, before it times anything, for phase 29's work
+    beside it: both commands ended and both ranks past (b), (d) and the
+    witness. A process that failed, or TP_SIDE_SECONDS passing, raises."""
+    def done():
+        return (all(p.poll() == 0 for p in clis)
+                and all(os.path.exists(os.path.join(tp_dir, f"side{r}.json"))
+                        for r in range(TP_WORLD)))
+
+    t0 = time.perf_counter()
+    procs.wait(until=done, timeout=TP_SIDE_SECONDS)
+    print(f"phase 29's work beside phase 24 ((a), (b), (d) and the witness) done; phase 24 "
+          f"waited {time.perf_counter() - t0!r} s for it")
+
+
+def check_tp_cli(work: str, tp_dir: str, world: int) -> None:
+    """Phase 29 (a)'s files in `tp_dir` against the --tp 1 files in `work`
+    (phases 13 and 11's): the text taps to TEXT_BF16_ULPS bf16 ulps of the
+    largest; every feat4 clip written, each first row (before any beam
+    choice) to TEXT_BF16_ULPS ulps of the row's largest tap, at most
+    TP_FIRST_ROW_SHARE of those elements outside phase 11's rtol / atol,
+    and the first rows no farther from the f32 witness
+    (``tp_f32_first_rows``) than TP_WITNESS_RATIO times --tp 1's (relative
+    L2). How far the rest of each clip agrees is printed, not held."""
+    import numpy as np
+
+    for name in ("text", "feat4"):
+        with open(os.path.join(tp_dir, f"{name}.log")) as f:
+            shown = [ln for ln in f.read().splitlines()
+                     if ln.startswith(("multihost:", "TP:", "extracted"))]
+        print("\n".join(f"  cli.extract {name} --tp {world}: {ln}" for ln in shown))
+    text_dir, feat4_dir = os.path.join(tp_dir, "text"), os.path.join(tp_dir, "feat4")
+
+    names = sorted(os.listdir(os.path.join(work, "text")))
+    if sorted(os.listdir(text_dir)) != names:
+        raise AssertionError(f"text --tp {world}: files {len(os.listdir(text_dir))} of "
+                             f"{len(names)}")
+    top = max(float(np.abs(np.load(os.path.join(work, "text", n))).max()) for n in names)
+    err = 0.0
+    for n in names:
+        got, want = np.load(os.path.join(text_dir, n)), np.load(os.path.join(work, "text", n))
+        if got.shape != want.shape or got.dtype != np.float32:
+            raise AssertionError(f"text --tp {world}: {n} {got.shape} {got.dtype}, "
+                                 f"--tp 1 {want.shape}")
+        err = max(err, float(np.abs(got - want).max()))
+    limit = TEXT_BF16_ULPS * bf16_ulp(top)
+    print(f"(a) cli.extract text --tp {world} and cli.extract feat4 --tp {world} (two commands "
+          f"of {world} ranks each). text, on phase 13's transcripts and 2-layer Vicuna (bf16): "
+          f"{len(names)} files; against --tp 1 (phase 13): max abs diff {err!r}, limit "
+          f"{limit!r} ({TEXT_BF16_ULPS} bf16 ulps of the largest tap {top!r})")
+    if not err <= limit:
+        raise AssertionError(f"text --tp {world} parts from --tp 1 by {err!r}")
+
+    clips = sorted(os.listdir(os.path.join(work, "feat4")))
+    if sorted(os.listdir(feat4_dir)) != clips:
+        raise AssertionError(f"feat4 --tp {world}: files {len(os.listdir(feat4_dir))} of "
+                             f"{len(clips)}")
+    f32 = np.load(os.path.join(tp_dir, "f32_first.npz"))
+    first, of_limit, over, same_len, rest, rows = 0.0, 0.0, 0, 0, 0.0, 0
+    firsts = []
+    for c in clips:
+        got, want = np.load(os.path.join(feat4_dir, c)), np.load(os.path.join(work, "feat4", c))
+        if got.ndim != 2 or got.shape[1] != want.shape[1] or not np.isfinite(got).all():
+            raise AssertionError(f"feat4 --tp {world}: {c} {got.shape} or non-finite")
+        rows += len(got)
+        err = float(np.abs(got[0] - want[0]).max())
+        limit = TEXT_BF16_ULPS * bf16_ulp(float(np.abs(want[0]).max()))
+        if not err <= limit:
+            raise AssertionError(f"feat4 --tp {world}: {c}'s first row parts from --tp 1 by "
+                                 f"{err!r} (limit {limit!r})")
+        first, of_limit = max(first, err), max(of_limit, err / limit)
+        over += int((~np.isclose(got[0], want[0], rtol=BF16_RTOL, atol=BF16_ATOL)).sum())
+        firsts.append((got[0], want[0], f32[c]))
+        if got.shape == want.shape:
+            same_len += 1
+            rest = max(rest, float(np.abs(got - want).max()))
+    share = over / (len(clips) * VICUNA["hidden_size"])
+    tp_rows, one_rows, ref = (np.stack(x).astype(np.float64) for x in zip(*firsts))
+    if not (np.isfinite(ref).all() and (np.abs(ref).max(axis=1) > 0).all()):
+        raise AssertionError("the f32 witness gave an empty or non-finite first row")
+    dist = {k: (float(np.linalg.norm(x - ref) / np.linalg.norm(ref)),
+                float(np.abs(x - ref).max()))
+            for k, x in (("tp", tp_rows), ("one", one_rows))}
+    print(f"    feat4, on phase 5's features and phase 11's Vicuna (bf16, beam 4, --gen_batch 4, "
+          f"200 tokens): {len(clips)} clips, {rows} taps rows; the ranks' tokens equal after "
+          f"every chunk (checked in the ranks); every clip's first row against --tp 1 (phase "
+          f"11): max abs diff {first!r}, {of_limit!r} of the limit ({TEXT_BF16_ULPS} bf16 ulps "
+          f"of the row's largest tap); {over} of {len(clips) * VICUNA['hidden_size']} "
+          f"first-row elements ({share!r}) outside phase 11's rtol {BF16_RTOL} atol "
+          f"{BF16_ATOL} (limit {TP_FIRST_ROW_SHARE}); against the same rows at f32 in one "
+          f"process: --tp {world} relative L2 {dist['tp'][0]!r} (max abs {dist['tp'][1]!r}), "
+          f"--tp 1 {dist['one'][0]!r} (max abs {dist['one'][1]!r}), ratio "
+          f"{dist['tp'][0] / dist['one'][0]!r} (limit {TP_WITNESS_RATIO}); not held: "
+          f"{same_len} of {len(clips)} clips of --tp 1's step count, their taps max abs diff "
+          f"{rest!r} (bf16 sums in another order can break exact ties)")
+    if share > TP_FIRST_ROW_SHARE:
+        raise AssertionError(f"feat4 --tp {world}: {share!r} of the first rows' elements outside "
+                             f"phase 11's tolerance")
+    if not dist["tp"][0] <= TP_WITNESS_RATIO * dist["one"][0]:
+        raise AssertionError(f"feat4 --tp {world}: the first rows sit farther from f32 than "
+                             f"--tp 1's")
+
+
+TP_CLI_SECONDS = (2.5, 3.8, 5.1, 6.4, 7.7, 9.0, 10.3, 11.6)   # --tp-cli's feature clips
+
+
+def tp_cli_only(torch, world: int) -> None:
+    """``chip_smoke.py --tp-cli N``: phase 29 (a) alone, at N ranks (N cards:
+    NCCL), from its own inputs: phase 11's seeded 2-layer Vicuna and
+    projector, phase 13's transcripts, and WavLM-width features of
+    TP_CLI_SECONDS (seeded normals: the stage's shapes, not phase 5's
+    extraction); cli.extract text and feat4 at --tp 1, then at --tp N, and
+    the f32 witness on card 0."""
+    import csv
+
+    import numpy as np
+
+    from sdumc_tpu_torch.cli import extract
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.parallel.multihost import LocalProcesses
+
+    with tempfile.TemporaryDirectory() as work:
+        llm_dir, proj_path = os.path.join(work, "vicuna"), os.path.join(work, "proj.pt")
+        feats_dir, csv_path = os.path.join(work, "feats"), os.path.join(work, "transcripts.csv")
+        write_vicuna_dir(torch, llm_dir, CLI_LAYERS)
+        write_projector(torch, proj_path)
+        os.makedirs(feats_dir)
+        rng = np.random.default_rng(29)
+        for i, sec in enumerate(TP_CLI_SECONDS):
+            np.save(os.path.join(feats_dir, f"clip_{i:02d}.npy"),
+                    rng.standard_normal((int(sec * 50), 1024)).astype(np.float32))
+        with open(csv_path, "w", newline="", encoding="utf-8") as f:
+            writer = csv.writer(f)
+            writer.writerow(["name", "sentence"])
+            writer.writerows(transcripts())
+        t0 = time.perf_counter()
+        extract.main(["text", "--model_dir", llm_dir, "--trans_path", csv_path, "--save_dir",
+                      os.path.join(work, "text")])
+        extract.main(["feat4", "--llm_dir", llm_dir, "--projector_path", proj_path,
+                      "--wavlm_dir", feats_dir, "--save_dir", os.path.join(work, "feat4")])
+        print(f"--tp 1 (one process on card 0): {time.perf_counter() - t0!r} s")
+        tp_dir = os.path.join(work, "tp")
+        os.makedirs(tp_dir)
+        t0 = time.perf_counter()
+        with LocalProcesses() as procs:
+            start_tp_clis(procs, work, tp_dir, llm_dir, proj_path, feats_dir, world)
+            procs.wait(timeout=900)
+        print(f"--tp {world}, both commands at once: {time.perf_counter() - t0!r} s")
+        set_matmul_precision("highest")
+        tp_f32_first_rows(torch, torch.device("cuda", 0),
+                          {"llm_dir": llm_dir, "proj_path": proj_path, "feats_dir": feats_dir,
+                           "tp_dir": tp_dir})
+        check_tp_cli(work, tp_dir, world)
+
+
+def tp_phase(torch, procs, tp_dir: str, work: str, depth: dict, text_depth: dict,
+             card: str) -> dict:
+    """Phase 29: tensor parallelism, two ranks on the card over gloo. (a)
+    the CLIs' --tp 2 against --tp 1, (b) f32 parity at full width and (d)
+    wavlm-large split in two, its flash kernel at 8 heads, ran beside phase
+    24 (``start_tp_phase``); now, with nothing else on the card, the ranks
+    run (c): the 32-layer model's batch and decode step timed, the
+    collectives' share, each rank's peak memory. Every part is held here,
+    each rank's. Returns each rank's flash launches of (d)."""
+    open(os.path.join(tp_dir, "go"), "w").close()
+    procs.wait(timeout=600)
+    reports = []
+    for rank in range(TP_WORLD):
+        with open(os.path.join(tp_dir, f"rank{rank}.json")) as f:
+            reports.append(json.load(f))
+    print("  " + "; ".join(
+        f"rank {r['rank']}: beside phase 24 (b) {r['parity']['seconds']:.1f} s, (d) "
+        f"{r['wavlm']['seconds']:.1f} s"
+        + (f", the witness {r['witness']['seconds']:.1f} s" if "witness" in r else "")
+        + f"; here (c) {r['depth']['seconds']:.1f} s" for r in reports))
+    check_tp_cli(work, tp_dir, TP_WORLD)
+
+    for r in reports:
+        p = r["parity"]
+        print(f"(b) rank {r['rank']}: phase 10's decoder (Vicuna-7B width, {CLI_LAYERS} layers, f32, TF32 off), "
+              f"{TP_WORLD} ranks against one process on the card (rtol {LLAMA_RTOL} atol "
+              f"{LLAMA_ATOL}): hidden states max abs diff {p['hidden_max_abs_diff']!r} (max |h| "
+              f"{p['hidden_top']!r}), logits {p['logits_max_abs_diff']!r}; beam-{BEAMS} decode "
+              f"of 2 clips, {PARITY_STEPS} steps: tokens equal {p['tokens_equal']}, step counts "
+              f"equal {p['steps_equal']} {p['n_steps']}, taps max abs diff "
+              f"{p['taps_max_abs_diff']!r}")
+        if not (p["hidden_ok"] and p["logits_ok"] and p["tokens_equal"] and p["steps_equal"]
+                and p["taps_ok"]):
+            raise AssertionError("the tensor-parallel decoder is not the single process's")
+
+    d = [r["depth"] for r in reports]
+    print(f"(c) Vicuna-7B at {VICUNA_LAYERS} layers, bf16, split over {TP_WORLD} ranks on one "
+          f"card (gloo through the host), each rank {d[0]['rank_params']} parameters "
+          f"({d[0]['rank_weight_gb']!r} GB), seeded on the card in each rank ({card}):")
+    print(f"    phase 14's batch ({d[0]['batch_rows']} transcripts, bucket "
+          f"{d[0]['batch_bucket']}, taps -3): {[x['batch_ms'] for x in d]!r} ms by rank (CUDA "
+          f"events, {TP_BATCH_RUNS} runs) against one process's {text_depth['batch_ms']!r} "
+          f"(phase 14, 10 runs); timed "
+          f"again with each collective synchronised: {d[0]['batch_collectives']} collectives, "
+          f"{d[0]['batch_collective_ms']!r} ms of {d[0]['batch_timed_ms']!r} "
+          f"({d[0]['batch_collective_ms'] / d[0]['batch_timed_ms']:.1%})")
+    print(f"    decode, phase 12's chunk ({GEN_BATCH} clips, bucket {d[0]['decode_bucket']}, "
+          f"{QUANT_STEPS - 1} decode steps after 2 warm ones): "
+          f"{[x['step_ms'] for x in d]!r} ms per step by rank against one process's "
+          f"{depth['step_ms']!r} (phase 12, the {QUANT_STEPS - 1} steps of a {QUANT_STEPS}-token "
+          f"run); {TP_TIMED_STEPS} steps more with "
+          f"each collective synchronised: {d[0]['step_collectives']!r} collectives and "
+          f"{d[0]['step_collective_ms']!r} ms of {d[0]['step_timed_ms']!r} per step "
+          f"({d[0]['step_collective_ms'] / d[0]['step_timed_ms']:.1%})")
+    print(f"    peak device memory by rank {[x['peak_gib'] for x in d]!r} GiB (weights and the "
+          f"decode's caches), one process {depth['peak_gib']!r} GiB (phase 12, its 9 clips)")
+    if not all(math.isfinite(x["step_ms"]) and math.isfinite(x["batch_ms"]) for x in d):
+        raise AssertionError("(c): a time is not finite")
+
+    launches = {}
+    for r in reports:
+        w = r["wavlm"]
+        for tag, name in (("f32", FLASH["name"]), ("bf16", FLASH_BF16["name"])):
+            counts = w[tag]["launches"]
+            launches.setdefault(r["rank"], {})[name] = counts[name]
+            others = {k: n for k, n in counts.items() if k != name and n}
+            if counts[name] != w["layers"] or others:
+                raise AssertionError(f"(d) rank {r['rank']} {tag}: launches {counts}, expected "
+                                     f"{w['layers']} of {name} alone (one a layer)")
+    w = reports[0]["wavlm"]
+    print(f"(d) wavlm-large (phase 5's seeded weights) split over {TP_WORLD} ranks, on phase 5's "
+          f"{TP_WAVLM_CLIPS} shortest wavs {w['clips_s']!r} s ({w['frames']} frames) in one "
+          f"padded batch, against one process on the card:")
+    for tag, rule in (("f32", f"rtol {FEAT_RTOL} atol {FEAT_ATOL}, phase 5's"),
+                      ("bf16", f"per-frame cosine > {BF16_COS_MIN}, phase 21's")):
+        for r in reports:
+            x = r["wavlm"][tag]
+            print(f"    {tag}, rank {r['rank']}: last hidden state max abs diff "
+                  f"{x['last']['max_abs_diff']!r} (max {x['last']['max_abs']!r}, rel L2 "
+                  f"{x['last']['rel_l2']!r}, min cos {x['last']['min_cos']!r}); tap -5 "
+                  f"{x['tap']['max_abs_diff']!r} (rel L2 {x['tap']['rel_l2']!r}, min cos "
+                  f"{x['tap']['min_cos']!r}) ({rule}); flash launches {x['launches']}; the "
+                  f"rank's first launch at q {x['flash_shape']} against its plain version max "
+                  f"abs err {x['flash_max_abs_err']!r} (held: {x['flash_ok']})")
+            if not (x["last"]["ok"] and x["tap"]["ok"] and x["flash_ok"]):
+                raise AssertionError(f"(d) rank {r['rank']} {tag}: the split WavLM is not the "
+                                     "whole one's")
+    return launches
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3, 17 and 19 (without the gradient checks) with the kernels
     of the checkout at `root`, built from its own sources into its own
@@ -4847,6 +5489,10 @@ def main() -> int:
     parser.add_argument("--serve-out", help=argparse.SUPPRESS)
     parser.add_argument("--serve-decode", help=argparse.SUPPRESS)
     parser.add_argument("--dp-worker", help=argparse.SUPPRESS)
+    parser.add_argument("--tp-worker", help=argparse.SUPPRESS)
+    parser.add_argument("--tp-cli", type=int, metavar="N",
+                        help="phase 29 (a) alone: cli.extract text and feat4 at --tp N against "
+                             "--tp 1 (one rank a card: NCCL)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -4865,12 +5511,20 @@ def main() -> int:
     if args.dp_worker:
         dp_worker(torch, args.dp_worker)
         return 0
+    if args.tp_worker:
+        tp_worker(torch, args.tp_worker)
+        return 0
+    if args.tp_cli:
+        print(f"card: {card_line()} x {torch.cuda.device_count()}; torch {torch.__version__}")
+        tp_cli_only(torch, args.tp_cli)
+        return 0
     if args.ab:
         print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
         ab_phase(args.ab)
         print(card_line())
         return 0
     from sdumc_tpu_torch.ops.kernels import build, flash_wavlm, fused_cross, fused_pool
+    from sdumc_tpu_torch.parallel.multihost import LocalProcesses
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4900,9 +5554,9 @@ def main() -> int:
         step_ms = phase(9, step_timing_phase, torch)
         phase(10, llama_parity_phase, torch)
         llm_dir, proj_path = phase(11, feat4_cli_phase, torch, work, feats_dir)
-        phase(12, full_depth_phase, torch, llm_dir, proj_path, feats_dir)
+        depth = phase(12, full_depth_phase, torch, llm_dir, proj_path, feats_dir)
         rows = phase(13, text_cli_phase, torch, work, llm_dir)
-        phase(14, text_full_depth_phase, torch, llm_dir, rows)
+        text_depth = phase(14, text_full_depth_phase, torch, llm_dir, rows)
         phase(15, visual_phase, torch, work)
         phase(16, manet_train_phase, torch, work)
         bf16_totals = phase(17, bf16_kernel_phase, torch, fused_cross, fused_pool, lengths, totals)
@@ -4912,13 +5566,18 @@ def main() -> int:
         bf16_counts = phase(21, bf16_extraction_phase, torch, work, feats_dir, f32_rate)
         phase(22, asr_phase, torch, work, llm_dir)
         phase(23, vision_phase, torch, work, card)
-        phase(24, baseline_phase, torch, work, card)
-        phase(25, text_families_phase, torch, work, rows)
-        served = phase(26, serve_phase, torch, work, os.path.join(work, "train", "best_full.pt"),
-                       card)
-        phase(27, decode_serve_phase, torch, work, llm_dir, card)
-        dp_launches = phase(28, dp_phase, torch, work, history[0], step_ms, card)
-    print(f"phases 2-28: {time.perf_counter() - t_phases!r} s")
+        with LocalProcesses() as tp_procs:  # phase 29's work that times nothing, beside phase 24's
+            tp_dir, tp_clis = start_tp_phase(tp_procs, work, llm_dir, proj_path, feats_dir)
+            phase(24, baseline_phase, torch, work, card,
+                  lambda: wait_tp_side(tp_procs, tp_dir, tp_clis))
+            phase(25, text_families_phase, torch, work, rows)
+            served = phase(26, serve_phase, torch, work,
+                           os.path.join(work, "train", "best_full.pt"), card)
+            phase(27, decode_serve_phase, torch, work, llm_dir, card)
+            dp_launches = phase(28, dp_phase, torch, work, history[0], step_ms, card)
+            tp_launches = phase(29, tp_phase, torch, tp_procs, tp_dir, work, depth, text_depth,
+                                card)
+    print(f"phases 2-29: {time.perf_counter() - t_phases!r} s")
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():
@@ -4975,7 +5634,9 @@ def main() -> int:
           "bf16 instances (the int8 store's run: "
           f"{ {REPLACES_BF16[q][0]: n for q, n in store_launches['int8'].items()} }), "
           "cli.extract audio --dtype bfloat16 for flash_wavlm_bf16 (its library_ms: bf16 SDPA "
-          "with a materialised bf16 mask); max_abs_err is "
+          "with a materialised bf16 mask; each rank of wavlm-large split over 2 processes, "
+          "8 heads a rank, one batch, phase 29: "
+          f"{tp_launches}); max_abs_err is "
           "the forward's against the plain version")
     for name, tot in ((REPLACES[7][0], totals[7]), (REPLACES[1][0], totals[1]),
                       (FLASH["name"], flash), (REPLACES_BF16[7][0], bf16_totals[7]),

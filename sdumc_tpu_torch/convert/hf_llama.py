@@ -9,7 +9,9 @@ index maps; the ``safetensors`` package is not needed). The model is built on th
 device and loaded with ``assign=True``; each tensor is cast to its dtype as
 it is read (the fp16 checkpoint to bf16, norm scales to f32, as JAX keeps
 them) and moved to the target device at once, so a 7B load never holds an
-f32 copy or the whole checkpoint on the host.
+f32 copy or the whole checkpoint on the host. Given a model axis (``--tp
+N``), each rank keeps only its slice of every split tensor as it is read
+(``parallel/sharding.py``): no rank holds the whole checkpoint on its card.
 """
 
 from __future__ import annotations
@@ -17,13 +19,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Iterator, Mapping, Optional, Tuple
+from typing import Callable, Iterator, Mapping, Optional, Tuple
 
 import torch
 
 from sdumc_tpu_torch.convert import safetensors_io
-from sdumc_tpu_torch.models.llama import LlamaConfig, LlamaModel, model_from_state_dict
+from sdumc_tpu_torch.models.llama import (LlamaConfig, LlamaModel, model_from_state_dict,
+                                          tp_model_from_state_dict)
 from sdumc_tpu_torch.ops.quant import quantize_params
+from sdumc_tpu_torch.parallel import sharding
 
 # keys of older HF checkpoints that the port computes instead of loading
 IGNORED_SUFFIXES = ("rotary_emb.inv_freq",)
@@ -52,17 +56,21 @@ def target_dtype(key: str, dtype) -> torch.dtype:
     return torch.float32 if key.endswith("norm.weight") else dtype
 
 
-def iter_state_dict(model_dir: str, dtype=torch.bfloat16, device="cpu", prefix: str = ""
+def iter_state_dict(model_dir: str, dtype=torch.bfloat16, device="cpu", prefix: str = "",
+                    part: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
                     ) -> Iterator[Tuple[str, torch.Tensor]]:
     """(key, tensor) of every weight whose key starts with ``prefix`` (the
     key given without it), one shard at a time, each cast and moved as it
-    is read."""
+    is read. ``part(key, tensor)``, if given, picks what is kept of each
+    tensor (a rank's slice) before the cast and the move: only that slice
+    is read from the mapped file and reaches the device."""
     for path in safetensors_io.weight_files(model_dir):
         shard = safetensors_io.load_weight_file(path)
         for key in list(shard):
             if key.endswith(IGNORED_SUFFIXES) or not key.startswith(prefix):
                 continue
-            yield key[len(prefix):], shard[key].to(device=device, dtype=target_dtype(key, dtype))
+            t = shard[key] if part is None else part(key[len(prefix):], shard[key])
+            yield key[len(prefix):], t.to(device=device, dtype=target_dtype(key, dtype))
         del shard
 
 
@@ -71,15 +79,37 @@ def _read_config(model_dir: str, dtype) -> LlamaConfig:
         return config_from_hf(json.load(f), dtype)
 
 
-def load_hf_llama_trunk(model_dir: str, device="cpu", dtype=torch.bfloat16):
+def _rank_state_dict(model_dir: str, cfg: LlamaConfig, dtype, device, prefix: str, axis):
+    """(rank's state dict, layout): each tensor's slice along its
+    ``llama_specs`` dim, cut before it is moved. Rank 0 prints
+    ``tp_sharding_summary`` of the whole checkpoint."""
+    specs, whole = {}, {}
+
+    def part(key: str, t: torch.Tensor) -> torch.Tensor:
+        specs[key] = sharding.llama_specs({key: t.shape}, cfg, axis.world)[key]
+        whole[key] = torch.empty(t.shape, dtype=target_dtype(key, dtype), device="meta")
+        return sharding.rank_part(t, specs[key], axis.rank, axis.world)
+
+    sd = dict(iter_state_dict(model_dir, dtype, device, prefix, part))
+    if axis.rank == 0:
+        print(sharding.tp_sharding_summary(whole, specs), flush=True)
+    return sd, specs
+
+
+def load_hf_llama_trunk(model_dir: str, device="cpu", dtype=torch.bfloat16, axis=None):
     """(LlamaConfig, LlamaModel in eval mode on ``device``): the decoder
     trunk of an HF-format directory (the ``model.*`` weights); ``lm_head``
-    is never read onto the device. Raises as ``load_hf_llama`` does."""
+    is never read onto the device. ``axis`` (a ``parallel.ModelAxis`` of
+    world > 1): the rank's tensor-parallel trunk, of which only the rank's
+    slices are read. Raises as ``load_hf_llama`` does."""
     cfg = _read_config(model_dir, dtype)
-    sd = dict(iter_state_dict(model_dir, dtype, device, prefix="model."))
-    with torch.device("meta"):
-        trunk = LlamaModel(cfg)
     try:
+        if axis is not None and axis.world > 1:
+            sd, specs = _rank_state_dict(model_dir, cfg, dtype, device, "model.", axis)
+            return cfg, tp_model_from_state_dict(cfg, sd, specs, axis, trunk=True)
+        sd = dict(iter_state_dict(model_dir, dtype, device, prefix="model."))
+        with torch.device("meta"):
+            trunk = LlamaModel(cfg)
         trunk.load_state_dict(sd, strict=True, assign=True)
     except RuntimeError as e:
         raise KeyError(f"{model_dir}: {e}") from e
@@ -87,18 +117,26 @@ def load_hf_llama_trunk(model_dir: str, device="cpu", dtype=torch.bfloat16):
 
 
 def load_hf_llama(model_dir: str, device="cpu", dtype=torch.bfloat16,
-                  quant: Optional[str] = None, kv_quant: Optional[str] = None):
+                  quant: Optional[str] = None, kv_quant: Optional[str] = None, axis=None):
     """(LlamaConfig, LlamaForCausalLM in eval mode on ``device``) from an
     HF-format directory. ``quant`` ("int8" / "w8a8") quantizes the loaded
     weights on ``device`` one tensor at a time, each float tensor released
     as its int8 codes are made; ``kv_quant`` ("int8") sets the KV cache.
-    Raises if a weight of the model is missing or the checkpoint holds a
-    key the model does not know."""
+    ``axis`` (a ``parallel.ModelAxis`` of world > 1): the rank's
+    tensor-parallel model (``models.llama.tp_model_from_state_dict``), of
+    which only the rank's slices are read; it takes no ``quant``. Raises if
+    a weight of the model is missing or the checkpoint holds a key the
+    model does not know."""
     cfg = dataclasses.replace(_read_config(model_dir, dtype), quant=quant, kv_quant=kv_quant)
-    sd = dict(iter_state_dict(model_dir, dtype, device))
-    if quant:
-        sd = quantize_params(sd, quant)
     try:
+        if axis is not None and axis.world > 1:
+            if quant:
+                raise ValueError("a quantized model is not split over ranks (as in JAX)")
+            sd, specs = _rank_state_dict(model_dir, cfg, dtype, device, "", axis)
+            return cfg, tp_model_from_state_dict(cfg, sd, specs, axis)
+        sd = dict(iter_state_dict(model_dir, dtype, device))
+        if quant:
+            sd = quantize_params(sd, quant)
         return cfg, model_from_state_dict(cfg, sd)
     except RuntimeError as e:
         raise KeyError(f"{model_dir}: {e}") from e

@@ -14,6 +14,13 @@ lockstep (models/generation.py); a short tail chunk is filled by repeating a
 row, whose result is dropped. The projection runs at each clip's exact
 length (JAX pads it to a length bucket and slices the same rows back).
 
+``--tp N`` splits Vicuna over N local ranks (``parallel/sharding.py``; the
+command starts them, over NCCL when each has a card of its own, over gloo
+when they share one or run on the CPU): every rank runs the same beam
+bookkeeping on the same gathered logits, the ranks' tokens are checked
+equal at the end of each chunk, and rank 0 alone writes the files.
+``--quant`` does not combine with it (as in JAX); ``--kv_quant`` does.
+
     python -m sdumc_tpu_torch.cli.extract feat4 --llm_dir DIR --projector_path P.pt \\
         --wavlm_dir FEATS --save_dir OUT [--device cpu]
 """
@@ -23,6 +30,7 @@ from __future__ import annotations
 import argparse
 import glob
 import os
+import sys
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -43,8 +51,12 @@ class Feat4Extractor:
 
     def __init__(self, model, projector, tokenizer, *, num_beams: int = 4,
                  max_new_tokens: int = 200, tap_layers=(-4, -3, -2, -1),
-                 prompt_buckets: Sequence[int] = PROMPT_BUCKETS, gen_batch: int = 1):
+                 prompt_buckets: Sequence[int] = PROMPT_BUCKETS, gen_batch: int = 1,
+                 axis=None):
+        """``axis``: the model axis of a tensor-parallel ``model``, whose
+        ranks' tokens are checked equal after each chunk."""
         self.model, self.projector, self.tokenizer = model, projector, tokenizer
+        self.axis = axis
         self.cfg = model.cfg
         self.device = model.model.norm.weight.device
         self.num_beams, self.max_new_tokens = num_beams, max_new_tokens
@@ -54,10 +66,10 @@ class Feat4Extractor:
         self.proj_k = projector.k
         self.eos_id = (getattr(tokenizer, "eos_token_id", 2) or 2) if tokenizer else 2
         ids = tokenizer(DEFAULT_PROMPT)["input_ids"] if tokenizer else []
-        embed = model.model.embed_tokens.weight
+        embed = model.model.embed_tokens          # a module call: a split embedding gathers
         with torch.no_grad():
-            self._prompt_embeds = (embed[torch.as_tensor(ids, dtype=torch.long,
-                                                         device=embed.device)].float()
+            self._prompt_embeds = (embed(torch.as_tensor(ids, dtype=torch.long,
+                                                         device=self.device)).float()
                                    if len(ids) else
                                    torch.zeros(0, self.cfg.hidden_size, device=self.device))
         self.n_prompt_tokens = len(ids)
@@ -97,7 +109,7 @@ class Feat4Extractor:
                     out = beam_generate_batched(
                         self.model, prompts, self.cfg, embed_fn=embed, prompt_len=lens,
                         num_beams=self.num_beams, max_new_tokens=self.max_new_tokens,
-                        eos_id=self.eos_id, tap_layers=self.tap_layers)
+                        eos_id=self.eos_id, tap_layers=self.tap_layers, axis=self.axis)
                     taps, tokens = out["taps"].cpu().numpy(), out["tokens"].cpu().numpy()
                     n_steps, n_tokens = out["n_steps"].tolist(), out["n_tokens"].tolist()
                     for j, i in enumerate(chunk):
@@ -110,12 +122,17 @@ class Feat4Extractor:
         return self.extract_many([wavlm_feats])[0]
 
 
-def extract_feat4_dir(extractor: Feat4Extractor, wavlm_dir: str, save_dir: str) -> dict:
+def extract_feat4_dir(extractor: Feat4Extractor, wavlm_dir: str, save_dir: str,
+                      write: bool = True) -> dict:
     """Every ``*.npy`` of ``wavlm_dir`` to ``save_dir/{clip}.npy`` (taps
     [n_steps, D] f32): clips already saved are skipped (the reference's
     resumability, extract_wavlm_vicuna.py:349), the rest grouped by prompt
     bucket (npy headers only) and decoded ``gen_batch`` per chunk. Returns
-    the counts and the host-clock seconds."""
+    the counts and the host-clock seconds. ``write`` False (a
+    tensor-parallel rank but 0) decodes the same clips and saves nothing:
+    every rank lists the directory before its first chunk, whose
+    collectives rank 0 cannot pass before the others reach them, so every
+    rank sees what rank 0 saw."""
     os.makedirs(save_dir, exist_ok=True)
     files = sorted(glob.glob(os.path.join(wavlm_dir, "*.npy")))
     t0 = time.perf_counter()
@@ -133,21 +150,26 @@ def extract_feat4_dir(extractor: Feat4Extractor, wavlm_dir: str, save_dir: str) 
         group = pending[ofs:ofs + extractor.gen_batch]
         feats = [np.load(p).astype(np.float32) for _, p, _ in group]
         for (clip, _, _), result in zip(group, extractor.extract_many(feats)):
-            np.save(os.path.join(save_dir, clip + ".npy"), result["taps"].astype(np.float32))
+            if write:
+                np.save(os.path.join(save_dir, clip + ".npy"), result["taps"].astype(np.float32))
             steps += len(result["taps"])
     seconds = time.perf_counter() - t0
-    print(f"extracted {len(pending)}/{len(files)} clips in {seconds:.1f}s")
+    if write:
+        print(f"extracted {len(pending)}/{len(files)} clips in {seconds:.1f}s")
     return {"clips": len(pending), "files": len(files), "steps": steps, "seconds": seconds}
 
 
 def main(argv=None) -> dict:
     """Parse the flags, load the model, tokenizer and projector, extract a
-    directory. Returns ``extract_feat4_dir``'s summary and the save dir."""
+    directory. Returns ``extract_feat4_dir``'s summary and the save dir.
+    With ``--tp N > 1`` it starts the N ranks and returns rank 0's result."""
     from sdumc_tpu_torch.cli.common import resolve_device, set_matmul_precision
     from sdumc_tpu_torch.convert.hf_llama import load_hf_llama
     from sdumc_tpu_torch.convert.llama_tokenizer import LlamaTokenizer
     from sdumc_tpu_torch.extract.projector import load_projector
+    from sdumc_tpu_torch.parallel import ModelAxis, multihost
 
+    argv = list(sys.argv[1:] if argv is None else argv)
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--llm_dir", type=str, required=True,
                         help="HF-format Vicuna directory: config.json, the weights "
@@ -162,31 +184,43 @@ def main(argv=None) -> dict:
     parser.add_argument("--gen_batch", type=int, default=4,
                         help="clips decoded in lockstep per chunk")
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree; only 1 is ported")
+                        help="tensor-parallel degree: N local processes, one rank each "
+                             "(NCCL with a card per rank, else gloo)")
     parser.add_argument("--scan_layers", action=argparse.BooleanOptionalAction, default=True,
                         help="parsed for recipe parity and not read (an XLA compile-size "
                              "option; PyTorch runs the layers eagerly)")
     parser.add_argument("--quant", type=str, default=None, choices=("int8", "w8a8"),
                         help="int8 = weight-only int8 weights; w8a8 = int8 activations "
-                             "too, with int8 x int8 -> int32 products")
+                             "too, with int8 x int8 -> int32 products; not with --tp > 1")
     parser.add_argument("--kv_quant", type=str, default=None, choices=("int8",),
                         help="int8 KV cache with per-(token, head) scales")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="cuda (the default) raises when no card is present")
+    parser.add_argument("--tp_worker", type=str, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError("--tp > 1 is not ported yet: ROADMAP queue 1, multi-device")
+    if args.tp < 1:
+        parser.error(f"--tp {args.tp}: a degree of 1 or more")
+    if args.quant and args.tp > 1:
+        parser.error("--quant cannot be combined with --tp>1")
+    if args.tp > 1 and args.tp_worker is None:
+        resolve_device(args.device)                     # no card: raise before any rank starts
+        return multihost.run_local_ranks(["feat4"] + argv, args.tp)
 
-    device = resolve_device(args.device)
+    axis = (multihost.join_model_axis(args.tp, args.device) if args.tp > 1
+            else ModelAxis(device=resolve_device(args.device)))
+    device = axis.device
     set_matmul_precision("highest")
     _, model = load_hf_llama(args.llm_dir, device=device, quant=args.quant,
-                             kv_quant=args.kv_quant)
+                             kv_quant=args.kv_quant, axis=axis)
     extractor = Feat4Extractor(
         model, load_projector(args.projector_path, device=device),
         LlamaTokenizer.from_dir(args.llm_dir), num_beams=args.num_beams,
         max_new_tokens=args.max_new_tokens,
         tap_layers=tuple(int(x) for x in args.tap_layers.split(",")),
-        gen_batch=args.gen_batch)
-    summary = extract_feat4_dir(extractor, args.wavlm_dir, args.save_dir)
-    return {**summary, "save_dir": args.save_dir}
-
+        gen_batch=args.gen_batch, axis=axis)
+    summary = extract_feat4_dir(extractor, args.wavlm_dir, args.save_dir,
+                                write=axis.rank == 0)
+    result = {**summary, "save_dir": args.save_dir}
+    if args.tp_worker is not None:
+        multihost.finish_rank(args.tp_worker, axis, result)
+    return result

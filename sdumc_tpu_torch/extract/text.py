@@ -28,11 +28,17 @@ uniform, not NaN. The tap sum is taken in the model dtype over the
 returned hidden states in sorted index order, as JAX sums them. An empty
 or NaN transcript gives zeros ([1, D] for FRAME, [D] for UTTERANCE).
 UTTERANCE is the mean of the span in f32 (JAX takes it in the model dtype:
-for bf16 numpy accumulates in bf16, ROADMAP §3). ``--tp > 1`` raises,
-naming its ROADMAP item.
+for bf16 numpy accumulates in bf16, ROADMAP §3).
+
+``--tp N`` (the llama family; JAX ignores it for the others, the port
+raises) splits the trunk over N local ranks (``parallel/sharding.py``):
+the command starts N processes (``multihost.run_local_ranks``), over NCCL
+when each has a card of its own, over gloo when they share one or run on
+the CPU; every rank runs every batch, rank 0 alone writes the files, and
+the command returns what ``--tp 1`` returns.
 
     python -m sdumc_tpu_torch.cli.extract text --model_dir DIR --trans_path CSV \\
-        --save_dir OUT [--family bert] [--layer_ids -3] [--device cpu]
+        --save_dir OUT [--family bert] [--layer_ids -3] [--tp 2] [--device cpu]
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from __future__ import annotations
 import argparse
 import csv
 import os
+import sys
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -169,11 +176,14 @@ def extract_text_features(
 def main(argv=None) -> dict:
     """Parse the flags, load the trunk and the tokenizer, extract every row
     of the transcript csv to ``save_dir/{name}.npy``. Returns the counts and
-    the host-clock seconds of the extraction (weights loaded before it)."""
+    the host-clock seconds of the extraction (weights loaded before it).
+    With ``--tp N > 1`` it starts the N ranks and returns rank 0's result."""
     from sdumc_tpu_torch.cli.common import resolve_device, set_matmul_precision
     from sdumc_tpu_torch.convert.hf_llama import load_hf_llama_trunk
     from sdumc_tpu_torch.convert.vocab_tokenizers import load_tokenizer
+    from sdumc_tpu_torch.parallel import ModelAxis, multihost
 
+    argv = list(sys.argv[1:] if argv is None else argv)
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model_dir", type=str, required=True,
                         help="HF-format model directory of the family: config.json, the "
@@ -192,29 +202,44 @@ def main(argv=None) -> dict:
     parser.add_argument("--layer_ids", type=str, default="-4,-3,-2,-1")
     parser.add_argument("--batch_size", type=int, default=16)
     parser.add_argument("--tp", type=int, default=1,
-                        help="tensor-parallel degree; only 1 is ported")
+                        help="tensor-parallel degree of the llama trunk: N local processes, "
+                             "one rank each (NCCL with a card per rank, else gloo)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                         help="cuda (the default) raises when no card is present")
+    parser.add_argument("--tp_worker", type=str, default=None, help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
-    if args.tp > 1:
-        raise NotImplementedError("--tp > 1 is not ported yet: ROADMAP queue 1, multi-device")
+    if args.tp < 1:
+        parser.error(f"--tp {args.tp}: a degree of 1 or more")
+    if args.tp > 1 and args.family != "llama":
+        raise ValueError(f"--tp {args.tp} splits the llama family only (--family "
+                         f"{args.family} runs on one device)")
+    if args.tp > 1 and args.tp_worker is None:
+        resolve_device(args.device)                     # no card: raise before any rank starts
+        return multihost.run_local_ranks(["text"] + argv, args.tp)
 
-    device = resolve_device(args.device)
+    axis = (multihost.join_model_axis(args.tp, args.device) if args.tp > 1
+            else ModelAxis(device=resolve_device(args.device)))
+    device = axis.device
     set_matmul_precision("highest")
     if args.family == "llama":
-        _, model = load_hf_llama_trunk(args.model_dir, device=device)
+        _, model = load_hf_llama_trunk(args.model_dir, device=device, axis=axis)
     else:
         _, model = LOADERS[args.family](args.model_dir, device=device)
     tokenizer = load_tokenizer(args.model_dir)
     rows = read_transcripts(args.trans_path, language=args.language)
-    os.makedirs(args.save_dir, exist_ok=True)
+    if axis.rank == 0:
+        os.makedirs(args.save_dir, exist_ok=True)
     t0 = time.perf_counter()
     feats = extract_text_features(
         model, tokenizer, [s for _, s in rows],
         layer_ids=tuple(int(x) for x in args.layer_ids.split(",")),
         feature_level=args.feature_level, batch_size=args.batch_size)
-    for (name, _), feat in zip(rows, feats):
-        np.save(os.path.join(args.save_dir, f"{name}.npy"), feat)
-    seconds = time.perf_counter() - t0
-    print(f"extracted {len(rows)} transcripts in {seconds:.1f}s")
-    return {"rows": len(rows), "seconds": seconds, "save_dir": args.save_dir}
+    result = {"rows": len(rows), "seconds": 0.0, "save_dir": args.save_dir}
+    if axis.rank == 0:
+        for (name, _), feat in zip(rows, feats):
+            np.save(os.path.join(args.save_dir, f"{name}.npy"), feat)
+        result["seconds"] = time.perf_counter() - t0
+        print(f"extracted {len(rows)} transcripts in {result['seconds']:.1f}s")
+    if args.tp_worker is not None:
+        multihost.finish_rank(args.tp_worker, axis, result)
+    return result

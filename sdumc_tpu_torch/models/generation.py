@@ -260,6 +260,22 @@ def beam_finalize(state: Dict, length_penalty: float = 1.0) -> Dict:
             "taps": state["taps"], "n_steps": step, "score": hyp_scores[cidx, best]}
 
 
+def assert_ranks_agree(tokens: torch.Tensor, axis) -> None:
+    """Raise unless every rank of the model axis chose the same ``tokens``:
+    one all_reduce (max) of the tokens and of their negation, so max ==
+    -max(-x) == min over the ranks; every rank sees the same sums and so
+    raises or returns alike. A tensor-parallel decode runs the same beam
+    bookkeeping on the same gathered logits on every rank; ranks that
+    parted would wait on each other in the next collective, so they are
+    stopped, not resynchronised."""
+    import torch.distributed as dist
+
+    both = torch.stack([tokens, -tokens])
+    dist.all_reduce(both, op=dist.ReduceOp.MAX, group=axis.group)
+    if not torch.equal(both[0], -both[1]):
+        raise RuntimeError(f"the {axis.world} tensor-parallel ranks chose different tokens")
+
+
 def beam_generate_batched(
     apply_fn: Callable,
     prompt_embeds: torch.Tensor,
@@ -274,6 +290,7 @@ def beam_generate_batched(
     tap_layers: Sequence[int] = (-4, -3, -2, -1),
     check_every: int = 8,
     trace: Optional[Dict] = None,
+    axis=None,
 ):
     """Beam-search decode a batch of clips in lockstep: ``beam_prefill``,
     ``beam_step`` for each step while a clip is live (read on the host every
@@ -291,6 +308,8 @@ def beam_generate_batched(
       trace: if a dict, receives ``gap`` [C]: the smallest gap between the
         B-th and (B+1)-th candidate score of each clip over its live steps
         (how near a tie the beam choice came).
+      axis: the model axis of a tensor-parallel model (``parallel.ModelAxis``):
+        at the end of the chunk, ``assert_ranks_agree`` on its tokens.
 
     Returns a dict of tensors on the prompt's device, leading axis C:
       tokens [C, max_new]: best hypothesis (EOS-padded), n_tokens [C],
@@ -307,7 +326,10 @@ def beam_generate_batched(
                          length_penalty=length_penalty, tap_layers=tap_layers)
     if trace is not None:
         trace["gap"] = state["gap"]
-    return beam_finalize(state, length_penalty)
+    out = beam_finalize(state, length_penalty)
+    if axis is not None and axis.world > 1:
+        assert_ranks_agree(out["tokens"], axis)
+    return out
 
 
 def beam_generate(apply_fn: Callable, prompt_embeds: torch.Tensor, cfg: LlamaConfig, *,

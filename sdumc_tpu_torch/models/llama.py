@@ -35,6 +35,13 @@ h reads kv head h // (H/KV), as ``jnp.repeat`` gives in JAX.
 
 ``scan_layers`` stays in the config so that configs carry over; it is not
 read (a compile-size device of XLA; PyTorch runs the layers eagerly).
+
+Tensor parallelism (``--tp N``, ``parallel/sharding.py``): a rank's model
+is this one with ``TPLlamaAttention`` / ``TPLlamaMLP`` in each layer and
+the embedding and ``lm_head`` gathered (``parallel/layers.py``), built by
+``tp_model_from_state_dict`` from the rank's slices. The attention helpers
+read the head counts from their tensors, so a rank's ``H / N`` heads run
+the same code; a single process builds none of these modules.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sdumc_tpu_torch.ops.quant import QuantLinear
+from sdumc_tpu_torch.parallel.layers import GatheredEmbedding, GatheredLinear, RowParallelLinear
 
 NEG_MASK = -1e30
 
@@ -142,8 +150,8 @@ def _cached_attention(c: LlamaConfig, q, k_new, v_new, k_old, v_old, idx: int, m
     read: JAX masks them to -1e30, which adds exact zeros. k_scale/v_scale
     [B,S,KV]: int8-KV scales, folded outside the head_dim reductions.
     Returns [B,T,H,hd]."""
-    B, T = q.shape[:2]
-    KV, hd = c.kv_heads, c.head_dim
+    B, T, H = q.shape[:3]
+    KV, hd = k_new.shape[2], c.head_dim
     scale = math.sqrt(hd)
     mask = mask.expand(B, 1, T, mask.shape[-1])
     old_mask = mask[..., :idx][:, :, None]                 # [B,1,1,T,idx]
@@ -167,7 +175,7 @@ def _cached_attention(c: LlamaConfig, q, k_new, v_new, k_old, v_old, idx: int, m
             p_old = p_old * v_scale.permute(0, 2, 1)[:, :, None, None, :]
         out = torch.einsum("bgrts,bsgd->btgrd", p_old, v_old.float())
         out = out + torch.einsum("bgrts,bsgd->btgrd", probs[..., idx:], v_new.float())
-        return out.reshape(B, T, c.num_heads, hd).to(c.dtype)
+        return out.reshape(B, T, H, hd).to(c.dtype)
 
     # prefill: scores from model-dtype products, softmax in f32, probs cast back
     k_old_d = k_old if k_scale is None else k_old.to(c.dtype)
@@ -184,7 +192,7 @@ def _cached_attention(c: LlamaConfig, q, k_new, v_new, k_old, v_old, idx: int, m
             p_old = (p_old.float() * v_scale.permute(0, 2, 1)[:, :, None, None, :]).to(c.dtype)
         v_old_d = v_old if v_scale is None else v_old.to(c.dtype)
         out = torch.einsum("bgrts,bsgd->btgrd", p_old, v_old_d) + out
-    return out.reshape(B, T, c.num_heads, hd)
+    return out.reshape(B, T, H, hd)
 
 
 def _split_attention(c: LlamaConfig, q, k_new, v_new, pk, pv, gk, gv, gidx, pmask,
@@ -200,9 +208,9 @@ def _split_attention(c: LlamaConfig, q, k_new, v_new, pk, pv, gk, gv, gidx, pmas
     [C, P] additive prompt mask (left-pad slots -1e30). *_scale: int8-KV
     scales ([C, P, KV] / [R, G, KV]) folded outside the head_dim reductions.
     Returns [R, 1, H, hd] in the model dtype."""
-    R = q.shape[0]
+    R, _, H = q.shape[:3]
     C, P = pk.shape[:2]
-    B, KV, hd = R // C, c.kv_heads, c.head_dim
+    B, KV, hd = R // C, k_new.shape[2], c.head_dim
     scale = math.sqrt(hd)
     qf = _grouped(q[:, 0].float(), KV)                      # [R, KV, rep, hd]
     rep = qf.shape[2]
@@ -238,7 +246,7 @@ def _split_attention(c: LlamaConfig, q, k_new, v_new, pk, pv, gk, gv, gidx, pmas
         pg = pg * gv_scale.permute(0, 2, 1)[:, :, None, :]
     out = out + torch.einsum("rgkn,rngd->rgkd", pg, gv.float())
     out = out + probs[..., P + G:] * v_new[:, 0].float()[:, :, None, :]
-    return out.reshape(R, 1, c.num_heads, hd).to(c.dtype)
+    return out.reshape(R, 1, H, hd).to(c.dtype)
 
 
 def _linear(c: LlamaConfig, d_in: int, d_out: int, device=None) -> nn.Module:
@@ -271,13 +279,22 @@ def _append(cache: Dict, prefix: str, idx, k: torch.Tensor, v: torch.Tensor) -> 
 
 
 class LlamaAttention(nn.Module):
+    """``heads`` query and ``kv_heads`` key/value heads of ``cfg.head_dim``:
+    the config's counts here, a rank's in ``TPLlamaAttention``."""
+
     def __init__(self, cfg: LlamaConfig, device=None):
         super().__init__()
         c = self.cfg = cfg
+        self.heads, self.kv_heads = c.num_heads, c.kv_heads
         self.q_proj = _linear(c, c.hidden_size, c.num_heads * c.head_dim, device)
         self.k_proj = _linear(c, c.hidden_size, c.kv_heads * c.head_dim, device)
         self.v_proj = _linear(c, c.hidden_size, c.kv_heads * c.head_dim, device)
         self.o_proj = _linear(c, c.num_heads * c.head_dim, c.hidden_size, device)
+
+    def _kv(self, x):
+        """(k, v) [B, T, kv_heads, hd], k before rope."""
+        shape = x.shape[:2] + (self.kv_heads, self.cfg.head_dim)
+        return self.k_proj(x).view(shape), self.v_proj(x).view(shape)
 
     def forward(self, x, rope_cs, mask, cache: Optional[Dict] = None):
         """x [B, T, D]; rope_cs the (cos, sin) of the positions; mask: [B|1,
@@ -285,9 +302,9 @@ class LlamaAttention(nn.Module):
         prompt mask (split cache). The cache, if any, is updated in place."""
         c = self.cfg
         B, T, _ = x.shape
-        q = apply_rope(self.q_proj(x).view(B, T, c.num_heads, c.head_dim), *rope_cs)
-        k = apply_rope(self.k_proj(x).view(B, T, c.kv_heads, c.head_dim), *rope_cs)
-        v = self.v_proj(x).view(B, T, c.kv_heads, c.head_dim)
+        q = apply_rope(self.q_proj(x).view(B, T, self.heads, c.head_dim), *rope_cs)
+        k, v = self._kv(x)
+        k = apply_rope(k, *rope_cs)
 
         if cache is not None and "pk" in cache:
             gidx = cache["index"]
@@ -302,12 +319,12 @@ class LlamaAttention(nn.Module):
                                     cache.get("k_scale"), cache.get("v_scale"))
             _append(cache, "", idx, k, v)
         else:
-            qg = _grouped(q, c.kv_heads)
+            qg = _grouped(q, self.kv_heads)
             scores = torch.einsum("btgrd,bsgd->bgrts", qg, k).float() / math.sqrt(c.head_dim)
             scores = scores + mask[:, :, None]
             probs = torch.softmax(scores, dim=-1).to(c.dtype)
             out = torch.einsum("bgrts,bsgd->btgrd", probs, v)
-        return self.o_proj(out.reshape(B, T, c.num_heads * c.head_dim))
+        return self.o_proj(out.reshape(B, T, self.heads * c.head_dim))
 
 
 class LlamaMLP(nn.Module):
@@ -320,6 +337,55 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class TPLlamaAttention(LlamaAttention):
+    """A rank's ``H / world`` query heads (rows ``[rank * H/world, ...)`` of
+    q_proj) and o_proj's matching input columns, a ``RowParallelLinear``
+    whose partial products are summed over the ranks. ``kv_split``: K and V
+    split the same way (KV divides by world: the rank's query heads group
+    into its own KV heads). Otherwise K and V are whole on every rank, and
+    each query head takes the KV head it groups into (head h reads KV head
+    h // (H / KV)), repeated per head, so the rank attends as MHA over its
+    heads."""
+
+    def __init__(self, cfg: LlamaConfig, axis, kv_split: bool, device=None):
+        nn.Module.__init__(self)
+        c = self.cfg = cfg
+        self.heads = c.num_heads // axis.world
+        kv = c.kv_heads // axis.world if kv_split else c.kv_heads
+        self.kv_heads = kv if kv_split else self.heads
+        first, group = axis.rank * self.heads, c.num_heads // c.kv_heads
+        # the KV head of each of the rank's query heads (moved to x's device at first use)
+        self.kv_pick = None if kv_split else (first + torch.arange(self.heads, device="cpu")) // group
+        self.q_proj = _linear(c, c.hidden_size, self.heads * c.head_dim, device)
+        self.k_proj = _linear(c, c.hidden_size, kv * c.head_dim, device)
+        self.v_proj = _linear(c, c.hidden_size, kv * c.head_dim, device)
+        self.o_proj = RowParallelLinear(self.heads * c.head_dim, c.hidden_size, axis,
+                                        dtype=c.dtype, device=device)
+
+    def _kv(self, x):
+        if self.kv_pick is None:
+            return super()._kv(x)
+        if self.kv_pick.device != x.device:
+            self.kv_pick = self.kv_pick.to(x.device)
+        shape = x.shape[:2] + (self.cfg.kv_heads, self.cfg.head_dim)
+        return (self.k_proj(x).view(shape).index_select(2, self.kv_pick),
+                self.v_proj(x).view(shape).index_select(2, self.kv_pick))
+
+
+class TPLlamaMLP(LlamaMLP):
+    """A rank's ``intermediate_size / world`` columns of gate and up (rows of
+    their weights) and down's matching input columns, a
+    ``RowParallelLinear``."""
+
+    def __init__(self, cfg: LlamaConfig, axis, device=None):
+        nn.Module.__init__(self)
+        c, inner = cfg, cfg.intermediate_size // axis.world
+        self.gate_proj = _linear(c, c.hidden_size, inner, device)
+        self.up_proj = _linear(c, c.hidden_size, inner, device)
+        self.down_proj = RowParallelLinear(inner, c.hidden_size, axis, dtype=c.dtype,
+                                           device=device)
 
 
 class LlamaLayer(nn.Module):
@@ -428,6 +494,40 @@ def model_from_state_dict(cfg: LlamaConfig, state_dict) -> LlamaForCausalLM:
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg)
     model.load_state_dict(state_dict, strict=True, assign=True)
+    return model.eval()
+
+
+def tp_model_from_state_dict(cfg: LlamaConfig, state_dict, specs, axis, trunk: bool = False):
+    """A rank's tensor-parallel model: ``LlamaForCausalLM`` (or, ``trunk``,
+    its ``LlamaModel``) built on the meta device, each module whose weights
+    ``specs`` split (``parallel.sharding.llama_specs``: key -> split dim or
+    None) replaced by its tensor-parallel form, and given the rank's tensors
+    (``parallel.sharding.shard_state_dict``'s) as they are, in eval mode.
+    Its ``cfg`` is the rank's: ``num_kv_heads`` counts the KV heads the rank
+    caches, so ``init_cache`` and the beam engine size the rank's buffers.
+    Specs that split nothing (a world of 1) give the single-process model."""
+
+    def split(suffix: str) -> bool:
+        return any(d is not None for k, d in specs.items() if k.endswith(suffix))
+
+    with torch.device("meta"):
+        model = LlamaModel(cfg) if trunk else LlamaForCausalLM(cfg)
+        body = model if trunk else model.model
+        for layer in body.layers:
+            if split("self_attn.q_proj.weight"):
+                layer.self_attn = TPLlamaAttention(cfg, axis, split("self_attn.k_proj.weight"))
+            if split("mlp.gate_proj.weight"):
+                layer.mlp = TPLlamaMLP(cfg, axis)
+        if split("embed_tokens.weight"):
+            body.embed_tokens = GatheredEmbedding(cfg.vocab_size, cfg.hidden_size // axis.world,
+                                                  axis, dtype=cfg.dtype)
+        if split("lm_head.weight"):
+            model.lm_head = GatheredLinear(cfg.hidden_size, cfg.vocab_size // axis.world, axis,
+                                           dtype=cfg.dtype)
+    model.load_state_dict(state_dict, strict=True, assign=True)
+    kv_heads = body.layers[0].self_attn.kv_heads if body.layers else cfg.kv_heads
+    if kv_heads != cfg.kv_heads:
+        model.cfg = body.cfg = dataclasses.replace(cfg, num_kv_heads=kv_heads)
     return model.eval()
 
 

@@ -28,6 +28,13 @@ path's softmax is f32; the kernel path is the flash kernel's bf16 instance
 weight-normed positional conv is folded in f32 at conversion and rounded
 with the other weights. Elementwise ops (gelu, sigmoid, the gate's
 arithmetic) are torch's bf16 ops, each computed in f32 and rounded once.
+
+Tensor parallelism (``parallel.shard_wavlm_model``, JAX's ``WAVLM_RULES``):
+a rank's model has ``TPWavLMAttention`` (its heads' q/k/v, gate constant
+and relative-position embedding; the kernel runs at ``num_heads / N``
+heads) and ``TPFeedForward`` in each layer, their row-split outputs summed
+over the ranks before the bias (``parallel/layers.py``); built by
+``tp_model_from_state_dict``.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ from torch import nn
 
 from sdumc_tpu_torch.ops.kernels.flash_wavlm import (
     NEG, bias_diag_for, flash_gated_attention, relative_position_buckets)
+from sdumc_tpu_torch.parallel.layers import RowParallelLinear
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,12 +217,14 @@ class PositionalConvEmbedding(nn.Module):
 
 class WavLMAttention(nn.Module):
     """Self-attention with the shared bucketed relative position bias and the
-    per-layer gru_rel_pos gate (HF WavLMAttention)."""
+    per-layer gru_rel_pos gate (HF WavLMAttention), over ``heads`` heads:
+    all of them here, a rank's in ``TPWavLMAttention``."""
 
     def __init__(self, cfg: WavLMConfig, has_relative_position_bias: bool):
         super().__init__()
         self.cfg = cfg
         D, H = cfg.hidden_size, cfg.num_heads
+        self.heads = H
         self.q_proj = Linear(D, D)
         self.k_proj = Linear(D, D)
         self.v_proj = Linear(D, D)
@@ -225,14 +235,20 @@ class WavLMAttention(nn.Module):
             if has_relative_position_bias:
                 self.rel_attn_embed = nn.Embedding(cfg.num_buckets, H)
 
+    def _gate_input(self, x):
+        """[B, heads, T, hd]: the heads of the (replicated) input that the
+        gate reads."""
+        B, T, D = x.shape
+        return x.view(B, T, self.cfg.num_heads, D // self.cfg.num_heads).transpose(1, 2)
+
     def forward(self, x, position_bias=None, pad_mask=None):
         """x [B, T, D], pad_mask [B, T] bool (True attends). Returns (out,
         position_bias): the einsum path carries the [H, T, T] bias across
         layers, the kernel path its [H, 2T - 1] diagonal form."""
         cfg = self.cfg
         B, T, D = x.shape
-        H = cfg.num_heads
-        hd = D // H
+        H = self.heads
+        hd = D // cfg.num_heads
         q = self.q_proj(x).view(B, T, H, hd)
         k = self.k_proj(x).view(B, T, H, hd)
         v = self.v_proj(x).view(B, T, H, hd)
@@ -242,7 +258,7 @@ class WavLMAttention(nn.Module):
             if pad_mask is not None:
                 scores = scores.masked_fill(~pad_mask[:, None, None, :], NEG)
             probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-            out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, D)
+            out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, H * hd)
             return self.out_proj(out), None
 
         impl = resolve_attention_impl(cfg.attention_impl, x.device, x.dtype)
@@ -255,7 +271,7 @@ class WavLMAttention(nn.Module):
                 position_bias = bias_diag_for(rel_embed, T, cfg.num_buckets,
                                               cfg.max_bucket_distance)
 
-        gated = x.view(B, T, H, hd).transpose(1, 2)                        # [B, H, T, hd]
+        gated = self._gate_input(x)                                        # [B, H, T, hd]
         proj = self.gru_rel_pos_linear(gated).view(B, H, T, 2, 4).sum(-1)  # [B, H, T, 2]
         gate_a, gate_b = torch.sigmoid(proj).chunk(2, dim=-1)              # [B, H, T, 1]
         gate_out = gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0
@@ -264,14 +280,14 @@ class WavLMAttention(nn.Module):
             out = flash_gated_attention(
                 q, k, v, gate_out[..., 0].contiguous(), None, pad_mask, position_bias,
                 num_buckets=cfg.num_buckets, max_distance=cfg.max_bucket_distance)
-            return self.out_proj(out.reshape(B, T, D)), position_bias
+            return self.out_proj(out.reshape(B, T, H * hd)), position_bias
 
         scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(hd)
         scores = scores + gate_out * position_bias[None]
         if pad_mask is not None:
             scores = scores.masked_fill(~pad_mask[:, None, None, :], NEG)
         probs = torch.softmax(scores.float(), dim=-1).to(x.dtype)
-        out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, D)
+        out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, H * hd)
         return self.out_proj(out), position_bias
 
 
@@ -283,6 +299,47 @@ class FeedForward(nn.Module):
 
     def forward(self, h):
         return self.output_dense(F.gelu(self.intermediate_dense(h)))
+
+
+class TPWavLMAttention(WavLMAttention):
+    """A rank's ``num_heads / world`` heads: q, k and v (weights and biases)
+    split by head, as are ``gru_rel_pos_const`` and ``rel_attn_embed`` (so
+    the bias, and its diagonal form, is built from the rank's own columns);
+    the gate reads the rank's heads of the replicated input; ``out_proj``
+    split by its input (``RowParallelLinear``)."""
+
+    def __init__(self, cfg: WavLMConfig, has_relative_position_bias: bool, axis):
+        nn.Module.__init__(self)
+        self.cfg, self.axis = cfg, axis
+        D, H = cfg.hidden_size, cfg.num_heads
+        hd = D // H
+        self.heads = H // axis.world
+        width = self.heads * hd
+        self.q_proj = Linear(D, width)
+        self.k_proj = Linear(D, width)
+        self.v_proj = Linear(D, width)
+        self.out_proj = RowParallelLinear(width, D, axis, bias=True)
+        if cfg.use_rel_pos_bias:
+            self.gru_rel_pos_linear = Linear(hd, 8)
+            self.gru_rel_pos_const = nn.Parameter(torch.ones(1, self.heads, 1, 1))
+            if has_relative_position_bias:
+                self.rel_attn_embed = nn.Embedding(cfg.num_buckets, self.heads)
+
+    def _gate_input(self, x):
+        first = self.axis.rank * self.heads
+        return super()._gate_input(x)[:, first:first + self.heads]
+
+
+class TPFeedForward(FeedForward):
+    """A rank's ``intermediate_size / world`` columns: intermediate_dense
+    split by output (weight and bias), output_dense by input
+    (``RowParallelLinear``)."""
+
+    def __init__(self, cfg: WavLMConfig, axis):
+        nn.Module.__init__(self)
+        inner = cfg.intermediate_size // axis.world
+        self.intermediate_dense = Linear(cfg.hidden_size, inner)
+        self.output_dense = RowParallelLinear(inner, cfg.hidden_size, axis, bias=True)
 
 
 class EncoderLayer(nn.Module):
@@ -362,3 +419,23 @@ class WavLMModel(nn.Module):
         x = self.prologue(wav, pad_mask)
         x, hidden_states = self.encoder_stack(x, pad_mask, output_hidden_states)
         return {"last_hidden_state": x, "hidden_states": hidden_states}
+
+
+def tp_model_from_state_dict(cfg: WavLMConfig, state_dict, specs, axis) -> WavLMModel:
+    """A rank's tensor-parallel WavLMModel: built on the meta device, each
+    layer's attention and feed-forward replaced by their tensor-parallel
+    forms where ``specs`` (``parallel.sharding.wavlm_specs``) split their
+    weights, and given the rank's tensors as they are, in eval mode."""
+
+    def split(suffix: str) -> bool:
+        return any(d is not None for k, d in specs.items() if k.endswith(suffix))
+
+    with torch.device("meta"):
+        model = WavLMModel(cfg)
+        for i, layer in enumerate(model.encoder.layers):
+            if split("attention.q_proj.weight"):
+                layer.attention = TPWavLMAttention(cfg, i == 0, axis)
+            if split("feed_forward.intermediate_dense.weight"):
+                layer.feed_forward = TPFeedForward(cfg, axis)
+    model.load_state_dict(state_dict, strict=True, assign=True)
+    return model.eval()

@@ -1,9 +1,17 @@
-"""Data parallelism across processes (the JAX package's ``parallel/``:
-``mesh.py`` and ``multihost.py``; tensor, sequence and pipeline
-parallelism are not ported yet)."""
+"""Data and tensor parallelism across processes (the JAX package's
+``parallel/``: ``mesh.py``, ``multihost.py`` and ``sharding.py``; ring and
+sequence-parallel WavLM and the GPipe schedule are not ported yet)."""
 
-from sdumc_tpu_torch.parallel.mesh import DataAxis, make_data_axis, shard_batch  # noqa: F401
+from sdumc_tpu_torch.parallel.mesh import (  # noqa: F401
+    DataAxis,
+    ModelAxis,
+    make_data_axis,
+    make_model_axis,
+    shard_batch,
+)
 from sdumc_tpu_torch.parallel.multihost import (  # noqa: F401
+    LocalProcesses,
+    free_port,
     gather_eval,
     gather_rows,
     global_t_max,
@@ -11,6 +19,18 @@ from sdumc_tpu_torch.parallel.multihost import (  # noqa: F401
     pad_frames,
     process_metrics,
     reduce_gradients,
+    run_local_ranks,
     shutdown,
     warmup_collectives,
+)
+from sdumc_tpu_torch.parallel.sharding import (  # noqa: F401
+    LLAMA_RULES,
+    WAVLM_RULES,
+    llama_specs,
+    partition_specs,
+    shard_llama_model,
+    shard_state_dict,
+    shard_wavlm_model,
+    tp_sharding_summary,
+    wavlm_specs,
 )

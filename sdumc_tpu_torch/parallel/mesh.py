@@ -1,11 +1,16 @@
-"""The data axis of a data-parallel run, and a rank's rows of a batch.
+"""The data and model axes of a multi-process run, and a rank's rows of a
+batch.
 
 The JAX package's ``parallel/mesh.py`` builds a device mesh over which one
-jitted program shards the batch. Here every process is one rank with one
-device, holding its own rows as local tensors: the mesh reduces to the data
-axis: rank, world, device, and the default process group that carries its
-collectives. ``make_hierarchical_mesh`` and the model axis wait for the
-GPipe and tensor-parallel slices.
+jitted program shards the batch (the ``data`` axis) or the weights (the
+``model`` axis, ``make_mesh(data_parallel=1, model_parallel=tp)``). Here
+every process is one rank with one device, holding its own rows or its own
+weight shards as local tensors: an axis is rank, world, device, and the
+process group that carries its collectives. The model axis carries the two
+collectives of tensor parallelism (forward only: JAX's tensor parallelism
+serves the extractors and takes no gradient): a sum of partial outputs and
+a gather along the last dimension. ``make_hierarchical_mesh`` waits for the
+GPipe slice.
 """
 
 from __future__ import annotations
@@ -56,3 +61,65 @@ def shard_batch(batch: dict, rank: int, world: int) -> dict:
     every array or tensor (the rows a sharded ``BatchIterator`` gives that
     rank), ``t_max`` and the frame buckets those of the global batch."""
     return {k: v if k == "t_max" else v[rank::world] for k, v in batch.items()}
+
+
+HALF = (torch.bfloat16, torch.float16)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelAxis:
+    """One rank of the model (tensor-parallel) axis: ``world`` ranks, each
+    holding its shard of every split weight on ``device``. ``group`` carries
+    the collectives (None: the default group). Each collective is an
+    ``all_reduce`` on the rank's device, which gloo takes on CUDA tensors
+    (ranks sharing a card) as NCCL does; half-precision tensors travel and
+    sum in f32 and are rounded once."""
+
+    rank: int = 0
+    world: int = 1
+    device: torch.device = torch.device("cpu")
+    group: Optional[Any] = None
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the ranks of each rank's partial ``x`` (an f32 ``x``
+        is summed in place and returned)."""
+        import torch.distributed as dist
+
+        buf = x.float() if x.dtype in HALF else x
+        dist.all_reduce(buf, group=self.group)
+        return buf.to(x.dtype)
+
+    def gather_last(self, x: torch.Tensor) -> torch.Tensor:
+        """[..., n] on each rank -> [..., world * n], rank r's columns at [r
+        * n, (r + 1) * n): an all_reduce of a zeroed [world, ..., n] buffer
+        that holds ``x`` in row ``rank`` (x plus zeros: exact)."""
+        import torch.distributed as dist
+
+        buf = x.new_zeros((self.world,) + tuple(x.shape),
+                          dtype=torch.float32 if x.dtype in HALF else x.dtype)
+        buf[self.rank] = x
+        dist.all_reduce(buf, group=self.group)
+        return buf.movedim(0, -2).reshape(tuple(x.shape[:-1]) + (-1,)).to(x.dtype)
+
+
+def make_model_axis(device, tp: int = 1) -> ModelAxis:
+    """The model axis of this process: this process alone for ``tp`` 1, else
+    every process of the initialized default group
+    (``multihost.initialize_from_env``), whose size must be ``tp``. Then a
+    collective: a barrier and one all_reduce on ``device`` while the ranks
+    are in step (a communicator that forms late can time out), so every
+    rank calls it once."""
+    import torch.distributed as dist
+
+    device = torch.device(device)
+    if tp == 1:
+        return ModelAxis(device=device)
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(f"--tp {tp} needs {tp} processes in one group "
+                         "(multihost.initialize_from_env); none is initialized")
+    if dist.get_world_size() != tp:
+        raise ValueError(f"--tp {tp} with {dist.get_world_size()} processes")
+    axis = ModelAxis(dist.get_rank(), tp, device)
+    dist.barrier()
+    axis.all_reduce(torch.zeros(1, device=device))
+    return axis

@@ -29,13 +29,24 @@ Environment of each process: ``SDUMC_COORDINATOR=host:port`` (rank 0
 listens there), ``SDUMC_NUM_PROCESSES``, ``SDUMC_PROCESS_ID`` and,
 optionally, ``SDUMC_SHUTDOWN_TIMEOUT`` (seconds, default 300) for the
 rendezvous and every collective.
+
+``LocalProcesses`` starts ranks on this host with that environment and
+stops them together; ``run_local_ranks`` starts the ranks of a
+tensor-parallel extraction (``cli.extract text|feat4 --tp N``) with it, and
+each such rank begins with ``join_model_axis`` and ends with
+``finish_rank``.
 """
 
 from __future__ import annotations
 
 import datetime
+import json
 import os
 import socket
+import subprocess
+import sys
+import tempfile
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -43,7 +54,7 @@ import torch
 
 from sdumc_tpu_torch.data.collate import bucket_for
 from sdumc_tpu_torch.data.pipeline import MODALITIES
-from sdumc_tpu_torch.parallel.mesh import DataAxis
+from sdumc_tpu_torch.parallel.mesh import DataAxis, ModelAxis
 
 # the train step's metrics that are this rank's sums (the others are the
 # global batch's, equal on every rank)
@@ -269,3 +280,133 @@ def gather_eval(arrays: Sequence[np.ndarray], axis: DataAxis, total: int) -> lis
             whole[r::axis.world] = host[r, i * cap:i * cap + counts[r]]
         out.append(whole)
     return out
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that was free when asked."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class LocalProcesses:
+    """Child processes on this host, started together and stopped together:
+    leaving the ``with`` block kills every one still running. One that
+    exits non-zero ends the others (``wait``): a rank left waiting in a
+    collective would hang until its timeout."""
+
+    def __init__(self):
+        self.procs = []                 # (name, Popen, log path or None)
+
+    def __enter__(self) -> "LocalProcesses":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.stop()
+        return False
+
+    def stop(self) -> None:
+        """Kill every process still running and reap them all."""
+        for _, p, _ in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+
+    def start(self, name: str, argv: Sequence[str], env: Optional[dict] = None,
+              log: Optional[str] = None, cwd: Optional[str] = None) -> subprocess.Popen:
+        """Start `argv` with this environment updated by `env`; its output
+        and errors to the file `log`, else to this process's."""
+        out = open(log, "w") if log else None
+        try:
+            p = subprocess.Popen(list(argv), env=dict(os.environ, **(env or {})), cwd=cwd,
+                                 stdout=out, stderr=subprocess.STDOUT if out else None)
+        finally:
+            if out:
+                out.close()                 # the child holds its own descriptor
+        self.procs.append((name, p, log))
+        return p
+
+    def start_ranks(self, argv: Sequence[str], world: int, env: Optional[dict] = None,
+                    log_dir: Optional[str] = None, cwd: Optional[str] = None) -> None:
+        """Start `world` ranks of `argv`, each with the SDUMC_* environment
+        of a coordinator on a free local port (``initialize_from_env``),
+        rank r's output to `log_dir`/rank{r}.log when `log_dir` is given."""
+        port = free_port()
+        for rank in range(world):
+            self.start(f"rank {rank}", argv,
+                       dict(env or {}, SDUMC_COORDINATOR=f"127.0.0.1:{port}",
+                            SDUMC_NUM_PROCESSES=str(world), SDUMC_PROCESS_ID=str(rank)),
+                       log=os.path.join(log_dir, f"rank{rank}.log") if log_dir else None,
+                       cwd=cwd)
+
+    def wait(self, until=None, timeout: Optional[float] = None,
+             poll_seconds: float = 0.2) -> None:
+        """Return once every process has exited 0, or once ``until()`` is
+        true. A process that exits non-zero, or `timeout` seconds passing
+        first, stops them all and raises RuntimeError (with the end of the
+        failed process's log)."""
+        deadline = None if timeout is None else time.monotonic() + timeout
+        while True:
+            codes = [p.poll() for _, p, _ in self.procs]
+            failed = [i for i, c in enumerate(codes) if c]
+            if failed:
+                self.stop()
+                name, _, log = self.procs[failed[0]]
+                tail = ""
+                if log:
+                    with open(log, errors="replace") as f:
+                        tail = "; its log ends:\n" + "\n".join(f.read().splitlines()[-40:])
+                raise RuntimeError(f"{name} exited with code {codes[failed[0]]}; the others "
+                                   f"were stopped{tail}")
+            if all(c == 0 for c in codes) or (until is not None and until()):
+                return
+            if deadline is not None and time.monotonic() > deadline:
+                running = [n for (n, _, _), c in zip(self.procs, codes) if c is None]
+                self.stop()
+                raise RuntimeError(f"{', '.join(running)} still running after {timeout} s; "
+                                   "stopped")
+            time.sleep(poll_seconds)
+
+
+def run_local_ranks(stage_argv: Sequence[str], world: int) -> dict:
+    """``python -m sdumc_tpu_torch.cli.extract STAGE_ARGV --tp_worker OUT``
+    as `world` fresh interpreters (fresh, so no rank inherits an initialised
+    CUDA), each with the SDUMC_* environment of a coordinator on a free
+    local port; their output goes to this process's. Returns what rank 0
+    wrote to OUT (its stage's result). A rank that exits non-zero ends the
+    others and raises: nothing falls back to fewer ranks."""
+    import sdumc_tpu_torch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(sdumc_tpu_torch.__file__)))
+    path = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "rank0.json")
+        with LocalProcesses() as procs:
+            procs.start_ranks([sys.executable, "-m", "sdumc_tpu_torch.cli.extract", *stage_argv,
+                               "--tp_worker", out], world, env={"PYTHONPATH": path})
+            try:
+                procs.wait()
+            except RuntimeError as e:
+                raise RuntimeError(f"--tp {world}: {e}") from None
+        with open(out) as f:
+            return json.load(f)
+
+
+def join_model_axis(tp: int, device: str) -> ModelAxis:
+    """In a rank that ``run_local_ranks`` started: join the group from the
+    SDUMC_* environment and return the rank's model axis on its device
+    (its card, or the CPU)."""
+    from sdumc_tpu_torch.parallel.mesh import make_model_axis
+
+    initialize_from_env(device=device)
+    return make_model_axis(torch.device("cuda", torch.cuda.current_device())
+                           if device == "cuda" else torch.device("cpu"), tp)
+
+
+def finish_rank(path: str, axis: ModelAxis, result: dict) -> None:
+    """The end of such a rank: rank 0 writes its stage's result to `path`
+    for ``run_local_ranks``, then every rank leaves the group."""
+    if axis.rank == 0:
+        with open(path, "w") as f:
+            json.dump(result, f)
+    shutdown()

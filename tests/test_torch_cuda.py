@@ -49,7 +49,9 @@ imports no model code. A tiny ``DecodeBundle`` exported on the card (its
 step program writing the decode state in place) answers as the eager
 beam engine on the card and as the bundle exported on the CPU. Two ranks
 on the card over gloo (every collective of the data-parallel step on CUDA
-tensors) take the single-process step on the CPU.
+tensors) take the single-process step on the CPU, and two tensor-parallel
+ranks (half the heads each; the flash kernel at 2 heads) give a tiny LLaMA's
+logits and a tiny WavLM's last hidden state of the single process.
 """
 
 import math
@@ -1564,3 +1566,74 @@ def test_two_rank_gloo_step_on_card_matches_cpu(cuda, tmp_path):
             if p.grad is not None:
                 err = np.abs(grads[name] - p.grad.numpy()).max()
                 assert err <= 1e-5 * p.grad.abs().max().item() + 1e-6, (name, err)
+
+
+_TP_RANK = """
+import sys
+import torch
+from sdumc_tpu_torch.cli.common import set_matmul_precision
+from sdumc_tpu_torch.models.llama import LlamaConfig
+from sdumc_tpu_torch.models.wavlm import WavLMConfig
+from sdumc_tpu_torch.ops.kernels import flash_wavlm
+from sdumc_tpu_torch.parallel import (initialize_from_env, make_model_axis, shard_llama_model,
+                                      shard_wavlm_model, shutdown)
+
+work = sys.argv[1]
+set_matmul_precision("highest")
+rank, world = initialize_from_env(device="cuda")
+dev = torch.device("cuda", torch.cuda.current_device())
+axis = make_model_axis(dev, world)
+case = torch.load(work + "/case.pt")
+with torch.inference_mode():
+    llama = shard_llama_model({k: v.to(dev) for k, v in case["llama"].items()},
+                              LlamaConfig.tiny(num_kv_heads=2), axis)
+    logits = llama(input_ids=case["ids"].to(dev))["logits"]
+    wavlm = shard_wavlm_model({k: v.to(dev) for k, v in case["wavlm"].items()},
+                              WavLMConfig.tiny(hidden_size=64), axis)
+    flash_wavlm.reset_launches()
+    last = wavlm(case["wav"].to(dev))["last_hidden_state"]
+    torch.cuda.synchronize()
+torch.save({"logits": logits.cpu(), "last": last.cpu(), "launches": flash_wavlm.LAUNCHES,
+            "heads": wavlm.encoder.layers[0].attention.heads}, work + f"/rank{rank}.pt")
+shutdown()
+"""
+
+
+@pytest.mark.cuda
+def test_two_rank_tensor_parallel_forward_on_card_matches_cpu(cuda, tmp_path):
+    """Two ranks on the card over gloo, each holding half of the heads and
+    of the MLP of a tiny GQA LLaMA (2 kv heads, one a rank) and of a tiny
+    WavLM (hidden 64: 2 of 4 heads of hd 16 a rank, the flash kernel's hd 16
+    instance): the logits and the last hidden state equal the
+    single-process models on the CPU at this file's tolerance; each rank
+    launches the flash kernel once a layer."""
+    import importlib.util
+    import pathlib
+    import sys
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM, init_weights
+    from sdumc_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_multihost", pathlib.Path(__file__).with_name("test_torch_multihost.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    set_matmul_precision("highest")
+    llama = init_weights(LlamaForCausalLM(LlamaConfig.tiny(num_kv_heads=2)), seed=0).eval()
+    torch.manual_seed(0)
+    wcfg = WavLMConfig.tiny(hidden_size=64)
+    wavlm = WavLMModel(wcfg).eval()
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 128, (2, 12)))
+    wav = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 1600)).astype(np.float32))
+    torch.save({"llama": llama.state_dict(), "wavlm": wavlm.state_dict(), "ids": ids,
+                "wav": wav}, tmp_path / "case.pt")
+    helpers.run_ranks(2, [sys.executable, "-c", _TP_RANK, str(tmp_path)])
+    with torch.inference_mode():
+        logits = llama(input_ids=ids)["logits"]
+        last = wavlm(wav)["last_hidden_state"]
+    for rank in range(2):
+        got = torch.load(tmp_path / f"rank{rank}.pt")
+        torch.testing.assert_close(got["logits"], logits, rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(got["last"], last, rtol=RTOL, atol=ATOL)
+        assert got["heads"] == 2 and got["launches"] == wcfg.num_layers

@@ -455,7 +455,7 @@ def test_cli_extract_feat4_on_cpu(tmp_path):
     """``cli.extract feat4 --device cpu`` writes [n_steps, D] f32 taps per
     clip, equal to Feat4Extractor on the loaded parts; a second run skips
     every saved clip; --quant w8a8 --kv_quant int8 runs; without --device
-    cpu (no card here) it raises, and --tp 2 raises."""
+    cpu (no card here) it raises, and --tp 2 with --quant is a usage error."""
     from sdumc_tpu_torch.cli import extract
     from sdumc_tpu_torch.convert.hf_llama import load_hf_llama
     from sdumc_tpu_torch.extract.projector import load_projector
@@ -485,5 +485,5 @@ def test_cli_extract_feat4_on_cpu(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             extract.main(argv[:-2])
-    with pytest.raises(NotImplementedError, match="queue 1, multi-device"):
-        extract.main(argv + ["--tp", "2"])
+    with pytest.raises(SystemExit):
+        extract.main(argv + ["--tp", "2", "--quant", "int8"])

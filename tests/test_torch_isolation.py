@@ -191,13 +191,14 @@ def test_the_serving_module_imports_no_model_code_at_load():
     assert not any(m.startswith(("sdumc_tpu_torch.models", "sdumc_tpu_torch.train")) for m in top)
 
 
-PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py")
+PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
+                    "parallel/sharding.py", "parallel/layers.py")
 
 
 @pytest.mark.parametrize("rel", PARALLEL_MODULES)
 def test_the_walk_imports_the_parallel_modules(rel):
-    """pkgutil's walk reaches the data-parallel layer (so the probe above
-    covers it)."""
+    """pkgutil's walk reaches the data- and tensor-parallel layer (so the
+    probe above covers it)."""
     import pkgutil
 
     import sdumc_tpu_torch
@@ -215,3 +216,21 @@ def test_torch_distributed_is_imported_only_inside_functions():
              for mod, fn in _imports(ast.parse(path.read_text()))
              if mod.startswith("torch.distributed")}
     assert sites and all(fn is not None for _, fn in sites), sites
+
+
+TP_MODULES = ("parallel/sharding.py", "parallel/mesh.py", "parallel/layers.py",
+              "models/llama.py", "models/wavlm.py",
+              "models/generation.py", "convert/hf_llama.py", "extract/llm4wav.py")
+# all that the tensor-parallel path's modules import: the standard library's few, numpy,
+# torch and the port itself
+TP_IMPORTS = {"__future__", "argparse", "dataclasses", "glob", "json", "math", "os", "re",
+              "sys", "time", "typing", "numpy", "torch", "sdumc_tpu_torch"}
+
+
+@pytest.mark.parametrize("rel", TP_MODULES)
+def test_tensor_parallel_modules_import_only_numpy_torch_and_the_port(rel):
+    """The modules the tensor-parallel extractors run (the split layout,
+    the model axis, the split models, the loader and the stages) import no
+    JAX and nothing beyond numpy, torch and the standard library."""
+    mods = {mod.split(".")[0] for mod, _ in _imports(ast.parse((PACKAGE / rel).read_text()))}
+    assert mods <= TP_IMPORTS, mods - TP_IMPORTS

@@ -216,3 +216,49 @@ def test_step_seed_keeps_the_single_process_stream():
     hi, lo = np.random.SeedSequence([100, 7]).generate_state(2)
     assert step_seed(100, 7) == (int(hi) << 32) | int(lo)
     assert len({step_seed(100, 7), step_seed(100, 7, 0), step_seed(100, 7, 1)}) == 3
+
+
+_SLEEP = [sys.executable, "-c", "import time; time.sleep(60)"]
+
+
+def test_local_processes_stop_together(tmp_path):
+    """A process that exits non-zero stops the others and raises with the
+    end of its log; ``until`` returns while they run; a timeout stops them
+    and raises; leaving the block kills what still runs."""
+    from sdumc_tpu_torch.parallel.multihost import LocalProcesses
+
+    with LocalProcesses() as procs:
+        slow = procs.start("slow", _SLEEP)
+        procs.start("bad", [sys.executable, "-c", "print('the end'); raise SystemExit(3)"],
+                    log=str(tmp_path / "bad.log"))
+        with pytest.raises(RuntimeError, match="bad exited with code 3; the others were "
+                                               "stopped; its log ends:\nthe end"):
+            procs.wait()
+        assert slow.poll() is not None
+    with LocalProcesses() as procs:
+        slow = procs.start("slow", _SLEEP)
+        procs.wait(until=lambda: True)
+        assert slow.poll() is None
+        with pytest.raises(RuntimeError, match="slow still running after 0.5 s"):
+            procs.wait(timeout=0.5)
+        assert slow.poll() is not None
+    with LocalProcesses() as procs:
+        slow = procs.start("slow", _SLEEP)
+    assert slow.poll() is not None
+
+
+def test_local_ranks_get_one_coordinator(tmp_path):
+    """``start_ranks``: each rank its SDUMC_* environment around one free
+    local port, the caller's variables, its own log."""
+    from sdumc_tpu_torch.parallel.multihost import LocalProcesses
+
+    show = ("import os; print(*(os.environ[k] for k in ('SDUMC_PROCESS_ID', "
+            "'SDUMC_NUM_PROCESSES', 'SDUMC_COORDINATOR', 'EXTRA')))")
+    with LocalProcesses() as procs:
+        procs.start_ranks([sys.executable, "-c", show], 2, env={"EXTRA": "x"},
+                          log_dir=str(tmp_path))
+        procs.wait(timeout=60)
+    logs = [(tmp_path / f"rank{r}.log").read_text().split() for r in range(2)]
+    assert [g[:2] for g in logs] == [["0", "2"], ["1", "2"]]
+    assert logs[0][2] == logs[1][2] and logs[0][2].startswith("127.0.0.1:")
+    assert logs[0][3] == logs[1][3] == "x"

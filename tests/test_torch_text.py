@@ -274,8 +274,8 @@ def _write_csv(path, rows):
 
 def test_cli_extract_text_matches_jax_main(tmp_path, monkeypatch):
     """``cli.extract text --device cpu --layer_ids -3`` (bf16, as JAX loads
-    it) writes JAX main's files; --tp 2 raises naming its ROADMAP item;
-    without --device cpu and no card, it raises. (The other families run
+    it) writes JAX main's files; --tp 2 with a family other than llama
+    raises; without --device cpu and no card, it raises. (The other families run
     in tests/test_torch_text_families.py.)"""
     from sdumc_tpu_torch.cli import extract
 
@@ -293,8 +293,8 @@ def test_cli_extract_text_matches_jax_main(tmp_path, monkeypatch):
         got, want = (np.load(tmp_path / d / f"{name}.npy") for d in ("port", "jax"))
         assert got.dtype == np.float32 and got.shape == want.shape, name
         assert np.abs(got - want).max() <= BF16_ULPS * _bf16_ulp(top), name
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        extract.main(["text"] + common + ["--save_dir", "x", "--tp", "2"])
+    with pytest.raises(ValueError, match="llama family only"):
+        extract.main(["text"] + common + ["--save_dir", "x", "--tp", "2", "--family", "bert"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         extract.main(["text"] + common + ["--save_dir", str(tmp_path / "card")])
