@@ -64,10 +64,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      features (17 clips, one of 60 s), with the launch counters around it
      (the decode runs no kernel of the port), every output checked, and one
      4-clip chunk against its clips decoded alone;
- 12. Vicuna-7B at full depth (32 layers, bf16, seeded on the card) through
+ 12. Vicuna-7B at 4 of its 32 layers (bf16, seeded on the card) through
      Feat4Extractor.extract_many on 9 of the same features (8 short clips
      and the 60 s one; cut from 17 to hold the script's time): host-clock
-     rate and peak memory, a chunk's ms per decode step (CUDA events) beside its
+     rate and peak memory, one of its own chunks' ms per decode step (CUDA
+     events around its steps as it ran) beside its
      weight-and-KV-stream bound, device time by family, idle share and host
      launches per step from torch.profiler, then 32-step runs of the same
      chunk with --quant int8, --quant w8a8 and --kv_quant int8, timed, and
@@ -79,7 +80,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      seeded MOSEI-like transcripts (3-60 words, one of about 200 tokens, one
      empty, one with a non-ASCII word): every output's shape and
      finiteness, then one batch through the f32 trunk, card against CPU;
- 14. the text stage at full depth (32 layers, bf16, seeded on the card)
+ 14. the text stage at 4 of Vicuna-7B's 32 layers (bf16, seeded on the card)
      through extract_text_features with --layer_ids -3 and -4..-1:
      sentences/s by the host clock, peak memory, ms per batch by CUDA events
      beside its bound, device time by family and the idle share;
@@ -87,10 +88,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
      FRAME) on a seeded MANet .pth in the reference's format and 12 clips of
      30-300 OpenFace-style 112x112 24-bit BMP frames: shapes and
      finiteness, one clip's first batch card against CPU and a control run
-     with cuDNN's TF32 allowed that the check must refuse; a warm second
-     run (frames/s, decode-and-resize time apart), a warm run of the 3
-     shortest clips under torch.profiler (device time by family, idle
-     share) and the f32 bound from the MACs of every conv;
+     with cuDNN's TF32 allowed that the check must refuse; the 12 clips
+     run once, warm (after a cold run of the 3 shortest; frames/s,
+     decode-and-resize time apart), a warm run of the 3 shortest clips
+     under torch.profiler (device time by family, idle share) and the f32
+     bound from the MACs of every conv;
  16. the MANet trainer: ``cli.extract manet_train`` for one epoch (3 steps
      at batch 128, full width) on a seeded 7-class ImageFolder of 100x100
      BMPs, finite losses; one step card against CPU in float64 (loss and
@@ -157,8 +159,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      launch counters around the runs (no kernel of the port), one batch
      card against CPU per family on the same host-resized pixels, a TF32
      control that the CLIP check must refuse, CLIP once at UTTERANCE; per
-     family a warm run (frames/s, reading and resizing apart, peak
-     memory), a profiled warm run of the 2 shortest clips (device time by
+     family the 12 clips run once, warm (after a cold run of the 2
+     shortest; frames/s, reading and resizing apart, peak memory), a
+     profiled warm run of the 2 shortest clips (device time by
      the operator that launched it, idle share) and the f32 bound from
      the forward's MACs;
  24. the baseline zoo: each of the JAX package's ten baseline families
@@ -184,9 +187,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
      ``cli.extract text --family F`` with its defaults on phase 13's
      transcripts, every output's shape (the probe's span stripped), dtype
      and finiteness, the launch counters at 0, then one batch card vs CPU
-     at f32 with TF32 off; then bloom-7b1 (30 layers) and chatglm2-6b (28
-     layers) at full depth, f32, seeded on the card, through
-     extract_text_features: sentences/s, one 16-row batch by CUDA events
+     at f32 with TF32 off; then bloom-7b1 and chatglm2-6b at
+     DECODER_LAYERS (4) of their 30 and 28 layers, f32, seeded on the card,
+     through extract_text_features: sentences/s, one 16-row batch by CUDA events
      beside its bound (max of the f32 flops of the real tokens and the f32
      weight bytes), peak memory, device time by family;
  26. serving export: ``python -m sdumc_tpu_torch.cli.export`` with its
@@ -217,7 +220,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      served and eager; 32-step int8, w8a8 and int8-KV bundles built
      in-process, each held to served_path_eager on its model; an f32 bundle
      held to the eager beam_generate_batched at phase 10's tolerance; then
-     Vicuna-7B at 32 layers (phase 12's seed): bucket 256 built in-process
+     Vicuna-7B at 4 of 32 layers (phase 12's seed): bucket 256 built in-process
      (nothing saved), held to served_path_eager, the sliced decode printed
      beside it, ms per step of served, served_path_eager and eager beside
      the bound, and a profiled window of served steps (device time by
@@ -235,7 +238,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
      both ranks, within JAX's 0.05 of phase 7's first epoch, each rank's
      fusion launches 3 a batch and Q, and rank 0's best_full.pt (rank 0
      alone writes) through cli.infer reproducing its MAE;
- 29. tensor parallelism: two ranks on the card over gloo. Its parts that
+ 29. tensor and sequence parallelism: two ranks on the card over gloo. Its parts that
      time nothing run beside phase 24's runs, which time nothing either
      (phase 24 waits for them before it times its steps): (a) ``python -m
      sdumc_tpu_torch.cli.extract text --tp 2`` on phase 13's transcripts
@@ -248,10 +251,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
      5's wavlm-large split in two (8 heads a rank) at f32 and bf16 on its
      two shortest wavs, the last hidden state and tap -5 held to one
      process at phase 5's and phase 21's tolerances, 24 flash launches a
-     rank, each rank's first at H = 8 held to its plain version; rank 0
-     computes (a)'s witness, each clip's first feat4 row at f32 in one
-     process. Phase 29 itself: with nothing else on the card, the ranks
-     run (c), the 32-layer bf16 model, each rank seeding its shards, phase
+     rank, each rank's first at H = 8 held to its plain version; (e)
+     phase 5's wavlm-large on its 60-s clip (T = 2999, padded to 3000),
+     the frames split in two by ``parallel.wavlm_forward_sp`` (ring
+     attention: the WavLM kernel's block instance, 2 steps a layer, K, V
+     and the key mask rotated through gloo's page-locked host copies),
+     every tap held to one process's flash-path forward at phase 5's f32
+     tolerance, 48 block launches a rank and no other kernel, each rank's
+     first (out and log-sum-exp) held to its plain version, then at bf16:
+     finite, each tap's least per-frame cosine against the f32 SP taps
+     held to phase 21's floor; rank 0 computes (a)'s witness, each clip's
+     first feat4 row at f32 in one process. Phase 29 itself: with nothing
+     else on the card, the ranks
+     run (c), the 4-layer bf16 model, each rank seeding its shards, phase
      14's batch and 31 decode steps of phase 12's chunk, ms by CUDA events
      beside phases 14 and 12, the collectives' ms and share of a run that
      times each, each rank's peak memory beside phase 12's; then every
@@ -262,10 +274,23 @@ Phases, each fatal on failure (non-zero exit, no result line):
      elements outside phase 11's bf16 tolerance, and the first rows no
      farther from the f32 witness than 1.25 times --tp 1's (relative L2),
      the ranks' tokens checked equal after each chunk, and how far the
-     rest of each clip follows --tp 1 printed, not held; (b); (c); (d).
-Each phase prints its seconds, and the total of phases 2-29 follows. The second-to-last line is {"kernels":
-[...]}, the last line {"ok": true, "device": {...}}. Imports nothing of JAX
-or sdumc_tpu.
+     rest of each clip follows --tp 1 printed, not held; (b); (c); (d);
+     (e); then (e) timed, the ranks alone on the card: the SP forward by
+     CUDA events and the host clock beside one process's (rank 0, the
+     other rank at a barrier), the rotations' share of a run that times
+     each, each rank's peak memory beside one process's; last, the block
+     instance at the ring's shape (B = 1, 1500 frames, 16 heads of 64) held
+     to its plain version and timed beside the bound and PyTorch's
+     memory-efficient attention with its log-sum-exp.
+Each phase prints its seconds, and the total of phases 2-29 follows; a
+watchdog stops a phase past max(PHASE_MIN_BOUND, 3 x PHASE_BUDGET), or
+past SCRIPT_DEADLINE, printing every thread's stack, and every wait on
+another process is bounded (WAIT_SECONDS, TP_GO_SECONDS; the ranks'
+collectives RANK_COLLECTIVE_SECONDS). Before the last lines, one JSON line
+gives each phase's seconds, its budget, the kernel build's and the whole
+script's; then the card's name and power limit, {"kernels": [...]}, and
+last {"ok": true, "device": {...}}. Imports nothing of JAX or
+sdumc_tpu.
 
 A bound is the least time the card could take for the call: the larger of
 its bytes (each input read once, the output written once) at the HBM rate
@@ -286,6 +311,7 @@ count once at the bf16 rate.
 from __future__ import annotations
 
 import argparse
+import faulthandler
 import json
 import math
 import os
@@ -295,6 +321,37 @@ import sys
 import tempfile
 import time
 import wave
+
+T_START = time.perf_counter()
+
+# The script's budget: each phase's seconds on a host whose phases ran about 1.3 times
+# as long as on the fastest one measured (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+# section 6), their sum with the kernel build under 960 s, well under the 1200 s limit. A phase that runs past max(PHASE_MIN_BOUND, 3 x its budget), or past
+# SCRIPT_DEADLINE since the start, is stopped by a watchdog that prints every thread's
+# stack and exits non-zero.
+PHASE_BUDGET = {2: 18, 3: 1, 4: 5, 5: 17, 7: 18, 8: 4, 9: 7, 10: 16, 11: 35, 12: 25, 13: 5,
+                14: 6, 15: 44, 16: 16, 17: 2, 18: 33, 19: 3, 20: 1, 21: 15, 22: 32, 23: 74,
+                24: 165, 25: 45, 26: 75, 27: 180, 28: 40, 29: 17}
+PHASE_MIN_BOUND = 120
+SCRIPT_DEADLINE = 1180
+# Every wait of the main run is bounded at about 3 x what it took in measured runs
+# and at most 300 s; each rank's collectives time out at RANK_COLLECTIVE_SECONDS.
+WAIT_SECONDS = {
+    "cli.export": 90,               # 22-28 s
+    "serve": 100,                   # 33 s
+    "cli.export --decode": 120,     # 37-39 s
+    "serve --decode": 105,          # 34 s
+    "dp ranks": 100,                # phase 28: 31 s
+    # phase 24's wait past its own runs for phase 29's side work (its long pole
+    # ``cli.extract feat4 --tp 2``): 27.3 s, and 38.2 s on a host about 1.45 times
+    # slower; about 100 s expected on a host whose gloo is the slow kind (PERF.md
+    # section 7)
+    "tp side": 240,
+    "tp ranks": 90,                 # phase 29's (c) and (e), timed: 26 s
+    "kernel build": 60,             # 10.7-11.0 s
+}
+RANK_COLLECTIVE_SECONDS = 120
+RANK_ENV = {"SDUMC_SHUTDOWN_TIMEOUT": str(RANK_COLLECTIVE_SECONDS)}
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_F32_FLOPS = 67e12        # f32 outside the tensor cores
@@ -320,6 +377,8 @@ FLASH = {"name": "flash_wavlm", "source": "sdumc_tpu_torch/csrc/flash_wavlm.cu",
          "replaces": "sdumc_tpu/ops/pallas/flash_wavlm.py:140"}
 # the bf16 instance of the same kernel (phases 19-21): bf16 tensor-core products
 FLASH_BF16 = {**FLASH, "name": "flash_wavlm_bf16"}
+# the block instance (phase 29 (e)): ring attention's step, with each row's log-sum-exp
+FLASH_BLOCK = {**FLASH, "name": "flash_wavlm_block"}
 FLASH_SHAPES = ((8, 249), (1, 2999))   # a 5-s bucket batch, the 60-s clip
 FLASH_H, FLASH_HD = 16, 64             # wavlm-large's heads
 FLASH_RTOL, FLASH_ATOL = 1e-4, 1e-5    # f32, summed in another order over <= 3000 keys
@@ -359,7 +418,11 @@ TRAIN_FAMILIES = (
 VICUNA = dict(vocab_size=32000, hidden_size=4096, intermediate_size=11008, num_heads=32,
               rope_theta=10000.0, rms_eps=1e-5)
 DEVICE = "cuda"
-VICUNA_LAYERS, CLI_LAYERS = 32, 2      # phase 12 at full depth; phases 10-11 cut to 2 layers
+# Vicuna-7B has 32 layers. Phases 12, 14, 27 and 29 (c) run 4 of them: the depth
+# cut that holds the script's time (PERF.md section 6: at 32, 16 and 8 layers the
+# script ran past its budget); phases 10-11 run 2
+VICUNA_FULL_LAYERS = 32
+VICUNA_LAYERS, CLI_LAYERS = 4, 2
 BEAMS, GEN_BATCH, MAX_NEW = 4, 4, 200  # the feat4 CLI's defaults
 TAP_LAYERS = (-4, -3, -2, -1)
 PARITY_STEPS = 16
@@ -481,11 +544,35 @@ def main_path_config(argv=MAIN_ARGV):
     return args_to_config(parser.parse_args(argv))
 
 
+def run_bounded(argv, what: str, **kw) -> subprocess.CompletedProcess:
+    """``subprocess.run(argv, capture_output=True, text=True, **kw)`` within
+    WAIT_SECONDS[what]; past it the process is killed, the end of its output
+    printed, and RuntimeError raised."""
+    try:
+        return subprocess.run(argv, capture_output=True, text=True,
+                              timeout=WAIT_SECONDS[what], **kw)
+    except subprocess.TimeoutExpired as e:
+        for name, text in (("output", e.stdout), ("errors", e.stderr)):
+            if text:
+                text = text.decode(errors="replace") if isinstance(text, bytes) else text
+                print(f"--- {what}: the end of its {name} ---\n{text[-4000:]}", file=sys.stderr)
+        raise RuntimeError(f"{what} ran past its bound of {WAIT_SECONDS[what]} s") from None
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def key_averages(prof):
+    """``prof.key_averages()``, grouped once per profile: each call groups
+    every event of the trace again (seconds for a recurrent family's step
+    of 12-26 thousand launches)."""
+    if getattr(prof, "_averages", None) is None:
+        prof._averages = prof.key_averages()
+    return prof._averages
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -532,7 +619,7 @@ def device_ms(torch, fn, names, calls: int = 20) -> float:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
-        found = [e for e in prof.key_averages()
+        found = [e for e in key_averages(prof)
                  if e.device_type == DeviceType.CUDA and any(n in e.key for n in names)]
         total = sum(e.self_device_time_total for e in found)
         if total > 0 and all(e.count % calls == 0 for e in found):
@@ -804,6 +891,7 @@ def read_counts() -> dict:
     counts.update({REPLACES_BF16[q][0]: n for q, n in fused_cross.LAUNCHES_BF16.items()})
     counts[FLASH["name"]] = flash_wavlm.LAUNCHES
     counts[FLASH_BF16["name"]] = flash_wavlm.LAUNCHES_BF16
+    counts[FLASH_BLOCK["name"]] = flash_wavlm.LAUNCHES_BLOCK
     return counts
 
 
@@ -887,6 +975,82 @@ def flash_phase(torch, flash_wavlm):
               f"bound_ms={least!r} (bytes {bnd['bytes']!r}, operations {bnd['operations']!r}; "
               f"f32 bound {bnd['f32']!r})")
     return tot
+
+
+def flash_block_bound_ms(B, T, n_valid, num_buckets=320):
+    """flash_bound_ms for the block instance: the same reads, its bias
+    diagonal in place of rel_embed, and the log-sum-exp written too."""
+    H, hd = FLASH_H, FLASH_HD
+    nbytes = 4 * (4 * B * T * H * hd + 2 * B * H * T + H * (2 * T - 1) + B * T)
+    flops = 4 * H * hd * T * int(sum(n_valid))
+    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES,
+            "operations": 1e3 * TF32_PASSES * flops / PEAK_TF32_FLOPS}
+
+
+def flash_block_phase(torch, flash_wavlm, t_local: int) -> dict:
+    """The block instance at the ring's shape (B = 1, T_local frames,
+    wavlm-large's heads) on seeded inputs, its keys masked as the last
+    rank's padded block is (the last key), at offsets 0 and +T_local: out
+    and log-sum-exp against the plain version (FLASH_RTOL / FLASH_ATOL), then
+    timed (CUDA events, the profiler's device time) beside the plain
+    version, the bound and one PyTorch call: the memory-efficient SDPA
+    kernel with compute_log_sumexp on the same materialised f32 bias."""
+    gen = torch.Generator().manual_seed(29)
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn(1, t_local, FLASH_H, FLASH_HD, generator=gen).to(dev)
+               for _ in range(3))
+    gate = (1 + torch.rand(1, FLASH_H, t_local, generator=gen)).to(dev)
+    rel = torch.randn(320, FLASH_H, generator=gen).to(dev)
+    kvalid = (torch.arange(t_local) < t_local - 1).float()[None].to(dev)
+    err = 0.0
+    with torch.inference_mode():
+        for offset in (0, t_local):
+            diag = flash_wavlm.bias_diag_for(rel, t_local, 320, 800, offset=offset)
+            out, lse = flash_wavlm.flash_block(q, k, v, gate, diag, kvalid)
+            ref_out, ref_lse = flash_wavlm.flash_block_plain(q, k, v, gate, diag, kvalid)
+            torch.cuda.synchronize()
+            err = max(err, (out - ref_out).abs().max().item(), (lse - ref_lse).abs().max().item())
+            if not (torch.allclose(out, ref_out, rtol=FLASH_RTOL, atol=FLASH_ATOL)
+                    and torch.allclose(lse, ref_lse, rtol=FLASH_RTOL, atol=FLASH_ATOL)):
+                raise AssertionError(f"flash_wavlm_block at offset {offset}: max abs err {err!r}")
+
+        def kern():
+            return flash_wavlm.flash_block(q, k, v, gate, diag, kvalid)
+
+        ms = time_ms(kern)
+        dev_ms = device_ms(torch, kern, ("flash_wavlm",))
+        plain_ms = time_ms(lambda: flash_wavlm.flash_block_plain(q, k, v, gate, diag, kvalid))
+        # the library's call: heads-first q, k, v and the bias built outside the timed region,
+        # its rows padded to a multiple of 16 floats (the kernel's alignment) and cut back
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        pad = -t_local % 16
+        bias = torch.zeros(1, FLASH_H, t_local, t_local + pad, device=dev)
+        bias[..., :t_local] = (gate[..., None] * flash_wavlm.dense_bias(diag, t_local)[None]
+                               + torch.where(kvalid > 0, 0.0, flash_wavlm.NEG)[:, None, None, :])
+        bias = bias[..., :t_local]
+
+        def library():
+            return torch.ops.aten._scaled_dot_product_efficient_attention(
+                qh, kh, vh, bias, True)
+
+        try:
+            lib_out, lib_lse = library()[:2]
+            lib_err = max((lib_out.transpose(1, 2) - ref_out).abs().max().item(),
+                          (lib_lse[..., :t_local] - ref_lse).abs().max().item())
+            lib_ms = time_ms(library)
+        except RuntimeError as e:
+            lib_ms, lib_err = None, f"raises: {str(e).splitlines()[0]}"
+    bnd = flash_block_bound_ms(1, t_local, [t_local - 1])
+    least = max(bnd["bytes"], bnd["operations"])
+    print(f"  flash_wavlm_block (the ring's step) B=1 T_local={t_local} H={FLASH_H} hd={FLASH_HD}, "
+          f"the last key masked, offsets 0 and +{t_local}: max_abs_err={err!r} (out and lse, "
+          f"rtol {FLASH_RTOL} atol {FLASH_ATOL}) kernel_ms={ms!r} device_ms={dev_ms!r} "
+          f"plain_ms={plain_ms!r} library_ms={lib_ms!r} (efficient SDPA with its log-sum-exp; "
+          f"max abs diff {lib_err!r}) bound_ms={least!r} (bytes {bnd['bytes']!r}, operations "
+          f"{bnd['operations']!r}), {least / ms:.1%} of it")
+    return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": least, "bytes_ms": bnd["bytes"], "operations_ms": bnd["operations"],
+            "max_abs_err": err}
 
 
 def main_path_phase(torch, fused_cross):
@@ -1043,7 +1207,7 @@ def print_device_time(prof, wall: float, title: str, families_by_name, rest: str
 
     # device-side user annotations (Optimizer.step#Adam.step) span kernels
     # that are counted on their own
-    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+    kernels = sorted((e for e in key_averages(prof) if e.device_type == DeviceType.CUDA
                       and not getattr(e, "is_user_annotation", False)
                       and not e.key.startswith("Optimizer.")),
                      key=lambda e: -e.self_device_time_total)
@@ -1275,7 +1439,7 @@ def step_timing_phase(torch):
         wall = time.perf_counter() - t0
     print_device_time(prof, wall, f"profiled train steps ({PROFILED_STEPS}, warm)", TRAIN_FAMILIES,
                       "elementwise, softmax and reductions (the plain backward, losses)")
-    host_ops = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+    host_ops = sorted((e for e in key_averages(prof) if e.device_type == DeviceType.CPU),
                       key=lambda e: -e.self_cpu_time_total)
     launches = sum(e.count for e in host_ops if "LaunchKernel" in e.key)
     print(f"host side: {launches / PROFILED_STEPS!r} kernel launches per step; host ops by "
@@ -1600,7 +1764,7 @@ def profile_decode(torch, model, cfg, prompts, lens, first: int = PROFILE_FROM,
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         fams, busy = {}, 0.0
-        for e in prof.key_averages():
+        for e in key_averages(prof):
             if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
                 continue
             name = e.key.lower()
@@ -1608,7 +1772,7 @@ def profile_decode(torch, model, cfg, prompts, lens, first: int = PROFILE_FROM,
                        "elementwise and reductions (norms, rope, casts, attention math)")
             fams[fam] = fams.get(fam, 0.0) + e.self_device_time_total / 1e3
             busy += e.self_device_time_total / 1e6
-        launches = sum(e.count for e in prof.key_averages()
+        launches = sum(e.count for e in key_averages(prof)
                        if e.device_type == DeviceType.CPU and "LaunchKernel" in e.key)
         runs.append((fams, busy, wall, launches))
     (f1, b1, w1, l1), (f2, b2, w2, l2) = runs
@@ -1629,6 +1793,49 @@ def profile_decode(torch, model, cfg, prompts, lens, first: int = PROFILE_FROM,
 FULL_DEPTH_CLIPS = 8          # phase 12's short clips, beside the 60 s one
 
 
+class ChunkTimer:
+    """Within it, each chunk that ``Feat4Extractor.extract_many`` decodes
+    (``beam_generate_batched``) is timed by CUDA events from the end of its
+    prefill to the end of its last decode step; ``chunks`` lists (prompt
+    bucket, events, decode steps) in the order they ran."""
+
+    def __init__(self, torch):
+        self.torch, self.chunks = torch, []
+
+    def __enter__(self):
+        from sdumc_tpu_torch.models import generation
+
+        self.saved = generation.beam_prefill, generation.beam_step
+        prefill, step = self.saved
+
+        def timed_prefill(apply_fn, prompt_embeds, *a, **kw):
+            state = prefill(apply_fn, prompt_embeds, *a, **kw)
+            ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            self.chunks.append([prompt_embeds.shape[1], ev, 0])
+            return state
+
+        def timed_step(*a, **kw):
+            live = step(*a, **kw)
+            self.chunks[-1][1][1].record()
+            self.chunks[-1][2] += 1
+            return live
+
+        generation.beam_prefill, generation.beam_step = timed_prefill, timed_step
+        return self
+
+    def __exit__(self, *exc):
+        from sdumc_tpu_torch.models import generation
+
+        generation.beam_prefill, generation.beam_step = self.saved
+        return False
+
+    def ms_per_step(self, i: int) -> float:
+        _, ev, steps = self.chunks[i]
+        self.torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[1]) / steps
+
+
 def timed_chunk(torch, ex, feats):
     """Phase 12's timed chunk: the first GEN_BATCH clips of the 256 bucket
     (else the largest full one), as (prompts [C, bucket, D], lengths,
@@ -1643,7 +1850,7 @@ def timed_chunk(torch, ex, feats):
 
 
 def full_depth_phase(torch, llm_dir: str, proj_path: str, feats_dir: str):
-    """Phase 12: Vicuna-7B at 32 layers in bf16 (seeded on the card) through
+    """Phase 12: Vicuna-7B at VICUNA_LAYERS in bf16 (seeded on the card) through
     Feat4Extractor.extract_many on 9 of phase 5's features at --gen_batch 4; a
     timed and profiled chunk; then one chunk of 32 steps with int8, w8a8
     and int8-KV, each against bf16. Returns the bf16 chunk's ms per step
@@ -1669,7 +1876,8 @@ def full_depth_phase(torch, llm_dir: str, proj_path: str, feats_dir: str):
     torch.cuda.synchronize()
     wbytes = weight_bytes(model)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"Vicuna-7B-v1.5 at full depth ({cfg.num_layers} layers, bf16, {n_params} parameters, "
+    print(f"Vicuna-7B-v1.5 at {cfg.num_layers} of its {VICUNA_FULL_LAYERS} layers (bf16, "
+          f"{n_params} parameters, "
           f"{wbytes / 1e9!r} GB streamed per step), seeded on the card in "
           f"{time.perf_counter() - t0!r} s")
     ex = Feat4Extractor(model, load_projector(proj_path, device=DEVICE),
@@ -1683,7 +1891,8 @@ def full_depth_phase(torch, llm_dir: str, proj_path: str, feats_dir: str):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    results = ex.extract_many([feats[i] for i in run])
+    with ChunkTimer(torch) as chunks:
+        results = ex.extract_many([feats[i] for i in run])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1692,18 +1901,35 @@ def full_depth_phase(torch, llm_dir: str, proj_path: str, feats_dir: str):
         if r["taps"].shape[1] != cfg.hidden_size or not np.isfinite(r["taps"]).all():
             raise AssertionError(f"{path}: taps {r['taps'].shape} or non-finite")
     per_clip = sorted({len(r["taps"]) for r in results})
-    print(f"full depth, Feat4Extractor.extract_many on {len(run)} clips at --gen_batch "
+    print(f"{cfg.num_layers} layers, Feat4Extractor.extract_many on {len(run)} clips at --gen_batch "
           f"{GEN_BATCH}: {n_tok} taps rows (steps per clip {per_clip}), {seconds!r} s host "
           f"clock, {n_tok / seconds!r} clip-tokens/s; peak device memory {peak!r} GiB")
 
+    # one of extract_many's own chunks, timed as it ran: the first whole one
+    # (GEN_BATCH real clips) of the 256 bucket, else of the largest bucket that has one
+    per_bucket = {}
+    for i in run:
+        per_bucket.setdefault(next((b for b in ex.prompt_buckets
+                                    if ex.prompt_len_for(len(feats[i])) <= b),
+                                   ex.prompt_len_for(len(feats[i]))), []).append(i)
+    real = [min(GEN_BATCH, len(rows) - ofs) for _, rows in sorted(per_bucket.items())
+            for ofs in range(0, len(rows), GEN_BATCH)]
+    whole = [i for i, n in enumerate(real) if n == GEN_BATCH]
+    if len(real) != len(chunks.chunks) or not whole:
+        raise AssertionError(f"extract_many ran {len(chunks.chunks)} chunks, expected "
+                             f"{len(real)} with a whole one")
+    pick = next((i for i in whole if chunks.chunks[i][0] == 256),
+                max(whole, key=lambda i: chunks.chunks[i][0]))
+    bucket, _, steps = chunks.chunks[pick]
+    ms = chunks.ms_per_step(pick)
+    bound = decode_bound_ms(cfg, wbytes, GEN_BATCH, bucket, steps + 1)
+    print(f"  one of extract_many's chunks, timed as it ran ({GEN_BATCH} clips, prompt bucket "
+          f"{bucket}, {steps} decode steps after the prefill): {ms!r} ms per decode step "
+          f"(CUDA events), {GEN_BATCH * 1e3 / ms!r} clip-tokens/s; bound {bound!r} ms per "
+          f"step (weights {wbytes / 1e9!r} GB + the KV cache at {PEAK_HBM_BYTES / 1e12} "
+          f"TB/s), {bound / ms:.1%} of it; every chunk's ms per step "
+          f"{[(c[0], chunks.ms_per_step(i)) for i, c in enumerate(chunks.chunks)]!r}")
     prompts, lens, bucket = timed_chunk(torch, ex, feats)
-    ms, out = time_decode(torch, model, cfg, prompts, lens, MAX_NEW)
-    steps = int(out["n_steps"].max())
-    bound = decode_bound_ms(cfg, wbytes, GEN_BATCH, bucket, steps)
-    print(f"  timed chunk ({GEN_BATCH} clips, prompt bucket {bucket}, {steps} steps): {ms!r} ms "
-          f"per decode step (CUDA events), {GEN_BATCH * 1e3 / ms!r} clip-tokens/s; bound "
-          f"{bound!r} ms per step (weights {wbytes / 1e9!r} GB + the KV cache at "
-          f"{PEAK_HBM_BYTES / 1e12} TB/s), {bound / ms:.1%} of it")
     profile_decode(torch, model, cfg, prompts, lens)
 
     def rel(a, b):
@@ -1843,7 +2069,7 @@ def text_batch(torch, tok, sents):
 
 
 def text_full_depth_phase(torch, llm_dir: str, rows):
-    """Phase 14: the Vicuna-7B trunk at 32 layers in bf16 (seeded on the
+    """Phase 14: the Vicuna-7B trunk at VICUNA_LAYERS in bf16 (seeded on the
     card) through extract_text_features on the transcripts, with each tap
     set: sentences/s, peak memory, ms per batch by CUDA events beside the
     bound, and device time by family of a profiled run. Returns the batch's
@@ -1866,7 +2092,8 @@ def text_full_depth_phase(torch, llm_dir: str, rows):
     body = [p for n, p in trunk.named_parameters() if "embed_tokens" not in n]
     n_body = sum(p.numel() for p in body)
     wbytes = sum(p.numel() * p.element_size() for p in body)
-    print(f"Vicuna-7B-v1.5 trunk at full depth ({cfg.num_layers} layers, bf16, {n_body} "
+    print(f"Vicuna-7B-v1.5 trunk at {cfg.num_layers} of its {VICUNA_FULL_LAYERS} layers (bf16, "
+          f"{n_body} "
           f"non-embedding parameters, {wbytes / 1e9!r} GB), seeded on the card in "
           f"{time.perf_counter() - t0!r} s")
     tok = LlamaTokenizer.from_dir(llm_dir)
@@ -2006,8 +2233,15 @@ def visual_phase(torch, tmp: str):
     print(f"seeded MANet (RAF-DB, 7 classes) .pth and {VISUAL_CLIPS} clips of "
           f"{sum(frames.values())} {FACE}x{FACE} 24-bit BMP frames written in "
           f"{time.perf_counter() - t0!r} s")
+    # the PROFILED_CLIPS shortest clips: the cold run's and the profiled run's
+    sub_dir = os.path.join(tmp, "faces_profiled")
+    os.makedirs(sub_dir)
+    for v in sorted(frames, key=frames.get)[:PROFILED_CLIPS]:
+        os.symlink(os.path.join(face_dir, v), os.path.join(sub_dir, v))
     argv = ["visual", "--checkpoint", ckpt, "--face_dir", face_dir, "--save_dir", save_root]
     reset_counts()
+    cold = extract.main(["visual", "--checkpoint", ckpt, "--face_dir", sub_dir, "--save_dir",
+                         os.path.join(tmp, "visual_cold")])
     out = extract.main(argv)
     torch.cuda.synchronize()
     counts = read_counts()
@@ -2015,9 +2249,12 @@ def visual_phase(torch, tmp: str):
         feat = np.load(os.path.join(out["save_dir"], f"{vid}.npy"))
         if feat.shape != (n, 1024) or feat.dtype != np.float32 or not np.isfinite(feat).all():
             raise AssertionError(f"{vid}: {feat.shape} {feat.dtype} (want ({n}, 1024)) or non-finite")
-    print(f"visual path (cli.extract visual, defaults: batch 32, FRAME): {out['videos']} clips, "
-          f"{out['frames']} frames in {out['seconds']!r} s host clock (cold; reading and "
-          f"resizing {out['decode_seconds']!r} s of it); launches of the port's kernels "
+    print(f"visual path (cli.extract visual, defaults: batch 32, FRAME): a cold run of the "
+          f"{PROFILED_CLIPS} shortest clips ({cold['frames']} frames in {cold['seconds']!r} s), "
+          f"then {out['videos']} clips, {out['frames']} frames in {out['seconds']!r} s host "
+          f"clock, {out['frames'] / out['seconds']!r} frames/s (warm; reading and resizing "
+          f"{out['decode_seconds']!r} s of it, "
+          f"{out['decode_seconds'] / out['seconds']:.1%}); launches of the port's kernels "
           f"{counts} (MANet runs cuDNN and PyTorch's own kernels only)")
 
     vid = min(frames, key=frames.get)      # its first batch of 32 frames, card against CPU
@@ -2048,16 +2285,8 @@ def visual_phase(torch, tmp: str):
     if tf32_ok:
         raise AssertionError("the visual check does not see TF32 in the convolutions")
 
-    out = extract.main(argv)
-    print(f"warm second run: {out['frames']} frames in {out['seconds']!r} s host clock, "
-          f"{out['frames'] / out['seconds']!r} frames/s; reading and resizing "
-          f"{out['decode_seconds']!r} s ({out['decode_seconds'] / out['seconds']:.1%})")
     # the profiler's trace of all 12 clips takes longer to read than the run
     # itself: a warm run over the PROFILED_CLIPS shortest clips instead
-    sub_dir = os.path.join(tmp, "faces_profiled")
-    os.makedirs(sub_dir)
-    for v in sorted(frames, key=frames.get)[:PROFILED_CLIPS]:
-        os.symlink(os.path.join(face_dir, v), os.path.join(sub_dir, v))
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sub = extract.main(["visual", "--checkpoint", ckpt, "--face_dir", sub_dir, "--save_dir",
@@ -3145,10 +3374,10 @@ def print_op_families(prof, wall: float, title: str, card: str,
     def matches(key, ops):
         return any(key == op or (op.endswith("*") and key.startswith(op[:-1])) for op in ops)
 
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
+    busy = sum(e.self_device_time_total for e in key_averages(prof)
                if e.device_type == DeviceType.CUDA) / 1e3
     families = {}
-    for e in prof.key_averages():
+    for e in key_averages(prof):
         if e.device_type != DeviceType.CPU or e.self_device_time_total <= 0:
             continue
         family = next((f for f, ops in op_families if matches(e.key, ops)),
@@ -3196,10 +3425,12 @@ def vision_phase(torch, tmp: str, card: str):
         os.symlink(os.path.join(face_dir, v), os.path.join(sub_dir, v))
     reset_counts()
     for family in VISION_FAMILIES:
-        base = ["vision", "--model", family, *flags[family], "--face_dir", face_dir]
-        out = extract.main(base + ["--save_dir", os.path.join(tmp, "vision", family)])
+        flagged = ["vision", "--model", family, *flags[family]]
+        base = flagged + ["--face_dir", face_dir]
+        cold = extract.main(flagged + ["--face_dir", sub_dir, "--save_dir",
+                                       os.path.join(tmp, "vision", family + "_cold")])
         torch.cuda.reset_peak_memory_stats()        # the warm run's peak: its model alone
-        warm = extract.main(base + ["--save_dir", os.path.join(tmp, "vision", family + "_warm")])
+        out = warm = extract.main(base + ["--save_dir", os.path.join(tmp, "vision", family)])
         torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated() / 2**30
 
@@ -3274,7 +3505,8 @@ def vision_phase(torch, tmp: str, card: str):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         samples = sum(rows(frames[v]) for v in shortest[:VISION_PROFILED_CLIPS])
-        print(f"vision {family} ({card}): cold run {out['frames']} frames in {out['seconds']!r} s; "
+        print(f"vision {family} ({card}): cold run of the {VISION_PROFILED_CLIPS} shortest clips "
+              f"{cold['frames']} frames in {cold['seconds']!r} s; "
               f"warm run {warm['frames']} frames in {warm['seconds']!r} s host clock, "
               f"{warm['frames'] / warm['seconds']!r} frames/s, reading and resizing "
               f"{warm['decode_seconds']!r} s of it; peak memory {peak!r} GiB")
@@ -3311,8 +3543,11 @@ BASELINE_ARGV = MAIN_ARGV + ["--epochs", "1"]
 BASELINE_PARITY = (("tfn", 32, GRAD_RTOL), ("mfn", 32, GRAD_RTOL), ("mctn", 32, GRAD_RTOL),
                    ("mult", 8, 1e-4))
 # a recurrent family's step launches 12-26 thousand kernels; the profiler's reading of
-# 3 steps took most of phase 24 (an H100 80GB HBM3 at 700.00 W), so 1
+# 3 steps took most of phase 24 (an H100 80GB HBM3 at 700.00 W), so 1; the warm step
+# (0.25-0.74 s for the recurrent families) is timed over 3 steps after 1 (cli.train has
+# run each family at these shapes in this process before)
 BASELINE_PROFILED_STEPS = 1
+BASELINE_TIMED_STEPS, BASELINE_WARMUP = 3, 1
 TRAIN_OP_FAMILIES = (
     ("GEMMs (Linear, the cells' products)", ("aten::addmm", "aten::mm")),
     ("batched products (attention q.k^T and p.v, TFN / LMF einsums)",
@@ -3336,10 +3571,42 @@ def head_rows(batch, rows: int):
         vals=batch.vals[:rows], names=batch.names[:rows], pinned=())
 
 
+class SharedSyntheticSources:
+    """Within it, each synthetic store that ``cli.train`` / ``cli.infer``
+    build in this process takes the ``SyntheticSource`` objects (with the
+    clips they have drawn) of the first store of the same arguments: phase
+    24's eleven runs read one store, which each drew again otherwise (about
+    9 s of the host's time a run at full width). The sources go when it is
+    left."""
+
+    def __enter__(self):
+        from sdumc_tpu_torch.data import pipeline
+
+        self.pipeline, self.real, made = pipeline, pipeline.SyntheticSource, {}
+
+        def source(*args, **kw):
+            key = (args, tuple(sorted(kw.items())))
+            if key not in made:
+                made[key] = self.real(*args, **kw)
+            return made[key]
+
+        pipeline.SyntheticSource = source
+        return self
+
+    def __exit__(self, *exc):
+        self.pipeline.SyntheticSource = self.real
+
+
 def baseline_cli_runs(torch, tmp: str, card: str) -> None:
     """Each family through cli.train (one epoch) and its best_full.pt
     through cli.infer, with the launch counters around both; then tfn with
-    --feature_dtype bfloat16."""
+    --feature_dtype bfloat16. The runs share one synthetic store
+    (``SharedSyntheticSources``)."""
+    with SharedSyntheticSources():
+        baseline_runs(torch, tmp, card)
+
+
+def baseline_runs(torch, tmp: str, card: str) -> None:
     from sdumc_tpu_torch.cli import infer, train
 
     for name, dtype in [(n, "float32") for n in BASELINES] + [("tfn", "bfloat16")]:
@@ -3423,7 +3690,7 @@ def baseline_parity(torch, cfg, batch, dims, card: str) -> None:
 
 def baseline_timing(torch, cfg, batch, dims, card: str) -> dict:
     """A warm train step per family (live dropouts) on the card's copy of
-    the first train batch: CUDA events over TIMED_STEPS steps, peak memory,
+    the first train batch: CUDA events over BASELINE_TIMED_STEPS steps, peak memory,
     then BASELINE_PROFILED_STEPS under torch.profiler: device time by the
     operator that launched it, the idle share, launches per step."""
     import dataclasses
@@ -3441,7 +3708,7 @@ def baseline_timing(torch, cfg, batch, dims, card: str) -> dict:
         model = get_model(mcfg, torch.Generator().manual_seed(cfg.train.seed)).to(DEVICE)
         step = make_step(torch, cfg, model)
         torch.cuda.reset_peak_memory_stats()
-        ms = time_ms(lambda: step(d), iters=TIMED_STEPS, warmup=3)
+        ms = time_ms(lambda: step(d), iters=BASELINE_TIMED_STEPS, warmup=BASELINE_WARMUP)
         peak = torch.cuda.max_memory_allocated() / 2**30
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -3449,9 +3716,10 @@ def baseline_timing(torch, cfg, batch, dims, card: str) -> dict:
                 step(d)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = sum(e.count for e in prof.key_averages()
+        launches = sum(e.count for e in key_averages(prof)
                        if e.device_type == DeviceType.CPU and "LaunchKernel" in e.key)
-        print(f"baseline {name}: warm train step {ms!r} ms (CUDA events, {TIMED_STEPS} steps, "
+        print(f"baseline {name}: warm train step {ms!r} ms (CUDA events, {BASELINE_TIMED_STEPS} "
+              f"steps, "
               f"batch {batch.audio.shape[0]}, T = {batch.audio.shape[1]} / "
               f"{max(batch.text.shape[1], batch.feat4.shape[1])} / {batch.video.shape[1]}), "
               f"{launches / BASELINE_PROFILED_STEPS!r} kernel launches per step, peak device memory "
@@ -3510,6 +3778,9 @@ TEXT_FAMILY_SPANS = {"bert-base-uncased": (1, -1), "roberta-large": (1, -1),
                      "albert-base-v2": (1, -1), "deberta-large": (1, -1), "bloom-7b1": (0, 0),
                      "chatglm2-6b": (2, 0)}
 FULL_DEPTH_DECODERS = ("bloom-7b1", "chatglm2-6b")
+# step 2 runs them at 4 of their 30 and 28 layers: the depth cut that holds the script's
+# time (PERF.md section 6)
+DECODER_LAYERS = 4
 # a small precompiled charsmap for ALBERT's files (NFKC-style folds)
 ALBERT_CHARSMAP = {"ｆ": "f", "ｕ": "u", "ｌ": "l", "ﬁ": "fi", "…": "...", "　": " ", "™": "TM"}
 BLOOM_SPLIT = " ?[^(\\s|[.,!?…。，、।۔،])]+"
@@ -3860,8 +4131,8 @@ def family_cli_run(torch, path: str, name: str, rows, csv_path: str, tmp: str):
 
 
 def family_full_depth(torch, name: str, tok, rows) -> None:
-    """Step 2 for one decoder: the trunk at its published depth, f32, seeded
-    on the card, through extract_text_features on the transcripts:
+    """Step 2 for one decoder: the trunk at DECODER_LAYERS of its published
+    depth, f32, seeded on the card, through extract_text_features on the transcripts:
     sentences/s, one 16-row batch by CUDA events beside its bound, peak
     memory, device time by family of a profiled run."""
     import numpy as np
@@ -3873,14 +4144,15 @@ def family_full_depth(torch, name: str, tok, rows) -> None:
     set_matmul_precision("highest")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg, model = text_family_model(torch, name)
+    cfg, model = text_family_model(torch, name, DECODER_LAYERS)
     torch.cuda.synchronize()
     n_all = sum(p.numel() for p in model.parameters())
     body = [p for n, p in model.named_parameters()
             if not n.startswith(("word_embeddings.", "embed_tokens."))]
     n_body = sum(p.numel() for p in body)
     wbytes = sum(p.numel() * p.element_size() for p in body)
-    print(f"  {name} at full depth ({cfg.num_layers} layers, f32, {n_all} parameters, "
+    published = text_family_config_files()[name]["num_layers" if name == "chatglm2-6b" else "n_layer"]
+    print(f"  {name} at {cfg.num_layers} of its {published} layers (f32, {n_all} parameters, "
           f"{n_body} outside the embedding, {wbytes / 1e9!r} GB), seeded on the card in "
           f"{time.perf_counter() - t0!r} s")
     sents = [s for _, s in rows]
@@ -3935,7 +4207,7 @@ def text_families_phase(torch, tmp: str, rows):
     TEXT_FAMILY_DIRS at its published width (the decoders at 2 layers) in
     its on-disk format through ``cli.extract text --family F`` on phase 13's
     transcripts, then one batch card vs CPU; step 2: bloom-7b1 and
-    chatglm2-6b at full depth, timed and profiled."""
+    chatglm2-6b at DECODER_LAYERS, timed and profiled."""
     import csv
     import shutil
 
@@ -3957,7 +4229,7 @@ def text_families_phase(torch, tmp: str, rows):
         print(f"  {name}: directory written in {written!r} s ({size / 1e9!r} GB)")
         toks[name] = family_cli_run(torch, path, name, rows, csv_path, tmp)
         shutil.rmtree(path)
-    print("step 2: the decoders at full depth, f32, seeded on the card")
+    print(f"step 2: the decoders at {DECODER_LAYERS} layers, f32, seeded on the card")
     for name in FULL_DEPTH_DECODERS:
         family_full_depth(torch, name, toks[name], rows)
 
@@ -4101,7 +4373,7 @@ def serve_worker(torch, bundle_dir: str, out_dir: str) -> None:
     report["profile"] = print_device_time(
         prof, wall, f"profiled served request ({SERVE_REQUESTS[2][0]}, warm, numpy to numpy)",
         SERVE_FAMILIES, "elementwise, softmax and the rest")
-    report["profile_launches"] = sum(e.count for e in prof.key_averages()
+    report["profile_launches"] = sum(e.count for e in key_averages(prof)
                                      if e.device_type == DeviceType.CPU and "LaunchKernel" in e.key)
     report["models_imported"] = sorted(m for m in sys.modules
                                        if m.startswith("sdumc_tpu_torch.models"))
@@ -4127,9 +4399,8 @@ def serve_phase(torch, work: str, ckpt: str, card: str) -> dict:
     bundle_dir, out_dir = os.path.join(work, "bundle"), os.path.join(work, "served")
     os.makedirs(out_dir)
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "sdumc_tpu_torch.cli.export", "--checkpoint",
-                           ckpt, "--out_dir", bundle_dir], cwd=here, capture_output=True,
-                          text=True, timeout=900)
+    proc = run_bounded([sys.executable, "-m", "sdumc_tpu_torch.cli.export", "--checkpoint",
+                        ckpt, "--out_dir", bundle_dir], "cli.export", cwd=here)
     print(proc.stdout.rstrip())
     if proc.returncode:
         print(proc.stderr[-4000:], file=sys.stderr)
@@ -4150,9 +4421,8 @@ def serve_phase(torch, work: str, ckpt: str, card: str) -> dict:
     print("every program: 0 weights, 0 constants, 6 sdumc::fused_cross nodes")
 
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve", bundle_dir,
-                           "--serve-out", out_dir], cwd=here, capture_output=True, text=True,
-                          timeout=900)
+    proc = run_bounded([sys.executable, os.path.abspath(__file__), "--serve", bundle_dir,
+                        "--serve-out", out_dir], "serve", cwd=here)
     print(proc.stdout.rstrip())
     if proc.returncode:
         print(proc.stderr[-4000:], file=sys.stderr)
@@ -4412,7 +4682,7 @@ def decode_serve_phase(torch, work: str, llm_dir: str, card: str) -> None:
     serves a chunk per bucket, each held to the eager engine on the same
     padded prompts, the bucket-256 chunk's ms per step beside eager's; 32-step
     int8 / w8a8 / int8-KV bundles built in-process, each against its eager
-    decode; then Vicuna-7B at 32 layers (phase 12's seed, on the card): one
+    decode; then Vicuna-7B at VICUNA_LAYERS (phase 12's seed, on the card): one
     bucket built in-process, its ms per step beside eager's and the bound,
     and a profiled window of served steps."""
     import dataclasses
@@ -4429,11 +4699,10 @@ def decode_serve_phase(torch, work: str, llm_dir: str, card: str) -> None:
     bundle_dir, out_dir = os.path.join(work, "decode_bundle"), os.path.join(work, "decode_served")
     os.makedirs(out_dir)
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "sdumc_tpu_torch.cli.export", "--decode",
-                           "--llm_dir", llm_dir, "--out_dir", bundle_dir, "--prompt_buckets",
-                           ",".join(map(str, DECODE_BUCKETS)), "--gen_batch", str(GEN_BATCH),
-                           "--max_new_tokens", str(MAX_NEW)], cwd=here, capture_output=True,
-                          text=True, timeout=900)
+    proc = run_bounded([sys.executable, "-m", "sdumc_tpu_torch.cli.export", "--decode",
+                        "--llm_dir", llm_dir, "--out_dir", bundle_dir, "--prompt_buckets",
+                        ",".join(map(str, DECODE_BUCKETS)), "--gen_batch", str(GEN_BATCH),
+                        "--max_new_tokens", str(MAX_NEW)], "cli.export --decode", cwd=here)
     print(proc.stdout.rstrip())
     if proc.returncode:
         print(proc.stderr[-4000:], file=sys.stderr)
@@ -4447,9 +4716,8 @@ def decode_serve_phase(torch, work: str, llm_dir: str, card: str) -> None:
           f"{sizes['params.safetensors']!r}: {sizes}")
 
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--serve-decode",
-                           bundle_dir, "--serve-out", out_dir], cwd=here, capture_output=True,
-                          text=True, timeout=900)
+    proc = run_bounded([sys.executable, os.path.abspath(__file__), "--serve-decode",
+                        bundle_dir, "--serve-out", out_dir], "serve --decode", cwd=here)
     print(proc.stdout.rstrip())
     if proc.returncode:
         print(proc.stderr[-4000:], file=sys.stderr)
@@ -4524,7 +4792,7 @@ def decode_serve_phase(torch, work: str, llm_dir: str, card: str) -> None:
     del bundle32, model32
     torch.cuda.empty_cache()
 
-    # full depth: phase 12's seeded model, one bucket built in-process, nothing saved
+    # phase 12's seeded model, one bucket built in-process, nothing saved
     cfg = feat4_config(torch, VICUNA_LAYERS)
     with torch.device("meta"):
         model = LlamaForCausalLM(cfg)
@@ -4545,11 +4813,11 @@ def decode_serve_phase(torch, work: str, llm_dir: str, card: str) -> None:
     trace = {}
     eager_ms, ref = time_decode(torch, model, cfg, pe, pl, MAX_NEW, trace=trace)
     bound = decode_bound_ms(cfg, wbytes, GEN_BATCH, req[0], MAX_NEW)
-    print(f"full depth ({cfg.num_layers} layers, bf16, seed 3 as phase 12, seeded on the card in "
+    print(f"{cfg.num_layers} of {VICUNA_FULL_LAYERS} layers (bf16, seed 3 as phase 12, seeded on the card in "
           f"{seed_s!r} s), bucket {req[0]} built in-process in {export_s!r} s (3 programs):")
     if got["taps"].shape != (len(prompts), MAX_NEW, cfg.hidden_size) or not np.isfinite(
             got["taps"]).all():
-        raise AssertionError(f"full depth: served taps {got['taps'].shape} or non-finite")
+        raise AssertionError(f"{cfg.num_layers} layers: served taps {got['taps'].shape} or non-finite")
     timing = {}
     hold_served(torch, f"served vs served_path_eager, {len(prompts)} clips, {MAX_NEW} new "
                 f"tokens", got, served_path_eager(torch, model, cfg, pe, pl, MAX_NEW,
@@ -4588,7 +4856,7 @@ def profile_served_steps(torch, bundle, prompts, first: int = PROFILE_FROM,
                 prog["step"](bundle._params, state, pl, bundle._its[it])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-    launches = sum(e.count for e in prof.key_averages()
+    launches = sum(e.count for e in key_averages(prof)
                    if e.device_type == DeviceType.CPU and "LaunchKernel" in e.key)
     fams = print_device_time(prof, wall, f"profiled served steps {first}-{first + steps - 1} "
                              f"(the step program, bucket {bucket})", DECODE_FAMILIES,
@@ -4723,9 +4991,9 @@ def dp_phase(torch, work: str, single_epoch: dict, single_step_ms: float, card: 
     with LocalProcesses() as procs:     # a rank that fails ends the phase
         procs.start_ranks([sys.executable, os.path.abspath(__file__), "--dp-worker", work],
                           DP_WORLD, env={"SDUMC_COORDINATOR_LOOP": f"127.0.0.1:{free_port()}",
-                                         "SDUMC_SHUTDOWN_TIMEOUT": "180"},
+                                         **RANK_ENV},
                           log_dir=work, cwd=os.path.dirname(os.path.abspath(__file__)))
-        procs.wait(timeout=600)
+        procs.wait(timeout=WAIT_SECONDS["dp ranks"])
     for rank in range(DP_WORLD):
         with open(os.path.join(work, f"rank{rank}.log")) as f:
             shown = [ln for ln in f.read().splitlines()
@@ -4813,10 +5081,11 @@ def dp_phase(torch, work: str, single_epoch: dict, single_step_ms: float, card: 
 
 TP_WORLD = 2                 # two ranks on the one card, over gloo
 TP_WAVLM_CLIPS = 2           # (d): phase 5's shortest clips, in one padded batch
-TP_BATCH_RUNS = 3            # (c): timed runs of phase 14's batch (about 1.1 s each over gloo)
+TP_BATCH_RUNS = 1            # (c): timed runs of phase 14's batch (1.1-1.6 s each over gloo)
 TP_TIMED_STEPS = 8           # (c): decode steps run on with each collective timed
-TP_SIDE_SECONDS = 300        # phase 24's wait, past its own runs, for phase 29's work beside them
-TP_GO_SECONDS = 1200         # a rank's wait, past that work, for phase 29 to start (c)
+TP_GO_SECONDS = 300          # a rank's wait for phase 29 past the main process's last phase
+                             # start (phases 25-28 took 31-172 s each)
+RING_TIMED_RUNS = 2          # (e): timed SP forwards, and one-process forwards on rank 0
 TP_FIRST_ROW_SHARE = 0.01    # (a): feat4 first-row elements outside phase 11's rtol / atol
 TP_WITNESS_RATIO = 1.25      # (a): --tp N's first rows no farther from f32 than this times --tp 1's
 TEXT_BF16_ULPS = 4           # the text stage's bf16 rule (tests/test_torch_text.py BF16_ULPS)
@@ -4914,7 +5183,7 @@ def tp_parity(torch, axis) -> dict:
 
 
 def tp_full_depth(torch, axis, paths: dict) -> dict:
-    """Phase 29 (c), with nothing else on the card: Vicuna-7B at 32 layers
+    """Phase 29 (c), with nothing else on the card: Vicuna-7B at VICUNA_LAYERS
     in bf16 split over the ranks, each seeding its own shards on the card;
     phase 14's batch through the trunk and QUANT_STEPS - 1 decode steps (a
     QUANT_STEPS-token run's) of phase 12's timed chunk at --gen_batch 4,
@@ -4994,7 +5263,7 @@ def tp_full_depth(torch, axis, paths: dict) -> dict:
     return report
 
 
-def tp_wavlm(torch, axis, paths: dict) -> dict:
+def tp_wavlm(torch, axis, wavlm, paths: dict) -> dict:
     """Phase 29 (d): phase 5's seeded wavlm-large whole and split over the
     ranks (8 of 16 heads a rank), at f32 and at bf16, on one padded batch of
     phase 5's TP_WAVLM_CLIPS shortest wavs: the last hidden state and tap
@@ -5005,12 +5274,11 @@ def tp_wavlm(torch, axis, paths: dict) -> dict:
     import numpy as np
 
     from sdumc_tpu_torch.cli.common import bf16_full_precision_reduction
-    from sdumc_tpu_torch.convert.hf_wavlm import load_hf_wavlm
     from sdumc_tpu_torch.extract.audio import BUCKETS, read_wav, zero_mean_unit_var
     from sdumc_tpu_torch.ops.kernels import flash_wavlm
     from sdumc_tpu_torch.parallel import shard_wavlm_model
 
-    cfg, cpu_model = load_hf_wavlm(paths["wavlm_dir"])
+    cfg, cpu_model = wavlm
     sd = {k: v.to(axis.device) for k, v in cpu_model.state_dict().items()}
     audio = paths["audio_dir"]
     wavs = sorted((read_wav(os.path.join(audio, f)) for f in os.listdir(audio)), key=len)
@@ -5080,6 +5348,178 @@ def tp_wavlm(torch, axis, paths: dict) -> dict:
     return report
 
 
+def longest_clip(torch, device, paths: dict):
+    """Phase 5's longest wav (the 60-s clip), normalised, as [1, S] on
+    `device`."""
+    from sdumc_tpu_torch.extract.audio import read_wav, zero_mean_unit_var
+
+    audio = paths["audio_dir"]
+    wav = max((read_wav(os.path.join(audio, f)) for f in os.listdir(audio)), key=len)
+    return torch.from_numpy(zero_mean_unit_var(wav))[None].to(device)
+
+
+def per_frame_cos(torch, a, b) -> float:
+    """The least cosine between a's and b's rows (frames), in f32."""
+    a, b = a.float().flatten(0, -2), b.float().flatten(0, -2)
+    return ((a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))).min().item()
+
+
+def tp_ring(torch, axis, wavlm, paths: dict) -> dict:
+    """Phase 29 (e), beside phase 24: phase 5's seeded wavlm-large (24
+    layers, 1024 wide, 16 heads of 64) on phase 5's 60-s clip, its frames
+    split over the ranks by ``parallel.wavlm_forward_sp`` (T = 2999 padded
+    to 3000, 1500 a rank; the attention round the ring, each rotation
+    through gloo's page-locked host copies). At f32: every hidden-state tap
+    against one process's flash-path forward on the card (FEAT_RTOL /
+    FEAT_ATOL, phase 29 (d)'s); the block kernel's launches (two a layer
+    on two ranks, no other kernel), the rank's first launch, out and
+    log-sum-exp, against its plain version (FLASH_RTOL / FLASH_ATOL). At
+    bf16 (the ring widens to f32): finite, its block launches, each tap's
+    least per-frame cosine against the f32 SP taps, held to BF16_COS_MIN
+    (phase 21's floor)."""
+    import copy
+
+    from sdumc_tpu_torch.cli.common import bf16_full_precision_reduction
+    from sdumc_tpu_torch.ops.kernels import flash_wavlm
+    from sdumc_tpu_torch.parallel import wavlm_forward_sp
+
+    cfg, cpu_model = wavlm
+    model = copy.deepcopy(cpu_model).to(axis.device).eval()
+    x = longest_clip(torch, axis.device, paths)
+    seen = []
+
+    def spy(*args, _launch=flash_wavlm.launch_block):
+        out = _launch(*args)
+        if not seen:
+            seen.append(([a.clone() if isinstance(a, torch.Tensor) else a for a in args],
+                         [t.clone() for t in out]))
+        return out
+
+    report = {"samples": x.shape[1], "frames": cfg.output_length(x.shape[1]),
+              "layers": cfg.num_layers}
+    with torch.inference_mode():
+        ref = model(x, output_hidden_states=True)["hidden_states"]
+        flash_wavlm.launch_block, saved = spy, flash_wavlm.launch_block
+        try:
+            reset_counts()
+            got = wavlm_forward_sp(model, x, axis, output_hidden_states=True)["hidden_states"]
+            torch.cuda.synchronize()
+            report["launches"] = read_counts()
+        finally:
+            flash_wavlm.launch_block = saved
+        (q, k, v, gate, diag, kvalid), (out, lse) = seen[0]
+        plain_out, plain_lse = flash_wavlm.flash_block_plain(q, k, v, gate, diag, kvalid)
+        report.update(
+            block_shape=list(q.shape),
+            block_out_err=(out - plain_out).abs().max().item(),
+            block_lse_err=(lse - plain_lse).abs().max().item(),
+            block_ok=bool(torch.allclose(out, plain_out, rtol=FLASH_RTOL, atol=FLASH_ATOL)
+                          and torch.allclose(lse, plain_lse, rtol=FLASH_RTOL, atol=FLASH_ATOL)),
+            taps=len(got), tap_max_abs_diff=max((g - r).abs().max().item()
+                                                for g, r in zip(got, ref)),
+            tap_top=max(r.abs().max().item() for r in ref),
+            taps_ok=len(got) == len(ref) and all(
+                g.shape == r.shape and torch.allclose(g, r, rtol=FEAT_RTOL, atol=FEAT_ATOL)
+                for g, r in zip(got, ref)))
+        del ref, seen
+        model = model.to(torch.bfloat16)
+        with bf16_full_precision_reduction():
+            reset_counts()
+            got16 = wavlm_forward_sp(model, x.bfloat16(), axis,
+                                     output_hidden_states=True)["hidden_states"]
+            torch.cuda.synchronize()
+            report["bf16_launches"] = read_counts()
+        cos = [per_frame_cos(torch, a, b) for a, b in zip(got16, got)]
+        report.update(bf16_finite=all(bool(torch.isfinite(t).all()) for t in got16),
+                      bf16_cos=cos, bf16_ok=min(cos) > BF16_COS_MIN)
+    del model, got, got16
+    torch.cuda.empty_cache()
+    return report
+
+
+class TimedRotations:
+    """Within it, every ``ModelAxis.ring_shift`` is timed on the host clock
+    between two synchronisations; ``ms`` lists them (the synchronisations
+    slow the run they time: the share is of that run's own host clock)."""
+
+    def __init__(self, torch):
+        self.torch, self.ms = torch, []
+
+    def __enter__(self):
+        from sdumc_tpu_torch.parallel.mesh import ModelAxis
+
+        self.saved = ModelAxis.ring_shift
+
+        def run(axis, tensors, _shift=self.saved):
+            self.torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _shift(axis, tensors)
+            self.torch.cuda.synchronize()
+            self.ms.append(1e3 * (time.perf_counter() - t))
+            return out
+
+        ModelAxis.ring_shift = run
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        from sdumc_tpu_torch.parallel.mesh import ModelAxis
+
+        self.torch.cuda.synchronize()
+        self.wall_ms = 1e3 * (time.perf_counter() - self.t0)
+        ModelAxis.ring_shift = self.saved
+        return False
+
+
+def tp_ring_timed(torch, axis, wavlm, paths: dict) -> dict:
+    """Phase 29 (e) timed, after (c), with nothing else on the card: the f32
+    SP forward of the 60-s clip (the last hidden state gathered) by CUDA
+    events and the host clock over RING_TIMED_RUNS runs after a warm one,
+    each rank's peak memory over them; one more with each rotation timed
+    alone (its share); then, the other rank waiting at a barrier, one
+    process's forward of the same clip on rank 0 timed the same way, with
+    its peak."""
+    import copy
+
+    import torch.distributed as dist
+
+    from sdumc_tpu_torch.parallel import wavlm_forward_sp
+
+    model = copy.deepcopy(wavlm[1]).to(axis.device).eval()
+    x = longest_clip(torch, axis.device, paths)
+
+    def timed(fn) -> tuple:
+        fn()                                                   # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t0 = time.perf_counter()
+        ev[0].record()
+        for _ in range(RING_TIMED_RUNS):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        return (ev[0].elapsed_time(ev[1]) / RING_TIMED_RUNS,
+                1e3 * (time.perf_counter() - t0) / RING_TIMED_RUNS,
+                torch.cuda.max_memory_allocated() / 2**30)
+
+    report = {}
+    with torch.inference_mode():
+        report["sp_ms"], report["sp_host_ms"], report["sp_peak_gib"] = timed(
+            lambda: wavlm_forward_sp(model, x, axis))
+        with TimedRotations(torch) as rot:
+            wavlm_forward_sp(model, x, axis)
+        report.update(rotations=len(rot.ms), rotation_ms=sum(rot.ms), rotation_run_ms=rot.wall_ms)
+        dist.barrier()
+        if axis.rank == 0:
+            report["one_ms"], report["one_host_ms"], report["one_peak_gib"] = timed(
+                lambda: model(x))
+        dist.barrier()
+    del model
+    torch.cuda.empty_cache()
+    return report
+
+
 def tp_f32_first_rows(torch, device, paths: dict) -> dict:
     """Phase 29 (a)'s witness: each clip's first feat4 row (the one before
     any beam choice) from phase 11's Vicuna loaded at f32 in one process
@@ -5110,36 +5550,43 @@ def tp_f32_first_rows(torch, device, paths: dict) -> dict:
 
 def tp_worker(torch, work: str) -> None:
     """One rank of phase 29, started with the SDUMC_* environment beside
-    phase 24's runs: (b), (d) and, on rank 0, (a)'s f32 witness, after which
-    it writes side{r}.json; then, once the main process starts phase 29
-    (it writes `work`/go: nothing else runs on the card), (c); writes
-    rank{r}.json."""
+    phase 24's runs: (b), (d), (e) and, on rank 0, (a)'s f32 witness, after
+    which it writes side{r}.json; then, once the main process starts phase
+    29 (it writes `work`/go: nothing else runs on the card), (c) and (e)
+    timed; writes rank{r}.json. The wait for go fails once the main process
+    has begun no phase for TP_GO_SECONDS (it touches `work`/alive at each)."""
     from sdumc_tpu_torch.cli.common import set_matmul_precision
     from sdumc_tpu_torch.parallel import initialize_from_env, make_model_axis, shutdown
+
+    from sdumc_tpu_torch.convert.hf_wavlm import load_hf_wavlm
 
     with open(os.path.join(work, "paths.json")) as f:
         paths = json.load(f)
     rank, _ = initialize_from_env(device="cuda")
     axis = make_model_axis(torch.device("cuda", torch.cuda.current_device()), TP_WORLD)
     set_matmul_precision("highest")
+    wavlm = load_hf_wavlm(paths["wavlm_dir"])           # (cfg, the model on the CPU)
     report = {"rank": rank}
-    parts = [("parity", tp_parity, (axis,)), ("wavlm", tp_wavlm, (axis, paths))]
-    if rank == 0:
-        parts.append(("witness", tp_f32_first_rows, (axis.device, paths)))
-    for key, fn, args in parts:
-        t0 = time.perf_counter()
-        report[key] = fn(torch, *args)
-        report[key]["seconds"] = time.perf_counter() - t0
+
+    def run(parts):
+        for key, fn, args in parts:
+            t0 = time.perf_counter()
+            report[key] = fn(torch, *args)
+            report[key]["seconds"] = time.perf_counter() - t0
+
+    run([("parity", tp_parity, (axis,)), ("wavlm", tp_wavlm, (axis, wavlm, paths)),
+         ("ring", tp_ring, (axis, wavlm, paths))]
+        + ([("witness", tp_f32_first_rows, (axis.device, paths))] if rank == 0 else []))
     with open(os.path.join(work, f"side{rank}.json"), "w") as f:
         json.dump(report, f, default=float)
-    deadline = time.perf_counter() + TP_GO_SECONDS
-    while not os.path.exists(os.path.join(work, "go")):
-        if time.perf_counter() > deadline:
-            raise RuntimeError(f"phase 29 did not start within {TP_GO_SECONDS} s")
+    go, alive = os.path.join(work, "go"), os.path.join(work, "alive")
+    while not os.path.exists(go):
+        idle = time.time() - os.path.getmtime(alive)
+        if idle > TP_GO_SECONDS:
+            raise RuntimeError(f"phase 29 did not start: the main process began no phase for "
+                               f"{idle:.0f} s (bound {TP_GO_SECONDS} s)")
         time.sleep(0.2)
-    t0 = time.perf_counter()
-    report["depth"] = tp_full_depth(torch, axis, paths)
-    report["depth"]["seconds"] = time.perf_counter() - t0
+    run([("depth", tp_full_depth, (axis, paths)), ("ring_timed", tp_ring_timed, (axis, wavlm, paths))])
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(report, f, default=float)
     shutdown()
@@ -5160,7 +5607,7 @@ def start_tp_clis(procs, work: str, tp_dir: str, llm_dir: str, proj_path: str, f
     return [procs.start(f"cli.extract {name} --tp {world}",
                         [sys.executable, "-m", "sdumc_tpu_torch.cli.extract", *args,
                          "--save_dir", os.path.join(tp_dir, name), "--tp", str(world)],
-                        log=os.path.join(tp_dir, f"{name}.log"),
+                        env=RANK_ENV, log=os.path.join(tp_dir, f"{name}.log"),
                         cwd=os.path.dirname(os.path.abspath(__file__)))
             for name, args in argv.items()]
 
@@ -5169,33 +5616,36 @@ def start_tp_phase(procs, work: str, llm_dir: str, proj_path: str, feats_dir: st
     """Phase 29's work that times nothing, started in `procs` beside phase
     24's runs (which time nothing either): (a)'s two commands
     (``start_tp_clis``) and the phase's two ranks (``chip_smoke.py
-    --tp-worker``: (b), (d) and the witness, then (c) once phase 29
-    starts). Returns (the phase's directory, the commands' processes)."""
+    --tp-worker``: (b), (d), (e) and the witness, then (c) and (e) timed
+    once phase 29 starts). Returns (the phase's directory, the commands'
+    processes)."""
     tp_dir = os.path.join(work, "tp")
     os.makedirs(tp_dir)
     with open(os.path.join(tp_dir, "paths.json"), "w") as f:
         json.dump({"llm_dir": llm_dir, "proj_path": proj_path, "feats_dir": feats_dir,
                    "wavlm_dir": os.path.join(work, "model"),
                    "audio_dir": os.path.join(work, "wavs"), "tp_dir": tp_dir}, f)
+    open(os.path.join(tp_dir, "alive"), "w").close()    # main() touches it at each phase
     clis = start_tp_clis(procs, work, tp_dir, llm_dir, proj_path, feats_dir, TP_WORLD)
     procs.start_ranks([sys.executable, os.path.abspath(__file__), "--tp-worker", tp_dir],
-                      TP_WORLD, env={"SDUMC_SHUTDOWN_TIMEOUT": "180"}, log_dir=tp_dir,
+                      TP_WORLD, env=RANK_ENV, log_dir=tp_dir,
                       cwd=os.path.dirname(os.path.abspath(__file__)))
     return tp_dir, clis
 
 
 def wait_tp_side(procs, tp_dir: str, clis: list) -> None:
     """Phase 24's wait, before it times anything, for phase 29's work
-    beside it: both commands ended and both ranks past (b), (d) and the
-    witness. A process that failed, or TP_SIDE_SECONDS passing, raises."""
+    beside it: both commands ended and both ranks past (b), (d), (e) and
+    the witness. A process that failed, or WAIT_SECONDS["tp side"] passing,
+    raises."""
     def done():
         return (all(p.poll() == 0 for p in clis)
                 and all(os.path.exists(os.path.join(tp_dir, f"side{r}.json"))
                         for r in range(TP_WORLD)))
 
     t0 = time.perf_counter()
-    procs.wait(until=done, timeout=TP_SIDE_SECONDS)
-    print(f"phase 29's work beside phase 24 ((a), (b), (d) and the witness) done; phase 24 "
+    procs.wait(until=done, timeout=WAIT_SECONDS["tp side"])
+    print(f"phase 29's work beside phase 24 ((a), (b), (d), (e) and the witness) done; phase 24 "
           f"waited {time.perf_counter() - t0!r} s for it")
 
 
@@ -5341,24 +5791,30 @@ def tp_cli_only(torch, world: int) -> None:
 
 def tp_phase(torch, procs, tp_dir: str, work: str, depth: dict, text_depth: dict,
              card: str) -> dict:
-    """Phase 29: tensor parallelism, two ranks on the card over gloo. (a)
-    the CLIs' --tp 2 against --tp 1, (b) f32 parity at full width and (d)
-    wavlm-large split in two, its flash kernel at 8 heads, ran beside phase
-    24 (``start_tp_phase``); now, with nothing else on the card, the ranks
-    run (c): the 32-layer model's batch and decode step timed, the
-    collectives' share, each rank's peak memory. Every part is held here,
-    each rank's. Returns each rank's flash launches of (d)."""
+    """Phase 29: tensor and sequence parallelism, two ranks on the card
+    over gloo. (a) the CLIs' --tp 2 against --tp 1, (b) f32 parity at full
+    width, (d) wavlm-large split in two, its flash kernel at 8 heads, and
+    (e) wavlm-large's frames split in two by ``wavlm_forward_sp``, the
+    block kernel round the ring (``tp_ring``), ran beside phase 24
+    (``start_tp_phase``); now, with nothing else on the card, the ranks run
+    (c): the VICUNA_LAYERS model's batch and decode step timed, the
+    collectives' share, each rank's peak memory; then (e) timed
+    (``tp_ring_timed``). Every part is held here, each rank's; then the
+    block kernel at the ring's shape (``flash_block_phase``). Returns
+    {"launches": each rank's flash launches of (d) and block launches of
+    (e), "block": the block kernel's numbers}."""
     open(os.path.join(tp_dir, "go"), "w").close()
-    procs.wait(timeout=600)
+    procs.wait(timeout=WAIT_SECONDS["tp ranks"])
     reports = []
     for rank in range(TP_WORLD):
         with open(os.path.join(tp_dir, f"rank{rank}.json")) as f:
             reports.append(json.load(f))
     print("  " + "; ".join(
         f"rank {r['rank']}: beside phase 24 (b) {r['parity']['seconds']:.1f} s, (d) "
-        f"{r['wavlm']['seconds']:.1f} s"
+        f"{r['wavlm']['seconds']:.1f} s, (e) {r['ring']['seconds']:.1f} s"
         + (f", the witness {r['witness']['seconds']:.1f} s" if "witness" in r else "")
-        + f"; here (c) {r['depth']['seconds']:.1f} s" for r in reports))
+        + f"; here (c) {r['depth']['seconds']:.1f} s, (e) {r['ring_timed']['seconds']:.1f} s"
+        for r in reports))
     check_tp_cli(work, tp_dir, TP_WORLD)
 
     for r in reports:
@@ -5426,7 +5882,53 @@ def tp_phase(torch, procs, tp_dir: str, work: str, depth: dict, text_depth: dict
             if not (x["last"]["ok"] and x["tap"]["ok"] and x["flash_ok"]):
                 raise AssertionError(f"(d) rank {r['rank']} {tag}: the split WavLM is not the "
                                      "whole one's")
-    return launches
+
+    name = FLASH_BLOCK["name"]
+    e = reports[0]["ring"]
+    print(f"(e) wavlm-large (phase 5's seeded weights, {e['layers']} layers) on phase 5's 60-s "
+          f"clip ({e['samples']} samples, T = {e['frames']}), its frames split over {TP_WORLD} "
+          f"ranks by parallel.wavlm_forward_sp (the attention round the ring: {TP_WORLD} block "
+          f"steps a layer, {TP_WORLD - 1} rotation(s) through gloo's page-locked host copies; "
+          f"every tap gathered), against one process's flash-path forward on the card:")
+    for r in reports:
+        e = r["ring"]
+        print(f"    rank {r['rank']}: f32, {e['taps']} taps, max abs diff "
+              f"{e['tap_max_abs_diff']!r} (max |h| {e['tap_top']!r}; rtol {FEAT_RTOL} atol "
+              f"{FEAT_ATOL}, phase 29 (d)'s: {e['taps_ok']}); launches {e['launches']}; the "
+              f"rank's first block launch at q {e['block_shape']} against its plain version: out "
+              f"{e['block_out_err']!r}, log-sum-exp {e['block_lse_err']!r} (rtol {FLASH_RTOL} "
+              f"atol {FLASH_ATOL}: {e['block_ok']}); bf16 (widened to f32 in the ring): finite "
+              f"{e['bf16_finite']}, launches {e['bf16_launches']}, least per-frame cosine of "
+              f"each tap against the f32 SP taps {min(e['bf16_cos'])!r} (by tap "
+              f"{[round(c, 6) for c in e['bf16_cos']]}; floor {BF16_COS_MIN}, phase 21's); "
+              f"beside phase 24 {e['seconds']:.1f} s")
+        for key in ("launches", "bf16_launches"):
+            counts = e[key]
+            others = {k: n for k, n in counts.items() if k != name and n}
+            if counts[name] != TP_WORLD * e["layers"] or others:
+                raise AssertionError(f"(e) rank {r['rank']} {key}: {counts}, expected "
+                                     f"{TP_WORLD * e['layers']} of {name} alone")
+        if not (e["taps_ok"] and e["block_ok"] and e["bf16_finite"] and e["bf16_ok"]):
+            raise AssertionError(f"(e) rank {r['rank']}: the sequence-parallel WavLM is not the "
+                                 "single process's")
+        launches[r["rank"]][name] = e["launches"][name]
+    t = [r["ring_timed"] for r in reports]
+    one = t[0]
+    print(f"    timed, f32, the last hidden state gathered ({card}; {RING_TIMED_RUNS} runs after "
+          f"a warm one): the SP forward {[x['sp_ms'] for x in t]!r} ms by rank (CUDA events), "
+          f"{[x['sp_host_ms'] for x in t]!r} ms host clock, against one process's "
+          f"{one['one_ms']!r} ms ({one['one_host_ms']!r} host; rank 0 alone), SP / one "
+          f"{t[0]['sp_ms'] / one['one_ms']!r}; once more with each rotation synchronised: "
+          f"{t[0]['rotations']} rotations, {t[0]['rotation_ms']!r} ms of "
+          f"{t[0]['rotation_run_ms']!r} ({t[0]['rotation_ms'] / t[0]['rotation_run_ms']:.1%}; "
+          f"rank 1 {t[1]['rotation_ms'] / t[1]['rotation_run_ms']:.1%}); peak device memory "
+          f"by rank {[x['sp_peak_gib'] for x in t]!r} GiB, one process {one['one_peak_gib']!r}")
+    if not all(math.isfinite(x["sp_ms"]) for x in t) or not math.isfinite(one["one_ms"]):
+        raise AssertionError("(e): a time is not finite")
+    from sdumc_tpu_torch.ops.kernels import flash_wavlm
+
+    return {"launches": launches,
+            "block": flash_block_phase(torch, flash_wavlm, reports[0]["ring"]["block_shape"][1])}
 
 
 def kernels_only(torch, root: str, lengths: dict) -> dict:
@@ -5477,9 +5979,35 @@ def ab_phase(other: str) -> None:
     print(json.dumps({"ab": [{"run": label, **res} for label, res in runs]}))
 
 
-def main() -> int:
-    import torch
+def start_kernel_build():
+    """``ops/kernels/build.py`` as a script, started before this process
+    imports torch (the build imports only the standard library): the
+    kernels compile while torch and the card start up. None where the
+    checkout has no kernels to build."""
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "sdumc_tpu_torch", "ops",
+                          "kernels", "build.py")
+    if not os.path.exists(script):
+        return None
+    return subprocess.Popen([sys.executable, script], stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
 
+
+def finish_kernel_build(proc) -> dict:
+    """``build()``'s report from ``start_kernel_build``'s process, within
+    WAIT_SECONDS["kernel build"]; raises if it failed or ran past it."""
+    try:
+        out, err = proc.communicate(timeout=WAIT_SECONDS["kernel build"])
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"the kernel build ran past its bound of "
+                           f"{WAIT_SECONDS['kernel build']} s") from None
+    if proc.returncode:
+        raise RuntimeError(f"the kernel build failed:\n{err[-4000:]}")
+    return json.loads(out)
+
+
+def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--ab", metavar="OTHER",
                         help="time phases 2-3, 9, 17 and 19 against OTHER's checkout")
@@ -5494,7 +6022,16 @@ def main() -> int:
                         help="phase 29 (a) alone: cli.extract text and feat4 at --tp N against "
                              "--tp 1 (one rank a card: NCCL)")
     args = parser.parse_args()
+    main_run = not any((args.ab, args.kernels_from, args.serve, args.serve_decode,
+                        args.dp_worker, args.tp_worker, args.tp_cli))
+    building = start_kernel_build() if main_run else None
+    import torch
+
+    sys.stdout.reconfigure(line_buffering=True)    # a watchdog's exit loses no printed line
     if not torch.cuda.is_available():
+        if building is not None:
+            building.kill()
+            building.communicate()
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     if args.kernels_from:
@@ -5528,16 +6065,33 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t0 = time.perf_counter()
-    report = build.build()
-    print(f"kernel build: {time.perf_counter() - t0!r} s for {sorted(report) or 'cached'}")
+    report = finish_kernel_build(building) if building is not None else build.build()
+    build_s = max((rep["seconds"] for rep in report.values()), default=0.0)
+    print(f"kernel build: {build_s!r} s for {sorted(report) or 'cached'}, begun before torch's "
+          f"import, ready {time.perf_counter() - T_START!r} s after the start")
     for name, rep in report.items():
         print(f"--- nvcc {name} ---\n{rep['log'].strip()}")
 
+    seconds, heartbeats = {}, []
+
     def phase(n: int, fn, *a):
+        for path in heartbeats:                 # phase 29's ranks wait on these
+            os.utime(path)
+        left = SCRIPT_DEADLINE - (time.perf_counter() - T_START)
+        bound = max(1.0, min(left, max(PHASE_MIN_BOUND, 3 * PHASE_BUDGET[n])))
+        print(f"phase {n} ({fn.__name__}) starts; its watchdog fires at {bound:.0f} s")
+        faulthandler.dump_traceback_later(bound, exit=True)
         t = time.perf_counter()
-        result = fn(*a)
-        print(f"phase {n} ({fn.__name__}): {time.perf_counter() - t!r} s")
+        try:
+            result = fn(*a)
+        except BaseException:
+            print(f"phase {n} ({fn.__name__}) failed after {time.perf_counter() - t!r} s",
+                  file=sys.stderr)
+            raise
+        finally:
+            faulthandler.cancel_dump_traceback_later()
+        seconds[n] = time.perf_counter() - t
+        print(f"phase {n} ({fn.__name__}): {seconds[n]!r} s")
         return result
 
     lengths = main_path_lengths(main_path_config())
@@ -5568,6 +6122,7 @@ def main() -> int:
         phase(23, vision_phase, torch, work, card)
         with LocalProcesses() as tp_procs:  # phase 29's work that times nothing, beside phase 24's
             tp_dir, tp_clis = start_tp_phase(tp_procs, work, llm_dir, proj_path, feats_dir)
+            heartbeats.append(os.path.join(tp_dir, "alive"))
             phase(24, baseline_phase, torch, work, card,
                   lambda: wait_tp_side(tp_procs, tp_dir, tp_clis))
             phase(25, text_families_phase, torch, work, rows)
@@ -5575,8 +6130,8 @@ def main() -> int:
                            os.path.join(work, "train", "best_full.pt"), card)
             phase(27, decode_serve_phase, torch, work, llm_dir, card)
             dp_launches = phase(28, dp_phase, torch, work, history[0], step_ms, card)
-            tp_launches = phase(29, tp_phase, torch, tp_procs, tp_dir, work, depth, text_depth,
-                                card)
+            tp = phase(29, tp_phase, torch, tp_procs, tp_dir, work, depth, text_depth, card)
+    tp_launches, block = tp["launches"], tp["block"]
     print(f"phases 2-29: {time.perf_counter() - t_phases!r} s")
 
     kernels = []
@@ -5638,13 +6193,32 @@ def main() -> int:
           "8 heads a rank, one batch, phase 29: "
           f"{tp_launches}); max_abs_err is "
           "the forward's against the plain version")
+    kernels.append({
+        **FLASH_BLOCK, "route": "cuda", "launches": tp_launches[0][FLASH_BLOCK["name"]],
+        "max_abs_err": block["max_abs_err"], "ms": block["ms"], "plain_ms": block["plain_ms"],
+        "bound_ms": block["bound_ms"],
+        "bound_by": "operations" if block["operations_ms"] >= block["bytes_ms"] else "bytes",
+        "library_ms": block["library_ms"],
+    })
+    print("flash_wavlm_block (the f32 instance that also writes each row's log-sum-exp, ring "
+          "attention's step) is timed at the ring's shape, one call (phase 29); its launches "
+          "are rank 0's in wavlm_forward_sp of the 60-s clip over 2 processes at f32 (phase 29 "
+          f"(e); each rank's: { {r: c[FLASH_BLOCK['name']] for r, c in tp_launches.items()} }); "
+          "its library_ms is aten._scaled_dot_product_efficient_attention with "
+          "compute_log_sumexp on the materialised f32 bias, or null where it raises")
     for name, tot in ((REPLACES[7][0], totals[7]), (REPLACES[1][0], totals[1]),
                       (FLASH["name"], flash), (REPLACES_BF16[7][0], bf16_totals[7]),
-                      (REPLACES_BF16[1][0], bf16_totals[1]), (FLASH_BF16["name"], flash_bf16)):
+                      (REPLACES_BF16[1][0], bf16_totals[1]), (FLASH_BF16["name"], flash_bf16),
+                      (FLASH_BLOCK["name"], block)):
         print(f"{name}: kernel_ms={tot['ms']!r} device_ms={tot['device_ms']!r} "
               f"grad_max_abs_err={tot.get('grad_max_abs_err')!r} "
               f"bound_ms={tot['bound_ms']!r} ({tot['ms'] and tot['bound_ms'] / tot['ms']:.1%} "
               f"of it) f32_bound_ms={tot.get('f32_bound_ms')!r}")
+    total = time.perf_counter() - T_START
+    print(json.dumps({"phase_seconds": {str(n): round(t, 2) for n, t in sorted(seconds.items())},
+                      "budget_seconds": {str(n): PHASE_BUDGET[n] for n in sorted(seconds)},
+                      "kernel_build_seconds": round(build_s, 2),
+                      "whole_script_seconds": round(total, 2)}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@
 // and a (query tile, key tile) pair reads one window of it. The TPU kernel's
 // layout tricks (gate and mask columns appended to q and k, a ones column on
 // v for the row sum, heads packed per grid step) exist only for Mosaic and
-// are not carried over. Two instances, each with its own kernel body.
+// are not carried over. Three instances (f32, its block form, bf16) of two
+// kernel bodies.
 //
 // The f32 instance (sdumc_flash_wavlm). What bounds it on an H100: 4 * B * H
 // * T^2 * hd flops of QK^T and PV, at T = 2999 36.8 GFLOP against 49 MB of
@@ -54,6 +55,17 @@
 //    arrives, and the rescale exp(m_old - m_new) then wipes what it summed. A
 //    row with no valid key averages v over all T keys, as the plain version
 //    does.
+//
+// The block instance (sdumc_flash_wavlm_lse) is the same body, which also
+// writes each row's log-sum-exp m + log l in f32 as [B, H, T]: the statistic
+// that merges the blocks of ring attention (parallel/ring_attention.py). A
+// ring step runs it on one (query block, key block) pair of T_local rows
+// each, whose keys sit at an offset from its queries; the wrapper folds the
+// offset into the diagonal bias, so the kernel sees a square block. A block
+// whose keys a row masks entirely gives that row m = -1e30 and so an lse of
+// -1e30, which weighs zero in the merge beside any block with a valid key.
+// The extra write is B * H * T floats, a 1 / hd share of the output's
+// bytes; the bound and the design are the f32 instance's.
 //
 // The bf16 instance (sdumc_flash_wavlm_bf16) computes what the Pallas kernel
 // computes at bf16 inputs (flash_wavlm.py:140-248, wrapper :251-371): q, k, v,
@@ -118,6 +130,7 @@ constexpr int kKeys = 64;           // keys per tile
 constexpr int kNT = kKeys / 8;      // 8-key steps of a tile
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 static_assert(kTile == kKeys, "the bias window spans one 64 x 64 tile pair");
 
 // Shared memory of a block, in floats. The raw f32 k and v tiles land in
@@ -223,13 +236,13 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, const float* __restrict__ gate,
                    const float* __restrict__ bias_diag,
                    const float* __restrict__ kvalid, float* __restrict__ out,
-                   int T, int H, float scale) {
+                   float* __restrict__ lse, int T, int H, float scale) {
   static_assert(HD % 16 == 0 && HD <= 64, "8-wide steps, whole float4 rows");
   using L = Layout<HD>;
   constexpr int kK = HD / 8;          // 8-wide steps of q . k; 8-column tiles of out
@@ -392,6 +405,11 @@ flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  if (kLse && t == 0) {                // m is in log2 units: lse = m ln 2 + log l
+    float* row = lse + ((size_t)b * H + h) * T + q0;
+    if (in0) row[r0] = fmaf(m0, kLn2, logf(l0));
+    if (in1) row[r1] = fmaf(m1, kLn2, logf(l1));
+  }
   // o[n]: columns 8n + 2t, 8n + 2t + 1 of rows r0 (c0, c1) and r1 (c2, c3)
   if (in0) {
     float* dst = out + head + (size_t)(q0 + r0) * row_stride + 2 * t;
@@ -407,21 +425,21 @@ flash_wavlm_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int HD>
+template <int HD, bool kLse>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* gate,
-                   const float* bias_diag, const float* kvalid, float* out, int B, int T, int H,
-                   float scale, cudaStream_t stream) {
+                   const float* bias_diag, const float* kvalid, float* out, float* lse, int B,
+                   int T, int H, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * Layout<HD>::floats;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wavlm_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_wavlm_kernel<HD, kLse>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(flash_wavlm_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_wavlm_kernel<HD, kLse>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + kTile - 1) / kTile, H, B);
-  flash_wavlm_kernel<HD><<<grid, kThreads, smem, stream>>>(
-      q, k, v, gate, bias_diag, kvalid, out, T, H, scale);
+  flash_wavlm_kernel<HD, kLse><<<grid, kThreads, smem, stream>>>(
+      q, k, v, gate, bias_diag, kvalid, out, lse, T, H, scale);
   return cudaGetLastError();
 }
 
@@ -751,8 +769,31 @@ int sdumc_flash_wavlm(const float* q, const float* k, const float* v, const floa
   if (B < 1 || T < 1 || H < 1 || H > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (hd) {
-    case 16: return (int)launch<16>(q, k, v, gate, bias_diag, kvalid, out, B, T, H, scale, s);
-    case 64: return (int)launch<64>(q, k, v, gate, bias_diag, kvalid, out, B, T, H, scale, s);
+    case 16:
+      return (int)launch<16, false>(q, k, v, gate, bias_diag, kvalid, out, nullptr, B, T, H,
+                                    scale, s);
+    case 64:
+      return (int)launch<64, false>(q, k, v, gate, bias_diag, kvalid, out, nullptr, B, T, H,
+                                    scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The block instance: the f32 instance's arguments, and lse, an f32 [B, H, T]
+// that receives each row's log-sum-exp of its scores (natural log).
+int sdumc_flash_wavlm_lse(const float* q, const float* k, const float* v, const float* gate,
+                          const float* bias_diag, const float* kvalid, float* out, float* lse,
+                          int B, int T, int H, int hd, float scale, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || H > 65535 || B > 65535 || !lse)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (hd) {
+    case 16:
+      return (int)launch<16, true>(q, k, v, gate, bias_diag, kvalid, out, lse, B, T, H, scale,
+                                   s);
+    case 64:
+      return (int)launch<64, true>(q, k, v, gate, bias_diag, kvalid, out, lse, B, T, H, scale,
+                                   s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -50,6 +50,7 @@ from torch import nn
 from sdumc_tpu_torch.ops.kernels.flash_wavlm import (
     NEG, bias_diag_for, flash_gated_attention, relative_position_buckets)
 from sdumc_tpu_torch.parallel.layers import RowParallelLinear
+from sdumc_tpu_torch.parallel.ring_attention import ring_bias_diags, ring_gated_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,11 +77,15 @@ class WavLMConfig:
     # "einsum" materialises [B, H, T, T] scores and bias; "flash" runs the
     # hand-written kernel on the card (its plain version on the CPU); "auto"
     # is the kernel whenever the tensors are on CUDA and einsum on the CPU.
-    # "ring" (sequence-parallel) is not ported and raises.
+    # "ring" (sequence-parallel, parallel/ring_attention.py) runs only inside
+    # ``parallel.wavlm_forward_sp``, which sets the ring's axis; it raises
+    # anywhere else.
     attention_impl: str = "auto"
     # TPU knobs of the JAX package, kept so that configs and recipes carry
     # over; the port reads none of them (its kernel has fixed 64-row tiles
-    # and "auto" does not depend on the clip length).
+    # and "auto" does not depend on the clip length; the ring's axis is the
+    # ``parallel.ModelAxis`` given to ``wavlm_forward_sp``, not a mesh axis's
+    # name).
     flash_min_frames: int = 1280
     flash_score_budget: int = 8 << 30
     flash_block: int = 0
@@ -107,15 +112,17 @@ class WavLMConfig:
 
 
 def resolve_attention_impl(impl: str, device: torch.device,
-                           dtype: torch.dtype = torch.float32) -> str:
+                           dtype: torch.dtype = torch.float32, ring_axis=None) -> str:
     """"auto" is the kernel on the card, at any T, and its plain version on
-    the CPU at bf16 (the kernel's semantics); einsum on the CPU at f32."""
+    the CPU at bf16 (the kernel's semantics); einsum on the CPU at f32.
+    "ring" only with a ring axis (set by ``parallel.wavlm_forward_sp``)."""
     if impl == "auto":
         return "flash" if device.type == "cuda" or dtype == torch.bfloat16 else "einsum"
     if impl == "ring":
-        raise NotImplementedError(
-            "attention_impl='ring' (sequence-parallel WavLM) is not ported; "
-            "see ROADMAP queue 1, the multi-device item")
+        if ring_axis is None:
+            raise ValueError("attention_impl='ring' needs a ring axis, which only "
+                             "parallel.wavlm_forward_sp gives it")
+        return impl
     if impl not in ("einsum", "flash"):
         raise ValueError(f"unknown attention_impl {impl!r}")
     return impl
@@ -218,7 +225,12 @@ class PositionalConvEmbedding(nn.Module):
 class WavLMAttention(nn.Module):
     """Self-attention with the shared bucketed relative position bias and the
     per-layer gru_rel_pos gate (HF WavLMAttention), over ``heads`` heads:
-    all of them here, a rank's in ``TPWavLMAttention``."""
+    all of them here, a rank's in ``TPWavLMAttention``. ``ring_axis`` (a
+    ``parallel.ModelAxis``, set only within ``parallel.wavlm_forward_sp``) is
+    the axis of ``attention_impl="ring"``: x is then this rank's slice of the
+    frames."""
+
+    ring_axis = None
 
     def __init__(self, cfg: WavLMConfig, has_relative_position_bias: bool):
         super().__init__()
@@ -244,7 +256,9 @@ class WavLMAttention(nn.Module):
     def forward(self, x, position_bias=None, pad_mask=None):
         """x [B, T, D], pad_mask [B, T] bool (True attends). Returns (out,
         position_bias): the einsum path carries the [H, T, T] bias across
-        layers, the kernel path its [H, 2T - 1] diagonal form."""
+        layers, the kernel path its [H, 2T - 1] diagonal form, the ring its
+        [P, H, 2T - 1] diagonals, one per key block (JAX's ring carries the
+        embedding and rebuilds each step's bias, wavlm.py:305-319)."""
         cfg = self.cfg
         B, T, D = x.shape
         H = self.heads
@@ -261,12 +275,15 @@ class WavLMAttention(nn.Module):
             out = torch.einsum("bhts,bshd->bthd", probs, v).reshape(B, T, H * hd)
             return self.out_proj(out), None
 
-        impl = resolve_attention_impl(cfg.attention_impl, x.device, x.dtype)
+        impl = resolve_attention_impl(cfg.attention_impl, x.device, x.dtype, self.ring_axis)
         if position_bias is None:                  # layer 0: built once per forward
             rel_embed = self.rel_attn_embed.weight
             if impl == "einsum":
                 buckets = relative_position_buckets(T, T, cfg.num_buckets, cfg.max_bucket_distance)
                 position_bias = rel_embed[buckets.to(x.device, torch.long)].permute(2, 0, 1)
+            elif impl == "ring":
+                position_bias = ring_bias_diags(rel_embed, T, self.ring_axis, cfg.num_buckets,
+                                                cfg.max_bucket_distance)
             else:
                 position_bias = bias_diag_for(rel_embed, T, cfg.num_buckets,
                                               cfg.max_bucket_distance)
@@ -275,6 +292,15 @@ class WavLMAttention(nn.Module):
         proj = self.gru_rel_pos_linear(gated).view(B, H, T, 2, 4).sum(-1)  # [B, H, T, 2]
         gate_a, gate_b = torch.sigmoid(proj).chunk(2, dim=-1)              # [B, H, T, 1]
         gate_out = gate_a * (gate_b * self.gru_rel_pos_const - 1.0) + 2.0
+
+        if impl == "ring":
+            kvalid = (torch.ones(B, T, device=x.device) if pad_mask is None
+                      else pad_mask.float())
+            out = ring_gated_attention(
+                q, k, v, gate_out[..., 0], kvalid, None, axis=self.ring_axis,
+                num_buckets=cfg.num_buckets, max_distance=cfg.max_bucket_distance,
+                bias_diags=position_bias)
+            return self.out_proj(out.reshape(B, T, H * hd)), position_bias
 
         if impl == "flash":
             out = flash_gated_attention(

@@ -7,6 +7,10 @@ at the root of the checkout; the file name carries a hash of the source,
 of every header under ``csrc/`` (``*.cuh``) and of the flags, so an edited
 source or header is rebuilt and a stale library never loads.
 ``build()`` compiles several sources at once, one ``nvcc`` process each.
+Run as a script (``python sdumc_tpu_torch/ops/kernels/build.py``, which
+imports nothing but the standard library), it builds every source and
+prints ``build()``'s report as JSON: a caller can build ahead while it
+imports torch.
 """
 
 from __future__ import annotations
@@ -90,3 +94,10 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+if __name__ == "__main__":
+    import json
+    import sys
+
+    json.dump(build(), sys.stdout)

@@ -40,6 +40,17 @@ p moved so, and ``BF16_MISMATCH_LIMIT`` bounds the share of output elements
 that differ at all, which catches a p rounded against another max, an
 unrounded p or a row sum of the unrounded p (see its comment).
 
+The block form (``flash_block``): the f32 kernel on one (query block, key
+block) pair of ring attention (``parallel/ring_attention.py``), whose keys
+sit ``offset`` frames after its queries. The offset goes into the diagonal
+(``bias_diag_for(..., offset=...)``: entry r + T - 1 is rel_embed[bucket(r +
+offset)], JAX's ``bucket_from_rel`` on the global distance), and the
+kernel's block instance also returns each row's log-sum-exp [B, H, T] in
+f32, the statistic that merges the blocks. It is the op
+``sdumc::flash_wavlm_lse`` (CUDA implementation ``launch_block``), whose CPU
+implementation, the plain version, is the einsum step with
+``torch.logsumexp``.
+
 The gradient (``FlashGatedAttention``) is the port of JAX's
 ``flash_gated_attention_trainable``: the forward is the op (the kernel, or
 the plain version on the CPU), the backward is ``_flash_bwd_scan`` (flash_wavlm.py:
@@ -51,7 +62,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -75,15 +86,16 @@ NEG_BF16 = float(torch.tensor(NEG).bfloat16())   # NEG rounded to bf16: -1.00026
 BF16_MISMATCH_LIMIT = 0.01
 BWD_CHUNK = 128                   # query rows per step of the backward
 
-# Kernel launches of the f32 and of the bf16 instance; the plain version
-# counts nothing.
+# Kernel launches of the f32, the bf16 and the block instance; the plain
+# versions count nothing.
 LAUNCHES = 0
 LAUNCHES_BF16 = 0
+LAUNCHES_BLOCK = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES, LAUNCHES_BF16
-    LAUNCHES = LAUNCHES_BF16 = 0
+    global LAUNCHES, LAUNCHES_BF16, LAUNCHES_BLOCK
+    LAUNCHES = LAUNCHES_BF16 = LAUNCHES_BLOCK = 0
 
 
 def bucket_from_rel(rel: torch.Tensor, num_buckets: int, max_distance: int) -> torch.Tensor:
@@ -113,12 +125,13 @@ def relative_position_buckets(q_len: int, k_len: int, num_buckets: int,
 
 
 def bias_diag_for(rel_embed: torch.Tensor, T: int, num_buckets: int,
-                  max_distance: int) -> torch.Tensor:
+                  max_distance: int, offset: int = 0) -> torch.Tensor:
     """[H, 2T - 1] in rel_embed's dtype (f32 or bf16): entry r + T - 1 of
-    head h is rel_embed[bucket(r), h] for r = key - query in [-(T - 1), T - 1].
-    Buckets come from the CPU. A gather, so autograd takes a gradient of the
-    diagonal back to rel_embed."""
-    buckets = bucket_from_rel(torch.arange(-(T - 1), T), num_buckets, max_distance)
+    head h is rel_embed[bucket(r + offset), h] for r = key - query in [-(T -
+    1), T - 1]; ``offset`` is how far the keys' block starts after the
+    queries' (a ring step's, 0 for one block). Buckets come from the CPU. A
+    gather, so autograd takes a gradient of the diagonal back to rel_embed."""
+    buckets = bucket_from_rel(torch.arange(-(T - 1), T) + offset, num_buckets, max_distance)
     diag = rel_embed[buckets.to(device=rel_embed.device, dtype=torch.long)]
     return diag.t().contiguous()
 
@@ -177,6 +190,50 @@ def _plain_bf16(q, k, v, gate, bias_diag, kvalid, key_tile: int = KEY_TILE_BF16)
     w = (p * carry[..., None]).view(B, H, T, n * key_tile)[..., :T]
     out = torch.einsum("bhts,bshd->bthd", w, v.to(bf).float())
     return (out / (p.sum(-1) * carry).sum(-1).transpose(1, 2)[..., None]).to(bf)
+
+
+def flash_block_plain(q, k, v, gate, bias_diag, kvalid=None):
+    """The block instance's plain version: (out [B, T, H, hd], lse [B, H,
+    T]) of the f32 scores of ``flash_gated_attention_plain``, lse their
+    ``torch.logsumexp`` over the block's keys. A row whose keys are all
+    masked has lse = NEG (+ log T, lost to rounding) and out the mean of v."""
+    B, T, H, hd = q.shape
+    scores = torch.einsum("bthd,bshd->bhts", q, k) / math.sqrt(hd)
+    scores = scores + gate[..., None] * dense_bias(bias_diag, T)[None]
+    if kvalid is not None:
+        scores = scores.masked_fill(~(kvalid[:, None, None, :] > 0), NEG)
+    out = torch.einsum("bhts,bshd->bthd", torch.softmax(scores, dim=-1), v)
+    return out, torch.logsumexp(scores, dim=-1)
+
+
+def flash_block(q, k, v, gate, bias_diag, kvalid=None):
+    """(out, lse) of one f32 block (see the module docstring), through the
+    op ``sdumc::flash_wavlm_lse``: the block instance for CUDA tensors, the
+    plain version for CPU ones. No gradient: ring attention is forward only
+    (its gradient is on the ROADMAP)."""
+    return torch.ops.sdumc.flash_wavlm_lse(q, k, v, gate, bias_diag, kvalid)
+
+
+@torch.library.custom_op("sdumc::flash_wavlm_lse", mutates_args=(), device_types="cpu")
+def _flash_wavlm_lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, gate: torch.Tensor,
+                        bias_diag: torch.Tensor, kvalid: Optional[torch.Tensor]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B, T, H, hd], lse [B, H, T]) in f32: the block instance for a
+    CUDA q, the plain version (this body) for a CPU one."""
+    out, lse = flash_block_plain(q, k, v, gate, bias_diag, kvalid)
+    return out.contiguous(), lse.contiguous()
+
+
+@_flash_wavlm_lse_op.register_kernel("cuda")
+def _flash_wavlm_lse_cuda(q, k, v, gate, bias_diag, kvalid):
+    return launch_block(q, k, v, gate, bias_diag, kvalid)
+
+
+@_flash_wavlm_lse_op.register_fake
+def _flash_wavlm_lse_fake(q, k, v, gate, bias_diag, kvalid):
+    B, T, H, _ = q.shape
+    return (torch.empty_like(q, memory_format=torch.contiguous_format),
+            q.new_empty(B, H, T, dtype=torch.float32))
 
 
 def bf16_tolerance(out: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -319,15 +376,17 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.sdumc_flash_wavlm, lib.sdumc_flash_wavlm_bf16):
             fn.argtypes = [p, p, p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
             fn.restype = ctypes.c_int
+        lib.sdumc_flash_wavlm_lse.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i,
+                                              ctypes.c_float, p]
+        lib.sdumc_flash_wavlm_lse.restype = ctypes.c_int
         lib.sdumc_flash_wavlm_error_string.argtypes = [i]
         lib.sdumc_flash_wavlm_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def launch(q, k, v, gate, bias_diag, kvalid=None):
-    """Run the kernel on the card, the f32 instance for an f32 q and the bf16
-    instance for a bf16 one (k and v of q's dtype; the gate and the bias
-    diagonal are rounded to it); raises on what it does not take."""
+def _checked(q, k, v, gate, bias_diag, kvalid, dtype):
+    """Raise unless the operands are what the kernel takes (q, k, v, the gate
+    and the diagonal of ``dtype``); returns kvalid as f32, or None."""
     if q.device.type != "cuda":
         raise ValueError(f"the flash kernel runs on a CUDA device, q is on {q.device}")
     if q.dim() != 4:
@@ -336,23 +395,38 @@ def launch(q, k, v, gate, bias_diag, kvalid=None):
     if hd not in KERNEL_HEAD_DIMS:
         raise ValueError(f"the kernel takes hd in {KERNEL_HEAD_DIMS}, got hd={hd}")
     dev = q.device
-    bf16 = q.dtype == torch.bfloat16
-    dtypes = (torch.bfloat16,) if bf16 else (torch.float32,)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        check_operand(name, t, (B, T, H, hd), dev, dtypes)
-    if bf16:            # the Pallas wrapper's gate column and bias tiles are bf16
-        gate, bias_diag = gate.to(torch.bfloat16), bias_diag.to(torch.bfloat16)
-    check_operand("gate", gate, (B, H, T), dev, dtypes)
-    check_operand("bias_diag", bias_diag, (H, 2 * T - 1), dev, dtypes)
-    kvalid_ptr = None
-    if kvalid is not None:
-        if kvalid.device != dev:
-            raise ValueError(f"kvalid is on {kvalid.device}, q on {dev}")
-        if tuple(kvalid.shape) != (B, T):
-            raise ValueError(f"kvalid must be [B={B}, T={T}], got {tuple(kvalid.shape)}")
-        kvalid = kvalid.to(torch.float32).contiguous()
-        kvalid_ptr = kvalid.data_ptr()
+    for name, t, shape in (("q", q, (B, T, H, hd)), ("k", k, (B, T, H, hd)),
+                           ("v", v, (B, T, H, hd)), ("gate", gate, (B, H, T)),
+                           ("bias_diag", bias_diag, (H, 2 * T - 1))):
+        check_operand(name, t, shape, dev, (dtype,))
+    if kvalid is None:
+        return None
+    if kvalid.device != dev:
+        raise ValueError(f"kvalid is on {kvalid.device}, q on {dev}")
+    if tuple(kvalid.shape) != (B, T):
+        raise ValueError(f"kvalid must be [B={B}, T={T}], got {tuple(kvalid.shape)}")
+    return kvalid.to(torch.float32).contiguous()
 
+
+def _raise_on(err: int, lib) -> None:
+    if err:
+        raise RuntimeError("flash_wavlm kernel launch failed: "
+                           + lib.sdumc_flash_wavlm_error_string(err).decode())
+
+
+def launch(q, k, v, gate, bias_diag, kvalid=None):
+    """Run the kernel on the card, the f32 instance for an f32 q and the bf16
+    instance for a bf16 one (k and v of q's dtype; the gate and the bias
+    diagonal are rounded to it, as the Pallas wrapper's gate column and bias
+    tiles are); raises on what it does not take."""
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        gate, bias_diag = gate.to(torch.bfloat16), bias_diag.to(torch.bfloat16)
+    kvalid = _checked(q, k, v, gate, bias_diag, kvalid,
+                      torch.bfloat16 if bf16 else torch.float32)
+    B, T, H, hd = q.shape
+    dev = q.device
+    kvalid_ptr = None if kvalid is None else kvalid.data_ptr()
     out = torch.empty_like(q)
     lib = _lib()
     with torch.cuda.device(dev):
@@ -362,12 +436,32 @@ def launch(q, k, v, gate, bias_diag, kvalid=None):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), gate.data_ptr(),
             bias_diag.data_ptr(), kvalid_ptr, out.data_ptr(),
             B, T, H, hd, 1.0 / math.sqrt(hd), stream)
-    if err:
-        raise RuntimeError("flash_wavlm kernel launch failed: "
-                           + lib.sdumc_flash_wavlm_error_string(err).decode())
+    _raise_on(err, lib)
     global LAUNCHES, LAUNCHES_BF16
     if bf16:
         LAUNCHES_BF16 += 1
     else:
         LAUNCHES += 1
     return out
+
+
+def launch_block(q, k, v, gate, bias_diag, kvalid=None):
+    """Run the block instance on the card: f32 q, k, v [B, T, H, hd], gate
+    [B, H, T], bias_diag [H, 2T - 1] (with the block's offset folded in);
+    returns (out, lse [B, H, T] f32). Raises on what it does not take."""
+    kvalid = _checked(q, k, v, gate, bias_diag, kvalid, torch.float32)
+    B, T, H, hd = q.shape
+    dev = q.device
+    out = torch.empty_like(q)
+    lse = torch.empty(B, H, T, dtype=torch.float32, device=dev)
+    lib = _lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.sdumc_flash_wavlm_lse(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), gate.data_ptr(), bias_diag.data_ptr(),
+            None if kvalid is None else kvalid.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            B, T, H, hd, 1.0 / math.sqrt(hd), stream)
+    _raise_on(err, lib)
+    global LAUNCHES_BLOCK
+    LAUNCHES_BLOCK += 1
+    return out, lse

@@ -1,6 +1,7 @@
-"""Data and tensor parallelism across processes (the JAX package's
-``parallel/``: ``mesh.py``, ``multihost.py`` and ``sharding.py``; ring and
-sequence-parallel WavLM and the GPipe schedule are not ported yet)."""
+"""Data, tensor and sequence parallelism across processes (the JAX
+package's ``parallel/``: ``mesh.py``, ``multihost.py``, ``sharding.py``,
+``ring_attention.py`` and ``wavlm_sp.py``; the GPipe schedule and the
+combined program are not ported yet)."""
 
 from sdumc_tpu_torch.parallel.mesh import (  # noqa: F401
     DataAxis,
@@ -23,6 +24,11 @@ from sdumc_tpu_torch.parallel.multihost import (  # noqa: F401
     shutdown,
     warmup_collectives,
 )
+from sdumc_tpu_torch.parallel.ring_attention import (  # noqa: F401
+    ring_attention_sharded,
+    ring_bias_diags,
+    ring_gated_attention,
+)
 from sdumc_tpu_torch.parallel.sharding import (  # noqa: F401
     LLAMA_RULES,
     WAVLM_RULES,
@@ -34,3 +40,4 @@ from sdumc_tpu_torch.parallel.sharding import (  # noqa: F401
     tp_sharding_summary,
     wavlm_specs,
 )
+from sdumc_tpu_torch.parallel.wavlm_sp import wavlm_forward_sp  # noqa: F401

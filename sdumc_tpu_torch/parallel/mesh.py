@@ -69,11 +69,13 @@ HALF = (torch.bfloat16, torch.float16)
 @dataclasses.dataclass(frozen=True)
 class ModelAxis:
     """One rank of the model (tensor-parallel) axis: ``world`` ranks, each
-    holding its shard of every split weight on ``device``. ``group`` carries
-    the collectives (None: the default group). Each collective is an
-    ``all_reduce`` on the rank's device, which gloo takes on CUDA tensors
-    (ranks sharing a card) as NCCL does; half-precision tensors travel and
-    sum in f32 and are rounded once."""
+    holding its shard of every split weight on ``device``; or of the
+    sequence axis of ``parallel.wavlm_forward_sp``, each holding a slice of
+    the frames. ``group`` carries the collectives (None: the default group).
+    Each collective is an ``all_reduce`` on the rank's device, which gloo
+    takes on CUDA tensors (ranks sharing a card) as NCCL does; half-precision
+    tensors travel and sum in f32 and are rounded once. ``ring_shift`` is
+    point-to-point (ring attention)."""
 
     rank: int = 0
     world: int = 1
@@ -100,6 +102,44 @@ class ModelAxis:
         buf[self.rank] = x
         dist.all_reduce(buf, group=self.group)
         return buf.movedim(0, -2).reshape(tuple(x.shape[:-1]) + (-1,)).to(x.dtype)
+
+    def ring_shift(self, tensors):
+        """One turn of the ring: each of `tensors` goes to rank (rank + 1) %
+        world, and the list returned holds rank (rank - 1) % world's, in new
+        tensors of the same shapes, dtypes and device.
+
+        Every send and receive is posted at once (``batch_isend_irecv``) and
+        then waited for, so no rank blocks in a send that its peer has not
+        matched. NCCL sends device tensors as they are. gloo's point-to-point
+        reads a tensor's memory from the host, so a CUDA tensor on gloo (ranks
+        sharing a card) travels through a page-locked host copy each way; its
+        collectives take CUDA tensors, its send and recv do not. The group's
+        timeout (``SDUMC_SHUTDOWN_TIMEOUT``) bounds each wait."""
+        import torch.distributed as dist
+
+        tensors = list(tensors)
+        if self.world == 1:
+            return tensors
+        peers = [(self.rank + 1) % self.world, (self.rank - 1) % self.world]
+        if self.group is not None:
+            peers = [dist.get_global_rank(self.group, r) for r in peers]
+        staged = (self.device.type == "cuda"
+                  and dist.get_backend(self.group) == dist.Backend.GLOO)
+
+        def buffer(t):
+            if not staged:
+                return torch.empty_like(t, memory_format=torch.contiguous_format)
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+        outgoing = [t.contiguous() if not staged else buffer(t).copy_(t) for t in tensors]
+        incoming = [buffer(t) for t in tensors]
+        ops = ([dist.P2POp(dist.isend, t, peers[0], self.group) for t in outgoing]
+               + [dist.P2POp(dist.irecv, t, peers[1], self.group) for t in incoming])
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        if staged:
+            return [t.to(self.device, non_blocking=True) for t in incoming]
+        return incoming
 
 
 def make_model_axis(device, tp: int = 1) -> ModelAxis:

@@ -344,7 +344,7 @@ class LocalProcesses:
         """Return once every process has exited 0, or once ``until()`` is
         true. A process that exits non-zero, or `timeout` seconds passing
         first, stops them all and raises RuntimeError (with the end of the
-        failed process's log)."""
+        failed process's log, or of each running one's)."""
         deadline = None if timeout is None else time.monotonic() + timeout
         while True:
             codes = [p.poll() for _, p, _ in self.procs]
@@ -352,20 +352,25 @@ class LocalProcesses:
             if failed:
                 self.stop()
                 name, _, log = self.procs[failed[0]]
-                tail = ""
-                if log:
-                    with open(log, errors="replace") as f:
-                        tail = "; its log ends:\n" + "\n".join(f.read().splitlines()[-40:])
                 raise RuntimeError(f"{name} exited with code {codes[failed[0]]}; the others "
-                                   f"were stopped{tail}")
+                                   f"were stopped{_tail(log)}")
             if all(c == 0 for c in codes) or (until is not None and until()):
                 return
             if deadline is not None and time.monotonic() > deadline:
-                running = [n for (n, _, _), c in zip(self.procs, codes) if c is None]
+                running = [(n, log) for (n, _, log), c in zip(self.procs, codes) if c is None]
                 self.stop()
-                raise RuntimeError(f"{', '.join(running)} still running after {timeout} s; "
-                                   "stopped")
+                raise RuntimeError(f"{', '.join(n for n, _ in running)} still running after "
+                                   f"{timeout} s; stopped"
+                                   + "".join(f"\n{n}{_tail(log)}" for n, log in running))
             time.sleep(poll_seconds)
+
+
+def _tail(log: Optional[str], lines: int = 40) -> str:
+    """"; its log ends:" and the last `lines` lines of the file `log`, or ""."""
+    if not log:
+        return ""
+    with open(log, errors="replace") as f:
+        return "; its log ends:\n" + "\n".join(f.read().splitlines()[-lines:])
 
 
 def run_local_ranks(stage_argv: Sequence[str], world: int) -> dict:

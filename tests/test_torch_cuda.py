@@ -51,7 +51,11 @@ beam engine on the card and as the bundle exported on the CPU. Two ranks
 on the card over gloo (every collective of the data-parallel step on CUDA
 tensors) take the single-process step on the CPU, and two tensor-parallel
 ranks (half the heads each; the flash kernel at 2 heads) give a tiny LLaMA's
-logits and a tiny WavLM's last hidden state of the single process.
+logits and a tiny WavLM's last hidden state of the single process. The
+WavLM kernel's block instance (ring attention's step, with each row's
+log-sum-exp) is held to its plain version at offset key blocks, and two
+sequence-parallel ranks on the card (the ring's rotation through gloo's
+page-locked host copies) give a tiny WavLM's taps of the single process.
 """
 
 import math
@@ -1637,3 +1641,93 @@ def test_two_rank_tensor_parallel_forward_on_card_matches_cpu(cuda, tmp_path):
         torch.testing.assert_close(got["logits"], logits, rtol=RTOL, atol=ATOL)
         torch.testing.assert_close(got["last"], last, rtol=RTOL, atol=ATOL)
         assert got["heads"] == 2 and got["launches"] == wcfg.num_layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 129, 300])
+@pytest.mark.parametrize("offset_blocks", [0, -2, 3])
+def test_flash_block_instance_matches_plain(cuda, T, offset_blocks):
+    """The block instance (ring attention's step: out and each row's
+    log-sum-exp) against its plain version, its keys ``offset_blocks`` blocks
+    of T from its queries; rows attend to every key, one key, a prefix, and
+    none (lse = -1e30, out the mean of v, as the plain version gives)."""
+    hd = 16 if T in (65, 129) else 64
+    q, k, v, gate, rel, kvalid = (t.to(cuda) for t in _flash_inputs(4, T, 4, hd, "prefix"))
+    kvalid[3] = 0.0
+    diag = flash_wavlm.bias_diag_for(rel, T, NB, MD, offset=offset_blocks * T)
+    flash_wavlm.reset_launches()
+    with torch.inference_mode():
+        out, lse = flash_wavlm.flash_block(q, k, v, gate, diag, kvalid)
+        ref_out, ref_lse = flash_wavlm.flash_block_plain(q, k, v, gate, diag, kvalid)
+    assert flash_wavlm.LAUNCHES_BLOCK == 1 and flash_wavlm.LAUNCHES == 0
+    assert lse.shape == (4, 4, T) and lse.dtype == torch.float32
+    torch.testing.assert_close(out, ref_out, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(lse, ref_lse, rtol=RTOL, atol=ATOL)
+    assert (lse[3] <= -9.99e29).all()
+    with pytest.raises(TypeError):
+        flash_wavlm.flash_block(q.bfloat16(), k.bfloat16(), v.bfloat16(), gate, diag, kvalid)
+
+
+_SP_RANK = """
+import sys
+import torch
+from sdumc_tpu_torch.cli.common import set_matmul_precision
+from sdumc_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+from sdumc_tpu_torch.ops.kernels import flash_wavlm
+from sdumc_tpu_torch.parallel import (initialize_from_env, make_model_axis, shutdown,
+                                      wavlm_forward_sp)
+
+work = sys.argv[1]
+set_matmul_precision("highest")
+rank, world = initialize_from_env(device="cuda")
+dev = torch.device("cuda", torch.cuda.current_device())
+axis = make_model_axis(dev, world)
+case = torch.load(work + "/case.pt")
+model = WavLMModel(WavLMConfig.tiny(hidden_size=64)).to(dev).eval()
+model.load_state_dict(case["wavlm"])
+flash_wavlm.reset_launches()
+with torch.inference_mode():
+    got = wavlm_forward_sp(model, case["wav"].to(dev), axis, pad_mask=case["mask"].to(dev),
+                           output_hidden_states=True)
+    torch.cuda.synchronize()
+torch.save({"hidden": [h.cpu() for h in got["hidden_states"]],
+            "block": flash_wavlm.LAUNCHES_BLOCK, "flash": flash_wavlm.LAUNCHES},
+           work + f"/sp{rank}.pt")
+shutdown()
+"""
+
+
+@pytest.mark.cuda
+def test_two_rank_sequence_parallel_wavlm_on_card_matches_cpu(cuda, tmp_path):
+    """Two ranks on the card over gloo split a tiny WavLM's frames (hidden
+    64, hd 16; 99 frames, so the last rank's slice ends in a padded frame;
+    the second row 20 frames shorter) and rotate K and V through the ring's
+    page-locked host copies: every tap equals the single-process forward on
+    the CPU at this file's tolerance, and each rank launches the block
+    instance twice a layer and no other kernel."""
+    import importlib.util
+    import pathlib
+    import sys
+
+    from sdumc_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_multihost", pathlib.Path(__file__).with_name("test_torch_multihost.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    torch.manual_seed(0)
+    wcfg = WavLMConfig.tiny(hidden_size=64)
+    wavlm = WavLMModel(wcfg).eval()
+    wav = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 2000)).astype(np.float32))
+    t = wcfg.output_length(2000)
+    mask = torch.arange(t)[None, :] < torch.tensor([t, t - 20])[:, None]
+    assert t % 2
+    torch.save({"wavlm": wavlm.state_dict(), "wav": wav, "mask": mask}, tmp_path / "case.pt")
+    helpers.run_ranks(2, [sys.executable, "-c", _SP_RANK, str(tmp_path)])
+    with torch.inference_mode():
+        want = wavlm(wav, pad_mask=mask, output_hidden_states=True)["hidden_states"]
+    for rank in range(2):
+        got = torch.load(tmp_path / f"sp{rank}.pt")
+        assert got["block"] == 2 * wcfg.num_layers and got["flash"] == 0
+        for g, w in zip(got["hidden"], want):
+            torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)

@@ -192,7 +192,8 @@ def test_the_serving_module_imports_no_model_code_at_load():
 
 
 PARALLEL_MODULES = ("parallel/__init__.py", "parallel/mesh.py", "parallel/multihost.py",
-                    "parallel/sharding.py", "parallel/layers.py")
+                    "parallel/sharding.py", "parallel/layers.py", "parallel/ring_attention.py",
+                    "parallel/wavlm_sp.py")
 
 
 @pytest.mark.parametrize("rel", PARALLEL_MODULES)
@@ -234,3 +235,21 @@ def test_tensor_parallel_modules_import_only_numpy_torch_and_the_port(rel):
     JAX and nothing beyond numpy, torch and the standard library."""
     mods = {mod.split(".")[0] for mod, _ in _imports(ast.parse((PACKAGE / rel).read_text()))}
     assert mods <= TP_IMPORTS, mods - TP_IMPORTS
+
+
+SP_MODULES = ("parallel/ring_attention.py", "parallel/wavlm_sp.py", "parallel/mesh.py",
+              "models/wavlm.py", "ops/kernels/flash_wavlm.py")
+# all that the sequence-parallel path's modules import: the standard library's few
+# (ctypes for the kernel's binding), torch and the port itself
+SP_IMPORTS = {"__future__", "contextlib", "ctypes", "dataclasses", "math", "typing", "torch",
+              "sdumc_tpu_torch"}
+
+
+@pytest.mark.parametrize("rel", SP_MODULES)
+def test_sequence_parallel_modules_import_only_torch_and_the_port(rel):
+    """The modules of ring attention and sequence-parallel WavLM (the ring,
+    the SP forward, the axis's rotation, the model and the block kernel's
+    wrapper) import no JAX and nothing beyond torch and the standard
+    library."""
+    mods = {mod.split(".")[0] for mod, _ in _imports(ast.parse((PACKAGE / rel).read_text()))}
+    assert mods <= SP_IMPORTS, mods - SP_IMPORTS

@@ -31,6 +31,7 @@ from sdumc_tpu_torch.convert.hf_wavlm import config_from_hf, load_hf_wavlm
 from sdumc_tpu_torch.extract.audio import extract_audio_features, read_wav
 from sdumc_tpu_torch.models.wavlm import WavLMConfig, WavLMModel, resolve_attention_impl
 from sdumc_tpu_torch.ops.kernels import flash_wavlm
+from sdumc_tpu_torch.parallel import ModelAxis
 from tests.test_flash_wavlm import einsum_reference
 
 # several test workers share the machine's cores: one torch thread each
@@ -268,8 +269,9 @@ def test_cli_refusals_without_a_card(tmp_path, monkeypatch, capsys):
     assert resolve_attention_impl("auto", torch.device("cpu")) == "einsum"
     assert resolve_attention_impl("auto", torch.device("cpu"), torch.bfloat16) == "flash"
     assert resolve_attention_impl("auto", torch.device("cuda")) == "flash"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="ring axis"):      # ring needs wavlm_forward_sp
         resolve_attention_impl("ring", torch.device("cpu"))
+    assert resolve_attention_impl("ring", torch.device("cpu"), ring_axis=ModelAxis()) == "ring"
     # every stage of the JAX CLI is ported; an unknown stage prints the stage list
     assert extract.NOT_PORTED == {} and "vision" in extract.STAGES
     capsys.readouterr()
