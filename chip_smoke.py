@@ -7,6 +7,7 @@
                                           # another checkout), in turns
     python3 chip_smoke.py --tp-cli N      # phase 29 (a) alone at --tp N (on N
                                           # cards: NCCL), from its own inputs
+    python3 chip_smoke.py --pp-only       # phase 30 alone, from its own inputs
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. environment: the card's name and power limit, then the kernel build
@@ -282,7 +283,34 @@ Phases, each fatal on failure (non-zero exit, no result line):
      instance at the ring's shape (B = 1, 1500 frames, 16 heads of 64) held
      to its plain version and timed beside the bound and PyTorch's
      memory-efficient attention with its log-sum-exp.
-Each phase prints its seconds, and the total of phases 2-29 follows; a
+ 30. the hierarchical data axis, the combined step and the pipeline: four
+     ranks on the card over gloo, each started as ``chip_smoke.py
+     --pp-worker`` beside phase 24's runs (phase 24 waits for their untimed
+     work too); there: (a) one dropout-off train step at the published
+     widths on the first train batch (8 rows a rank) on the 2 x 2
+     ``parallel.make_hierarchical_mesh`` axis and on the flat 4-rank axis,
+     the launch counters around each, and the single-process step; rank 0
+     writes Vicuna-7B's trunk at 4 of its 32 layers in HF's format (fp16,
+     seeded on the card); (b) ``parallel.make_tp_dp_dual_step`` on the 2 x
+     2 ``make_mesh`` grid: that trunk at f32, each model rank reading its
+     slices, frozen, its -4..-1 tap sum the text stream of 64 token ids a
+     row, one dropout-off fusion step on 16 rows a data rank, the launch
+     counters around it, and the TP 1 x DP 1 step in one process; (c)
+     ``parallel.llama_pp_forward`` of the same trunk over 4 stages (stage s
+     reading its layer, the embedding and the final norm), 16 x 64 ids, M =
+     4, one tap, each stage's weights and forward peak, and one process's
+     forward. Phase 30 itself, nothing else on the card: the gradient sums
+     and steps of (a), the step of (b) and the forward of (c) timed by CUDA
+     events beside one process's, the pipeline's exchanges timed one by
+     one; then every part held, each rank's: (a) the loss to 1e-5 of one
+     process, every gradient to phase 8's ratio, 3 + 3 fusion launches a
+     rank; (b) the loss to 1e-4, JAX's first fusion leaf to 1e-3 / 1e-5,
+     the fusion parameters moved and equal in each model group, 3 + 3
+     launches a rank; (c) the last hidden state and the tap within 2.5e-5
+     of one process's forward of the same microbatches, and of its
+     forward of the whole batch within 2.5e-5 of the largest value (f32
+     sums of other GEMM shapes), each stage holding only its layer.
+Each phase prints its seconds, and the total of phases 2-30 follows; a
 watchdog stops a phase past max(PHASE_MIN_BOUND, 3 x PHASE_BUDGET), or
 past SCRIPT_DEADLINE, printing every thread's stack, and every wait on
 another process is bounded (WAIT_SECONDS, TP_GO_SECONDS; the ranks'
@@ -331,7 +359,7 @@ T_START = time.perf_counter()
 # stack and exits non-zero.
 PHASE_BUDGET = {2: 18, 3: 1, 4: 5, 5: 17, 7: 18, 8: 4, 9: 7, 10: 16, 11: 35, 12: 25, 13: 5,
                 14: 6, 15: 44, 16: 16, 17: 2, 18: 33, 19: 3, 20: 1, 21: 15, 22: 32, 23: 74,
-                24: 165, 25: 45, 26: 75, 27: 180, 28: 40, 29: 17}
+                24: 165, 25: 45, 26: 75, 27: 180, 28: 40, 29: 17, 30: 25}
 PHASE_MIN_BOUND = 120
 SCRIPT_DEADLINE = 1180
 # Every wait of the main run is bounded at about 3 x what it took in measured runs
@@ -348,6 +376,8 @@ WAIT_SECONDS = {
     # section 7)
     "tp side": 240,
     "tp ranks": 90,                 # phase 29's (c) and (e), timed: 26 s
+    "pp ranks": 75,                 # phase 30's timed part: 3 x its budget
+    "pp side": 240,                 # phase 30's untimed part alone (--pp-only)
     "kernel build": 60,             # 10.7-11.0 s
 }
 RANK_COLLECTIVE_SECONDS = 120
@@ -4874,20 +4904,30 @@ DP_METRIC_ATOL = 0.05        # JAX's bound against a single process (tests/test_
 DP_TIMED = 10
 
 
+def fresh_fusion_state(torch, cfg, dims):
+    """The fusion net at the input widths `dims` from the seeded weights,
+    dropout off, on the card, and its train state."""
+    import dataclasses
+
+    from sdumc_tpu_torch.models import get_model
+    from sdumc_tpu_torch.train.state import create_train_state
+
+    mcfg = dataclasses.replace(cfg.model, input_dims=dims[:3], dropout=0.0, attn_dropout=0.0)
+    model = get_model(mcfg, torch.Generator().manual_seed(cfg.train.seed)).to("cuda")
+    return create_train_state(model, cfg.train, 8)
+
+
 def dropout_off_step(torch, cfg, dims, d, axis=None, local_loss: bool = False):
     """One train step from the seeded weights with dropout off on the card's
     batch dict `d` (a rank's rows under `axis`); returns (model, step, loss,
     {name: gradient on the CPU}). ``local_loss``: the control, the rank's
     own loss with the gradients averaged over the ranks."""
-    import dataclasses
-
-    from sdumc_tpu_torch.models import get_model
     from sdumc_tpu_torch.parallel import reduce_gradients
-    from sdumc_tpu_torch.train.step import dual_view_loss
+    from sdumc_tpu_torch.train.step import dual_view_loss, make_train_step
 
-    mcfg = dataclasses.replace(cfg.model, input_dims=dims[:3], dropout=0.0, attn_dropout=0.0)
-    model = get_model(mcfg, torch.Generator().manual_seed(cfg.train.seed)).to("cuda")
-    step = make_step(torch, cfg, model, axis)
+    state = fresh_fusion_state(torch, cfg, dims)
+    model = state.model
+    step = make_train_step(state, cfg.loss, cfg.train.seed, axis)
     if local_loss:
         model.train()
         loss, _ = dual_view_loss(model, d, cfg.loss)
@@ -5633,10 +5673,11 @@ def start_tp_phase(procs, work: str, llm_dir: str, proj_path: str, feats_dir: st
     return tp_dir, clis
 
 
-def wait_tp_side(procs, tp_dir: str, clis: list) -> None:
-    """Phase 24's wait, before it times anything, for phase 29's work
-    beside it: both commands ended and both ranks past (b), (d), (e) and
-    the witness. A process that failed, or WAIT_SECONDS["tp side"] passing,
+def wait_side(procs, tp_dir: str, clis: list, pp_procs, pp_dir: str) -> None:
+    """Phase 24's wait, before it times anything, for phases 29 and 30's
+    work beside it: both commands ended and both ranks of phase 29 past (b),
+    (d), (e) and the witness; the four ranks of phase 30 past (a), (b) and
+    (c). A process that failed, or WAIT_SECONDS["tp side"] passing in all,
     raises."""
     def done():
         return (all(p.poll() == 0 for p in clis)
@@ -5645,8 +5686,12 @@ def wait_tp_side(procs, tp_dir: str, clis: list) -> None:
 
     t0 = time.perf_counter()
     procs.wait(until=done, timeout=WAIT_SECONDS["tp side"])
+    t29 = time.perf_counter() - t0
+    pp_procs.wait(until=lambda: all(os.path.exists(os.path.join(pp_dir, f"side{r}.json"))
+                                    for r in range(PP_WORLD)),
+                  timeout=max(1.0, WAIT_SECONDS["tp side"] - t29))
     print(f"phase 29's work beside phase 24 ((a), (b), (d), (e) and the witness) done; phase 24 "
-          f"waited {time.perf_counter() - t0!r} s for it")
+          f"waited {t29!r} s for it, then {time.perf_counter() - t0 - t29!r} s for phase 30's")
 
 
 def check_tp_cli(work: str, tp_dir: str, world: int) -> None:
@@ -5931,6 +5976,521 @@ def tp_phase(torch, procs, tp_dir: str, work: str, depth: dict, text_depth: dict
             "block": flash_block_phase(torch, flash_wavlm, reports[0]["ring"]["block_shape"][1])}
 
 
+# ------------------------------------------- the pipeline, the grid, the hierarchy (phase 30)
+
+PP_WORLD = 4                 # four ranks on the one card, over gloo
+PP_HIER = (2, 2)             # (a): dcn x ici
+PP_GRID = (2, 2)             # (b): data x model
+PP_BATCH, PP_TOKENS, PP_MICRO, PP_TAPS = 16, 64, 4, 1    # (c), at VICUNA_LAYERS over 4 stages
+COMBINED_TOKENS = 64         # (b): the text stream's token ids a row
+PP_TIMED = 5                 # timed runs of each step and forward, after 2 warm ones
+HIER_LOSS_RTOL = 1e-5        # (a): tests/test_hierarchy.py's loss rtol
+COMBINED_LOSS_RTOL = 1e-4    # (b): tests/test_hierarchy.py's
+COMBINED_LEAF_RTOL, COMBINED_LEAF_ATOL = 1e-3, 1e-5
+FIRST_LEAF = "attention_mlp.0.bias"     # JAX's first fusion leaf, the one test_hierarchy.py holds
+# (c): PR 17's f32 tensor-parallel difference (PERF.md section 6), against one process's
+# forward of the same microbatches (the same GEMM shapes); against its forward of the
+# whole batch (other GEMM shapes, so other f32 sums) within PP_TOL of the largest value
+PP_TOL = 2.5e-5
+TRUNK_SEED = 3               # phase 12's seed
+
+
+def write_trunk_dir(torch, path: str, num_layers: int, device) -> None:
+    """Vicuna-7B's trunk at `num_layers` in HF's format: config.json and
+    pytorch_model.bin with the ``model.*`` weights in fp16, normal(0, 0.02)
+    drawn on the card from TRUNK_SEED, norms 1 (the loaders read no
+    tokenizer and no lm_head for a trunk)."""
+    from sdumc_tpu_torch.models.llama import LlamaModel, init_weights
+
+    cfg = feat4_config(torch, num_layers, dtype=torch.float32)
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+                   "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+                   "intermediate_size": cfg.intermediate_size, "num_hidden_layers": num_layers,
+                   "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_heads,
+                   "rms_norm_eps": cfg.rms_eps, "rope_theta": cfg.rope_theta,
+                   "max_position_embeddings": cfg.max_position_embeddings,
+                   "torch_dtype": "float16"}, f)
+    with torch.device("meta"):
+        trunk = LlamaModel(cfg)
+    trunk = init_weights(trunk.to_empty(device=device), seed=TRUNK_SEED)
+    torch.save({"model." + k: v.half().cpu() for k, v in trunk.state_dict().items()},
+               os.path.join(path, "pytorch_model.bin"))
+    del trunk
+    torch.cuda.empty_cache()
+
+
+def combined_batch(torch, cfg, train_ds, device) -> dict:
+    """Phase 28's first train batch at the published widths with its text
+    stream replaced by COMBINED_TOKENS seeded token ids a row (int32, no
+    padding), the text entry of t_max the token batch-max."""
+    import numpy as np
+
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    d = batch_to_device_dict(first_train_batch(cfg, train_ds), device)
+    ids = np.random.default_rng(30).integers(0, VICUNA["vocab_size"],
+                                             (d["vals"].shape[0], COMBINED_TOKENS))
+    d.pop("text")
+    d["text_ids"] = torch.from_numpy(ids.astype(np.int32)).to(device)
+    ta, _, tv, tf = d["t_max"]
+    d["t_max"] = (ta, COMBINED_TOKENS, tv, tf)
+    return d
+
+
+class TimedExchanges:
+    """Within it, every ``ModelAxis.exchange`` and ``broadcast`` (the
+    pipeline's sends and receives, its last stage's results) is timed on the
+    host clock between two synchronisations; ``ms`` lists them (the share is
+    of the run's own host clock, which they slow)."""
+
+    def __init__(self, torch):
+        self.torch, self.ms = torch, []
+
+    def __enter__(self):
+        from sdumc_tpu_torch.parallel.mesh import ModelAxis
+
+        self.saved = ModelAxis.exchange, ModelAxis.broadcast
+
+        def timed(fn):
+            def run(axis, *a):
+                self.torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(axis, *a)
+                self.torch.cuda.synchronize()
+                self.ms.append(1e3 * (time.perf_counter() - t))
+                return out
+            return run
+
+        ModelAxis.exchange, ModelAxis.broadcast = (timed(f) for f in self.saved)
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        from sdumc_tpu_torch.parallel.mesh import ModelAxis
+
+        self.torch.cuda.synchronize()
+        self.wall_ms = 1e3 * (time.perf_counter() - self.t0)
+        ModelAxis.exchange, ModelAxis.broadcast = self.saved
+        return False
+
+
+def pp_hierarchy(torch, dev, work: str, keep: dict) -> dict:
+    """Phase 30 (a): the first train batch (32 rows, published widths, 8
+    rows a rank) through one dropout-off step on the 2 x 2 hierarchical
+    axis and on the flat 4-rank axis, each with the launch counters around
+    it; rank 0 saves both steps' gradients and takes the single-process
+    step (the others at a barrier). Keeps the models and steps for the
+    timing in `keep`."""
+    import torch.distributed as dist
+
+    from sdumc_tpu_torch.data.pipeline import get_loaders
+    from sdumc_tpu_torch.parallel import make_data_axis, make_hierarchical_mesh, shard_batch
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    cfg = main_path_config()
+    train_ds, _, _ = get_loaders(cfg.data.dataset, cfg.data, cfg.paths, synthetic=True)
+    dims = train_ds.input_dims()
+    batch = batch_to_device_dict(first_train_batch(cfg, train_ds), dev)
+    hier = make_hierarchical_mesh(dev, *PP_HIER)
+    flat = make_data_axis(dev)
+    local = shard_batch(batch, hier.rank, hier.world)
+    report = {"rows": int(local["vals"].shape[0]), "global_rows": int(batch["vals"].shape[0])}
+    for name, axis in (("hier", hier), ("flat", flat)):
+        reset_counts()
+        model, step, report[f"{name}_loss"], grads = dropout_off_step(torch, cfg, dims, local,
+                                                                      axis)
+        torch.cuda.synchronize()
+        report[f"{name}_launches"] = read_counts()
+        if hier.rank == 0:
+            torch.save(grads, os.path.join(work, f"{name}_grads.pt"))
+        keep[name] = (model, step, axis)
+    keep["local"] = local
+    if hier.rank == 0:
+        _, _, report["single_loss"], grads = dropout_off_step(torch, cfg, dims, batch)
+        torch.save(grads, os.path.join(work, "single_grads.pt"))
+    dist.barrier()
+    keep["cfg"], keep["train_ds"], keep["dims"] = cfg, train_ds, dims
+    return report
+
+
+def pp_combined(torch, dev, work: str, keep: dict) -> dict:
+    """Phase 30 (b): Vicuna-7B at VICUNA_LAYERS, f32, read from the
+    directory rank 0 wrote (each model rank reading only its slices), as
+    the frozen trunk of the combined step on the 2 x 2 grid (TP 2 x DP 2),
+    the fusion net at the published widths: one dropout-off step on this
+    data rank's 16 rows, the launch counters around it; the largest
+    difference of the fusion parameters from the model group's rank 0
+    (they must be equal). Rank 0 then takes the TP 1 x DP 1 step on the
+    global batch (the others at a barrier), its trunk kept for the
+    timing."""
+    import torch.distributed as dist
+
+    from sdumc_tpu_torch.convert.hf_llama import load_hf_llama_trunk
+    from sdumc_tpu_torch.parallel import make_mesh, make_tp_dp_dual_step, shard_batch
+
+    cfg, dims = keep["cfg"], keep["dims"]
+    trunk_dir = os.path.join(work, "trunk")
+    data, model_axis = make_mesh(dev, *PP_GRID)
+    _, trunk = load_hf_llama_trunk(trunk_dir, device=dev, dtype=torch.float32, axis=model_axis)
+    batch = combined_batch(torch, cfg, keep["train_ds"], dev)
+    local = shard_batch(batch, data.rank, data.world)
+    state = fresh_fusion_state(torch, cfg, dims)
+    first = dict(state.model.named_parameters())[FIRST_LEAF].detach().clone()
+    step = make_tp_dp_dual_step(trunk, state, cfg.loss, cfg.train.seed, data)
+    reset_counts()
+    loss = step(local)["loss"].item()
+    torch.cuda.synchronize()
+    report = {"cell": [data.rank, model_axis.rank], "rows": int(local["vals"].shape[0]),
+              "loss": loss, "launches": read_counts(),
+              "rank_trunk_gb": sum(p.numel() * p.element_size()
+                                   for p in trunk.parameters()) / 1e9}
+    leaf = dict(state.model.named_parameters())[FIRST_LEAF].detach()
+    report["moved"] = (leaf - first).abs().max().item()
+    torch.save(leaf.cpu(), os.path.join(work, f"leaf{dist.get_rank()}.pt"))
+    mine = torch.cat([p.detach().reshape(-1) for p in state.model.parameters()])
+    theirs = model_axis.broadcast(mine.clone(), 0)
+    report["group_max_abs_diff"] = (mine - theirs).abs().max().item()
+    keep["combined"] = (step, local)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        _, whole = load_hf_llama_trunk(trunk_dir, device=dev, dtype=torch.float32)
+        state1 = fresh_fusion_state(torch, cfg, dims)
+        step1 = make_tp_dp_dual_step(whole, state1, cfg.loss, cfg.train.seed)
+        report["one_loss"] = step1(batch)["loss"].item()
+        torch.save(dict(state1.model.named_parameters())[FIRST_LEAF].detach().cpu(),
+                   os.path.join(work, "leaf_one.pt"))
+        keep["one"] = (whole, step1, batch)
+    dist.barrier()
+    return report
+
+
+def last_layer_output(torch, model, ids):
+    """(last_hidden_state, the last layer's output before the final norm)
+    of one process's forward: the second from a hook on the last layer."""
+    seen = []
+    hook = model.layers[-1].register_forward_hook(lambda m, a, out: seen.append(out))
+    try:
+        last = model(input_ids=ids)["last_hidden_state"]
+    finally:
+        hook.remove()
+    return last, seen[0]
+
+
+def pp_pipeline(torch, dev, work: str, keep: dict) -> dict:
+    """Phase 30 (c): the same directory's trunk over 4 stages, each stage
+    reading its one layer, the embedding and the final norm: the pipelined
+    forward of PP_BATCH x PP_TOKENS seeded ids at M = PP_MICRO with
+    PP_TAPS tap; each stage's weights and the forward's peak above them.
+    Every stage saves its result; then, the others at a barrier, rank 0
+    runs one process's forward (its trunk from (b)) of the whole batch,
+    with the same two numbers, and of each microbatch alone."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from sdumc_tpu_torch.convert.hf_llama import load_hf_llama_trunk
+    from sdumc_tpu_torch.parallel import llama_pp_forward, make_model_axis
+
+    stage = make_model_axis(dev, PP_WORLD)
+    _, model = load_hf_llama_trunk(os.path.join(work, "trunk"), device=dev, dtype=torch.float32,
+                                   stage=stage)
+    ids = torch.from_numpy(np.random.default_rng(31).integers(
+        0, VICUNA["vocab_size"], (PP_BATCH, PP_TOKENS))).to(dev)
+
+    def peak(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    def pipelined():
+        return llama_pp_forward(model, stage, input_ids=ids, n_microbatches=PP_MICRO,
+                                collect_taps=PP_TAPS)
+
+    with torch.inference_mode():
+        (last, taps), fwd_gib = peak(pipelined)
+    held = [p for p in model.parameters() if not p.is_meta]
+    report = {"layers": [i for i, layer in enumerate(model.layers)
+                         if not layer.mlp.up_proj.weight.is_meta],
+              "weights_gib": sum(p.numel() * p.element_size() for p in held) / 2**30,
+              "forward_gib": fwd_gib}
+    torch.save({"last": last.cpu(), "tap": taps[-1].cpu()},
+               os.path.join(work, f"pp{stage.rank}.pt"))
+    keep["pipeline"] = (model, stage, ids, pipelined)
+    dist.barrier()
+    if stage.rank == 0:
+        whole = keep["one"][0]
+        rows = PP_BATCH // PP_MICRO
+        with torch.inference_mode():
+            (last1, tap1), one_gib = peak(lambda: last_layer_output(torch, whole, ids))
+            parts = [last_layer_output(torch, whole, ids[i:i + rows])
+                     for i in range(0, PP_BATCH, rows)]
+        torch.save({"last": last1.cpu(), "tap": tap1.cpu()}, os.path.join(work, "pp_one.pt"))
+        torch.save({"last": torch.cat([a for a, _ in parts]).cpu(),
+                    "tap": torch.cat([b for _, b in parts]).cpu()},
+                   os.path.join(work, "pp_one_mb.pt"))
+        report.update(one_weights_gib=sum(p.numel() * p.element_size()
+                                          for p in whole.parameters()) / 2**30,
+                      one_forward_gib=one_gib)
+    dist.barrier()
+    return report
+
+
+def pp_timed(torch, keep: dict) -> dict:
+    """Phase 30 timed, with nothing else on the card: (a) the hierarchical
+    and the flat gradient sums and steps, (b) the combined step, (c) the
+    pipelined forward (CUDA events, PP_TIMED runs after 2 warm ones), then
+    one more pipelined forward with each exchange and broadcast timed; then,
+    the others at a barrier, one process's combined step and forward on
+    rank 0."""
+    import torch.distributed as dist
+
+    from sdumc_tpu_torch.parallel import reduce_gradients
+
+    report = {}
+    for name in ("hier", "flat"):
+        model, step, axis = keep[name]
+        report[f"{name}_sum_ms"] = time_ms(lambda: reduce_gradients(model.parameters(), axis),
+                                           iters=PP_TIMED, warmup=2)
+        report[f"{name}_step_ms"] = time_ms(lambda: step(keep["local"]), iters=PP_TIMED,
+                                            warmup=2)
+    step, local = keep["combined"]
+    report["combined_ms"] = time_ms(lambda: step(local), iters=PP_TIMED, warmup=2)
+    model, stage, ids, pipelined = keep["pipeline"]
+    with torch.inference_mode():
+        report["pp_ms"] = time_ms(pipelined, iters=PP_TIMED, warmup=2)
+        with TimedExchanges(torch) as timed:
+            pipelined()
+    report.update(exchanges=len(timed.ms), exchange_ms=sum(timed.ms), exchange_run_ms=timed.wall_ms)
+    dist.barrier()
+    if dist.get_rank() == 0:
+        whole, step1, batch = keep["one"]
+        report["one_combined_ms"] = time_ms(lambda: step1(batch), iters=PP_TIMED, warmup=2)
+        with torch.inference_mode():
+            report["one_pp_ms"] = time_ms(lambda: whole(input_ids=ids), iters=PP_TIMED,
+                                          warmup=2)
+    dist.barrier()
+    return report
+
+
+def pp_worker(torch, work: str) -> None:
+    """One rank of phase 30, started with the SDUMC_* environment beside
+    phase 24's runs: (a), rank 0 writing the trunk's directory, (b) and
+    (c), after which it writes side{r}.json; then, once the main process
+    starts phase 30 (it writes `work`/go), the timed runs; writes
+    rank{r}.json. The wait for go fails once the main process has begun no
+    phase for TP_GO_SECONDS (it touches `work`/alive at each)."""
+    import torch.distributed as dist
+
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.parallel import initialize_from_env, shutdown
+
+    rank, _ = initialize_from_env(device="cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    set_matmul_precision("highest")
+    report, keep = {"rank": rank}, {}
+    t0 = time.perf_counter()
+    report["hier"] = pp_hierarchy(torch, dev, work, keep)
+    if rank == 0:
+        write_trunk_dir(torch, os.path.join(work, "trunk"), VICUNA_LAYERS, dev)
+    dist.barrier()
+    report["combined"] = pp_combined(torch, dev, work, keep)
+    report["pipeline"] = pp_pipeline(torch, dev, work, keep)
+    report["side_seconds"] = time.perf_counter() - t0
+    with open(os.path.join(work, f"side{rank}.json"), "w") as f:
+        json.dump(report, f, default=float)
+    go, alive = os.path.join(work, "go"), os.path.join(work, "alive")
+    while not os.path.exists(go):
+        idle = time.time() - os.path.getmtime(alive)
+        if idle > TP_GO_SECONDS:
+            raise RuntimeError(f"phase 30 did not start: the main process began no phase for "
+                               f"{idle:.0f} s (bound {TP_GO_SECONDS} s)")
+        time.sleep(0.2)
+    t0 = time.perf_counter()
+    report["timed"] = pp_timed(torch, keep)
+    report["timed_seconds"] = time.perf_counter() - t0
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f, default=float)
+    shutdown()
+
+
+def start_pp_phase(procs, work: str) -> str:
+    """Phase 30's work that times nothing, started in `procs` beside phase
+    24's runs: its four ranks (``chip_smoke.py --pp-worker``). Returns the
+    phase's directory."""
+    pp_dir = os.path.join(work, "pp")
+    os.makedirs(pp_dir)
+    open(os.path.join(pp_dir, "alive"), "w").close()    # main() touches it at each phase
+    procs.start_ranks([sys.executable, os.path.abspath(__file__), "--pp-worker", pp_dir],
+                      PP_WORLD, env=RANK_ENV, log_dir=pp_dir,
+                      cwd=os.path.dirname(os.path.abspath(__file__)))
+    return pp_dir
+
+
+def pp_phase(torch, procs, pp_dir: str, card: str) -> dict:
+    """Phase 30: the hierarchical data axis, the combined TP x DP step and
+    the pipeline, four ranks on the card over gloo; their untimed parts
+    ran beside phase 24 (``start_pp_phase``). Now the ranks time theirs,
+    and every part is held, each rank's: (a) the 2 x 2 hierarchical step
+    and the flat 4-rank step against the single process, the loss to
+    HIER_LOSS_RTOL and every gradient to phase 8's ratio, 3 + 3 fusion
+    launches a rank; (b) the combined step at TP 2 x DP 2 against TP 1 x DP
+    1, the loss to COMBINED_LOSS_RTOL, FIRST_LEAF to COMBINED_LEAF_RTOL /
+    ATOL, the fusion parameters moved and equal in each model group, 3 + 3
+    launches a rank; (c) the pipelined last hidden state and tap within
+    PP_TOL of one process's forward of the same microbatches, and of its
+    forward of the whole batch within PP_TOL of the largest value, each
+    stage holding its layer alone. Returns each rank's launches of (a) and
+    (b)."""
+    open(os.path.join(pp_dir, "go"), "w").close()
+    procs.wait(timeout=WAIT_SECONDS["pp ranks"])
+    reports = []
+    for rank in range(PP_WORLD):
+        with open(os.path.join(pp_dir, f"rank{rank}.json")) as f:
+            reports.append(json.load(f))
+    print("  " + "; ".join(f"rank {r['rank']}: beside phase 24 {r['side_seconds']:.1f} s, here "
+                           f"{r['timed_seconds']:.1f} s" for r in reports))
+    single = torch.load(os.path.join(pp_dir, "single_grads.pt"))
+
+    def worst_ratio(g):
+        if g.keys() != single.keys():
+            raise AssertionError("the steps give gradients to different parameters")
+        return max(((g[k] - ref).abs().max().item() / (GRAD_RTOL * ref.abs().max().item()
+                                                        + GRAD_ATOL), k)
+                   for k, ref in single.items())
+
+    def fusion_launches(counts):
+        return {name: counts.get(name, 0) for name, _ in REPLACES.values()}
+
+    def three_each(counts):
+        return fusion_launches(counts) == {name: 3 for name, _ in REPLACES.values()} and not any(
+            n for k, n in counts.items() if k not in fusion_launches(counts))
+
+    h = [r["hier"] for r in reports]
+    single_loss = h[0]["single_loss"]
+    worst = {name: worst_ratio(torch.load(os.path.join(pp_dir, f"{name}_grads.pt")))
+             for name in ("hier", "flat")}
+    t = [r["timed"] for r in reports]
+    print(f"(a) one train step (dropout off, seeded weights, published widths) on the first "
+          f"train batch, {PP_WORLD} ranks x {h[0]['rows']} rows against one process x "
+          f"{h[0]['global_rows']}: the {PP_HIER[0]} x {PP_HIER[1]} hierarchical axis (a "
+          f"reduce-scatter in each pod of {PP_HIER[1]}, an all-reduce across the pods, an "
+          f"all-gather) loss {[x['hier_loss'] for x in h]!r} by rank, the flat 4-rank axis "
+          f"{[x['flat_loss'] for x in h]!r}, one process {single_loss!r} (rtol "
+          f"{HIER_LOSS_RTOL}); gradients (rank 0), worst max-abs-diff / (GRAD_RTOL max|grad| + "
+          f"GRAD_ATOL): hierarchical {worst['hier'][0]!r} at {worst['hier'][1]}, flat "
+          f"{worst['flat'][0]!r} at {worst['flat'][1]} (must be <= 1)")
+    print(f"    launches a rank, hierarchical step: "
+          f"{[fusion_launches(x['hier_launches']) for x in h]}; flat: "
+          f"{[fusion_launches(x['flat_launches']) for x in h]}")
+    print(f"    timed ({card}; CUDA events, {PP_TIMED} runs after 2 warm ones): the gradient sum "
+          f"(12.8M f32) hierarchical {[x['hier_sum_ms'] for x in t]!r} ms by rank, flat "
+          f"all_reduce {[x['flat_sum_ms'] for x in t]!r}; the step hierarchical "
+          f"{[x['hier_step_ms'] for x in t]!r}, flat {[x['flat_step_ms'] for x in t]!r}. Four "
+          f"ranks on one card over gloo show correctness, not scaling.")
+    for x in h:
+        for name in ("hier", "flat"):
+            if abs(x[f"{name}_loss"] - single_loss) > HIER_LOSS_RTOL * abs(single_loss):
+                raise AssertionError(f"(a) {name}: the loss is not the single process's")
+            if not three_each(x[f"{name}_launches"]):
+                raise AssertionError(f"(a) {name}: launches {x[f'{name}_launches']}, expected 3 "
+                                     "of each fusion instance and nothing else")
+    if max(w for w, _ in worst.values()) > 1.0:
+        raise AssertionError("(a): a gradient is not the single process's")
+
+    c = [r["combined"] for r in reports]
+    one_loss = c[0]["one_loss"]
+    leaf_one = torch.load(os.path.join(pp_dir, "leaf_one.pt"))
+    leaves = [torch.load(os.path.join(pp_dir, f"leaf{r}.pt")) for r in range(PP_WORLD)]
+    leaf_err = [(x - leaf_one).abs().max().item() for x in leaves]
+    leaf_ok = [torch.allclose(x, leaf_one, rtol=COMBINED_LEAF_RTOL, atol=COMBINED_LEAF_ATOL)
+               for x in leaves]
+    print(f"(b) the combined step on the {PP_GRID[0]} x {PP_GRID[1]} grid (TP {PP_GRID[1]} x DP "
+          f"{PP_GRID[0]}): Vicuna-7B at {VICUNA_LAYERS} of {VICUNA_FULL_LAYERS} layers, f32, "
+          f"read from HF's format (each model rank its slices, {c[0]['rank_trunk_gb']!r} GB), "
+          f"frozen, its -4..-1 tap sum the text stream of {COMBINED_TOKENS} token ids a row; the "
+          f"fusion net at the published widths, one dropout-off step on {c[0]['rows']} rows a "
+          f"data rank, against one process (TP 1 x DP 1) on the {2 * c[0]['rows']} rows: loss "
+          f"{[x['loss'] for x in c]!r} by rank (cells {[x['cell'] for x in c]}), one process "
+          f"{one_loss!r} (rtol {COMBINED_LOSS_RTOL}); {FIRST_LEAF} max abs diff {leaf_err!r} "
+          f"(rtol {COMBINED_LEAF_RTOL} atol {COMBINED_LEAF_ATOL}: {leaf_ok}); moved "
+          f"{[x['moved'] for x in c]!r}; the fusion parameters' largest difference from the "
+          f"model group's rank 0 {[x['group_max_abs_diff'] for x in c]!r} (must be 0)")
+    print(f"    launches a rank: {[fusion_launches(x['launches']) for x in c]}; timed: the step "
+          f"{[x['combined_ms'] for x in t]!r} ms by rank, one process {t[0]['one_combined_ms']!r} "
+          f"ms (rank 0 alone) ({card})")
+    for x, ok in zip(c, leaf_ok):
+        if abs(x["loss"] - one_loss) > COMBINED_LOSS_RTOL * abs(one_loss) or not ok:
+            raise AssertionError(f"(b) cell {x['cell']}: the combined step is not one process's")
+        if not x["moved"] > 1e-6 or x["group_max_abs_diff"] != 0.0:
+            raise AssertionError(f"(b) cell {x['cell']}: the fusion parameters did not move, or "
+                                 "differ within a model group")
+        if not three_each(x["launches"]):
+            raise AssertionError(f"(b) cell {x['cell']}: launches {x['launches']}, expected 3 of "
+                                 "each fusion instance and nothing else")
+
+    p = [r["pipeline"] for r in reports]
+    one = torch.load(os.path.join(pp_dir, "pp_one.pt"))
+    one_mb = torch.load(os.path.join(pp_dir, "pp_one_mb.pt"))
+    top = {k: one[k].abs().max().item() for k in ("last", "tap")}
+    errs, errs_mb = [], []
+    for rank in range(PP_WORLD):
+        got = torch.load(os.path.join(pp_dir, f"pp{rank}.pt"))
+        errs_mb.append({k: (got[k] - one_mb[k]).abs().max().item() for k in ("last", "tap")})
+        errs.append({k: (got[k] - one[k]).abs().max().item() for k in ("last", "tap")})
+        ok = (all(torch.allclose(got[k], one_mb[k], rtol=PP_TOL, atol=PP_TOL)
+                  for k in ("last", "tap"))
+              and all(errs[-1][k] <= PP_TOL * top[k] for k in ("last", "tap")))
+        if not ok or p[rank]["layers"] != [rank]:
+            raise AssertionError(f"(c) stage {rank}: layers {p[rank]['layers']}, differences "
+                                 f"{errs_mb[-1]} / {errs[-1]}: the pipeline is not one "
+                                 "process's forward")
+    print(f"(c) the same trunk over {PP_WORLD} stages (stage s reading layer s, the embedding "
+          f"and the final norm), {PP_BATCH} x {PP_TOKENS} token ids, M = {PP_MICRO}, "
+          f"collect_taps {PP_TAPS} (f32, TF32 off): max abs diff by stage against one process's "
+          f"forward of the same {PP_MICRO} microbatches {errs_mb!r} (rtol = atol = {PP_TOL}); "
+          f"against its forward of the whole batch {errs!r} (largest |value| {top!r}; within "
+          f"{PP_TOL} of it)")
+    print(f"    timed ({card}): the pipelined forward {[x['pp_ms'] for x in t]!r} ms by stage "
+          f"(CUDA events), one process {t[0]['one_pp_ms']!r}; once more with each exchange and "
+          f"broadcast synchronised: {t[0]['exchanges']} of them, {t[0]['exchange_ms']!r} ms of "
+          f"{t[0]['exchange_run_ms']!r} ({t[0]['exchange_ms'] / t[0]['exchange_run_ms']:.1%}; "
+          f"stage {PP_WORLD - 1}: {t[-1]['exchange_ms'] / t[-1]['exchange_run_ms']:.1%})")
+    print(f"    memory by stage: weights {[x['weights_gib'] for x in p]!r} GiB, the forward's "
+          f"peak above them {[x['forward_gib'] for x in p]!r}; one process: weights "
+          f"{p[0]['one_weights_gib']!r} GiB, forward {p[0]['one_forward_gib']!r}")
+    if not all(math.isfinite(x) for x in [*(y["pp_ms"] for y in t), t[0]["one_pp_ms"],
+                                          *(y["combined_ms"] for y in t),
+                                          t[0]["one_combined_ms"]]):
+        raise AssertionError("phase 30: a time is not finite")
+    return {r["rank"]: {"hierarchical": fusion_launches(r["hier"]["hier_launches"]),
+                        "combined": fusion_launches(r["combined"]["launches"])}
+            for r in reports}
+
+
+def pp_only(torch) -> None:
+    """``chip_smoke.py --pp-only``: phase 30 alone, from its own inputs (the
+    synthetic store, its own trunk directory), its side work and timed part
+    run back to back."""
+    from sdumc_tpu_torch.parallel.multihost import LocalProcesses
+
+    card = card_line()
+    with tempfile.TemporaryDirectory() as work:
+        with LocalProcesses() as procs:
+            pp_dir = start_pp_phase(procs, work)
+            t0 = time.perf_counter()
+            procs.wait(until=lambda: all(os.path.exists(os.path.join(pp_dir, f"side{r}.json"))
+                                         for r in range(PP_WORLD)),
+                       timeout=WAIT_SECONDS["pp side"])
+            print(f"phase 30's untimed work: {time.perf_counter() - t0!r} s")
+            t0 = time.perf_counter()
+            print(pp_phase(torch, procs, pp_dir, card))
+            print(f"phase 30: {time.perf_counter() - t0!r} s")
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3, 17 and 19 (without the gradient checks) with the kernels
     of the checkout at `root`, built from its own sources into its own
@@ -6018,12 +6578,16 @@ def main() -> int:
     parser.add_argument("--serve-decode", help=argparse.SUPPRESS)
     parser.add_argument("--dp-worker", help=argparse.SUPPRESS)
     parser.add_argument("--tp-worker", help=argparse.SUPPRESS)
+    parser.add_argument("--pp-worker", help=argparse.SUPPRESS)
+    parser.add_argument("--pp-only", action="store_true",
+                        help="phase 30 alone, from its own inputs")
     parser.add_argument("--tp-cli", type=int, metavar="N",
                         help="phase 29 (a) alone: cli.extract text and feat4 at --tp N against "
                              "--tp 1 (one rank a card: NCCL)")
     args = parser.parse_args()
     main_run = not any((args.ab, args.kernels_from, args.serve, args.serve_decode,
-                        args.dp_worker, args.tp_worker, args.tp_cli))
+                        args.dp_worker, args.tp_worker, args.tp_cli, args.pp_worker,
+                        args.pp_only))
     building = start_kernel_build() if main_run else None
     import torch
 
@@ -6050,6 +6614,16 @@ def main() -> int:
         return 0
     if args.tp_worker:
         tp_worker(torch, args.tp_worker)
+        return 0
+    if args.pp_worker:
+        pp_worker(torch, args.pp_worker)
+        return 0
+    if args.pp_only:
+        from sdumc_tpu_torch.ops.kernels import build
+
+        print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        build.build()
+        pp_only(torch)
         return 0
     if args.tp_cli:
         print(f"card: {card_line()} x {torch.cuda.device_count()}; torch {torch.__version__}")
@@ -6120,19 +6694,22 @@ def main() -> int:
         bf16_counts = phase(21, bf16_extraction_phase, torch, work, feats_dir, f32_rate)
         phase(22, asr_phase, torch, work, llm_dir)
         phase(23, vision_phase, torch, work, card)
-        with LocalProcesses() as tp_procs:  # phase 29's work that times nothing, beside phase 24's
+        # phases 29 and 30's work that times nothing, beside phase 24's
+        with LocalProcesses() as tp_procs, LocalProcesses() as pp_procs:
             tp_dir, tp_clis = start_tp_phase(tp_procs, work, llm_dir, proj_path, feats_dir)
-            heartbeats.append(os.path.join(tp_dir, "alive"))
+            pp_dir = start_pp_phase(pp_procs, work)
+            heartbeats.extend(os.path.join(d, "alive") for d in (tp_dir, pp_dir))
             phase(24, baseline_phase, torch, work, card,
-                  lambda: wait_tp_side(tp_procs, tp_dir, tp_clis))
+                  lambda: wait_side(tp_procs, tp_dir, tp_clis, pp_procs, pp_dir))
             phase(25, text_families_phase, torch, work, rows)
             served = phase(26, serve_phase, torch, work,
                            os.path.join(work, "train", "best_full.pt"), card)
             phase(27, decode_serve_phase, torch, work, llm_dir, card)
             dp_launches = phase(28, dp_phase, torch, work, history[0], step_ms, card)
             tp = phase(29, tp_phase, torch, tp_procs, tp_dir, work, depth, text_depth, card)
+            pp_launches = phase(30, pp_phase, torch, pp_procs, pp_dir, card)
     tp_launches, block = tp["launches"], tp["block"]
-    print(f"phases 2-29: {time.perf_counter() - t_phases!r} s")
+    print(f"phases 2-30: {time.perf_counter() - t_phases!r} s")
 
     kernels = []
     for q_count, (name, replaces) in REPLACES.items():
@@ -6184,6 +6761,8 @@ def main() -> int:
           f"{ {REPLACES[q][0]: n for q, n in served.items()} }; each rank of cli.train "
           "--multihost over 2 processes, phase 28: "
           f"{ {r: {REPLACES[int(q)][0]: n for q, n in c.items()} for r, c in dp_launches.items()} }"
+          "; each rank of one step on the 2 x 2 hierarchical axis and of one combined TP 2 x DP 2 "
+          f"step over 4 processes, phase 30: {pp_launches}"
           "), cli.extract audio "
           "for flash_wavlm, cli.train --feature_dtype bfloat16 on the bf16 store for the "
           "bf16 instances (the int8 store's run: "

@@ -12,6 +12,8 @@ them) and moved to the target device at once, so a 7B load never holds an
 f32 copy or the whole checkpoint on the host. Given a model axis (``--tp
 N``), each rank keeps only its slice of every split tensor as it is read
 (``parallel/sharding.py``): no rank holds the whole checkpoint on its card.
+Given a stage axis (``parallel/pipeline.py``), each stage reads only its
+layers' keys, the embedding and the final norm.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from sdumc_tpu_torch.convert import safetensors_io
 from sdumc_tpu_torch.models.llama import (LlamaConfig, LlamaModel, model_from_state_dict,
                                           tp_model_from_state_dict)
 from sdumc_tpu_torch.ops.quant import quantize_params
-from sdumc_tpu_torch.parallel import sharding
+from sdumc_tpu_torch.parallel import pipeline, sharding
 
 # keys of older HF checkpoints that the port computes instead of loading
 IGNORED_SUFFIXES = ("rotary_emb.inv_freq",)
@@ -57,17 +59,20 @@ def target_dtype(key: str, dtype) -> torch.dtype:
 
 
 def iter_state_dict(model_dir: str, dtype=torch.bfloat16, device="cpu", prefix: str = "",
-                    part: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None
+                    part: Optional[Callable[[str, torch.Tensor], torch.Tensor]] = None,
+                    keep: Optional[Callable[[str], bool]] = None
                     ) -> Iterator[Tuple[str, torch.Tensor]]:
     """(key, tensor) of every weight whose key starts with ``prefix`` (the
     key given without it), one shard at a time, each cast and moved as it
-    is read. ``part(key, tensor)``, if given, picks what is kept of each
+    is read. ``keep(key)``, if given, says which keys are read at all (a
+    stage's). ``part(key, tensor)``, if given, picks what is kept of each
     tensor (a rank's slice) before the cast and the move: only that slice
     is read from the mapped file and reaches the device."""
     for path in safetensors_io.weight_files(model_dir):
         shard = safetensors_io.load_weight_file(path)
         for key in list(shard):
-            if key.endswith(IGNORED_SUFFIXES) or not key.startswith(prefix):
+            if (key.endswith(IGNORED_SUFFIXES) or not key.startswith(prefix)
+                    or (keep is not None and not keep(key[len(prefix):]))):
                 continue
             t = shard[key] if part is None else part(key[len(prefix):], shard[key])
             yield key[len(prefix):], t.to(device=device, dtype=target_dtype(key, dtype))
@@ -96,17 +101,26 @@ def _rank_state_dict(model_dir: str, cfg: LlamaConfig, dtype, device, prefix: st
     return sd, specs
 
 
-def load_hf_llama_trunk(model_dir: str, device="cpu", dtype=torch.bfloat16, axis=None):
+def load_hf_llama_trunk(model_dir: str, device="cpu", dtype=torch.bfloat16, axis=None,
+                        stage=None):
     """(LlamaConfig, LlamaModel in eval mode on ``device``): the decoder
     trunk of an HF-format directory (the ``model.*`` weights); ``lm_head``
     is never read onto the device. ``axis`` (a ``parallel.ModelAxis`` of
     world > 1): the rank's tensor-parallel trunk, of which only the rank's
-    slices are read. Raises as ``load_hf_llama`` does."""
+    slices are read. ``stage`` (the stage axis of ``parallel.pipeline``, of
+    world > 1): the stage's trunk (``pipeline.stage_model_from_state_dict``),
+    of which only the stage's layers, the embedding and the final norm are
+    read. Raises as ``load_hf_llama`` does."""
     cfg = _read_config(model_dir, dtype)
     try:
         if axis is not None and axis.world > 1:
             sd, specs = _rank_state_dict(model_dir, cfg, dtype, device, "model.", axis)
             return cfg, tp_model_from_state_dict(cfg, sd, specs, axis, trunk=True)
+        if stage is not None and stage.world > 1:
+            layers = pipeline.stage_layers(cfg.num_layers, stage)
+            sd = dict(iter_state_dict(model_dir, dtype, device, prefix="model.",
+                                      keep=lambda key: pipeline.in_stage(key, layers)))
+            return cfg, pipeline.stage_model_from_state_dict(cfg, sd, stage)
         sd = dict(iter_state_dict(model_dir, dtype, device, prefix="model."))
         with torch.device("meta"):
             trunk = LlamaModel(cfg)

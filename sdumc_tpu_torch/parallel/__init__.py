@@ -1,12 +1,14 @@
-"""Data, tensor and sequence parallelism across processes (the JAX
-package's ``parallel/``: ``mesh.py``, ``multihost.py``, ``sharding.py``,
-``ring_attention.py`` and ``wavlm_sp.py``; the GPipe schedule and the
-combined program are not ported yet)."""
+"""Data, tensor, sequence and pipeline parallelism across processes (the
+JAX package's ``parallel/``: ``mesh.py``, ``multihost.py``, ``sharding.py``,
+``ring_attention.py``, ``wavlm_sp.py``, ``pipeline.py`` and
+``combined.py``)."""
 
 from sdumc_tpu_torch.parallel.mesh import (  # noqa: F401
     DataAxis,
     ModelAxis,
     make_data_axis,
+    make_hierarchical_mesh,
+    make_mesh,
     make_model_axis,
     shard_batch,
 )
@@ -23,6 +25,12 @@ from sdumc_tpu_torch.parallel.multihost import (  # noqa: F401
     run_local_ranks,
     shutdown,
     warmup_collectives,
+)
+from sdumc_tpu_torch.parallel.pipeline import (  # noqa: F401
+    llama_pp_forward,
+    pipeline_apply,
+    stage_layers,
+    stage_model_from_state_dict,
 )
 from sdumc_tpu_torch.parallel.ring_attention import (  # noqa: F401
     ring_attention_sharded,
@@ -41,3 +49,4 @@ from sdumc_tpu_torch.parallel.sharding import (  # noqa: F401
     wavlm_specs,
 )
 from sdumc_tpu_torch.parallel.wavlm_sp import wavlm_forward_sp  # noqa: F401
+from sdumc_tpu_torch.parallel.combined import make_tp_dp_dual_step  # noqa: F401,E402

@@ -17,9 +17,12 @@ jitting one program over a batch-sharded global array; here each rank:
 
 Metric sums are reduced once an epoch (``process_metrics``) and the eval
 predictions gathered once a pass (``gather_eval``). The collectives run on
-the rank's device through the default group, and every one is an
-``all_reduce``, which gloo takes on CUDA tensors (two ranks sharing a card)
-as NCCL does: one path for both. (gloo's ``all_gather`` took CUDA tensors
+the rank's device through the data axis's group (``DataAxis.group``: the
+default group, or a column of a ``make_mesh`` grid), and every one is an
+``all_reduce`` (the gradient sum of a hierarchical axis a reduce-scatter,
+an all-reduce and an all-gather: ``DataAxis.all_reduce``), which gloo
+takes on CUDA tensors (two ranks sharing a card) as NCCL does: one path
+for both. (gloo's ``all_gather`` took CUDA tensors
 too on the card's torch 2.11, ``chip_smoke.py`` phase 28; the gather's
 ``all_reduce`` into zeros moves world times its few kilobytes a step.)
 ``torch.distributed`` is imported inside the functions: importing this
@@ -141,7 +144,7 @@ def warmup_collectives(axis: DataAxis) -> None:
     if axis.world == 1:
         return
     dist.barrier()
-    dist.all_reduce(torch.zeros(1, device=axis.device))
+    dist.all_reduce(torch.zeros(1, device=axis.device), group=axis.group)
     dist.all_reduce(torch.zeros(1, dtype=torch.int64), group=axis.host_group)
 
 
@@ -190,19 +193,19 @@ class _GatherRows(torch.autograd.Function):
     global one (``reduce_gradients``)."""
 
     @staticmethod
-    def forward(ctx, x, rank, world):
+    def forward(ctx, x, rank, world, group):
         import torch.distributed as dist
 
         ctx.rank, ctx.world = rank, world
         buf = x.new_zeros((world,) + tuple(x.shape))
         buf[rank] = x
-        dist.all_reduce(buf)                    # x + zeros: exact
+        dist.all_reduce(buf, group=group)       # x + zeros: exact
         return buf.transpose(0, 1).reshape((world * x.shape[0],) + tuple(x.shape[1:]))
 
     @staticmethod
     def backward(ctx, grad):
         rows = grad.reshape((-1, ctx.world) + tuple(grad.shape[1:]))[:, ctx.rank]
-        return rows, None, None
+        return rows, None, None, None
 
 
 def gather_rows(axis: DataAxis, *tensors: torch.Tensor) -> tuple:
@@ -216,7 +219,7 @@ def gather_rows(axis: DataAxis, *tensors: torch.Tensor) -> tuple:
         return tensors
     rows = tensors[0].shape[0]
     flat = [t.reshape(rows, -1).float() for t in tensors]
-    packed = _GatherRows.apply(torch.cat(flat, dim=1), axis.rank, axis.world)
+    packed = _GatherRows.apply(torch.cat(flat, dim=1), axis.rank, axis.world, axis.group)
     parts = packed.split([f.shape[1] for f in flat], dim=1)
     return tuple(p.reshape((-1,) + tuple(t.shape[1:])).to(t.dtype)
                  for p, t in zip(parts, tensors))
@@ -224,15 +227,14 @@ def gather_rows(axis: DataAxis, *tensors: torch.Tensor) -> tuple:
 
 def reduce_gradients(params, axis: DataAxis) -> None:
     """Sum every parameter's gradient over the ranks, in place: one
-    all_reduce of all of them flattened into one buffer. A parameter
-    without a gradient keeps none (the same ones on every rank)."""
-    import torch.distributed as dist
-
+    ``axis.all_reduce`` (flat, or hierarchical on a hierarchical axis) of
+    all of them flattened into one buffer. A parameter without a gradient
+    keeps none (the same ones on every rank)."""
     grads = [p.grad for p in params if p.grad is not None]
     if axis.world == 1 or not grads:
         return
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat)
+    axis.all_reduce(flat)
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
 
@@ -251,7 +253,7 @@ def process_metrics(sums: Dict[str, torch.Tensor], axis: DataAxis) -> Dict[str, 
     if axis.world > 1:
         summed = torch.tensor([k in LOCAL_SUMS for k in keys], device=values.device)
         total = torch.where(summed, values, torch.zeros_like(values))
-        dist.all_reduce(total)
+        dist.all_reduce(total, group=axis.group)
         values = torch.where(summed, total, values)
     return dict(zip(keys, values.tolist()))
 
@@ -270,7 +272,7 @@ def gather_eval(arrays: Sequence[np.ndarray], axis: DataAxis, total: int) -> lis
         buf[axis.rank, i * cap:i * cap + n] = torch.from_numpy(np.asarray(a, np.float64))
     buf[axis.rank, -1] = n
     buf = buf.to(axis.device)
-    dist.all_reduce(buf)
+    dist.all_reduce(buf, group=axis.group)
     host = buf.cpu().numpy()
     counts = host[:, -1].astype(int)
     out = []

@@ -56,6 +56,12 @@ WavLM kernel's block instance (ring attention's step, with each row's
 log-sum-exp) is held to its plain version at offset key blocks, and two
 sequence-parallel ranks on the card (the ring's rotation through gloo's
 page-locked host copies) give a tiny WavLM's taps of the single process.
+Four ranks on the card over gloo sum a vector on the 2 x 2 hierarchical
+axis (gloo's reduce-scatter and all-gather on CUDA tensors), and pass a
+pipeline's microbatches stage to stage (send and receive through
+page-locked host copies, bf16 as its bit patterns; the last stage's
+broadcast): the tanh-affine pipeline at f32 and bf16 and a tiny LLaMA's
+pipelined forward equal the single process on the CPU.
 """
 
 import math
@@ -1731,3 +1737,84 @@ def test_two_rank_sequence_parallel_wavlm_on_card_matches_cpu(cuda, tmp_path):
         assert got["block"] == 2 * wcfg.num_layers and got["flash"] == 0
         for g, w in zip(got["hidden"], want):
             torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
+_PP_RANK = """
+import sys
+import torch
+from sdumc_tpu_torch.cli.common import set_matmul_precision
+from sdumc_tpu_torch.models.llama import LlamaConfig
+from sdumc_tpu_torch.parallel import (initialize_from_env, llama_pp_forward,
+                                      make_hierarchical_mesh, make_model_axis, pipeline_apply,
+                                      shutdown, stage_layers, stage_model_from_state_dict)
+
+work = sys.argv[1]
+set_matmul_precision("highest")
+rank, world = initialize_from_env(device="cuda")
+dev = torch.device("cuda", torch.cuda.current_device())
+case = torch.load(work + "/case.pt")
+hier = make_hierarchical_mesh(dev, 2, 2)
+summed = hier.all_reduce(case["vectors"][rank].to(dev))
+stage = make_model_axis(dev, world)
+out = {"summed": summed.cpu(), "ici": hier.ici}
+with torch.inference_mode():
+    for dtype in (torch.float32, torch.bfloat16):
+        w, b = case["w"].to(dev, dtype), case["b"].to(dev, dtype)
+        mine = [(w[i], b[i]) for i in stage_layers(w.shape[0], stage)]
+        out[str(dtype)] = pipeline_apply(
+            stage, lambda lp, h, e: torch.tanh(h @ lp[0] + lp[1]), mine,
+            case["x"].to(dev, dtype), n_microbatches=4).cpu()
+    model = stage_model_from_state_dict(LlamaConfig.tiny(num_layers=8),
+                                        {k: v.to(dev) for k, v in case["llama"].items()}, stage)
+    out["last"], out["taps"] = (t.cpu() for t in llama_pp_forward(
+        model, stage, input_ids=case["ids"].to(dev), n_microbatches=2, collect_taps=2))
+torch.save(out, work + f"/pp{rank}.pt")
+shutdown()
+"""
+
+
+@pytest.mark.cuda
+def test_four_rank_hierarchical_sum_and_pipeline_on_card(cuda, tmp_path):
+    """Four ranks on the card over gloo: the 2 x 2 hierarchical sum of a
+    vector of 1001 elements (not a multiple of the pod, so the last part is
+    padded) equals the plain sum, exactly for these integers; the
+    tanh-affine pipeline (8 layers, 4 stages, 4 microbatches) equals the
+    sequential layers on the CPU at f32 (this file's tolerance) and at bf16
+    (the same bf16 products: 2 bf16 ulps); a tiny LLaMA's pipelined forward
+    (8 layers over 4 stages, 2 microbatches, 2 taps) equals the single
+    process's forward on the CPU."""
+    import importlib.util
+    import pathlib
+    import sys
+
+    from sdumc_tpu_torch.models.llama import LlamaConfig, LlamaModel, init_weights
+
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_multihost", pathlib.Path(__file__).with_name("test_torch_multihost.py"))
+    helpers = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(helpers)
+    rng = np.random.default_rng(20)
+    vectors = torch.from_numpy(rng.integers(-1000, 1000, (4, 1001)).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(8, 16, 16)) * 0.3).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(8, 16)).astype(np.float32))
+    llama = init_weights(LlamaModel(LlamaConfig.tiny(num_layers=8)), seed=0).eval()
+    ids = torch.from_numpy(rng.integers(0, 128, (4, 12)))
+    torch.save({"vectors": vectors, "w": w, "b": b, "x": x, "llama": llama.state_dict(),
+                "ids": ids}, tmp_path / "case.pt")
+    helpers.run_ranks(4, [sys.executable, "-c", _PP_RANK, str(tmp_path)])
+    with torch.inference_mode():
+        ref = llama(input_ids=ids, output_hidden_states=True)
+    for rank in range(4):
+        got = torch.load(tmp_path / f"pp{rank}.pt")
+        assert got["ici"] == 2
+        assert torch.equal(got["summed"], vectors.sum(0))
+        for dtype in (torch.float32, torch.bfloat16):
+            y = x.to(dtype)
+            for i in range(8):
+                y = torch.tanh(y @ w[i].to(dtype) + b[i].to(dtype))
+            tol = (dict(rtol=RTOL, atol=ATOL) if dtype == torch.float32
+                   else dict(rtol=2 ** -7, atol=2 ** -7))
+            torch.testing.assert_close(got[str(dtype)], y, **tol)
+        torch.testing.assert_close(got["last"], ref["last_hidden_state"], rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(got["taps"][0], ref["hidden_states"][7], rtol=RTOL, atol=ATOL)
