@@ -228,17 +228,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
      family, idle share, launches);
  28. data-parallel training: two ranks on the card over gloo (NCCL takes
      one rank a device), each started as ``chip_smoke.py --dp-worker``
-     with the SDUMC_* environment: (a) from the seeded weights with
-     dropout off, the 2-rank step on the first train batch (16 rows each,
-     the global-batch loss) against the single-process step (32 rows) on
-     the card, the loss to STEP_LOSS_RTOL and every gradient to phase 8's
-     ratio, which the control (each rank's own loss, gradients averaged)
-     must exceed; the warm DP step and the gradient all_reduce timed
-     (CUDA events) beside phase 9's step; (b) ``cli.train --multihost
-     --synthetic --epochs 1`` in the two processes: identical metrics on
-     both ranks, within JAX's 0.05 of phase 7's first epoch, each rank's
-     fusion launches 3 a batch and Q, and rank 0's best_full.pt (rank 0
-     alone writes) through cli.infer reproducing its MAE;
+     with the SDUMC_* environment beside phase 24's runs, which time
+     nothing (phase 24 waits for this work too); there: (b) ``cli.train
+     --multihost --synthetic --epochs 1`` and the same with ``--model
+     mfm``, rank 0's best_full.pt of each (rank 0 alone writes) through
+     cli.infer; then from the seeded weights with dropout off, on the
+     first train batch (16 rows a rank): (a) the 2-rank step against the
+     single-process step (32 rows) on the card, and the control, each
+     rank's own loss with the gradients averaged; (c) the same for the
+     four baseline families whose model_loss couples the batch's rows
+     (misa, mmim, mfm, mctn) with live batch-wide draws (``mfm_mmd_w`` 1,
+     ``mctn_teacher_forcing`` 0.5), their control each rank's own
+     model_loss averaged (mctn: each rank's own teacher mask). Phase 28
+     itself, nothing else on the card: the warm DP steps and the fusion
+     net's gradient all_reduce timed (CUDA events) beside phases 9 and
+     24's single-process steps; then held: (a) the loss to STEP_LOSS_RTOL
+     and every gradient to phase 8's ratio, which the control must
+     exceed; (b) identical metrics on both ranks, within JAX's 0.05 of
+     phase 7's first epoch, each rank's fusion launches 3 a batch and Q,
+     rank 0's best_full.pt reproducing its MAE; (c) per family as (a),
+     both ranks' losses, gradients and parameters equal to the bit, no
+     kernel launched; the mfm epoch's logs the same on both ranks and
+     finite, no kernel launched, its checkpoint reproducing its MAE;
  29. tensor and sequence parallelism: two ranks on the card over gloo. Its parts that
      time nothing run beside phase 24's runs, which time nothing either
      (phase 24 waits for them before it times its steps): (a) ``python -m
@@ -359,7 +370,7 @@ T_START = time.perf_counter()
 # stack and exits non-zero.
 PHASE_BUDGET = {2: 18, 3: 1, 4: 5, 5: 17, 7: 18, 8: 4, 9: 7, 10: 16, 11: 35, 12: 25, 13: 5,
                 14: 6, 15: 44, 16: 16, 17: 2, 18: 33, 19: 3, 20: 1, 21: 15, 22: 32, 23: 74,
-                24: 165, 25: 45, 26: 75, 27: 180, 28: 40, 29: 17, 30: 25}
+                24: 170, 25: 45, 26: 75, 27: 180, 28: 8, 29: 17, 30: 25}
 PHASE_MIN_BOUND = 120
 SCRIPT_DEADLINE = 1180
 # Every wait of the main run is bounded at about 3 x what it took in measured runs
@@ -369,7 +380,8 @@ WAIT_SECONDS = {
     "serve": 100,                   # 33 s
     "cli.export --decode": 120,     # 37-39 s
     "serve --decode": 105,          # 34 s
-    "dp ranks": 100,                # phase 28: 31 s
+    "dp side": 150,                 # phase 28's work beside phase 24, from its start: 48 s
+    "dp ranks": 15,                 # phase 28's timed steps: 4.3 s
     # phase 24's wait past its own runs for phase 29's side work (its long pole
     # ``cli.extract feat4 --tp 2``): 27.3 s, and 38.2 s on a host about 1.45 times
     # slower; about 100 s expected on a host whose gloo is the slow kind (PERF.md
@@ -3629,9 +3641,9 @@ class SharedSyntheticSources:
 
 def baseline_cli_runs(torch, tmp: str, card: str) -> None:
     """Each family through cli.train (one epoch) and its best_full.pt
-    through cli.infer, with the launch counters around both; then tfn with
-    --feature_dtype bfloat16. The runs share one synthetic store
-    (``SharedSyntheticSources``)."""
+    through cli.infer, with the launch counters around both, mult first;
+    then tfn with --feature_dtype bfloat16. The runs share one synthetic
+    store (``SharedSyntheticSources``)."""
     with SharedSyntheticSources():
         baseline_runs(torch, tmp, card)
 
@@ -3639,7 +3651,11 @@ def baseline_cli_runs(torch, tmp: str, card: str) -> None:
 def baseline_runs(torch, tmp: str, card: str) -> None:
     from sdumc_tpu_torch.cli import infer, train
 
-    for name, dtype in [(n, "float32") for n in BASELINES] + [("tfn", "bfloat16")]:
+    # mult's epoch holds about 35 GiB of the card: first, while the side work
+    # beside phase 24 is still starting, and its cache emptied after each run
+    # (with it last, the side work and this run together filled the card)
+    order = sorted(BASELINES, key=lambda n: n != "mult")
+    for name, dtype in [(n, "float32") for n in order] + [("tfn", "bfloat16")]:
         bf16 = dtype == "bfloat16"
         ck = os.path.join(tmp, name + ("_bf16" if bf16 else ""))
         argv = BASELINE_ARGV + ["--model", name, "--feature_dtype", dtype]
@@ -3667,6 +3683,7 @@ def baseline_runs(torch, tmp: str, card: str) -> None:
             raise AssertionError(f"{name}: a baseline launched a kernel of the port: {counts}")
         if abs(mae - best) > CKPT_MAE_RTOL * abs(best):
             raise AssertionError(f"{name}: the best checkpoint does not reproduce its MAE")
+        torch.cuda.empty_cache()
 
 
 def baseline_parity(torch, cfg, batch, dims, card: str) -> None:
@@ -4902,6 +4919,11 @@ DP_WORLD = 2                 # two ranks on the one card, over gloo
 DP_ARGV = MAIN_ARGV + ["--epochs", "1", "--multihost"]
 DP_METRIC_ATOL = 0.05        # JAX's bound against a single process (tests/test_multihost.py:119-121)
 DP_TIMED = 10
+# (c): the baseline families whose model_loss couples the batch's rows
+BDP_FAMILIES = ("misa", "mmim", "mfm", "mctn")
+BDP_DRAWS = dict(mfm_mmd_w=1.0, mctn_teacher_forcing=0.5)   # live batch-wide draws
+BDP_CLI_MODEL = "mfm"        # the family with the most batch-coupled terms
+BDP_TIMED, BDP_WARMUP = 3, 1  # phase 24's BASELINE_TIMED_STEPS and BASELINE_WARMUP
 
 
 def fresh_fusion_state(torch, cfg, dims):
@@ -4913,7 +4935,7 @@ def fresh_fusion_state(torch, cfg, dims):
     from sdumc_tpu_torch.train.state import create_train_state
 
     mcfg = dataclasses.replace(cfg.model, input_dims=dims[:3], dropout=0.0, attn_dropout=0.0)
-    model = get_model(mcfg, torch.Generator().manual_seed(cfg.train.seed)).to("cuda")
+    model = get_model(mcfg, torch.Generator().manual_seed(cfg.train.seed)).to(DEVICE)
     return create_train_state(model, cfg.train, 8)
 
 
@@ -4939,131 +4961,261 @@ def dropout_off_step(torch, cfg, dims, d, axis=None, local_loss: bool = False):
         loss = loss.item()
     else:
         loss = step(d)["loss"].item()
-    return model, step, loss, {k: p.grad.cpu() for k, p in model.named_parameters()
-                               if p.grad is not None}
+    return model, step, loss, grads_of(model)
+
+
+def grads_of(model) -> dict:
+    """{name: gradient on the CPU} of the parameters that have one."""
+    return {k: p.grad.detach().cpu() for k, p in model.named_parameters() if p.grad is not None}
+
+
+def worst_grad_ratio(g: dict, ref: dict) -> tuple:
+    """(the largest max-abs-diff / (GRAD_RTOL max|ref| + GRAD_ATOL) over the
+    parameters, its parameter): phase 8's ratio of a step's gradients `g`
+    against the single-process step's `ref` ({name: tensor} each)."""
+    if g.keys() != ref.keys():
+        raise AssertionError("DP and single-process steps give gradients to different "
+                             "parameters")
+    return max(((g[k] - r).abs().max().item() / (GRAD_RTOL * r.abs().max().item() + GRAD_ATOL),
+                k) for k, r in ref.items())
+
+
+def bdp_model(torch, cfg, dims, name: str, dropout_off: bool):
+    """Family `name` at ModelConfig's widths from the seeded weights, with
+    BDP_DRAWS, on the card."""
+    import dataclasses
+
+    from sdumc_tpu_torch.models import get_model
+
+    mcfg = dataclasses.replace(cfg.model, name=name, input_dims=dims, **BDP_DRAWS,
+                               **(dict(dropout=0.0) if dropout_off else {}))
+    return get_model(mcfg, torch.Generator().manual_seed(cfg.train.seed)).to(DEVICE)
+
+
+def own_rows_control(model, world: int) -> None:
+    """The control of (c): mctn's teacher-forcing mask from each rank's own
+    stream (its terms are means over rows), the others' model_loss each
+    rank's own (of its rows, with its own prior samples) averaged over the
+    ranks."""
+    if model.cfg.name == "mctn":
+        model.teacher.generator = model.drop.generator
+        return
+    whole = model.batch_loss
+    model.batch_loss = lambda rows: sum(
+        whole(tuple(t[q::world] for t in rows)) for q in range(world)) / world
+
+
+def fresh_coordinator(work: str, rank: int, name: str) -> None:
+    """Point SDUMC_COORDINATOR at a port that rank 0 has just found free and
+    published in `work`/`name`.coordinator: a port picked long before its
+    use can be taken meanwhile by another process's socket."""
+    from sdumc_tpu_torch.parallel.multihost import free_port
+
+    path = os.path.join(work, name + ".coordinator")
+    if rank == 0:
+        with open(path + ".tmp", "w") as f:
+            f.write(f"127.0.0.1:{free_port()}")
+        os.replace(path + ".tmp", path)
+    deadline = time.monotonic() + RANK_COLLECTIVE_SECONDS
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"rank 0 published no coordinator in {RANK_COLLECTIVE_SECONDS} s")
+        time.sleep(0.05)
+    with open(path) as f:
+        os.environ["SDUMC_COORDINATOR"] = f.read()
+
+
+def multihost_epoch(torch, work: str, rank: int, name: str, extra: list) -> dict:
+    """``cli.train --multihost --epochs 1`` (DP_ARGV + `extra`) on the
+    rendezvous SDUMC_COORDINATOR names, the launch counters around it, its
+    checkpoints in `work`/`name`/ck{rank}; on rank 0 its best_full.pt
+    through cli.infer (one process, after the group has gone)."""
+    from sdumc_tpu_torch.cli import infer, train
+    from sdumc_tpu_torch.ops.kernels import fused_cross
+
+    ck = os.path.join(work, name, f"ck{rank}")
+    reset_counts()
+    result = train.main(DP_ARGV + extra + ["--checkpoint_dir", ck,
+                                           "--save_root", os.path.join(work, name, f"saved{rank}")])
+    record = {"history": result["history"], "best_full": result["best_full"],
+              "best_missing": result["best_missing"], "launches": dict(fused_cross.LAUNCHES),
+              "counts": read_counts()}
+    if rank == 0:
+        out = infer.main(MAIN_ARGV + extra + ["--checkpoint", os.path.join(ck, "best_full.pt")])
+        record["infer_mae"] = out["full"]["mae"]
+    return record
 
 
 def dp_worker(torch, work: str) -> None:
-    """One rank of phase 28, started with the SDUMC_* environment: (a) the
-    DP step, its timing and the local-loss control on this rank's rows of
-    the first train batch; (b) ``cli.train --multihost`` for one epoch on
-    a second rendezvous (SDUMC_COORDINATOR_LOOP). Rank 0 saves the step's
-    gradients; every rank writes rank{r}.json."""
+    """One rank of phase 28, started with the SDUMC_* environment beside
+    phase 24's runs. There: (b) ``cli.train --multihost --synthetic
+    --epochs 1`` on that rendezvous and (c) the same with ``--model mfm``
+    on a second, rank 0's best_full.pt of each through cli.infer; then, on
+    a third (``fresh_coordinator``), from the seeded weights with dropout
+    off on this rank's rows of the first train batch: (a) the fusion net's
+    DP step, the control (the rank's own loss, gradients averaged) and on
+    rank 0 the single-process step on the whole batch, gloo's all_gather
+    on CUDA tensors; (c) per family of BDP_FAMILIES with live draws the
+    same (its control ``own_rows_control``), the launch counters around
+    each DP step, its gradients and parameters to `work`/NAME{r}.pt;
+    writes side{r}.json. Then, once phase 28 writes `work`/go (nothing else
+    on the card): the fusion net's warm DP step and gradient all_reduce,
+    and each family's warm DP step with live dropouts, timed; writes
+    rank{r}.json. One synthetic store serves the whole worker
+    (``SharedSyntheticSources``)."""
     import torch.distributed as dist
 
-    from sdumc_tpu_torch.cli import train
     from sdumc_tpu_torch.cli.common import set_matmul_precision
     from sdumc_tpu_torch.data.pipeline import get_loaders
     from sdumc_tpu_torch.parallel import (initialize_from_env, make_data_axis,
                                           reduce_gradients, shard_batch, shutdown)
     from sdumc_tpu_torch.train.step import batch_to_device_dict
 
-    rank, world = initialize_from_env(device="cuda")
-    axis = make_data_axis(torch.device("cuda", torch.cuda.current_device()))
-    cfg = main_path_config()
-    set_matmul_precision(cfg.model.matmul_precision)
-    train_ds, _, _ = get_loaders(cfg.data.dataset, cfg.data, cfg.paths, synthetic=True)
-    dims = train_ds.input_dims()
-    local = shard_batch(batch_to_device_dict(first_train_batch(cfg, train_ds), "cuda"),
-                        rank, world)
-    report = {"rank": rank, "rows": int(local["vals"].shape[0])}
+    t0 = time.perf_counter()
+    rank = int(os.environ["SDUMC_PROCESS_ID"])
+    report = {"rank": rank, "families": {}}
+    with SharedSyntheticSources():
+        report["epoch"] = multihost_epoch(torch, work, rank, "fusion", [])
+        fresh_coordinator(work, rank, BDP_CLI_MODEL)
+        report["cli"] = multihost_epoch(torch, work, rank, BDP_CLI_MODEL,
+                                        ["--model", BDP_CLI_MODEL])
+        report["epochs_seconds"] = time.perf_counter() - t0
+        fresh_coordinator(work, rank, "steps")
+        _, world = initialize_from_env(device="cuda")
+        axis = make_data_axis(torch.device("cuda", torch.cuda.current_device()))
+        cfg = main_path_config()
+        set_matmul_precision(cfg.model.matmul_precision)
+        splits = get_loaders(cfg.data.dataset, cfg.data, cfg.paths, synthetic=True)
+    report["sizes"] = [len(ds) for ds in splits]
+    dims = splits[0].input_dims()
+    whole = batch_to_device_dict(first_train_batch(cfg, splits[0]), DEVICE)
+    local = shard_batch(whole, rank, world)
+    report["rows"] = int(local["vals"].shape[0])
+
     model, step, report["loss"], grads = dropout_off_step(torch, cfg, dims, local, axis)
-    if rank == 0:
-        torch.save(grads, os.path.join(work, "dp_grads.pt"))
-    report["step_ms"] = time_ms(lambda: step(local), iters=DP_TIMED, warmup=3)
-    report["allreduce_ms"] = time_ms(lambda: reduce_gradients(model.parameters(), axis),
-                                     iters=DP_TIMED, warmup=3)
-    del model, step
-    _, _, report["control_loss"], grads = dropout_off_step(torch, cfg, dims, local, axis,
-                                                           local_loss=True)
-    if rank == 0:
-        torch.save(grads, os.path.join(work, "control_grads.pt"))
-    x = torch.full((2,), float(rank), device="cuda")
+    _, _, report["control_loss"], control = dropout_off_step(torch, cfg, dims, local, axis,
+                                                             local_loss=True)
+    if rank == 0:                   # the other rank waits in its next collective
+        _, _, report["single_loss"], single = dropout_off_step(torch, cfg, dims, whole)
+        report["worst"] = worst_grad_ratio(grads, single)
+        report["control_worst"] = worst_grad_ratio(control, single)
+    x = torch.full((2,), float(rank), device=DEVICE)
     try:        # gloo's all_gather on CUDA tensors, for the record (the port gathers by all_reduce)
-        out = [torch.empty(2, device="cuda") for _ in range(world)]
+        out = [torch.empty(2, device=DEVICE) for _ in range(world)]
         dist.all_gather(out, x)
         report["gloo_all_gather_cuda"] = f"works: {[t.tolist() for t in out]}"
     except (RuntimeError, ValueError) as e:
         report["gloo_all_gather_cuda"] = f"raises {type(e).__name__}: {str(e).splitlines()[0]}"
-    shutdown()
 
-    os.environ["SDUMC_COORDINATOR"] = os.environ["SDUMC_COORDINATOR_LOOP"]
-    reset_counts()
-    result = train.main(DP_ARGV + ["--checkpoint_dir", os.path.join(work, f"ck{rank}"),
-                                   "--save_root", os.path.join(work, f"saved{rank}")])
-    from sdumc_tpu_torch.ops.kernels import fused_cross
-
-    report.update(history=result["history"], best_full=result["best_full"],
-                  best_missing=result["best_missing"], launches=dict(fused_cross.LAUNCHES),
-                  counts=read_counts())
-    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+    for name in BDP_FAMILIES:
+        fam = report["families"][name] = {}
+        family = bdp_model(torch, cfg, dims[:3], name, dropout_off=True)
+        reset_counts()
+        fam["loss"] = make_step(torch, cfg, family, axis)(local)["loss"].item()
+        fam["counts"] = read_counts()
+        g = grads_of(family)
+        torch.save({"g": g, "p": {k: p.detach().cpu() for k, p in family.named_parameters()}},
+                   os.path.join(work, f"{name}{rank}.pt"))
+        ctrl = bdp_model(torch, cfg, dims[:3], name, dropout_off=True)
+        ctrl_step = make_step(torch, cfg, ctrl, axis)
+        own_rows_control(ctrl, world)
+        fam["control_loss"] = ctrl_step(local)["loss"].item()
+        if rank == 0:
+            single = bdp_model(torch, cfg, dims[:3], name, dropout_off=True)
+            fam["single_loss"] = make_step(torch, cfg, single)(whole)["loss"].item()
+            fam["worst"] = worst_grad_ratio(g, grads_of(single))
+            fam["control_worst"] = worst_grad_ratio(grads_of(ctrl), grads_of(single))
+    report["side_seconds"] = time.perf_counter() - t0
+    report["reserved_gib"] = torch.cuda.max_memory_reserved() / 2**30
+    whole = single = family = ctrl = ctrl_step = None   # the card's memory back while it waits
+    torch.cuda.empty_cache()
+    with open(os.path.join(work, f"side{rank}.json"), "w") as f:
         json.dump(report, f, default=float)
 
+    wait_for_go(work, "phase 28")
+    report["step_ms"] = time_ms(lambda: step(local), iters=DP_TIMED, warmup=3)
+    report["allreduce_ms"] = time_ms(lambda: reduce_gradients(model.parameters(), axis),
+                                     iters=DP_TIMED, warmup=3)
+    del model, step
+    report["family_ms"] = {}
+    for name in BDP_FAMILIES:
+        fstep = make_step(torch, cfg, bdp_model(torch, cfg, dims[:3], name, dropout_off=False),
+                          axis)
+        report["family_ms"][name] = time_ms(lambda: fstep(local), iters=BDP_TIMED,
+                                            warmup=BDP_WARMUP)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(report, f, default=float)
+    shutdown()
 
-def dp_phase(torch, work: str, single_epoch: dict, single_step_ms: float, card: str) -> dict:
-    """Phase 28: data-parallel training, two ranks on the card over gloo.
-    (a) From the seeded weights with dropout off, on the first train batch,
-    the 2-rank step (16 rows each) against the single-process step (32
-    rows) on the card: the loss to STEP_LOSS_RTOL, every gradient to phase
-    8's ratio; the control (each rank's own loss, gradients averaged) must
-    exceed it. (b) ``cli.train --multihost --synthetic --epochs 1`` in two
-    processes: identical metrics on both ranks, within DP_METRIC_ATOL of
-    phase 7's first epoch, 3 launches per batch and Q on each rank, rank
-    0's best_full.pt through cli.infer reproducing its MAE. Returns the
-    launches of each rank."""
-    from sdumc_tpu_torch.cli import infer
-    from sdumc_tpu_torch.cli.common import set_matmul_precision
-    from sdumc_tpu_torch.data.pipeline import get_loaders
-    from sdumc_tpu_torch.parallel.multihost import LocalProcesses, free_port
-    from sdumc_tpu_torch.train.step import batch_to_device_dict
 
-    work = os.path.join(work, "dp")
-    os.makedirs(work)
-    cfg = main_path_config()
-    set_matmul_precision(cfg.model.matmul_precision)
-    train_ds, val_ds, test_ds = get_loaders(cfg.data.dataset, cfg.data, cfg.paths, synthetic=True)
-    batch = first_train_batch(cfg, train_ds)
-    model, _, loss, g_single = dropout_off_step(torch, cfg, train_ds.input_dims(),
-                                                batch_to_device_dict(batch, "cuda"))
-    del model
-    torch.cuda.empty_cache()
+def start_dp_phase(procs, work: str) -> str:
+    """Phase 28's work that times nothing, started in `procs` beside phase
+    24's runs: its two ranks (``chip_smoke.py --dp-worker``), which then
+    wait to time their steps in phase 28. Returns the phase's directory."""
+    dp_dir = os.path.join(work, "dp")
+    os.makedirs(dp_dir)
+    open(os.path.join(dp_dir, "alive"), "w").close()    # main() touches it at each phase
+    procs.start_ranks([sys.executable, os.path.abspath(__file__), "--dp-worker", dp_dir],
+                      DP_WORLD, env=RANK_ENV, log_dir=dp_dir,
+                      cwd=os.path.dirname(os.path.abspath(__file__)))
+    return dp_dir
 
-    with LocalProcesses() as procs:     # a rank that fails ends the phase
-        procs.start_ranks([sys.executable, os.path.abspath(__file__), "--dp-worker", work],
-                          DP_WORLD, env={"SDUMC_COORDINATOR_LOOP": f"127.0.0.1:{free_port()}",
-                                         **RANK_ENV},
-                          log_dir=work, cwd=os.path.dirname(os.path.abspath(__file__)))
-        procs.wait(timeout=WAIT_SECONDS["dp ranks"])
+
+def logged(record: dict) -> tuple:
+    """What a rank's cli.train logged, without its clips/s."""
+    return ([{k: v for k, v in h.items() if k != "clips_per_sec"} for h in record["history"]],
+            record["best_full"], record["best_missing"])
+
+
+def dp_phase(torch, procs, dp_dir: str, single_epoch, single_step_ms, zoo: dict,
+             card: str) -> dict:
+    """Phase 28: data-parallel training, two ranks on the card over gloo;
+    their untimed work ran beside phase 24 (``start_dp_phase``). Now the
+    ranks time their steps, then every part is held: (a) the fusion net's
+    2-rank step (16 rows each) against the single-process step (32 rows)
+    on the card, the loss to STEP_LOSS_RTOL, every gradient to phase 8's
+    ratio, which the control (each rank's own loss, gradients averaged)
+    must exceed; its warm step and gradient all_reduce beside phase 9's
+    step. (b) ``cli.train --multihost --synthetic --epochs 1``: identical
+    metrics on both ranks, within DP_METRIC_ATOL of phase 7's first epoch
+    (`single_epoch`), 3 launches per batch and Q on each rank, rank 0 alone
+    writing checkpoints, its best_full.pt through cli.infer reproducing its
+    MAE. (c) Per family of BDP_FAMILIES (dropout off, live draws) the same
+    as (a), the control each rank's own model_loss averaged (mctn: its own
+    teacher mask), both ranks' losses, gradients and parameters equal to
+    the bit, no kernel launched, its warm DP step beside phase 24's
+    single-process step (`zoo`); ``cli.train --multihost --model mfm`` as
+    (b), its metrics finite and no kernel launched. Returns the launches of
+    each rank in (b)."""
+    open(os.path.join(dp_dir, "go"), "w").close()
+    procs.wait(until=lambda: all(os.path.exists(os.path.join(dp_dir, f"rank{r}.json"))
+                                 for r in range(DP_WORLD)),
+               timeout=WAIT_SECONDS["dp ranks"])
     for rank in range(DP_WORLD):
-        with open(os.path.join(work, f"rank{rank}.log")) as f:
+        with open(os.path.join(dp_dir, f"rank{rank}.log")) as f:
             shown = [ln for ln in f.read().splitlines()
                      if ln.startswith(("multihost:", "epoch:", "best_test"))]
         print("\n".join(f"  rank {rank}: {ln}" for ln in shown))
     reports = []
     for rank in range(DP_WORLD):
-        with open(os.path.join(work, f"rank{rank}.json")) as f:
+        with open(os.path.join(dp_dir, f"rank{rank}.json")) as f:
             reports.append(json.load(f))
+    r0 = reports[0]
+    print(f"the ranks' work beside phase 24: {[r['side_seconds'] for r in reports]!r} s by rank, "
+          f"the two cli.train epochs {[r['epochs_seconds'] for r in reports]!r} of it; the "
+          f"card's memory reserved at most {[r['reserved_gib'] for r in reports]!r} GiB by rank")
 
-    def worst_ratio(g):
-        if g.keys() != g_single.keys():
-            raise AssertionError("DP and single-process steps give gradients to different "
-                                 "parameters")
-        return max(((g[k] - ref).abs().max().item() / (GRAD_RTOL * ref.abs().max().item()
-                                                        + GRAD_ATOL), k)
-                   for k, ref in g_single.items())
-
-    dp_loss = reports[0]["loss"]
-    worst, worst_key = worst_ratio(torch.load(os.path.join(work, "dp_grads.pt")))
-    ctrl, ctrl_key = worst_ratio(torch.load(os.path.join(work, "control_grads.pt")))
-    print(f"(a) one train step, {DP_WORLD} ranks x {reports[0]['rows']} rows vs one process x "
-          f"{batch.size} (dropout off, seeded weights, the card): loss {dp_loss!r} vs {loss!r} "
-          f"(rtol {STEP_LOSS_RTOL}, rank 1: {reports[1]['loss']!r}); {len(g_single)} gradients, "
-          f"worst max-abs-diff / (GRAD_RTOL max|grad| + GRAD_ATOL) = {worst!r} at {worst_key} "
-          f"(must be <= 1)")
+    (worst, worst_key), (ctrl, ctrl_key) = r0["worst"], r0["control_worst"]
+    print(f"(a) one train step, {DP_WORLD} ranks x {r0['rows']} rows vs one process x "
+          f"{DP_WORLD * r0['rows']} (dropout off, seeded weights, the card): loss {r0['loss']!r} vs "
+          f"{r0['single_loss']!r} (rtol {STEP_LOSS_RTOL}, rank 1: {reports[1]['loss']!r}); worst "
+          f"max-abs-diff / (GRAD_RTOL max|grad| + GRAD_ATOL) = {worst!r} at {worst_key} (must be "
+          f"<= 1)")
     print(f"    control, each rank's own loss with averaged gradients: losses "
           f"{[r['control_loss'] for r in reports]!r}, worst ratio {ctrl!r} at {ctrl_key} "
           f"(must be > 1)")
-    if abs(dp_loss - loss) > STEP_LOSS_RTOL * abs(loss) or worst > 1.0:
+    if abs(r0["loss"] - r0["single_loss"]) > STEP_LOSS_RTOL * abs(r0["single_loss"]) \
+            or worst > 1.0:
         raise AssertionError("the data-parallel step is not the single-process step")
     if ctrl <= 1.0:
         raise AssertionError("the gradient check does not tell the local-loss step apart")
@@ -5075,46 +5227,98 @@ def dp_phase(torch, work: str, single_epoch: dict, single_step_ms: float, card: 
           f"{ar_ms!r} ms ({ar_ms[0] / step_ms[0]:.1%} of rank 0's step) ({card}). Two ranks "
           f"on one card show correctness, not scaling.")
     print(f"    gloo all_gather on CUDA tensors (torch {torch.__version__}): "
-          f"{reports[0]['gloo_all_gather_cuda']}")
+          f"{r0['gloo_all_gather_cuda']}")
 
-    def logged(r):
-        return ([{k: v for k, v in h.items() if k != "clips_per_sec"} for h in r["history"]],
-                r["best_full"], r["best_missing"])
-
-    if any(logged(r) != logged(reports[0]) for r in reports[1:]):
-        raise AssertionError(f"the ranks log different metrics: {[logged(r) for r in reports]}")
-    (h,) = reports[0]["history"]
-    pairs = {"train_mse_full": (h["train_mse_full"], single_epoch["train_mse_full"]),
-             "train_mse_missing": (h["train_mse_missing"], single_epoch["train_mse_missing"]),
-             "eval_mse_full": (h["eval_mse_full"], single_epoch["eval_mse_full"]),
-             "test_mae_full": (h["test"]["full"]["mae"], single_epoch["test"]["full"]["mae"]),
-             "test_mae_missing": (h["test"]["missing"]["mae"],
-                                  single_epoch["test"]["missing"]["mae"])}
+    epochs = [r["epoch"] for r in reports]
+    if any(logged(e) != logged(epochs[0]) for e in epochs[1:]):
+        raise AssertionError(f"the ranks log different metrics: {[logged(e) for e in epochs]}")
+    (h,) = epochs[0]["history"]
+    pairs = {} if single_epoch is None else {
+        "train_mse_full": (h["train_mse_full"], single_epoch["train_mse_full"]),
+        "train_mse_missing": (h["train_mse_missing"], single_epoch["train_mse_missing"]),
+        "eval_mse_full": (h["eval_mse_full"], single_epoch["eval_mse_full"]),
+        "test_mae_full": (h["test"]["full"]["mae"], single_epoch["test"]["full"]["mae"]),
+        "test_mae_missing": (h["test"]["missing"]["mae"],
+                             single_epoch["test"]["missing"]["mae"])}
     print(f"(b) cli.train --multihost, {DP_WORLD} processes, 1 epoch (live dropouts): both ranks "
           f"log the same metrics; against phase 7's first epoch (atol {DP_METRIC_ATOL}): "
-          + ", ".join(f"{k} {a!r} vs {b!r}" for k, (a, b) in pairs.items()))
+          + (", ".join(f"{k} {a!r} vs {b!r}" for k, (a, b) in pairs.items())
+             or "not run (--dp-only)"))
     if any(abs(a - b) > DP_METRIC_ATOL for a, b in pairs.values()):
         raise AssertionError("the data-parallel epoch is too far from the single-process one")
-    bs = cfg.data.batch_size // DP_WORLD
-    for r in reports:
-        n = ((len(train_ds) // DP_WORLD) // bs + sum(
-            math.ceil(len(range(r["rank"], len(ds), DP_WORLD)) / bs) for ds in (val_ds, test_ds)))
+    train_n, val_n, test_n = r0["sizes"]
+    bs = main_path_config().data.batch_size // DP_WORLD
+    for r, e in zip(reports, epochs):
+        n = ((train_n // DP_WORLD) // bs + sum(
+            math.ceil(len(range(r["rank"], size, DP_WORLD)) / bs) for size in (val_n, test_n)))
         for q_count, (name, _) in REPLACES.items():
-            got = r["launches"].get(str(q_count), 0)
+            got = e["launches"].get(str(q_count), 0)
             if got != 3 * n:
                 raise AssertionError(f"rank {r['rank']}: {name} launched {got} times, expected "
                                      f"3 x {n} batches = {3 * n}")
-        print(f"    rank {r['rank']}: {n} batches of {bs} rows, launches {r['counts']}")
-    ckpt = os.path.join(work, "ck0", "best_full.pt")
-    if os.path.exists(os.path.join(work, "ck1")) or not os.path.exists(ckpt):
-        raise AssertionError("rank 0 alone writes the checkpoints")
-    out = infer.main(MAIN_ARGV + ["--checkpoint", ckpt])
-    mae, best = out["full"]["mae"], reports[0]["best_full"]["mae"]
-    print(f"    rank 0's best_full.pt through cli.infer (one process): test MAE {mae!r}, the "
-          f"ranks recorded {best!r} (rtol {CKPT_MAE_RTOL})")
+        print(f"    rank {r['rank']}: {n} batches of {bs} rows, launches {e['counts']}")
+    hold_rank0_checkpoint(dp_dir, "fusion", epochs[0], "")
+
+    print(f"(c) the families whose model_loss couples the rows, as (a) (live batch-wide draws "
+          f"{BDP_DRAWS})")
+    for name in BDP_FAMILIES:
+        fam = r0["families"][name]
+        (worst, key), (ctrl, ctrl_key) = fam["worst"], fam["control_worst"]
+        control = ("each rank its own teacher mask" if name == "mctn"
+                   else "each rank its own model_loss, averaged")
+        print(f"    {name}: loss {fam['loss']!r} vs {fam['single_loss']!r} (rank 1: "
+              f"{reports[1]['families'][name]['loss']!r}); worst gradient ratio {worst!r} at "
+              f"{key} (must be <= 1); control ({control}): loss {fam['control_loss']!r}, ratio "
+              f"{ctrl!r} at {ctrl_key} (must be > 1); warm DP step "
+              f"{[r['family_ms'][name] for r in reports]!r} ms by rank (CUDA events, live "
+              f"dropouts, {BDP_TIMED} steps) against phase 24's single-process step "
+              f"{zoo.get(name, {}).get('ms')!r} ({card})")
+        if abs(fam["loss"] - fam["single_loss"]) > STEP_LOSS_RTOL * abs(fam["single_loss"]) \
+                or worst > 1.0:
+            raise AssertionError(f"{name}: the data-parallel step is not the single-process step")
+        if ctrl <= 1.0:
+            raise AssertionError(f"{name}: the gradient check does not tell the control apart")
+        saved = [torch.load(os.path.join(dp_dir, f"{name}{r}.pt")) for r in range(DP_WORLD)]
+        for part in ("g", "p"):
+            for k, t in saved[0][part].items():
+                if not torch.equal(t.view(torch.int32), saved[1][part][k].view(torch.int32)):
+                    raise AssertionError(f"{name}: the ranks' {k} differ after the step")
+        if any(r["families"][name]["loss"] != fam["loss"] for r in reports):
+            raise AssertionError(f"{name}: the ranks' losses differ")
+        if any(any(r["families"][name]["counts"].values()) for r in reports):
+            raise AssertionError(f"{name}: a step launched a kernel of the port")
+    print("    both ranks' losses, gradients and parameters after each step equal to the bit; "
+          "no kernel of the port launched")
+    clis = [r["cli"] for r in reports]
+    (h,) = clis[0]["history"]
+    values = [h["train_loss"], h["train_mse_full"], h["train_mse_missing"], h["eval_mse_full"],
+              h["test"]["full"]["mae"], h["test"]["missing"]["mae"]]
+    print(f"    cli.train --multihost --model {BDP_CLI_MODEL} --epochs 1 (live dropouts and "
+          f"draws): train_loss {h['train_loss']!r}, test MAE {h['test']['full']['mae']!r} / "
+          f"{h['test']['missing']['mae']!r}, the same on both ranks; the port's kernels launched "
+          f"{[sum(c['counts'].values()) for c in clis]} times by rank")
+    if any(logged(c) != logged(clis[0]) for c in clis[1:]):
+        raise AssertionError(f"{BDP_CLI_MODEL}: the ranks log different metrics: "
+                             f"{[logged(c) for c in clis]}")
+    if not all(map(math.isfinite, values)):
+        raise AssertionError(f"{BDP_CLI_MODEL}: non-finite training log: {h}")
+    if any(any(c["counts"].values()) for c in clis):
+        raise AssertionError(f"{BDP_CLI_MODEL}: cli.train launched a kernel of the port")
+    hold_rank0_checkpoint(dp_dir, BDP_CLI_MODEL, clis[0], f" --model {BDP_CLI_MODEL}")
+    return {r["rank"]: e["launches"] for r, e in zip(reports, epochs)}
+
+
+def hold_rank0_checkpoint(dp_dir: str, name: str, record: dict, flags: str) -> None:
+    """Rank 0 alone wrote `name`'s checkpoints, and its best_full.pt through
+    cli.infer reproduced the MAE it recorded, to CKPT_MAE_RTOL."""
+    mae, best = record["infer_mae"], record["best_full"]["mae"]
+    print(f"    rank 0's best_full.pt through cli.infer{flags} (one process): test MAE {mae!r}, "
+          f"the ranks recorded {best!r} (rtol {CKPT_MAE_RTOL})")
+    if os.path.exists(os.path.join(dp_dir, name, "ck1")) \
+            or not os.path.exists(os.path.join(dp_dir, name, "ck0", "best_full.pt")):
+        raise AssertionError(f"{name}: rank 0 alone writes the checkpoints")
     if abs(mae - best) > CKPT_MAE_RTOL * abs(best):
-        raise AssertionError("rank 0's checkpoint does not reproduce its MAE")
-    return {r["rank"]: r["launches"] for r in reports}
+        raise AssertionError(f"{name}: rank 0's checkpoint does not reproduce its MAE")
 
 
 # ---------------------------------------------------------------- tensor parallelism (phase 29)
@@ -5588,6 +5792,19 @@ def tp_f32_first_rows(torch, device, paths: dict) -> dict:
     return {"clips": len(files)}
 
 
+def wait_for_go(work: str, what: str) -> None:
+    """A side worker's wait for `work`/go, which the main process writes when
+    `what` starts with nothing else on the card; fails once the main process
+    has begun no phase for TP_GO_SECONDS (it touches `work`/alive at each)."""
+    go, alive = os.path.join(work, "go"), os.path.join(work, "alive")
+    while not os.path.exists(go):
+        idle = time.time() - os.path.getmtime(alive)
+        if idle > TP_GO_SECONDS:
+            raise RuntimeError(f"{what} did not start: the main process began no phase for "
+                               f"{idle:.0f} s (bound {TP_GO_SECONDS} s)")
+        time.sleep(0.2)
+
+
 def tp_worker(torch, work: str) -> None:
     """One rank of phase 29, started with the SDUMC_* environment beside
     phase 24's runs: (b), (d), (e) and, on rank 0, (a)'s f32 witness, after
@@ -5619,13 +5836,7 @@ def tp_worker(torch, work: str) -> None:
         + ([("witness", tp_f32_first_rows, (axis.device, paths))] if rank == 0 else []))
     with open(os.path.join(work, f"side{rank}.json"), "w") as f:
         json.dump(report, f, default=float)
-    go, alive = os.path.join(work, "go"), os.path.join(work, "alive")
-    while not os.path.exists(go):
-        idle = time.time() - os.path.getmtime(alive)
-        if idle > TP_GO_SECONDS:
-            raise RuntimeError(f"phase 29 did not start: the main process began no phase for "
-                               f"{idle:.0f} s (bound {TP_GO_SECONDS} s)")
-        time.sleep(0.2)
+    wait_for_go(work, "phase 29")
     run([("depth", tp_full_depth, (axis, paths)), ("ring_timed", tp_ring_timed, (axis, wavlm, paths))])
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(report, f, default=float)
@@ -5673,25 +5884,37 @@ def start_tp_phase(procs, work: str, llm_dir: str, proj_path: str, feats_dir: st
     return tp_dir, clis
 
 
-def wait_side(procs, tp_dir: str, clis: list, pp_procs, pp_dir: str) -> None:
-    """Phase 24's wait, before it times anything, for phases 29 and 30's
-    work beside it: both commands ended and both ranks of phase 29 past (b),
-    (d), (e) and the witness; the four ranks of phase 30 past (a), (b) and
-    (c). A process that failed, or WAIT_SECONDS["tp side"] passing in all,
-    raises."""
+def wait_side(procs, tp_dir: str, clis: list, pp_procs, pp_dir: str, dp_procs,
+              dp_dir: str, dp_started: float) -> None:
+    """Phase 24's wait, before it times anything, for phases 29, 30 and
+    28's work beside it: both commands ended and both ranks of phase 29
+    past (b), (d), (e) and the witness; the four ranks of phase 30 past (a),
+    (b) and (c); the two ranks of phase 28 past their untimed work. A
+    process that failed, or WAIT_SECONDS["tp side"] passing in all (for
+    phase 28, WAIT_SECONDS["dp side"] since its start), raises."""
     def done():
         return (all(p.poll() == 0 for p in clis)
                 and all(os.path.exists(os.path.join(tp_dir, f"side{r}.json"))
                         for r in range(TP_WORLD)))
 
+    import torch
+
+    free, total = torch.cuda.mem_get_info()
+    print(f"phase 24's wait for the side work begins with {free / 2**30!r} GiB of the card's "
+          f"{total / 2**30!r} free")
     t0 = time.perf_counter()
     procs.wait(until=done, timeout=WAIT_SECONDS["tp side"])
     t29 = time.perf_counter() - t0
     pp_procs.wait(until=lambda: all(os.path.exists(os.path.join(pp_dir, f"side{r}.json"))
                                     for r in range(PP_WORLD)),
                   timeout=max(1.0, WAIT_SECONDS["tp side"] - t29))
+    t30 = time.perf_counter() - t0 - t29
+    dp_procs.wait(until=lambda: all(os.path.exists(os.path.join(dp_dir, f"side{r}.json"))
+                                    for r in range(DP_WORLD)),
+                  timeout=max(1.0, WAIT_SECONDS["dp side"] - (time.perf_counter() - dp_started)))
     print(f"phase 29's work beside phase 24 ((a), (b), (d), (e) and the witness) done; phase 24 "
-          f"waited {t29!r} s for it, then {time.perf_counter() - t0 - t29!r} s for phase 30's")
+          f"waited {t29!r} s for it, then {t30!r} s for phase 30's, then "
+          f"{time.perf_counter() - t0 - t29 - t30!r} s for phase 28's")
 
 
 def check_tp_cli(work: str, tp_dir: str, world: int) -> None:
@@ -6302,13 +6525,7 @@ def pp_worker(torch, work: str) -> None:
     report["side_seconds"] = time.perf_counter() - t0
     with open(os.path.join(work, f"side{rank}.json"), "w") as f:
         json.dump(report, f, default=float)
-    go, alive = os.path.join(work, "go"), os.path.join(work, "alive")
-    while not os.path.exists(go):
-        idle = time.time() - os.path.getmtime(alive)
-        if idle > TP_GO_SECONDS:
-            raise RuntimeError(f"phase 30 did not start: the main process began no phase for "
-                               f"{idle:.0f} s (bound {TP_GO_SECONDS} s)")
-        time.sleep(0.2)
+    wait_for_go(work, "phase 30")
     t0 = time.perf_counter()
     report["timed"] = pp_timed(torch, keep)
     report["timed_seconds"] = time.perf_counter() - t0
@@ -6491,6 +6708,26 @@ def pp_only(torch) -> None:
             print(f"phase 30: {time.perf_counter() - t0!r} s")
 
 
+def dp_only(torch) -> None:
+    """``chip_smoke.py --dp-only``: phase 28 alone, its side work and timed
+    part back to back, without phases 7, 9 and 24's single-process runs to
+    compare with."""
+    from sdumc_tpu_torch.parallel.multihost import LocalProcesses
+
+    card = card_line()
+    with tempfile.TemporaryDirectory() as work:
+        with LocalProcesses() as procs:
+            t0 = time.perf_counter()
+            dp_dir = start_dp_phase(procs, work)
+            procs.wait(until=lambda: all(os.path.exists(os.path.join(dp_dir, f"side{r}.json"))
+                                         for r in range(DP_WORLD)),
+                       timeout=WAIT_SECONDS["dp side"])
+            print(f"phase 28's untimed work: {time.perf_counter() - t0!r} s")
+            t0 = time.perf_counter()
+            dp_phase(torch, procs, dp_dir, None, None, {}, card)
+            print(f"phase 28: {time.perf_counter() - t0!r} s")
+
+
 def kernels_only(torch, root: str, lengths: dict) -> dict:
     """Phases 2-3, 17 and 19 (without the gradient checks) with the kernels
     of the checkout at `root`, built from its own sources into its own
@@ -6581,13 +6818,15 @@ def main() -> int:
     parser.add_argument("--pp-worker", help=argparse.SUPPRESS)
     parser.add_argument("--pp-only", action="store_true",
                         help="phase 30 alone, from its own inputs")
+    parser.add_argument("--dp-only", action="store_true",
+                        help="phase 28 alone, from its own inputs")
     parser.add_argument("--tp-cli", type=int, metavar="N",
                         help="phase 29 (a) alone: cli.extract text and feat4 at --tp N against "
                              "--tp 1 (one rank a card: NCCL)")
     args = parser.parse_args()
     main_run = not any((args.ab, args.kernels_from, args.serve, args.serve_decode,
                         args.dp_worker, args.tp_worker, args.tp_cli, args.pp_worker,
-                        args.pp_only))
+                        args.pp_only, args.dp_only))
     building = start_kernel_build() if main_run else None
     import torch
 
@@ -6624,6 +6863,10 @@ def main() -> int:
         print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
         build.build()
         pp_only(torch)
+        return 0
+    if args.dp_only:
+        print(f"card: {card_line()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+        dp_only(torch)
         return 0
     if args.tp_cli:
         print(f"card: {card_line()} x {torch.cuda.device_count()}; torch {torch.__version__}")
@@ -6694,18 +6937,23 @@ def main() -> int:
         bf16_counts = phase(21, bf16_extraction_phase, torch, work, feats_dir, f32_rate)
         phase(22, asr_phase, torch, work, llm_dir)
         phase(23, vision_phase, torch, work, card)
-        # phases 29 and 30's work that times nothing, beside phase 24's
-        with LocalProcesses() as tp_procs, LocalProcesses() as pp_procs:
+        # phases 28, 29 and 30's work that times nothing, beside phase 24's
+        with LocalProcesses() as tp_procs, LocalProcesses() as pp_procs, \
+                LocalProcesses() as dp_procs:
             tp_dir, tp_clis = start_tp_phase(tp_procs, work, llm_dir, proj_path, feats_dir)
             pp_dir = start_pp_phase(pp_procs, work)
-            heartbeats.extend(os.path.join(d, "alive") for d in (tp_dir, pp_dir))
-            phase(24, baseline_phase, torch, work, card,
-                  lambda: wait_side(tp_procs, tp_dir, tp_clis, pp_procs, pp_dir))
+            dp_started = time.perf_counter()
+            dp_dir = start_dp_phase(dp_procs, work)
+            heartbeats.extend(os.path.join(d, "alive") for d in (tp_dir, pp_dir, dp_dir))
+            zoo = phase(24, baseline_phase, torch, work, card,
+                        lambda: wait_side(tp_procs, tp_dir, tp_clis, pp_procs, pp_dir,
+                                          dp_procs, dp_dir, dp_started))
             phase(25, text_families_phase, torch, work, rows)
             served = phase(26, serve_phase, torch, work,
                            os.path.join(work, "train", "best_full.pt"), card)
             phase(27, decode_serve_phase, torch, work, llm_dir, card)
-            dp_launches = phase(28, dp_phase, torch, work, history[0], step_ms, card)
+            dp_launches = phase(28, dp_phase, torch, dp_procs, dp_dir, history[0], step_ms, zoo,
+                                card)
             tp = phase(29, tp_phase, torch, tp_procs, tp_dir, work, depth, text_depth, card)
             pp_launches = phase(30, pp_phase, torch, pp_procs, pp_dir, card)
     tp_launches, block = tp["launches"], tp["block"]

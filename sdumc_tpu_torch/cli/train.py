@@ -18,8 +18,10 @@ canonical ICASSP recipe ports by changing the module name:
 Runs on CUDA unless ``--device cpu`` is given; ``--synthetic`` runs without
 a dataset on disk. ``--multihost`` trains data-parallel across processes
 started with the SDUMC_* environment (``parallel/multihost.py``), one
-device each, as the single-process step on the global batch; every rank
-logs the same metrics and rank 0 writes the checkpoints:
+device each, as the single-process step on the global batch (every
+family; a ``model_loss`` that couples the batch's rows is taken of the
+gathered rows, ``train/step.py``); every rank logs the same metrics and
+rank 0 writes the checkpoints:
 
     SDUMC_COORDINATOR=127.0.0.1:29500 SDUMC_NUM_PROCESSES=2 SDUMC_PROCESS_ID=0 \
         python -m sdumc_tpu_torch.cli.train --multihost --synthetic &
@@ -56,13 +58,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
     cfg = args_to_config(args)
 
-    from sdumc_tpu_torch.models import MODELS
     from sdumc_tpu_torch.parallel import make_data_axis
 
-    if args.multihost and getattr(MODELS.get(cfg.model.name), "has_model_loss", False):
-        raise ValueError(f"--model {cfg.model.name} adds a model_loss computed from the whole "
-                         "batch inside the model: --multihost is not ported for it "
-                         "(ROADMAP.md queue 1)")
     if args.multihost:
         import torch
 

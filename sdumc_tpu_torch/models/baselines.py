@@ -8,7 +8,9 @@ single-view interface, ``(audio, text, video, t_max, missing) -> (vals,
 aux)``, so the dual-view train and eval steps drive it, as two forwards
 (``train/step.py _fusable``). Families with their own self-supervised
 objective return it in ``aux["model_loss"]``, which the dual-view loss
-adds for each view.
+adds for each view; MISA's and MMIM's couple the batch's rows, so they
+also return the per-row tensors it is computed from (``_BaselineBase
+has_model_loss``).
 
 Parameters are flax's, tensor for tensor, with flax's initialisers
 (``modules/linen.py``): a checkpoint of the JAX package loads through
@@ -62,9 +64,13 @@ class ModalityEncoder(nn.Module):
 class _BaselineBase(nn.Module):
     """The aux streams that the dual-view distillation loss reads."""
 
-    # True where aux["model_loss"] is computed inside the model from the whole
-    # batch (moments, negatives, one draw for all rows), which a data-parallel
-    # step cannot rebuild from gathered per-row outputs (train/step.py)
+    # True where aux["model_loss"] couples the batch's rows (moments, negatives,
+    # kernel sums over pairs of rows, one draw for every row). Such a family
+    # applies every parameter in forward and returns the per-row tensors the
+    # loss reads in aux["loss_rows"]; its ``batch_loss(rows)`` turns them, this
+    # rank's or every rank's gathered, into the loss with no parameter, in the
+    # model's mode, so a data-parallel step takes it of the global batch
+    # (train/step.py) after forward(..., model_loss=False)
     has_model_loss = False
 
     def __init__(self, cfg: ModelConfig, feat_dim: int, generator=None):
@@ -215,24 +221,33 @@ class MISA(_BaselineBase):
         self.out = Dense(h, cfg.output_dim, generator=generator)
 
     def forward(self, audio, text, video, *, t_max: Optional[Tuple] = None,
-                missing: bool = False):
-        cfg = self.cfg
+                missing: bool = False, model_loss: bool = True):
         utts = self._encode(audio, text, video, t_max)
         inv = [torch.sigmoid(self.shared_proj(u)) for u in utts]
         spec = [torch.sigmoid(self._modules[f"private_{m}"](u)) for m, u in zip("atv", utts)]
-        sim = (_cmd_loss(inv[0], inv[1]) + _cmd_loss(inv[0], inv[2])
-               + _cmd_loss(inv[1], inv[2])) / 3.0
-        diff = sum(_diff_loss(s, i) for s, i in zip(spec, inv)) / 3.0
-        recon = sum(((self.recon_dec(s + i) - u.detach()) ** 2).mean()
-                    for s, i, u in zip(spec, inv, utts)) / 3.0
-        model_loss = cfg.misa_sim_w * sim + cfg.misa_diff_w * diff + cfg.misa_recon_w * recon
+        recon = torch.stack([((self.recon_dec(s + i) - u.detach()) ** 2).mean(dim=1)
+                             for s, i, u in zip(spec, inv, utts)], dim=1)     # [B, 3]
+        rows = (*inv, *spec, recon)
 
         fused = self.fusion_tr(torch.stack(inv + spec, dim=1))               # [B, 6, h]
         f = torch.relu(self.post_fc1(fused.reshape(fused.shape[0], -1)))
         vals = self.out(f)
         aux = self._aux(f, utts[1])
-        aux["model_loss"] = model_loss
+        aux["loss_rows"] = rows
+        if model_loss:
+            aux["model_loss"] = self.batch_loss(rows)
         return vals, aux
+
+    def batch_loss(self, rows):
+        """CMD between the invariant spaces, the orthogonality of each
+        private space to its invariant one, the reconstruction; rows:
+        inv x3, spec x3 [B, h], each modality's reconstruction error [B, 3]."""
+        cfg, inv, spec = self.cfg, rows[:3], rows[3:6]
+        sim = (_cmd_loss(inv[0], inv[1]) + _cmd_loss(inv[0], inv[2])
+               + _cmd_loss(inv[1], inv[2])) / 3.0
+        diff = sum(_diff_loss(s, i) for s, i in zip(spec, inv)) / 3.0
+        recon = sum(e.mean() for e in rows[6].unbind(1)) / 3.0
+        return cfg.misa_sim_w * sim + cfg.misa_diff_w * diff + cfg.misa_recon_w * recon
 
 
 def _infonce(scores):
@@ -264,21 +279,33 @@ class MMIM(_BaselineBase):
         self.drop = Dropout(cfg.dropout)
 
     def forward(self, audio, text, video, *, t_max: Optional[Tuple] = None,
-                missing: bool = False):
+                missing: bool = False, model_loss: bool = True):
         cfg = self.cfg
         za, zt, zv = self._encode(audio, text, video, t_max)
         f = torch.relu(self.post_fc1(self.drop(torch.cat([za, zt, zv], dim=-1))))
         vals = self.out(f)
-        ta = _infonce(zt @ self.W_ta(za).T)
-        tv = _infonce(zt @ self.W_tv(zv).T)
-        cpc = 0.0
-        for m, z in (("a", za), ("t", zt), ("v", zv)):
+        preds = []
+        for m in "atv":
             pred = f
             for li in range(cfg.baseline_layers):
                 pred = self._modules[f"cpc_{m}_{li}"](pred)
                 if li < cfg.baseline_layers - 1:
                     pred = torch.relu(pred)
-            cpc = cpc + _infonce(pred @ z.T)
+            preds.append(pred)
+        rows = (za, zt, zv, self.W_ta(za), self.W_tv(zv), *preds)
         aux = self._aux(f, zt)
-        aux["model_loss"] = cfg.mmim_beta * (ta + tv) + cfg.mmim_alpha * cpc
+        aux["loss_rows"] = rows
+        if model_loss:
+            aux["model_loss"] = self.batch_loss(rows)
         return vals, aux
+
+    def batch_loss(self, rows):
+        """The InfoNCE bounds over the batch's [B, B] scores; rows: za, zt,
+        zv, W_ta(za), W_tv(zv) and the three CPC predictions [B, h]."""
+        za, zt, zv, wa, wv, *preds = rows
+        ta = _infonce(zt @ wa.T)
+        tv = _infonce(zt @ wv.T)
+        cpc = 0.0
+        for pred, z in zip(preds, (za, zt, zv)):
+            cpc = cpc + _infonce(pred @ z.T)
+        return self.cfg.mmim_beta * (ta + tv) + self.cfg.mmim_alpha * cpc

@@ -12,10 +12,13 @@ Zadeh et al. 2018 MFN and Graph-MFN; Tsai et al. 2019 MFM; Pham et al.
   modality linearly onto ``baseline_align_t`` steps in the model, as JAX
   does; ``t_max`` is a host int per modality;
 - MFM's prior samples and MCTN's teacher-forcing mask draw from the train
-  step's generator (``layers.Draws``, set by ``use_generator``) in training
-  mode only. In eval mode MFM's ``model_loss`` is the reconstruction alone,
-  MCTN's is 0, and MCTN skips its translation decoders, whose outputs feed
-  only that loss;
+  step's generator (``layers.Draws``, set by ``use_generator``; batch-wide
+  draws, which a data-parallel step takes from a generator every rank
+  seeds alike) in training mode only. In eval mode MFM's ``model_loss`` is
+  the reconstruction alone, MCTN's is 0, and MCTN skips its translation
+  decoders, whose outputs feed only that loss. Both return the per-row
+  tensors of their ``model_loss`` too (``baselines._BaselineBase
+  has_model_loss``);
 - MulT keeps each modality's own length; its attention is two plain
   products and a softmax over the whole padded bucket, as JAX's.
 
@@ -199,10 +202,10 @@ class MFM(_BaselineBase):
         self.post_fc1 = Dense(m, h, generator=generator)
         self.out = Dense(h, cfg.output_dim, generator=generator)
         self.drop = Dropout(cfg.dropout)
-        self.prior = Draws()
+        self.prior = Draws(batch_wide=True)
 
     def forward(self, audio, text, video, *, t_max: Optional[Tuple] = None,
-                missing: bool = False):
+                missing: bool = False, model_loss: bool = True):
         cfg, mods = self.cfg, self._modules
         seqs = _align_inputs(cfg, audio, text, video, t_max)
         projs = [mods[f"proj_{n}"](x) for n, x in zip("atv", seqs)]
@@ -210,21 +213,32 @@ class MFM(_BaselineBase):
         f_y = self.factor_y(torch.relu(self.factor_y_pre(torch.cat(qs, dim=-1))))
         f_ms = [mods[f"factor_{n}"](q) for n, q in zip("atv", qs)]
 
-        recon = 0.0
+        recon = []
         for n, f_m, p in zip("atv", f_ms, projs):
             code = torch.cat([f_m, f_y], dim=-1)[:, None, :]                # [B, 1, 2m]
             dec = mods[f"dec_{n}"].scan(code.expand(-1, cfg.baseline_align_t, -1))
-            recon = recon + ((mods[f"dec_out_{n}"](dec) - p.detach()) ** 2).mean()
-        model_loss = cfg.mfm_recon_w * recon
-        if self.training:
-            mmd = sum(_rbf_mmd(fac, self.prior.normal(fac.shape, fac.dtype))
-                      for fac in f_ms + [f_y])
-            model_loss = model_loss + cfg.mfm_mmd_w * mmd
+            recon.append(((mods[f"dec_out_{n}"](dec) - p.detach()) ** 2).mean(dim=(1, 2)))
+        rows = (*f_ms, f_y, torch.stack(recon, dim=1))
+        # the prior's draws come before the dropout's in the step's stream
+        loss = self.batch_loss(rows) if model_loss else None
 
         f = self.drop(torch.relu(self.post_fc1(f_y)))
         aux = self._aux(f, f_ms[1])
-        aux["model_loss"] = model_loss
+        aux["loss_rows"] = rows
+        if loss is not None:
+            aux["model_loss"] = loss
         return self.out(f), aux
+
+    def batch_loss(self, rows):
+        """The reconstruction and, in training mode, the MMD of each factor
+        against N(0, I) samples of its shape (batch-wide draws); rows: f_m
+        x3, f_y [B, m], each modality's reconstruction error [B, 3]."""
+        cfg, factors = self.cfg, rows[:4]
+        loss = cfg.mfm_recon_w * sum(e.mean() for e in rows[4].unbind(1))
+        if self.training:
+            mmd = sum(_rbf_mmd(fac, self.prior.normal(fac.shape, fac.dtype)) for fac in factors)
+            loss = loss + cfg.mfm_mmd_w * mmd
+        return loss
 
 
 class _TFStep(nn.Module):
@@ -283,27 +297,37 @@ class MCTN(_BaselineBase):
         self.post_fc1 = Dense(h, h, generator=generator)
         self.out = Dense(h, cfg.output_dim, generator=generator)
         self.drop = Dropout(cfg.dropout)
-        self.teacher = Draws()
+        self.teacher = Draws(batch_wide=True)
 
     def forward(self, audio, text, video, *, t_max: Optional[Tuple] = None,
-                missing: bool = False):
+                missing: bool = False, model_loss: bool = True):
         cfg = self.cfg
         seqs = _align_inputs(cfg, audio, text, video, t_max)
         pa, pt, pv = (self._modules[f"proj_{n}"](x) for n, x in zip("atv", seqs))
         joint = self.enc1.scan(pt)                                           # [B, Ta, h]
         joint2 = self.enc2.scan(joint)
-        model_loss = 0.0
+        rows = ()
         if self.training:
+            # one mask for every row of the batch (a batch-wide draw)
             tf_mask = self.teacher.uniform((cfg.baseline_align_t,)) < cfg.mctn_teacher_forcing
             a_hat = self.dec_a(joint[:, -1], pa, tf_mask)
             t_hat = self.dec_t(self.enc1.scan(a_hat)[:, -1], pt, tf_mask)
             v_hat = self.dec_v(joint2[:, -1], pv, tf_mask)
-            model_loss = cfg.mctn_cycle_w * sum(
-                ((y - p.detach()) ** 2).mean() for y, p in ((a_hat, pa), (t_hat, pt), (v_hat, pv)))
+            rows = (torch.stack([((y - p.detach()) ** 2).mean(dim=(1, 2))
+                                 for y, p in ((a_hat, pa), (t_hat, pt), (v_hat, pv))], dim=1),)
         f = self.drop(torch.relu(self.post_fc1(joint2[:, -1])))
         aux = self._aux(f, joint[:, -1])
-        aux["model_loss"] = model_loss
+        aux["loss_rows"] = rows
+        if model_loss:
+            aux["model_loss"] = self.batch_loss(rows)
         return self.out(f), aux
+
+    def batch_loss(self, rows):
+        """The translation and cycle errors (0 in eval mode, which runs no
+        decoder); rows: each translation's error [B, 3], or none."""
+        if not rows:
+            return 0.0
+        return self.cfg.mctn_cycle_w * sum(e.mean() for e in rows[0].unbind(1))
 
 
 @MODELS.register("mult")

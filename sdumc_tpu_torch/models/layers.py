@@ -50,10 +50,16 @@ class Draws(nn.Module):
     ``torch.Generator``, never from torch's global stream: the train step
     seeds one generator per step from (seed, step) and hands it to every
     such module of the model (``use_generator``), so a resumed run draws
-    the same values."""
+    the same values.
 
-    def __init__(self):
+    ``batch_wide`` marks draws that belong to the whole batch, not to its
+    rows (MFM's prior samples, MCTN's teacher-forcing mask): a
+    data-parallel step gives them a generator that every rank seeds alike,
+    where each rank's dropout masks come from a stream of its own."""
+
+    def __init__(self, batch_wide: bool = False):
         super().__init__()
+        self.batch_wide = batch_wide
         self.generator: Optional[torch.Generator] = None
 
     def _generator(self) -> torch.Generator:
@@ -124,11 +130,14 @@ class FrameDropout(_RandomDrop):
         return bits >= k, 1.0 - k / 256.0
 
 
-def use_generator(model: nn.Module, generator: Optional[torch.Generator]) -> None:
-    """Point every dropout and every other ``Draws`` of `model` at `generator`."""
+def use_generator(model: nn.Module, generator: Optional[torch.Generator],
+                  batch_generator: Optional[torch.Generator] = None) -> None:
+    """Point every dropout and every other ``Draws`` of `model` at `generator`,
+    and the batch-wide ones at `batch_generator` where one is given."""
     for m in model.modules():
         if isinstance(m, Draws):
-            m.generator = generator
+            m.generator = (batch_generator if m.batch_wide and batch_generator is not None
+                           else generator)
 
 
 def MLP(in_dim: int, layer_dims: Sequence[int], dropout: float = 0.3,

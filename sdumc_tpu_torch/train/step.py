@@ -24,16 +24,23 @@ into the global batch's (``parallel.multihost.gather_rows``), every rank
 computes the global loss (RMSE and RnC are no means over samples, so the
 mean of local losses would be another loss), and the gradients are summed
 over the ranks after the backward: the step equals the single-process
-step on the global batch. A baseline family that adds an
-``aux["model_loss"]`` computed from the whole batch inside the model cannot
-be split so and raises.
+step on the global batch. A baseline family whose ``aux["model_loss"]``
+couples the batch's rows (misa, mmim, mfm, mctn: ``has_model_loss``) runs
+its two forwards without it; the per-row tensors it reads
+(``aux["loss_rows"]``) are gathered with the outputs, and every rank
+computes each view's ``model_loss`` of the global batch from them
+(``batch_loss``), the teacher view's first.
 
 Every random draw of a train step (frame dropout, dropout, MFM's prior
 samples, MCTN's teacher-forcing mask) comes from one ``torch.Generator``
-on the step's device, seeded from (train seed, step), and the rank in a
-data-parallel run: a resumed run draws the same masks as an uninterrupted
-one. The masks differ from the JAX package's, whose bit generator is
-another.
+on the step's device, seeded from (train seed, step): a resumed run draws
+the same masks as an uninterrupted one. In a data-parallel run each
+rank's masks come from (seed, step, rank), and the batch-wide draws (the
+prior samples, the teacher-forcing mask; ``layers.Draws batch_wide``)
+from a second generator seeded from (seed, step) on every rank, so all
+ranks draw the global batch's values: with dropout off, those of the
+single-process step. The masks differ from the JAX package's, whose bit
+generator is another.
 """
 
 from __future__ import annotations
@@ -81,8 +88,11 @@ def _fusable(model) -> bool:
             and not getattr(model.cfg, "use_imagination", False))
 
 
-def _apply_views(model, batch: Dict):
-    """Run the teacher and student views; returns (vals0, aux0, vals1, aux1)."""
+def _apply_views(model, batch: Dict, model_loss: bool = True):
+    """Run the teacher and student views; returns (vals0, aux0, vals1, aux1).
+    ``model_loss=False``: a family with a batch-coupled ``model_loss``
+    leaves it out (and its draws) for the caller to compute from
+    ``aux["loss_rows"]``."""
     ta, tt, tv, tf4 = batch["t_max"]
     if _fusable(model):
         vals01, aux01 = model(batch["audio"], (batch["text"], batch["feat4"]),
@@ -90,10 +100,11 @@ def _apply_views(model, batch: Dict):
         B = batch["audio"].shape[0]
         return (vals01[:B], {k: aux01[k][:B] for k in AUX_KEYS},
                 vals01[B:], {k: aux01[k][B:] for k in AUX_KEYS})
+    kw = {} if model_loss else {"model_loss": False}
     vals0, aux0 = model(batch["audio"], batch["text"], batch["video"],
-                        t_max=(ta, tt, tv), missing=False)
+                        t_max=(ta, tt, tv), missing=False, **kw)
     vals1, aux1 = model(batch["audio"], batch["feat4"], batch["video"],
-                        t_max=(ta, tf4, tv), missing=True)
+                        t_max=(ta, tf4, tv), missing=True, **kw)
     return vals0, aux0, vals1, aux1
 
 
@@ -105,21 +116,27 @@ def dual_view_loss(model, batch: Dict, loss_cfg: LossConfig, axis: Optional[Data
 
     With an `axis` of more than one rank, `batch` holds this rank's rows of
     the global batch (at its ``t_max``) and the loss and its metrics are the
-    global batch's; ``sq_err_*`` and ``count`` stay this rank's sums."""
+    global batch's; ``sq_err_*`` and ``count`` stay this rank's sums. A
+    family with a batch-coupled ``model_loss`` then takes it of the gathered
+    rows (``batch_loss``): every parameter was applied to this rank's rows,
+    so the summed gradients count each row once."""
     batch = dequant_features(batch)
     vals = batch["vals"]
-    vals0, aux0, vals1, aux1 = _apply_views(model, batch)
+    split = axis is not None and axis.world > 1
+    coupled = split and getattr(model, "has_model_loss", False)
+    vals0, aux0, vals1, aux1 = _apply_views(model, batch, model_loss=not coupled)
     local0, local1, local_vals = vals0, vals1, vals
-    if axis is not None and axis.world > 1:
-        if "model_loss" in aux0:
-            raise ValueError(f"{type(model).__name__} adds a model_loss computed from the "
-                             "whole batch inside the model: data-parallel training of it is "
-                             "not ported (ROADMAP.md queue 1)")
-        rows = gather_rows(axis, vals0, vals1, vals, *(aux0[k] for k in AUX_KEYS),
-                           *(aux1[k] for k in AUX_KEYS))
+    if split:
+        n = len(AUX_KEYS)
+        parts = [[aux[k] for k in AUX_KEYS] + list(aux["loss_rows"] if coupled else ())
+                 for aux in (aux0, aux1)]
+        rows = gather_rows(axis, vals0, vals1, vals, *parts[0], *parts[1])
         vals0, vals1, vals = rows[:3]
-        aux0 = dict(zip(AUX_KEYS, rows[3:3 + len(AUX_KEYS)]))
-        aux1 = dict(zip(AUX_KEYS, rows[3 + len(AUX_KEYS):]))
+        view0, view1 = rows[3:3 + len(parts[0])], rows[3 + len(parts[0]):]
+        aux0, aux1 = dict(zip(AUX_KEYS, view0)), dict(zip(AUX_KEYS, view1))
+        if coupled:     # the teacher view's draws first, as one process takes them
+            aux0["model_loss"] = model.batch_loss(view0[n:])
+            aux1["model_loss"] = model.batch_loss(view1[n:])
 
     mse0 = mse_loss(vals0, vals)
     mse1 = mse_loss(vals1, vals)
@@ -168,15 +185,22 @@ def make_train_step(state: TrainState, loss_cfg: LossConfig, seed: int,
     training mode and the random stream of (seed, state.step). With an
     `axis` of more than one rank, the batch is this rank's rows and the step
     is the global batch's: the global loss, the gradients summed over the
-    ranks before the update, the stream of (seed, state.step, rank)."""
+    ranks before the update, the stream of (seed, state.step, rank), and
+    the batch-wide draws from a second generator of (seed, state.step),
+    alike on every rank (one process has no second generator: two streams
+    of one seed would repeat each other's values)."""
     model = state.model
-    generator = torch.Generator(device=next(model.parameters()).device)
-    use_generator(model, generator)
+    device = next(model.parameters()).device
+    generator = torch.Generator(device=device)
     rank = axis.rank if axis is not None and axis.world > 1 else None
+    shared = torch.Generator(device=device) if rank is not None else None
+    use_generator(model, generator, shared)
 
     def train_step(batch):
         model.train()
         generator.manual_seed(step_seed(seed, state.step, rank))
+        if shared is not None:
+            shared.manual_seed(step_seed(seed, state.step))
         loss, metrics = dual_view_loss(model, batch, loss_cfg, axis)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()

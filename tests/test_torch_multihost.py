@@ -5,8 +5,9 @@ rank, and at dropout 0 the single-process run's: the global-batch loss,
 the agreed ``t_max`` and the gathered eval (3 ranks give ragged eval
 shards: 64 clips) make the data-parallel epoch the single-process one.
 Rank 0 alone writes the reference-format checkpoints, and ``cli.infer``
-reproduces the MAE they recorded. The families whose ``model_loss`` the
-step cannot gather raise, and so does ``--device cuda`` without a card.
+reproduces the MAE they recorded. ``--device cuda`` without a card
+raises. (The baseline families with a batch-coupled ``model_loss``:
+``test_torch_dp_model_loss.py``.)
 
 Tolerance against the single process rtol 1e-4, with atol 1e-5 for the
 correlation, which sits near 0 on a net one epoch old whose predictions
@@ -160,12 +161,6 @@ def test_rank_0_alone_writes_reference_checkpoints_that_cli_infer_reads(runs, wo
     assert not any(k.startswith("module.") for k in blob["state_dict"])
     out = infer.main(ARGS + ["--checkpoint", str(root / "ck0" / "best_full.pt")])
     assert out["full"]["mae"] == pytest.approx(logs[0]["best_test_full"]["mae"], rel=1e-6)
-
-
-@pytest.mark.parametrize("model", ["misa", "mmim", "mfm", "mctn"])
-def test_model_loss_families_refuse_multihost(model):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        train.main(["--multihost", "--model", model, "--device", "cpu", "--synthetic"])
 
 
 def test_multihost_on_cuda_without_a_card_raises(monkeypatch):

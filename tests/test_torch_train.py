@@ -535,15 +535,18 @@ def test_train_cli_synthetic_cpu_and_best_checkpoint_through_infer(tmp_path):
 
 
 @pytest.mark.parametrize("flags, error", [
-    pytest.param(["--multihost", "--model", "misa"], "--multihost is not ported",
+    pytest.param(["--multihost", "--model", "misa"], "SDUMC_COORDINATOR",
                  id="flags0-multi-device"),
     pytest.param(["--checkpoint", "orbax_dir"], "Orbax", id="flags2-Orbax"),
 ])
-def test_train_cli_refuses_what_is_not_ported(flags, error, tmp_path):
-    """--multihost for a family whose model_loss couples the batch, and an
-    Orbax --checkpoint, raise."""
+def test_train_cli_refuses_what_is_not_ported(flags, error, tmp_path, monkeypatch):
+    """--multihost without the SDUMC_* rendezvous raises for that alone (a
+    family whose model_loss couples the batch, misa, trains data-parallel
+    too: test_torch_dp_model_loss.py), and an Orbax --checkpoint raises."""
     from sdumc_tpu_torch.cli import train
 
+    for name in ("SDUMC_COORDINATOR", "SDUMC_NUM_PROCESSES", "SDUMC_PROCESS_ID"):
+        monkeypatch.delenv(name, raising=False)
     with pytest.raises((NotImplementedError, ValueError), match=error):
         train.main(["--synthetic", "--device", "cpu", "--feat_scale", "16",
                     "--checkpoint_dir", str(tmp_path)] + flags)
