@@ -290,7 +290,15 @@ Phases, each fatal on failure (non-zero exit, no result line):
      (e); then (e) timed, the ranks alone on the card: the SP forward by
      CUDA events and the host clock beside one process's (rank 0, the
      other rank at a barrier), the rotations' share of a run that times
-     each, each rank's peak memory beside one process's; last, the block
+     each, each rank's peak memory beside one process's; then (e)'s
+     gradient at f32, the loss a seeded linear functional of every tap:
+     the SP forward under autograd (48 block launches a rank), the ring's
+     backward and ``parallel.reduce_gradients`` of every parameter and
+     the wave, timed the same way (the rotations' and the collectives'
+     share) beside one process's forward (the flash path) and backward,
+     rank 0's gradients held to one process's, tensor by tensor on the
+     card (SP_GRAD_RTOL, SP_GRAD_FLOOR), and rank 1's to rank 0's bit for
+     bit (a digest of each tensor's bits); last, the block
      instance at the ring's shape (B = 1, 1500 frames, 16 heads of 64) held
      to its plain version and timed beside the bound and PyTorch's
      memory-efficient attention with its log-sum-exp.
@@ -370,7 +378,7 @@ T_START = time.perf_counter()
 # stack and exits non-zero.
 PHASE_BUDGET = {2: 18, 3: 1, 4: 5, 5: 17, 7: 18, 8: 4, 9: 7, 10: 16, 11: 35, 12: 25, 13: 5,
                 14: 6, 15: 44, 16: 16, 17: 2, 18: 33, 19: 3, 20: 1, 21: 15, 22: 32, 23: 74,
-                24: 170, 25: 45, 26: 75, 27: 180, 28: 8, 29: 17, 30: 25}
+                24: 170, 25: 45, 26: 75, 27: 180, 28: 8, 29: 30, 30: 25}
 PHASE_MIN_BOUND = 120
 SCRIPT_DEADLINE = 1180
 # Every wait of the main run is bounded at about 3 x what it took in measured runs
@@ -387,7 +395,7 @@ WAIT_SECONDS = {
     # slower; about 100 s expected on a host whose gloo is the slow kind (PERF.md
     # section 7)
     "tp side": 240,
-    "tp ranks": 90,                 # phase 29's (c) and (e), timed: 26 s
+    "tp ranks": 90,                 # phase 29's (c) and (e) with its gradient, timed: 17-27 s
     "pp ranks": 75,                 # phase 30's timed part: 3 x its budget
     "pp side": 240,                 # phase 30's untimed part alone (--pp-only)
     "kernel build": 60,             # 10.7-11.0 s
@@ -5330,6 +5338,23 @@ TP_TIMED_STEPS = 8           # (c): decode steps run on with each collective tim
 TP_GO_SECONDS = 300          # a rank's wait for phase 29 past the main process's last phase
                              # start (phases 25-28 took 31-172 s each)
 RING_TIMED_RUNS = 2          # (e): timed SP forwards, and one-process forwards on rank 0
+RING_GRAD_RUNS = 1           # (e): timed SP forward + backward + reduction, after the run that
+                             # times each rotation and collective; one-process forward +
+                             # backward on rank 0, after a warm one
+RING_GRAD_SEED = 29          # (e)'s gradient: the loss's weights over the taps, drawn on the card
+# (e)'s gradient: each parameter's and the wave's, after the reduction, within SP_GRAD_RTOL of
+# its scale in one process's: the tensor's own largest |grad|, or SP_GRAD_FLOOR times the
+# largest of its module's gradients (a weight's and its bias's together) where that is larger.
+# The floor: a bias's gradient sums over the frames what its weight's sums weighted by the
+# input, and where that sum cancels it is float noise of the weight's scale (k_proj's bias: the
+# softmax is invariant to a shift of a row's scores, so its exact gradient is zero). The one
+# process runs the flash kernel and its chunked backward over all 2999 keys, the ranks the block
+# kernel and the ring backward over 1500-key blocks merged by their log-sum-exps: the same sums
+# in another order, through 24 layers forward and back. Measured under this rule (NVIDIA H100
+# 80GB HBM3, 700.00 W): the worst of 494 tensors 1.75e-4 (layer 21's gru_rel_pos_linear bias),
+# the next 6.2e-5; the limit is 3.4 times the worst.
+SP_GRAD_RTOL = 6e-4
+SP_GRAD_FLOOR = 0.1
 TP_FIRST_ROW_SHARE = 0.01    # (a): feat4 first-row elements outside phase 11's rtol / atol
 TP_WITNESS_RATIO = 1.25      # (a): --tp N's first rows no farther from f32 than this times --tp 1's
 TEXT_BF16_ULPS = 4           # the text stage's bf16 rule (tests/test_torch_text.py BF16_ULPS)
@@ -5681,6 +5706,63 @@ def tp_ring(torch, axis, wavlm, paths: dict) -> dict:
     return report
 
 
+def ring_grad_weights(torch, cfg, frames: int, device) -> list:
+    """(e)'s loss, a seeded linear functional of every tap: its weights, one
+    [1, frames, hidden] normal draw a tap on the card from RING_GRAD_SEED
+    (the same on every rank and in one process)."""
+    gen = torch.Generator(device).manual_seed(RING_GRAD_SEED)
+    return [torch.randn(1, frames, cfg.hidden_size, generator=gen, device=device)
+            for _ in range(cfg.num_layers + 1)]
+
+
+def ring_grad_step(torch, model, x, weights, taps_of, reduce=None):
+    """Forward (``taps_of(wav)``: the hidden-state taps), the loss sum_i
+    <tap_i, w_i>, backward, then ``reduce(leaves)`` if given; returns the
+    wave leaf (its gradient, the parameters' in ``model``)."""
+    model.zero_grad(set_to_none=True)
+    wav = x.clone().requires_grad_()
+    sum((t * w).sum() for t, w in zip(taps_of(wav), weights)).backward()
+    if reduce is not None:
+        reduce([*model.parameters(), wav])
+    return wav
+
+
+def grad_ratios(torch, got: dict, one: dict) -> dict:
+    """{tensor: (max |got - one| / the larger of the tensor's largest |one|
+    and SP_GRAD_FLOOR times its module's (a weight's and its bias's
+    together; see SP_GRAD_RTOL), the same over the module's largest)}, both
+    on the card; one read-back."""
+    if got.keys() != one.keys() or any(g is None for g in (*got.values(), *one.values())):
+        raise AssertionError("(e): the SP and one-process runs give gradients to different "
+                             "tensors")
+    keys = list(one)
+    err = torch.stack([(got[k] - one[k]).abs().max() for k in keys]).tolist()
+    top = torch.stack([one[k].abs().max() for k in keys]).tolist()
+    tops = {}
+    for key, t in zip(keys, top):
+        module = key.rsplit(".", 1)[0]
+        tops[module] = max(tops.get(module, 0.0), t)
+    ratio = {}
+    for key, e, t in zip(keys, err, top):
+        module_top = tops[key.rsplit(".", 1)[0]]
+        scale = max(t, SP_GRAD_FLOOR * module_top)
+        ratio[key] = ((e / scale, e / module_top) if module_top else
+                      (0.0, 0.0) if e == 0 else (math.inf, math.inf))
+    return ratio
+
+
+def grad_digests(torch, grads: dict) -> list:
+    """Each gradient tensor's digest of its f32 bits: the int64 sums
+    (wrapping) of its bit patterns and of them times their positions, equal
+    wherever the bits are."""
+    out = []
+    for g in grads.values():
+        bits = g.reshape(-1).view(torch.int32).long()
+        out.append(torch.stack([bits.sum(), (bits * torch.arange(
+            bits.numel(), device=bits.device)).sum()]))
+    return torch.stack(out).tolist()
+
+
 class TimedRotations:
     """Within it, every ``ModelAxis.ring_shift`` is timed on the host clock
     between two synchronisations; ``ms`` lists them (the synchronisations
@@ -5722,29 +5804,40 @@ def tp_ring_timed(torch, axis, wavlm, paths: dict) -> dict:
     each rank's peak memory over them; one more with each rotation timed
     alone (its share); then, the other rank waiting at a barrier, one
     process's forward of the same clip on rank 0 timed the same way, with
-    its peak."""
+    its peak. Then (e)'s gradient at f32, the loss a seeded linear
+    functional of every tap: the SP forward (every tap gathered), backward
+    and ``reduce_gradients`` of every parameter and the wave, once with
+    each rotation and collective timed alone (the gather, the reduction;
+    also the warm run), then over RING_GRAD_RUNS runs by CUDA events with
+    the launches counted (48 block launches a rank, no other kernel); one
+    process's forward (the flash path) and backward on rank 0, timed the
+    same way after a warm one, the other rank waiting at a barrier. Rank
+    0's gradients of its last SP run against its one process's, tensor by
+    tensor on the card (see SP_GRAD_RTOL); each rank's digests of their
+    bits, which the main process holds equal (the reduction leaves the same
+    sum on every rank); the card's free memory before."""
     import copy
 
     import torch.distributed as dist
 
-    from sdumc_tpu_torch.parallel import wavlm_forward_sp
+    from sdumc_tpu_torch.parallel import reduce_gradients, wavlm_forward_sp
 
     model = copy.deepcopy(wavlm[1]).to(axis.device).eval()
     x = longest_clip(torch, axis.device, paths)
 
-    def timed(fn) -> tuple:
-        fn()                                                   # warm
+    def timed(fn, runs: int = RING_TIMED_RUNS, warm: bool = True) -> tuple:
+        if warm:
+            fn()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         t0 = time.perf_counter()
         ev[0].record()
-        for _ in range(RING_TIMED_RUNS):
+        for _ in range(runs):
             fn()
         ev[1].record()
         torch.cuda.synchronize()
-        return (ev[0].elapsed_time(ev[1]) / RING_TIMED_RUNS,
-                1e3 * (time.perf_counter() - t0) / RING_TIMED_RUNS,
+        return (ev[0].elapsed_time(ev[1]) / runs, 1e3 * (time.perf_counter() - t0) / runs,
                 torch.cuda.max_memory_allocated() / 2**30)
 
     report = {}
@@ -5759,7 +5852,55 @@ def tp_ring_timed(torch, axis, wavlm, paths: dict) -> dict:
             report["one_ms"], report["one_host_ms"], report["one_peak_gib"] = timed(
                 lambda: model(x))
         dist.barrier()
-    del model
+    cfg = wavlm[0]
+    report["free_gib"] = torch.cuda.mem_get_info()[0] / 2**30
+    weights = ring_grad_weights(torch, cfg, cfg.output_length(x.shape[1]), axis.device)
+
+    def grads(wav) -> dict:
+        return {**{k: p.grad for k, p in model.named_parameters()}, "wav": wav.grad}
+
+    def sp_grad():
+        return ring_grad_step(
+            torch, model, x, weights,
+            lambda w: wavlm_forward_sp(model, w, axis, output_hidden_states=True)["hidden_states"],
+            reduce=lambda leaves: reduce_gradients(leaves, axis))
+
+    def one_grad():
+        return ring_grad_step(torch, model, x, weights,
+                              lambda w: model(w, output_hidden_states=True)["hidden_states"])
+
+    with TimedRotations(torch) as rot, TimedCollectives(torch) as coll:
+        sp_grad()                                   # also the warm run
+    report.update(grad_rotations=len(rot.ms), grad_rotation_ms=sum(rot.ms),
+                  grad_rotation_run_ms=rot.wall_ms, grad_collectives=len(coll.ms),
+                  grad_collective_ms=sum(coll.ms), grad_reduce_ms=coll.ms[-1])
+    reset_counts()
+    held = []
+    report["grad_ms"], report["grad_host_ms"], report["grad_peak_gib"] = timed(
+        lambda: held.append(sp_grad()), RING_GRAD_RUNS, warm=False)
+    report["grad_launches"] = read_counts()
+    # the last SP run's gradients, reduced (the run below gives the model new tensors)
+    got = grads(held[-1])
+    report.update(layers=cfg.num_layers, digests=grad_digests(torch, got),
+                  grad_finite=bool(torch.stack([torch.isfinite(g).all()
+                                                for g in got.values()]).all()))
+    del held
+    dist.barrier()
+    if axis.rank == 0:                              # timed alone; its last run is the reference
+        held = []
+        report["one_grad_ms"], report["one_grad_host_ms"], report["one_grad_peak_gib"] = timed(
+            lambda: held.append(one_grad()), RING_GRAD_RUNS)
+        ratio = grad_ratios(torch, got, grads(held[-1]))
+        worst = max(ratio, key=lambda k: ratio[k][0])
+        worst_module = max(ratio, key=lambda k: ratio[k][1])
+        report.update(tensors=len(ratio), worst=worst, worst_ratio=ratio[worst][0],
+                      worst_module=worst_module, worst_module_ratio=ratio[worst_module][1],
+                      wav_ratio=ratio["wav"][0],
+                      embed_ratio=ratio["encoder.layers.0.attention.rel_attn_embed.weight"][0],
+                      grad_ok=all(v[0] <= SP_GRAD_RTOL for v in ratio.values()))
+        del held
+    dist.barrier()
+    del model, weights, got
     torch.cuda.empty_cache()
     return report
 
@@ -5810,8 +5951,9 @@ def tp_worker(torch, work: str) -> None:
     phase 24's runs: (b), (d), (e) and, on rank 0, (a)'s f32 witness, after
     which it writes side{r}.json; then, once the main process starts phase
     29 (it writes `work`/go: nothing else runs on the card), (c) and (e)
-    timed; writes rank{r}.json. The wait for go fails once the main process
-    has begun no phase for TP_GO_SECONDS (it touches `work`/alive at each)."""
+    timed with its gradient; writes rank{r}.json. The wait for go fails
+    once the main process has begun no phase for TP_GO_SECONDS (it touches
+    `work`/alive at each)."""
     from sdumc_tpu_torch.cli.common import set_matmul_precision
     from sdumc_tpu_torch.parallel import initialize_from_env, make_model_axis, shutdown
 
@@ -6057,6 +6199,100 @@ def tp_cli_only(torch, world: int) -> None:
         check_tp_cli(work, tp_dir, world)
 
 
+def check_ring(reports: list, card: str) -> dict:
+    """Phase 29 (e) held, each rank's, from the ranks' reports: the SP
+    forward's taps, launches and first block launch, at f32 and bf16; its
+    gradient against one process's; the timed forwards and gradients.
+    Returns {rank: its block launches in the f32 SP forward}."""
+    launches = {}
+    name = FLASH_BLOCK["name"]
+    e = reports[0]["ring"]
+    print(f"(e) wavlm-large (phase 5's seeded weights, {e['layers']} layers) on phase 5's 60-s "
+          f"clip ({e['samples']} samples, T = {e['frames']}), its frames split over {TP_WORLD} "
+          f"ranks by parallel.wavlm_forward_sp (the attention round the ring: {TP_WORLD} block "
+          f"steps a layer, {TP_WORLD - 1} rotation(s) through gloo's page-locked host copies; "
+          f"every tap gathered), against one process's flash-path forward on the card:")
+    for r in reports:
+        e = r["ring"]
+        print(f"    rank {r['rank']}: f32, {e['taps']} taps, max abs diff "
+              f"{e['tap_max_abs_diff']!r} (max |h| {e['tap_top']!r}; rtol {FEAT_RTOL} atol "
+              f"{FEAT_ATOL}, phase 29 (d)'s: {e['taps_ok']}); launches {e['launches']}; the "
+              f"rank's first block launch at q {e['block_shape']} against its plain version: out "
+              f"{e['block_out_err']!r}, log-sum-exp {e['block_lse_err']!r} (rtol {FLASH_RTOL} "
+              f"atol {FLASH_ATOL}: {e['block_ok']}); bf16 (widened to f32 in the ring): finite "
+              f"{e['bf16_finite']}, launches {e['bf16_launches']}, least per-frame cosine of "
+              f"each tap against the f32 SP taps {min(e['bf16_cos'])!r} (by tap "
+              f"{[round(c, 6) for c in e['bf16_cos']]}; floor {BF16_COS_MIN}, phase 21's); "
+              f"beside phase 24 {e['seconds']:.1f} s")
+        for key in ("launches", "bf16_launches"):
+            counts = e[key]
+            others = {k: n for k, n in counts.items() if k != name and n}
+            if counts[name] != TP_WORLD * e["layers"] or others:
+                raise AssertionError(f"(e) rank {r['rank']} {key}: {counts}, expected "
+                                     f"{TP_WORLD * e['layers']} of {name} alone")
+        if not (e["taps_ok"] and e["block_ok"] and e["bf16_finite"] and e["bf16_ok"]):
+            raise AssertionError(f"(e) rank {r['rank']}: the sequence-parallel WavLM is not the "
+                                 "single process's")
+        launches[r["rank"]] = e["launches"][name]
+    t = [r["ring_timed"] for r in reports]
+    one = t[0]
+    print(f"    timed, f32, the last hidden state gathered ({card}; {RING_TIMED_RUNS} runs after "
+          f"a warm one): the SP forward {[x['sp_ms'] for x in t]!r} ms by rank (CUDA events), "
+          f"{[x['sp_host_ms'] for x in t]!r} ms host clock, against one process's "
+          f"{one['one_ms']!r} ms ({one['one_host_ms']!r} host; rank 0 alone), SP / one "
+          f"{t[0]['sp_ms'] / one['one_ms']!r}; once more with each rotation synchronised: "
+          f"{t[0]['rotations']} rotations, {t[0]['rotation_ms']!r} ms of "
+          f"{t[0]['rotation_run_ms']!r} ({t[0]['rotation_ms'] / t[0]['rotation_run_ms']:.1%}; "
+          f"rank 1 {t[1]['rotation_ms'] / t[1]['rotation_run_ms']:.1%}); peak device memory "
+          f"by rank {[x['sp_peak_gib'] for x in t]!r} GiB, one process {one['one_peak_gib']!r}")
+    print(f"    timed, the gradient ({RING_GRAD_RUNS} run(s) after a warm one): the SP forward "
+          f"(every tap gathered), backward and reduction {[x['grad_ms'] for x in t]!r} ms by "
+          f"rank (CUDA events), {[x['grad_host_ms'] for x in t]!r} ms host clock, against one "
+          f"process's forward and backward {one['one_grad_ms']!r} ms ({one['one_grad_host_ms']!r} "
+          f"host), SP / one {t[0]['grad_ms'] / one['one_grad_ms']!r}; the warm run with each "
+          f"rotation and collective synchronised: {t[0]['grad_rotations']} rotations "
+          f"{t[0]['grad_rotation_ms']!r} ms and {t[0]['grad_collectives']} collectives "
+          f"{t[0]['grad_collective_ms']!r} ms (the gradients' reduction "
+          f"{t[0]['grad_reduce_ms']!r}) of {t[0]['grad_rotation_run_ms']!r} "
+          f"({t[0]['grad_rotation_ms'] / t[0]['grad_rotation_run_ms']:.1%} and "
+          f"{t[0]['grad_collective_ms'] / t[0]['grad_rotation_run_ms']:.1%}; rank 1 "
+          f"{t[1]['grad_rotation_ms'] / t[1]['grad_rotation_run_ms']:.1%} and "
+          f"{t[1]['grad_collective_ms'] / t[1]['grad_rotation_run_ms']:.1%}); peak device memory "
+          f"by rank {[x['grad_peak_gib'] for x in t]!r} GiB, one process "
+          f"{one['one_grad_peak_gib']!r}")
+    if not all(math.isfinite(x[k]) for x in t for k in ("sp_ms", "grad_ms")) or not all(
+            math.isfinite(one[k]) for k in ("one_ms", "one_grad_ms")):
+        raise AssertionError("(e): a time is not finite")
+    g = t[0]
+    print(f"    the gradient, f32, eval mode: the loss sum_i <tap_i, w_i> over every tap (w seeded "
+          f"on the card), backward, then parallel.reduce_gradients over every parameter and the "
+          f"wave (the last timed SP run's), rank 0's against one process's forward (flash path) "
+          f"and backward on the card, tensor by tensor: max abs diff / max(the tensor's max "
+          f"|grad|, {SP_GRAD_FLOOR} x its module's) <= {SP_GRAD_RTOL}: {g['tensors']} tensors, "
+          f"the worst {g['worst']} at {g['worst_ratio']!r} (over its module's max |grad|, the "
+          f"worst {g['worst_module']} at {g['worst_module_ratio']!r}); the wave "
+          f"{g['wav_ratio']!r}, the shared rel_attn_embed {g['embed_ratio']!r}; the card's free "
+          f"memory before {g['free_gib']!r} GiB")
+    if not g["grad_ok"]:
+        raise AssertionError(f"(e): the SP gradient is not one process's ({g['worst']}: "
+                             f"{g['worst_ratio']!r})")
+    for r in reports:
+        g = r["ring_timed"]
+        same = g["digests"] == t[0]["digests"]
+        print(f"    rank {r['rank']}: finite {g['grad_finite']}; every tensor's bits equal rank "
+              f"0's (digests) {same}; the SP run's launches under autograd "
+              f"{g['grad_launches']}")
+        counts = g["grad_launches"]
+        if counts[name] != TP_WORLD * g["layers"] or any(
+                n for k, n in counts.items() if k != name):
+            raise AssertionError(f"(e) rank {r['rank']} gradient's forward: {counts}, expected "
+                                 f"{TP_WORLD * g['layers']} of {name} alone")
+        if not (same and g["grad_finite"]):
+            raise AssertionError(f"(e) rank {r['rank']}: the reduced SP gradient is not finite "
+                                 "or not rank 0's")
+    return launches
+
+
 def tp_phase(torch, procs, tp_dir: str, work: str, depth: dict, text_depth: dict,
              card: str) -> dict:
     """Phase 29: tensor and sequence parallelism, two ranks on the card
@@ -6066,8 +6302,9 @@ def tp_phase(torch, procs, tp_dir: str, work: str, depth: dict, text_depth: dict
     block kernel round the ring (``tp_ring``), ran beside phase 24
     (``start_tp_phase``); now, with nothing else on the card, the ranks run
     (c): the VICUNA_LAYERS model's batch and decode step timed, the
-    collectives' share, each rank's peak memory; then (e) timed
-    (``tp_ring_timed``). Every part is held here, each rank's; then the
+    collectives' share, each rank's peak memory; then (e) and its gradient
+    timed (``tp_ring_timed``). Every part is held here, each rank's
+    (``check_ring`` for (e) and its gradient); then the
     block kernel at the ring's shape (``flash_block_phase``). Returns
     {"launches": each rank's flash launches of (d) and block launches of
     (e), "block": the block kernel's numbers}."""
@@ -6151,48 +6388,8 @@ def tp_phase(torch, procs, tp_dir: str, work: str, depth: dict, text_depth: dict
                 raise AssertionError(f"(d) rank {r['rank']} {tag}: the split WavLM is not the "
                                      "whole one's")
 
-    name = FLASH_BLOCK["name"]
-    e = reports[0]["ring"]
-    print(f"(e) wavlm-large (phase 5's seeded weights, {e['layers']} layers) on phase 5's 60-s "
-          f"clip ({e['samples']} samples, T = {e['frames']}), its frames split over {TP_WORLD} "
-          f"ranks by parallel.wavlm_forward_sp (the attention round the ring: {TP_WORLD} block "
-          f"steps a layer, {TP_WORLD - 1} rotation(s) through gloo's page-locked host copies; "
-          f"every tap gathered), against one process's flash-path forward on the card:")
-    for r in reports:
-        e = r["ring"]
-        print(f"    rank {r['rank']}: f32, {e['taps']} taps, max abs diff "
-              f"{e['tap_max_abs_diff']!r} (max |h| {e['tap_top']!r}; rtol {FEAT_RTOL} atol "
-              f"{FEAT_ATOL}, phase 29 (d)'s: {e['taps_ok']}); launches {e['launches']}; the "
-              f"rank's first block launch at q {e['block_shape']} against its plain version: out "
-              f"{e['block_out_err']!r}, log-sum-exp {e['block_lse_err']!r} (rtol {FLASH_RTOL} "
-              f"atol {FLASH_ATOL}: {e['block_ok']}); bf16 (widened to f32 in the ring): finite "
-              f"{e['bf16_finite']}, launches {e['bf16_launches']}, least per-frame cosine of "
-              f"each tap against the f32 SP taps {min(e['bf16_cos'])!r} (by tap "
-              f"{[round(c, 6) for c in e['bf16_cos']]}; floor {BF16_COS_MIN}, phase 21's); "
-              f"beside phase 24 {e['seconds']:.1f} s")
-        for key in ("launches", "bf16_launches"):
-            counts = e[key]
-            others = {k: n for k, n in counts.items() if k != name and n}
-            if counts[name] != TP_WORLD * e["layers"] or others:
-                raise AssertionError(f"(e) rank {r['rank']} {key}: {counts}, expected "
-                                     f"{TP_WORLD * e['layers']} of {name} alone")
-        if not (e["taps_ok"] and e["block_ok"] and e["bf16_finite"] and e["bf16_ok"]):
-            raise AssertionError(f"(e) rank {r['rank']}: the sequence-parallel WavLM is not the "
-                                 "single process's")
-        launches[r["rank"]][name] = e["launches"][name]
-    t = [r["ring_timed"] for r in reports]
-    one = t[0]
-    print(f"    timed, f32, the last hidden state gathered ({card}; {RING_TIMED_RUNS} runs after "
-          f"a warm one): the SP forward {[x['sp_ms'] for x in t]!r} ms by rank (CUDA events), "
-          f"{[x['sp_host_ms'] for x in t]!r} ms host clock, against one process's "
-          f"{one['one_ms']!r} ms ({one['one_host_ms']!r} host; rank 0 alone), SP / one "
-          f"{t[0]['sp_ms'] / one['one_ms']!r}; once more with each rotation synchronised: "
-          f"{t[0]['rotations']} rotations, {t[0]['rotation_ms']!r} ms of "
-          f"{t[0]['rotation_run_ms']!r} ({t[0]['rotation_ms'] / t[0]['rotation_run_ms']:.1%}; "
-          f"rank 1 {t[1]['rotation_ms'] / t[1]['rotation_run_ms']:.1%}); peak device memory "
-          f"by rank {[x['sp_peak_gib'] for x in t]!r} GiB, one process {one['one_peak_gib']!r}")
-    if not all(math.isfinite(x["sp_ms"]) for x in t) or not math.isfinite(one["one_ms"]):
-        raise AssertionError("(e): a time is not finite")
+    for r, n in check_ring(reports, card).items():
+        launches[r][FLASH_BLOCK["name"]] = n
     from sdumc_tpu_torch.ops.kernels import flash_wavlm
 
     return {"launches": launches,

@@ -56,6 +56,8 @@ The gradient (``FlashGatedAttention``) is the port of JAX's
 the plain version on the CPU), the backward is ``_flash_bwd_scan`` (flash_wavlm.py:
 435-486) as torch ops over query chunks, in O(T * chunk) memory. JAX's
 backward is XLA, not Pallas, so there is no backward kernel here either.
+The same ``flash_backward`` takes one block of the ring's merged softmax
+(its merged out and log-sum-exp given): ring attention's backward.
 """
 
 from __future__ import annotations
@@ -209,8 +211,9 @@ def flash_block_plain(q, k, v, gate, bias_diag, kvalid=None):
 def flash_block(q, k, v, gate, bias_diag, kvalid=None):
     """(out, lse) of one f32 block (see the module docstring), through the
     op ``sdumc::flash_wavlm_lse``: the block instance for CUDA tensors, the
-    plain version for CPU ones. No gradient: ring attention is forward only
-    (its gradient is on the ROADMAP)."""
+    plain version for CPU ones. No gradient of its own: ring attention's
+    ``RingGatedAttention`` takes each block's by ``flash_backward`` with the
+    merged lse."""
     return torch.ops.sdumc.flash_wavlm_lse(q, k, v, gate, bias_diag, kvalid)
 
 
@@ -331,9 +334,23 @@ class FlashGatedAttention(torch.autograd.Function):
                 None)
 
 
-def flash_backward(q, k, v, gate, bias_diag, kvalid, out, dout, chunk: int = BWD_CHUNK):
+def flash_backward(q, k, v, gate, bias_diag, kvalid, out, dout, chunk: int = BWD_CHUNK,
+                   lse=None, keys_total: Optional[int] = None):
     """(dq, dk, dv, dgate, d_bias_diag) of the attention, as JAX's
-    ``_flash_bwd_scan`` takes them (f32 throughout, NEG on masked keys)."""
+    ``_flash_bwd_scan`` takes them (f32 throughout, NEG on masked keys).
+
+    With ``lse`` ([B, H, T] f32) the same for one block of a merged softmax
+    (ring attention's backward): q are the local queries, k / v / kvalid a
+    visiting key block of the same length, bias_diag its diagonal with the
+    block's offset folded in (as ``flash_block`` takes it), and out / lse
+    the merged output and log-sum-exp over all ``keys_total`` keys. Then p =
+    exp(s - lse) and D = rowsum(dout . out) of the merged out; the block's
+    share of dq, dgate and d_bias_diag is returned, and all of its dk, dv
+    from these queries. A row with no valid key in any block (lse at NEG,
+    where log T is lost) has p = 1 / keys_total on every key, so dv gets
+    dout / keys_total and dq, dgate and the bias nothing, as JAX's ``where``
+    gives them; a block that is fully masked for a row with valid keys
+    elsewhere has p = exp(NEG - lse) = 0."""
     B, T, H, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
     f = torch.float32
@@ -355,10 +372,16 @@ def flash_backward(q, k, v, gate, bias_diag, kvalid, out, dout, chunk: int = BWD
         s = torch.einsum("bthd,bshd->bhts", q_c, kf) * scale + gate_c[..., None] * bias_c[None]
         if keymask is not None:
             s = s + keymask
-        p = torch.softmax(s, dim=-1)                                     # [B, H, c, T]
         dP = torch.einsum("bthd,bshd->bhts", dout_c, vf)
         dsum = (dout_c * out_c).sum(-1).transpose(1, 2)                  # [B, H, c]
-        dS = p * (dP - dsum[..., None])
+        if lse is None:
+            p = torch.softmax(s, dim=-1)                                 # [B, H, c, T]
+            dS = p * (dP - dsum[..., None])
+        else:
+            lse_c = lse[:, :, c0:c1, None]
+            empty = lse_c < NEG / 2                                      # no valid key anywhere
+            p = torch.where(empty, 1.0 / keys_total, torch.exp(s - lse_c))
+            dS = torch.where(empty, 0.0, p * (dP - dsum[..., None]))
         dq[:, c0:c1] = torch.einsum("bhts,bshd->bthd", dS, kf) * scale
         dk += torch.einsum("bhts,bthd->bshd", dS, q_c) * scale
         dv += torch.einsum("bhts,bthd->bshd", p, dout_c)

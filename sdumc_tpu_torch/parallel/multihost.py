@@ -225,16 +225,18 @@ def gather_rows(axis: DataAxis, *tensors: torch.Tensor) -> tuple:
                  for p, t in zip(parts, tensors))
 
 
-def reduce_gradients(params, axis: DataAxis) -> None:
+def reduce_gradients(params, axis) -> None:
     """Sum every parameter's gradient over the ranks, in place: one
     ``axis.all_reduce`` (flat, or hierarchical on a hierarchical axis) of
     all of them flattened into one buffer. A parameter without a gradient
-    keeps none (the same ones on every rank)."""
+    keeps none (the same ones on every rank). `axis` is a ``DataAxis``, or
+    a ``ModelAxis`` after ``backward()`` of ``wavlm_forward_sp``, whose
+    replicated leaves (the parameters, the wave) each rank differentiates
+    for its own frames."""
     grads = [p.grad for p in params if p.grad is not None]
     if axis.world == 1 or not grads:
         return
-    flat = torch.cat([g.reshape(-1) for g in grads])
-    axis.all_reduce(flat)
+    flat = axis.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
     for g, part in zip(grads, flat.split([g.numel() for g in grads])):
         g.copy_(part.view_as(g))
 

@@ -28,16 +28,28 @@ weighs zero beside a block with a valid key. A row with no valid key in any
 block gets the mean of v over every key, as JAX's NEG arithmetic gives it
 (each block's mean, the blocks weighed alike).
 
-Forward only: JAX takes the ring's gradient by autodiff; here the received
-blocks carry no graph, so a call under autograd with an input that requires
-grad raises (the gradient is on the ROADMAP).
+The gradient (``RingGatedAttention``): JAX takes it by autodiff, ``ppermute``
+transposing. Here the backward is a second ring: at each of the P steps the
+local queries' backward against the visiting block (``flash_wavlm.
+flash_backward`` given the merged out and log-sum-exp, so each block's p is
+recomputed as exp(s - lse) of the whole ring's softmax); dq, dgate and the
+block's diagonal gradient accumulate locally, dk and dv in buffers that
+travel round the ring with k, v and the key mask, and take one rotation more
+than k and v to reach their owner (P in all). The diagonals' gradient goes
+back through ``ring_bias_diags``'s gather to the shared embedding; each
+rank's gradient of a replicated input (the embedding, and under
+``ring_attention_sharded`` every input) is its own queries' share, which
+``parallel.reduce_gradients`` sums over the ranks. No Pallas kernel sits
+on JAX's backward, and none on this one: it is f32 torch ops over query
+chunks, as ``FlashGatedAttention``'s. Gradients come back in their inputs'
+dtypes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from sdumc_tpu_torch.ops.kernels.flash_wavlm import bias_diag_for, flash_block
+from sdumc_tpu_torch.ops.kernels.flash_wavlm import bias_diag_for, flash_backward, flash_block
 
 
 def ring_bias_diags(rel_embed: torch.Tensor, t_local: int, axis, num_buckets: int,
@@ -51,24 +63,10 @@ def ring_bias_diags(rel_embed: torch.Tensor, t_local: int, axis, num_buckets: in
                         for src in range(axis.world)])
 
 
-def ring_gated_attention(q, k, v, gate, kvalid, rel_embed, *, axis, num_buckets: int,
-                         max_distance: int, bias_diags=None):
-    """This rank's shard of the attention (every rank of ``axis`` calls it).
-
-    q, k, v: [B, T_local, H, hd] (any float dtype); gate [B, H, T_local];
-    kvalid [B, T_local] (1 or True attends) for the local keys; rel_embed
-    [num_buckets, H], replicated (may be None when ``bias_diags``, from
-    ``ring_bias_diags``, is given). Returns [B, T_local, H, hd] in q's
-    dtype."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, gate)):
-        raise NotImplementedError("ring attention has no gradient in the port (ROADMAP)")
-    f32 = torch.float32
-    B, t_local, H, hd = q.shape
-    if bias_diags is None:
-        bias_diags = ring_bias_diags(rel_embed, t_local, axis, num_buckets, max_distance)
-    qf, kf, vf = (t.to(f32).contiguous() for t in (q, k, v))
-    gf = gate.to(f32).contiguous()
-    valid = kvalid.to(f32).contiguous()
+def _ring_forward(qf, kf, vf, gf, valid, bias_diags, axis):
+    """(out, lse [B, H, T_local]) in f32 of the local queries over every
+    block: P steps of ``flash_block``, merged by their log-sum-exps; k, v and
+    the key mask rotated P - 1 times."""
     for step in range(axis.world):
         src = (axis.rank - step) % axis.world               # the block's owner
         out, lse = flash_block(qf, kf, vf, gf, bias_diags[src], valid)
@@ -83,7 +81,67 @@ def ring_gated_attention(q, k, v, gate, kvalid, rel_embed, *, axis, num_buckets:
             m = m_new
         if step + 1 < axis.world:
             kf, vf, valid = axis.ring_shift([kf, vf, valid])
-    return (acc / denom).to(q.dtype)
+    return acc / denom, (m + torch.log(denom))[..., 0].transpose(1, 2).contiguous()
+
+
+class RingGatedAttention(torch.autograd.Function):
+    """The ring's forward (``_ring_forward``) with the ring backward of the
+    module docstring. Inputs: q, k, v [B, T_local, H, hd], gate [B, H,
+    T_local], the f32 key mask [B, T_local], the [P, H, 2 T_local - 1]
+    diagonals, the axis; output [B, T_local, H, hd] in q's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, gate, valid, bias_diags, axis):
+        f32 = torch.float32
+        qf, kf, vf = (t.to(f32).contiguous() for t in (q, k, v))
+        gf = gate.to(f32).contiguous()
+        diags = bias_diags.to(f32)
+        out, lse = _ring_forward(qf, kf, vf, gf, valid, diags, axis)
+        ctx.save_for_backward(qf, kf, vf, gf, valid, diags, out, lse)
+        ctx.axis = axis
+        ctx.dtypes = tuple(t.dtype for t in (q, k, v, gate, bias_diags))
+        return out.to(q.dtype)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dout):
+        qf, kf, vf, gf, valid, diags, out, lse = ctx.saved_tensors
+        axis = ctx.axis
+        P, t_local = axis.world, qf.shape[1]
+        dout = dout.to(torch.float32)
+        dq, dgate = torch.zeros_like(qf), torch.zeros_like(gf)
+        ddiags = torch.zeros_like(diags)
+        for step in range(P):
+            src = (axis.rank - step) % P
+            gq, gk, gv, gg, gd = flash_backward(qf, kf, vf, gf, diags[src], valid, out, dout,
+                                                lse=lse, keys_total=P * t_local)
+            dq += gq
+            dgate += gg
+            ddiags[src] += gd
+            dk, dv = (gk, gv) if step == 0 else (dk + gk, dv + gv)
+            if step + 1 < P:
+                kf, vf, valid, dk, dv = axis.ring_shift([kf, vf, valid, dk, dv])
+        dk, dv = axis.ring_shift([dk, dv])                  # to the block's owner
+        grads = [g.to(dt) for g, dt in zip((dq, dk, dv, dgate, ddiags), ctx.dtypes)]
+        return (*(g if need else None for g, need in
+                  zip(grads[:4], ctx.needs_input_grad[:4])),
+                None, grads[4] if ctx.needs_input_grad[5] else None, None)
+
+
+def ring_gated_attention(q, k, v, gate, kvalid, rel_embed, *, axis, num_buckets: int,
+                         max_distance: int, bias_diags=None):
+    """This rank's shard of the attention (every rank of ``axis`` calls it).
+
+    q, k, v: [B, T_local, H, hd] (any float dtype); gate [B, H, T_local];
+    kvalid [B, T_local] (1 or True attends) for the local keys; rel_embed
+    [num_buckets, H], replicated (may be None when ``bias_diags``, from
+    ``ring_bias_diags``, is given). Returns [B, T_local, H, hd] in q's
+    dtype. Differentiable (``RingGatedAttention``): every rank must then
+    call backward, since the backward rotates too."""
+    if bias_diags is None:
+        bias_diags = ring_bias_diags(rel_embed, q.shape[1], axis, num_buckets, max_distance)
+    return RingGatedAttention.apply(q, k, v, gate, kvalid.to(torch.float32).contiguous(),
+                                    bias_diags, axis)
 
 
 def ring_attention_sharded(q, k, v, gate, kvalid, rel_embed, *, axis, num_buckets: int,
@@ -105,7 +163,27 @@ def ring_attention_sharded(q, k, v, gate, kvalid, rel_embed, *, axis, num_bucket
 
 def gather_time(x: torch.Tensor, axis, dim: int) -> torch.Tensor:
     """Each rank's slice along ``dim`` (rank r's at [r n, (r + 1) n)),
-    concatenated on every rank: ``gather_last`` on ``dim`` moved last."""
+    concatenated on every rank: ``gather_last`` on ``dim`` moved last. Its
+    gradient (``GatherTime``) is each rank's own slice of the output's:
+    every rank computes the same loss of the same whole output."""
     if axis.world == 1:
         return x
-    return axis.gather_last(x.movedim(dim, -1).contiguous()).movedim(-1, dim)
+    return GatherTime.apply(x, axis, dim)
+
+
+class GatherTime(torch.autograd.Function):
+    """``gather_time`` with JAX's contract for one global output and one
+    loss that every rank computes alike: the backward hands each rank its own
+    slice of the gradient (a reduce-scatter would give P times it).
+    ``gather_last`` sums into a zeroed buffer in place, which autograd does
+    not see, hence the explicit backward."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.part = (dim, axis.rank * x.shape[dim], x.shape[dim])
+        return axis.gather_last(x.movedim(dim, -1).contiguous()).movedim(-1, dim)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        return grad.narrow(*ctx.part), None, None

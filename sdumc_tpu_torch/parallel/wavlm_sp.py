@@ -10,6 +10,13 @@ and V round the ring, ``parallel/ring_attention.py``), and the slices are
 gathered on every rank and cut back to T. JAX gets the same from
 ``shard_map`` over a mesh axis; here each rank is a process
 (``parallel.initialize_from_env``, ``make_model_axis(device, n)``).
+
+Under autograd the ring and the gather carry the gradient
+(``ring_attention.RingGatedAttention``, ``GatherTime``): each rank's
+gradient of a replicated leaf (every parameter, the wave) is the share of
+its own frames, and ``parallel.reduce_gradients`` sums them over the axis
+into the single-process gradient, which JAX's ``shard_map`` gives its
+``P()`` params.
 """
 
 from __future__ import annotations
@@ -44,7 +51,17 @@ def wavlm_forward_sp(model, wav: torch.Tensor, axis, pad_mask: Optional[torch.Te
     """[B, S] waveform -> ``WavLMModel``'s output dict, the transformer
     stack's frames split over `axis` (every rank of it calls this with the
     same inputs and gets the whole result). ``pad_mask`` is the frame-level
-    [B, T] mask (True = real), as in ``WavLMModel``. Forward only."""
+    [B, T] mask (True = real), as in ``WavLMModel``.
+
+    Differentiable: every rank takes the same loss of the same result, calls
+    ``backward()`` (the ring's backward rotates, so all must), then
+    ``parallel.reduce_gradients([*model.parameters(), wav], axis)`` on the
+    same replicated leaves (the wave when it requires grad). Each rank's
+    gradient of such a leaf is the share of its own frames (the encoder's
+    parameters see only the rank's slice; the prologue runs whole but feeds
+    only it), so the sum is the single-process gradient, on every rank. The
+    padded frames are masked keys and are cut off as queries, so their
+    gradient is exactly zero."""
     x = model.prologue(wav, pad_mask)
     B, T, _ = x.shape
     n = axis.world
@@ -65,3 +82,4 @@ def wavlm_forward_sp(model, wav: torch.Tensor, axis, pad_mask: Optional[torch.Te
     # the last tap is the last hidden state (post-final-LN for pre-LN models)
     taps = gather_time(torch.stack(hidden), axis, dim=2)[:, :, :T]
     return {"last_hidden_state": taps[-1], "hidden_states": tuple(taps.unbind(0))}
+

@@ -55,7 +55,9 @@ logits and a tiny WavLM's last hidden state of the single process. The
 WavLM kernel's block instance (ring attention's step, with each row's
 log-sum-exp) is held to its plain version at offset key blocks, and two
 sequence-parallel ranks on the card (the ring's rotation through gloo's
-page-locked host copies) give a tiny WavLM's taps of the single process.
+page-locked host copies) give a tiny WavLM's taps of the single process;
+a one-rank ring's gradient on the card (the block instance forward, the
+ring backward) equals the same ring's on the CPU.
 Four ranks on the card over gloo sum a vector on the 2 x 2 hierarchical
 axis (gloo's reduce-scatter and all-gather on CUDA tensors), and pass a
 pipeline's microbatches stage to stage (send and receive through
@@ -1672,6 +1674,33 @@ def test_flash_block_instance_matches_plain(cuda, T, offset_blocks):
     assert (lse[3] <= -9.99e29).all()
     with pytest.raises(TypeError):
         flash_wavlm.flash_block(q.bfloat16(), k.bfloat16(), v.bfloat16(), gate, diag, kvalid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [249, 1500])
+def test_one_rank_ring_gradient_on_card_matches_cpu(cuda, T):
+    """A one-rank ring under autograd at wavlm-large's heads (16 of 64): on
+    the card the forward is one launch of the block instance and the
+    backward the ring's (``flash_backward`` with the merged log-sum-exp, on
+    the card); its q, k, v, gate and rel_embed gradients equal the same
+    ring's on the CPU (the plain block) to rtol 3e-4 / atol 3e-5 (JAX's
+    gradient tolerance). Rows attend to every key, one key, a prefix, and
+    none."""
+    from sdumc_tpu_torch.parallel import ModelAxis, ring_gated_attention
+
+    q, k, v, gate, rel, kvalid = _flash_inputs(4, T, 16, 64, "prefix", seed=7)
+    kvalid[3] = 0.0
+    g = torch.randn(4, T, 16, 64, generator=torch.Generator().manual_seed(3))
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v, gate, rel)]
+        flash_wavlm.reset_launches()
+        out = ring_gated_attention(*leaves[:4], kvalid.to(dev), leaves[4],
+                                   axis=ModelAxis(device=dev), num_buckets=NB, max_distance=MD)
+        grads[dev.type] = [t.cpu() for t in torch.autograd.grad(out, leaves, g.to(dev))]
+        assert flash_wavlm.LAUNCHES_BLOCK == (1 if dev.type == "cuda" else 0)
+    for name, a, r in zip(("dq", "dk", "dv", "dgate", "drel"), grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, r, rtol=3e-4, atol=3e-5, msg=name)
 
 
 _SP_RANK = """

@@ -196,11 +196,21 @@ def test_one_rank_ring_is_the_plain_attention_and_needs_no_group():
 
 
 def test_ring_refuses_gradients_and_ragged_splits():
+    """The ring once refused gradients; now a one-rank ring (``ModelAxis()``,
+    no process group) gives the plain attention's autograd gradients. It
+    still refuses a T that does not divide over the ranks."""
     case = _case()
     args = [torch.from_numpy(case[k]) for k in ("q", "k", "v", "gate", "kvalid", "rel")]
-    with pytest.raises(NotImplementedError, match="gradient"):
-        ring_gated_attention(args[0].requires_grad_(), *args[1:], axis=ModelAxis(),
-                             num_buckets=NB, max_distance=MD)
+    w = torch.from_numpy(np.random.default_rng(5).normal(size=(B, T, H, HD)).astype(np.float32))
+    grads = []
+    for fn in (lambda q, k, v, g, r: ring_gated_attention(
+                   q, k, v, g, args[4], r, axis=ModelAxis(), num_buckets=NB, max_distance=MD),
+               lambda q, k, v, g, r: flash_wavlm.flash_gated_attention_plain(
+                   q, k, v, g, r, args[4], num_buckets=NB, max_distance=MD)):
+        leaves = [a.clone().requires_grad_() for a in args[:4] + args[5:]]
+        (fn(*leaves) * w).sum().backward()
+        grads.append([t.grad for t in leaves])
+    for name, got, want in zip(("q", "k", "v", "gate", "rel"), *grads):
+        torch.testing.assert_close(got, want, rtol=3e-4, atol=3e-5, msg=name)
     with pytest.raises(ValueError, match="divide"):
-        ring_attention_sharded(*(a.detach() for a in args), axis=ModelAxis(world=3),
-                               num_buckets=NB, max_distance=MD)
+        ring_attention_sharded(*args, axis=ModelAxis(world=3), num_buckets=NB, max_distance=MD)
