@@ -48,10 +48,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
   8. one train step with dropout off from the same seeded weights on the
      first train batch, card against CPU: the loss and every gradient; then
      the card's step again with TF32 allowed in torch's matmuls, which the
-     gradient check must refuse (it shows the check can see TF32);
+     gradient check must refuse (it shows the check can see TF32); then,
+     with the live dropouts, the remat step (``make_train_step(remat=True)``,
+     the dual-view loss under torch.utils.checkpoint) against the default
+     step from the same weights on the same batch: the loss and every
+     gradient to the same tolerance (equal to the bit expected);
   9. a warm train step on the card, timed with CUDA events over 10 steps,
      then device time by family (fusion kernel, GEMMs, optimizer, copies,
-     the rest) of 3 steps under torch.profiler, with the idle share;
+     the rest) of 3 steps under torch.profiler, with the idle share; its
+     roofline (``utils.roofline``: flops and bytes counted on one untimed
+     step, the fusion op by its formula; ``Roofline.report`` at the timed ms
+     against the H100's peaks, the custom ops' share of the flops); the
+     remat step timed the same way, with its peak memory beside the
+     default step's;
  10. the feat4 decoder at Vicuna-7B width (vocab 32000, hidden 4096, 32
      heads, FFN 11008) cut to 2 layers, f32, TF32 off, seeded weights, card
      against CPU: full-sequence logits and tap sum, then a beam-4 decode of
@@ -376,7 +385,7 @@ T_START = time.perf_counter()
 # section 6), their sum with the kernel build under 960 s, well under the 1200 s limit. A phase that runs past max(PHASE_MIN_BOUND, 3 x its budget), or past
 # SCRIPT_DEADLINE since the start, is stopped by a watchdog that prints every thread's
 # stack and exits non-zero.
-PHASE_BUDGET = {2: 18, 3: 1, 4: 5, 5: 17, 7: 18, 8: 4, 9: 7, 10: 16, 11: 35, 12: 25, 13: 5,
+PHASE_BUDGET = {2: 18, 3: 1, 4: 5, 5: 17, 7: 18, 8: 5, 9: 9, 10: 16, 11: 35, 12: 25, 13: 5,
                 14: 6, 15: 44, 16: 16, 17: 2, 18: 33, 19: 3, 20: 1, 21: 15, 22: 32, 23: 74,
                 24: 170, 25: 45, 26: 75, 27: 180, 28: 8, 29: 30, 30: 25}
 PHASE_MIN_BOUND = 120
@@ -695,7 +704,7 @@ def bound_ms(q_count: int, t_valid, shared_query: bool, bf16: bool = False):
     nbytes = q_bytes + n * D * xb + D * D * 4 + D * 4 + rows * 4 + rows * q_count * D * xb
     mma, ffma = n * 2 * D * D, n * (2 * D + 4 * q_count * D)
     mma_s = BF16_PASSES * mma / PEAK_BF16_FLOPS if bf16 else TF32_PASSES * mma / PEAK_TF32_FLOPS
-    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES,
+    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES, "flops": mma + ffma,
             "operations": 1e3 * (mma_s + ffma / PEAK_F32_FLOPS),
             "operations_tf32": 1e3 * (BF16_TF32_PASSES * mma / PEAK_TF32_FLOPS
                                       + ffma / PEAK_F32_FLOPS),
@@ -779,7 +788,7 @@ def kernel_phase(torch, fused_cross, fused_pool, lengths, grads: bool = True,
     totals = {q: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
                   "bytes_ms": 0.0, "operations_ms": 0.0, "operations_tf32_ms": 0.0,
                   "f32_bound_ms": 0.0, "device_ms": 0.0, "grad_max_abs_err": 0.0,
-                  "max_ulps": 0.0, "blocks": 0, "tile_frames": 0, "w_bytes": 0, "frames": 0,
+                  "bound_flops": 0, "max_ulps": 0.0, "blocks": 0, "tile_frames": 0, "w_bytes": 0, "frames": 0,
                   "ms_reps": [0.0] * reps, "device_ms_reps": [0.0] * reps,
                   "calls": {}} for q in REPLACES}
     if bf16:
@@ -867,6 +876,7 @@ def kernel_phase(torch, fused_cross, fused_pool, lengths, grads: bool = True,
             tot["max_ulps"] = max([tot["max_ulps"], *ulps])
             tot["bytes_ms"] += bnd["bytes"]
             tot["operations_ms"] += bnd["operations"]
+            tot["bound_flops"] += bnd["flops"]
             tot["operations_tf32_ms"] += bnd["operations_tf32"]
             tot["blocks"] += blocks
             tot["tile_frames"] += blocks * tile
@@ -955,7 +965,7 @@ def flash_bound_ms(B, T, n_valid, num_buckets=320):
     H, hd = FLASH_H, FLASH_HD
     nbytes = 4 * (4 * B * T * H * hd + B * H * T + num_buckets * H + B * T)
     flops = 4 * H * hd * T * int(sum(n_valid))
-    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES,
+    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES, "flops": flops,
             "operations": 1e3 * TF32_PASSES * flops / PEAK_TF32_FLOPS,
             "f32": 1e3 * flops / PEAK_F32_FLOPS}
 
@@ -970,7 +980,7 @@ def flash_phase(torch, flash_wavlm):
     kw = dict(num_buckets=320, max_distance=800)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
            "bytes_ms": 0.0, "operations_ms": 0.0, "f32_bound_ms": 0.0, "max_abs_err": 0.0,
-           "device_ms": 0.0, "calls": {}}
+           "device_ms": 0.0, "bound_flops": 0, "calls": {}}
     print(f"flash_wavlm vs plain (H={FLASH_H}, hd={FLASH_HD}; tolerance rtol={FLASH_RTOL} "
           f"atol={FLASH_ATOL}: f32, summed in another order over <= 3000 keys)")
     for B, T in FLASH_SHAPES:
@@ -1015,7 +1025,7 @@ def flash_phase(torch, flash_wavlm):
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("bound_ms", least), ("bytes_ms", bnd["bytes"]),
                          ("operations_ms", bnd["operations"]), ("f32_bound_ms", bnd["f32"]),
-                         ("device_ms", dev_ms)):
+                         ("device_ms", dev_ms), ("bound_flops", bnd["flops"])):
             tot[key] += val
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         tot["calls"][f"B={B} T={T}"] = ms
@@ -1033,7 +1043,7 @@ def flash_block_bound_ms(B, T, n_valid, num_buckets=320):
     H, hd = FLASH_H, FLASH_HD
     nbytes = 4 * (4 * B * T * H * hd + 2 * B * H * T + H * (2 * T - 1) + B * T)
     flops = 4 * H * hd * T * int(sum(n_valid))
-    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES,
+    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES, "flops": flops,
             "operations": 1e3 * TF32_PASSES * flops / PEAK_TF32_FLOPS}
 
 
@@ -1100,7 +1110,7 @@ def flash_block_phase(torch, flash_wavlm, t_local: int) -> dict:
           f"{bnd['operations']!r}), {least / ms:.1%} of it")
     return {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             "bound_ms": least, "bytes_ms": bnd["bytes"], "operations_ms": bnd["operations"],
-            "max_abs_err": err}
+            "bound_flops": bnd["flops"], "shape": (1, t_local), "max_abs_err": err}
 
 
 def main_path_phase(torch, fused_cross):
@@ -1394,12 +1404,12 @@ def first_train_batch(cfg, train_ds):
                                    drop_remainder=True)))
 
 
-def make_step(torch, cfg, model, axis=None):
+def make_step(torch, cfg, model, axis=None, **kw):
     from sdumc_tpu_torch.train.state import create_train_state
     from sdumc_tpu_torch.train.step import make_train_step
 
     state = create_train_state(model, cfg.train, 8)
-    return make_train_step(state, cfg.loss, cfg.train.seed, axis)
+    return make_train_step(state, cfg.loss, cfg.train.seed, axis, **kw)
 
 
 def step_parity_phase(torch):
@@ -1454,11 +1464,42 @@ def step_parity_phase(torch):
     if tf32_worst <= 1.0:
         raise AssertionError("the gradient check does not see TF32 in the train step")
 
+    # remat: the same seeded weights and batch on the card with the live dropouts,
+    # make_train_step(remat=True) against the default step
+    live = dataclasses.replace(cfg.model, input_dims=train_ds.input_dims()[:3])
 
-def step_timing_phase(torch):
+    def run_live(remat):
+        model = get_model(live, torch.Generator().manual_seed(cfg.train.seed)).to("cuda")
+        metrics = make_step(torch, cfg, model, remat=remat)(batch_to_device_dict(batch, "cuda"))
+        return (metrics["loss"].item(),
+                {k: p.grad.cpu() for k, p in model.named_parameters() if p.grad is not None})
+
+    t_remat = time.perf_counter()
+    (loss_live, g_live), (loss_remat, g_remat) = run_live(False), run_live(True)
+    remat_worst, remat_key = worst_ratio(g_live, g_remat)
+    max_diff = max((g_remat[k] - ref).abs().max().item() for k, ref in g_live.items())
+    equal = loss_remat == loss_live and all(torch.equal(g_remat[k], g_live[k]) for k in g_live)
+    print(f"remat, one card step with the live dropouts (dropout {live.dropout}, attn_dropout "
+          f"{live.attn_dropout}; loss {loss_live!r}, {loss_card!r} with dropout off): "
+          f"remat=True loss {loss_remat!r} vs the default step's {loss_live!r}; "
+          f"{len(g_live)} gradients, max abs diff {max_diff!r}, worst max-abs-diff / "
+          f"(GRAD_RTOL max|grad| + GRAD_ATOL) = {remat_worst!r} at {remat_key} (must be <= 1); "
+          f"equal to the bit: {equal}; {time.perf_counter() - t_remat!r} s")
+    if (abs(loss_remat - loss_live) > GRAD_RTOL * abs(loss_live) + GRAD_ATOL
+            or remat_worst > 1.0):
+        raise AssertionError("the remat train step disagrees with the default step")
+    if loss_live == loss_card:
+        raise AssertionError("the live dropouts drew nothing")
+
+
+def step_timing_phase(torch, card=None, extras: bool = True):
     """A warm train step (the live dropouts) on the card's copy of the first
     train batch: CUDA events over TIMED_STEPS steps, peak memory, then
-    device time by family of PROFILED_STEPS steps under torch.profiler."""
+    device time by family of PROFILED_STEPS steps under torch.profiler.
+    With `extras`: the step's roofline (``utils.roofline.program_cost`` on
+    one untimed step, ``Roofline.report`` at the timed ms against
+    ``detect_peaks()``), then the remat step (``make_train_step(remat=True)``)
+    timed the same way with its peak memory, from the same seeded weights."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1474,6 +1515,7 @@ def step_timing_phase(torch):
     model = build_model(cfg, train_ds.input_dims(), torch.device("cuda"))
     step = make_step(torch, cfg, model)
     d = batch_to_device_dict(batch, "cuda")
+    resident = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     ms = time_ms(lambda: step(d), iters=TIMED_STEPS, warmup=3)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1497,7 +1539,51 @@ def step_timing_phase(torch):
     for e in host_ops[:8]:
         print(f"  {e.self_cpu_time_total / 1e3 / PROFILED_STEPS:10.3f} ms per step "
               f"{e.count // PROFILED_STEPS:6d} calls  {e.key[:80]}")
+    if extras:
+        step_roofline_and_remat(torch, cfg, train_ds, d, step, ms, peak - resident,
+                                card or card_line())
     return ms
+
+
+def step_roofline_and_remat(torch, cfg, train_ds, d, step, ms: float, grown: float, card: str):
+    """Phase 9's roofline of the warm step and its remat twin (see
+    ``step_timing_phase``); `grown` is how far the default step's peak
+    memory rose above what was allocated when its timing began (GiB)."""
+    from sdumc_tpu_torch.cli.common import build_model
+    from sdumc_tpu_torch.utils.roofline import CostMode, Roofline, detect_peaks
+
+    t0 = time.perf_counter()
+    with CostMode() as cost:
+        step(d)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    peaks = detect_peaks()
+    report = Roofline(cost.flops, cost.bytes).report(ms / 1e3, peaks)
+    ops = {k: v for k, v in cost.flops_by_op.items() if k.startswith("sdumc.")}
+    rate = cost.flops / (ms / 1e3)
+    print(f"roofline of the warm train step ({card}): {cost.flops!r} flops (the matrix products "
+          f"and the custom ops' formulas; elementwise work uncounted) and {cost.bytes!r} bytes "
+          f"(every dispatched op's inputs read and outputs and mutated inputs written, an upper "
+          f"bound; {cost.bytes_written!r} of them written) counted on one untimed "
+          f"step in {count_s!r} s; at the timed {ms!r} ms: {report} against detect_peaks() "
+          f"{peaks}; {100 * rate / peaks['flops_tf32']!r}% of the TF32 peak, "
+          f"{100 * rate / peaks['flops_f32']!r}% of the f32 peak; the custom ops' share of the "
+          f"counted flops {sum(ops.values()) / cost.flops!r} ({ops}); flops by op "
+          f"{dict(cost.flops_by_op)}")
+    if not report or not ops:
+        raise AssertionError("the roofline counted no work of the step or none of its kernels")
+
+    model = build_model(cfg, train_ds.input_dims(), torch.device("cuda"))
+    remat = make_step(torch, cfg, model, remat=True)
+    resident = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    remat_ms = time_ms(lambda: remat(d), iters=TIMED_STEPS, warmup=3)
+    remat_grown = torch.cuda.max_memory_allocated() / 2**30 - resident
+    print(f"remat warm train step ({card}): {remat_ms!r} ms per step over {TIMED_STEPS} steps "
+          f"(CUDA events; the default step's {ms!r} ms, ratio {remat_ms / ms!r}); peak device "
+          f"memory {remat_grown!r} GiB above what was allocated when its timing began (Adam's "
+          f"state and the step's own; the default step's {grown!r} GiB); the roofline and the "
+          f"remat step took {time.perf_counter() - t0!r} s")
 
 
 # ---------------------------------------------------------------- feat4 (phases 10-12)
@@ -2692,7 +2778,8 @@ def flash_bf16_bound_ms(B, T, n_valid):
     H, hd = FLASH_H, FLASH_HD
     nbytes = 2 * (4 * B * T * H * hd + B * H * T + H * (2 * T - 1)) + 4 * B * T
     flops = 4 * H * hd * T * int(sum(n_valid))
-    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES, "operations": 1e3 * flops / PEAK_BF16_FLOPS}
+    return {"bytes": 1e3 * nbytes / PEAK_HBM_BYTES, "flops": flops,
+            "operations": 1e3 * flops / PEAK_BF16_FLOPS}
 
 
 def flash_bf16_control(torch, flash_wavlm, q, k, v, gate, diag, kvalid, variant):
@@ -2751,7 +2838,7 @@ def flash_bf16_phase(torch, flash_wavlm, f32_totals):
     kw = dict(num_buckets=320, max_distance=800)
     limit = flash_wavlm.BF16_MISMATCH_LIMIT
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "bytes_ms": 0.0,
-           "operations_ms": 0.0, "max_abs_err": 0.0,
+           "operations_ms": 0.0, "max_abs_err": 0.0, "bound_flops": 0,
            "max_ulps": 0.0, "max_of_bound": 0.0, "max_share": 0.0, "device_ms": 0.0,
            "ms_reps": [0.0] * TIMING_REPS, "device_ms_reps": [0.0] * TIMING_REPS,
            "calls": {}, "controls": {}}
@@ -2814,7 +2901,8 @@ def flash_bf16_phase(torch, flash_wavlm, f32_totals):
         least = max(bnd["bytes"], bnd["operations"])
         for key, val in (("ms", ms), ("plain_ms", plain_ms), ("library_ms", lib_ms),
                          ("bound_ms", least), ("bytes_ms", bnd["bytes"]),
-                         ("operations_ms", bnd["operations"]), ("device_ms", dev_ms)):
+                         ("operations_ms", bnd["operations"]), ("device_ms", dev_ms),
+                         ("bound_flops", bnd["flops"])):
             tot[key] += val
         tot["ms_reps"] = [a + c for a, c in zip(tot["ms_reps"], ms_reps)]
         tot["device_ms_reps"] = [a + c for a, c in zip(tot["device_ms_reps"], dev_reps)]
@@ -6941,7 +7029,7 @@ def kernels_only(torch, root: str, lengths: dict) -> dict:
     return {REPLACES[7][0]: totals[7], REPLACES[1][0]: totals[1], FLASH["name"]: flash,
             REPLACES_BF16[7][0]: bf16[7], REPLACES_BF16[1][0]: bf16[1],
             FLASH_BF16["name"]: flash_bf16_phase(torch, flash_wavlm, flash),
-            "train_step_ms": step_timing_phase(torch)}
+            "train_step_ms": step_timing_phase(torch, extras=False)}
 
 
 def ab_phase(other: str) -> None:
@@ -6971,6 +7059,30 @@ def ab_phase(other: str) -> None:
     print("train step (phase 9, ms) " + "  ".join(
         f"{label}={res['train_step_ms']!r}" for label, res in runs))
     print(json.dumps({"ab": [{"run": label, **res} for label, res in runs]}))
+
+
+def formula_flops(lengths, block_shape) -> dict:
+    """{kernel name: the flops its op's formula counts (registered beside
+    the op in ops/kernels/*.py) over the calls its row of the kernel line
+    times}: the three modality calls of one dual batch for the fusion rows,
+    FLASH_SHAPES for the WavLM rows, one call at `block_shape` (B, T) for the
+    block instance."""
+    from sdumc_tpu_torch.ops.kernels.flash_wavlm import flash_wavlm_flops
+    from sdumc_tpu_torch.ops.kernels.fused_cross import fused_cross_flops
+
+    out = {}
+    for q_count in REPLACES:
+        n = sum(fused_cross_flops((B_DUAL, q_count, D), (B_DUAL, T, D), (D, D),
+                                  out_val=(B_DUAL, q_count, D)) for T, _ in lengths.values())
+        out[REPLACES[q_count][0]] = out[REPLACES_BF16[q_count][0]] = n
+
+    def flash(B, T):
+        shape = (B, T, FLASH_H, FLASH_HD)
+        return flash_wavlm_flops(shape, shape, shape)
+
+    out[FLASH["name"]] = out[FLASH_BF16["name"]] = sum(flash(B, T) for B, T in FLASH_SHAPES)
+    out[FLASH_BLOCK["name"]] = flash(*block_shape)
+    return out
 
 
 def start_kernel_build():
@@ -7119,7 +7231,7 @@ def main() -> int:
         launches, history = phase(7, training_phase, torch, fused_cross,
                                   os.path.join(work, "train"))
         phase(8, step_parity_phase, torch)
-        step_ms = phase(9, step_timing_phase, torch)
+        step_ms = phase(9, step_timing_phase, torch, card)
         phase(10, llama_parity_phase, torch)
         llm_dir, proj_path = phase(11, feat4_cli_phase, torch, work, feats_dir)
         depth = phase(12, full_depth_phase, torch, llm_dir, proj_path, feats_dir)
@@ -7230,6 +7342,11 @@ def main() -> int:
           f"(e); each rank's: { {r: c[FLASH_BLOCK['name']] for r, c in tp_launches.items()} }); "
           "its library_ms is aten._scaled_dot_product_efficient_attention with "
           "compute_log_sumexp on the materialised f32 bias, or null where it raises")
+    formula = formula_flops(lengths, block["shape"])
+    print("formula_flops: each custom op's flop formula (ops/kernels/*.py, the padded "
+          "bucket, as program_cost counts the op) summed over the row's calls; bound_flops: "
+          "the operations behind bound_ms (the valid frames or keys only; the fusion rows' "
+          "key projection among them, run as 3 TF32 or bf16 passes)")
     for name, tot in ((REPLACES[7][0], totals[7]), (REPLACES[1][0], totals[1]),
                       (FLASH["name"], flash), (REPLACES_BF16[7][0], bf16_totals[7]),
                       (REPLACES_BF16[1][0], bf16_totals[1]), (FLASH_BF16["name"], flash_bf16),
@@ -7237,7 +7354,8 @@ def main() -> int:
         print(f"{name}: kernel_ms={tot['ms']!r} device_ms={tot['device_ms']!r} "
               f"grad_max_abs_err={tot.get('grad_max_abs_err')!r} "
               f"bound_ms={tot['bound_ms']!r} ({tot['ms'] and tot['bound_ms'] / tot['ms']:.1%} "
-              f"of it) f32_bound_ms={tot.get('f32_bound_ms')!r}")
+              f"of it) f32_bound_ms={tot.get('f32_bound_ms')!r} "
+              f"formula_flops={formula[name]!r} bound_flops={tot['bound_flops']!r}")
     total = time.perf_counter() - T_START
     print(json.dumps({"phase_seconds": {str(n): round(t, 2) for n, t in sorted(seconds.items())},
                       "budget_seconds": {str(n): PHASE_BUDGET[n] for n in sorted(seconds)},

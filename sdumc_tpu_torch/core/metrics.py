@@ -2,7 +2,9 @@
 
 The standard CMU-MOSEI definition (MAE / Pearson corr / Acc-7 / Acc-2 /
 weighted F1 on non-zero labels); the dict carries the ``mae`` and ``f1``
-keys that model selection reads.
+keys that model selection reads. The cross-validation helpers below
+combine the folds' eval results into one selection score and average the
+folds' test predictions.
 """
 
 from __future__ import annotations
@@ -90,3 +92,76 @@ def eval_mosei_metric(preds, labels, names=None) -> Dict[str, float]:
         "acc2_has0": acc2_has0,
         "f1_has0": f1_has0,
     }
+
+
+def overall_metric(emo_fscore: float, val_mse: float) -> float:
+    """The combined selection score: emotion F1 less a quarter of the
+    valence MSE."""
+    return emo_fscore - val_mse * 0.25
+
+
+def calculate_binary_results(val_preds, val_labels):
+    """Binary accuracy and weighted F1 over the non-zero labels (negative
+    vs positive), with the flattened predictions and labels."""
+    val_preds = np.asarray(val_preds).reshape(-1)
+    val_labels = np.asarray(val_labels).reshape(-1)
+    non_zeros = val_labels != 0
+    bin_true = val_labels[non_zeros] > 0
+    bin_pred = val_preds[non_zeros] > 0
+    acc = float(np.mean(bin_true == bin_pred)) if np.any(non_zeros) else 0.0
+    f1 = _f1_weighted(bin_true, bin_pred) if np.any(non_zeros) else 0.0
+    return {
+        "valpreds": val_preds,
+        "vallabels": val_labels,
+        "emoacc": acc,
+        "emofscore": f1,
+    }
+
+
+def gain_metric_from_results(eval_results: dict, metric_name: str = "emoval") -> float:
+    """The scalar model-selection metric: 'emoval' = fscore - 0.25 mse,
+    'emo' = fscore, 'val' = -mse, 'loss' = -loss."""
+    if metric_name == "emoval":
+        return overall_metric(eval_results["emofscore"], eval_results["valmse"])
+    if metric_name == "emo":
+        return eval_results["emofscore"]
+    if metric_name == "val":
+        return -eval_results["valmse"]
+    if metric_name == "loss":
+        return -eval_results["loss"]
+    raise KeyError(metric_name)
+
+
+def gain_cv_results(folder_save) -> str:
+    """The mean of each fold's eval metrics as ``f1:X_acc:Y_val:Z`` (only
+    the keys the fold dicts hold)."""
+    outputs = []
+    for key, tag in (("eval_emofscore", "f1"), ("eval_emoacc", "acc"),
+                     ("eval_valmse", "val")):
+        if key in folder_save[0]:
+            outputs.append(
+                f"{tag}:{float(np.mean([f[key] for f in folder_save])):.4f}")
+    return "_".join(outputs)
+
+
+def average_folds_for_vals(folder_save, testname: str):
+    """(labels, valence predictions averaged over the folds); every test
+    loader iterates unshuffled, so the rows align. ([], []) when the folds
+    hold none for `testname`."""
+    key_l, key_p = f"{testname}_vallabels", f"{testname}_valpreds"
+    if key_l not in folder_save[0]:
+        return [], []
+    labels = folder_save[0][key_l]
+    preds = np.mean([np.asarray(f[key_p]) for f in folder_save], axis=0)
+    return labels, preds
+
+
+def average_folds_for_emos(folder_save, testname: str):
+    """(labels, emotion probabilities averaged over the folds, as a list);
+    ([], []) when the folds hold none for `testname`."""
+    key_l, key_p = f"{testname}_emolabels", f"{testname}_emoprobs"
+    if key_l not in folder_save[0]:
+        return [], []
+    labels = folder_save[0][key_l]
+    probs = np.mean([np.asarray(f[key_p]) for f in folder_save], axis=0)
+    return labels, list(probs)

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import os
 import zlib
-from typing import Dict
+from typing import Dict, List, Sequence
 
 import numpy as np
 
@@ -72,3 +72,17 @@ class SyntheticSource:
     @property
     def dim(self) -> int:
         return self._dim
+
+
+def check_feature_completeness(source, names: Sequence[str]) -> List[str]:
+    """The clips of `names` whose features `source` cannot give: its
+    ``get`` raises, or the array is empty or holds a non-finite value."""
+    bad = []
+    for n in names:
+        try:
+            arr = source.get(n)
+            if arr.size == 0 or not np.isfinite(arr).all():
+                bad.append(n)
+        except Exception:
+            bad.append(n)
+    return bad

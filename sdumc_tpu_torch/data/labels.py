@@ -51,3 +51,15 @@ def read_names_labels(
     if debug:
         names, labels = names[:100], labels[:100]
     return names, labels
+
+
+def write_label_npz(path: str, train: dict, val: dict, test: dict) -> None:
+    """The label npz that ``read_names_labels`` reads: each split's
+    ``name -> {'emo', 'val'}`` dict pickled as a 0-d object array,
+    compressed."""
+    np.savez_compressed(
+        path,
+        train_corpus=np.array(train, dtype=object),
+        val_corpus=np.array(val, dtype=object),
+        test_corpus=np.array(test, dtype=object),
+    )

@@ -67,6 +67,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from sdumc_tpu_torch.ops.kernels import build, check_operand
 
@@ -239,6 +240,20 @@ def _flash_wavlm_lse_fake(q, k, v, gate, bias_diag, kvalid):
             q.new_empty(B, H, T, dtype=torch.float32))
 
 
+def _attention_flops(q_shape, k_shape, v_shape) -> int:
+    """q . k^T and p . v over every query and key of the padded T, as the
+    plain version computes them: 2 B H Tq Tk (hd_qk + hd_v)."""
+    B, Tq, H, hd = q_shape
+    Tk, hd_v = k_shape[1], v_shape[-1]
+    return 2 * B * H * Tq * Tk * (hd + hd_v)
+
+
+@register_flop_formula(torch.ops.sdumc.flash_wavlm_lse)
+def flash_wavlm_lse_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    """The block op's flops for ``torch.utils.flop_counter``: 4 B H Tq Tk hd."""
+    return _attention_flops(q_shape, k_shape, v_shape)
+
+
 def bf16_tolerance(out: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """A bound on |kernel - plain| at bf16, element by element of ``out``
     [B, T, H, hd] (either output): 2^-7 max_u |v[u] - out| + one bf16 ulp of
@@ -302,6 +317,12 @@ def _flash_wavlm_cuda(q, k, v, gate, bias_diag, kvalid):
 @_flash_wavlm_op.register_fake
 def _flash_wavlm_fake(q, k, v, gate, bias_diag, kvalid):
     return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+@register_flop_formula(torch.ops.sdumc.flash_wavlm)
+def flash_wavlm_flops(q_shape, k_shape, v_shape, *args, out_shape=None, **kwargs) -> int:
+    """The op's flops for ``torch.utils.flop_counter``: 4 B H T^2 hd."""
+    return _attention_flops(q_shape, k_shape, v_shape)
 
 
 class FlashGatedAttention(torch.autograd.Function):

@@ -49,6 +49,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from sdumc_tpu_torch.ops.attention_pool import attention_pool
 from sdumc_tpu_torch.ops.kernels import build, check_operand
@@ -199,6 +200,19 @@ def _fused_cross_cuda(q, x, weight, bias, t_max, t_max_scalar, softmax_scale, q_
 @_fused_cross_op.register_fake
 def _fused_cross_fake(q, x, weight, bias, t_max, t_max_scalar, softmax_scale, q_batched):
     return x.new_empty((x.shape[0], q.shape[-2], x.shape[2]))
+
+
+@register_flop_formula(torch.ops.sdumc.fused_cross)
+def fused_cross_flops(q_shape, x_shape, weight_shape, *args, out_shape=None, **kwargs) -> int:
+    """The op's flops for ``torch.utils.flop_counter`` (``FlopCounterMode``,
+    ``utils.roofline.program_cost``): tanh(x W^T + b), 2 B T D_out D_in; the
+    scores k . q and the weighted sum p . x, 2 B Q T D each, over the padded
+    T whatever t_max, as the plain version computes them. Q is the output's
+    (the pool's shared context gives Q = 1)."""
+    B, T, d_in = x_shape
+    d_out = weight_shape[0]
+    Q = out_shape[1]
+    return 2 * B * T * d_out * d_in + 2 * B * Q * T * d_out + 2 * B * Q * T * d_in
 
 
 class Recomputed(torch.autograd.Function):

@@ -49,6 +49,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from sdumc_tpu_torch.core.config import LossConfig
 from sdumc_tpu_torch.losses import mse_loss, rmse_loss, rnc_loss
@@ -179,7 +180,7 @@ def step_seed(seed: int, step: int, rank: Optional[int] = None) -> int:
 
 
 def make_train_step(state: TrainState, loss_cfg: LossConfig, seed: int,
-                    axis: Optional[DataAxis] = None):
+                    axis: Optional[DataAxis] = None, remat: bool = False):
     """Returns batch -> metrics (device tensors): one dual-view step, its
     backward, the Adam update and the schedule step, with the model in
     training mode and the random stream of (seed, state.step). With an
@@ -188,7 +189,20 @@ def make_train_step(state: TrainState, loss_cfg: LossConfig, seed: int,
     ranks before the update, the stream of (seed, state.step, rank), and
     the batch-wide draws from a second generator of (seed, state.step),
     alike on every rank (one process has no second generator: two streams
-    of one seed would repeat each other's values)."""
+    of one seed would repeat each other's values).
+
+    ``remat`` runs the dual-view loss under ``torch.utils.checkpoint``
+    (non-reentrant): the forward keeps only its inputs, and the backward
+    first recomputes the whole loss, so the step runs the forward twice.
+    The loss is the whole step's forward, so its activations are back in
+    memory before the backward begins: the peak is the default step's,
+    and only memory held between the forward and the backward is saved.
+    Checkpoint restores the global RNG states, not the step's own
+    generators, so the checkpointed function seeds them at its entry: the
+    recompute draws the forward's masks, and the step equals the step
+    without remat to the bit. With an `axis`, the recompute repeats
+    ``gather_rows``'s collective during the backward, on every rank alike.
+    Off by default, as in the JAX package."""
     model = state.model
     device = next(model.parameters()).device
     generator = torch.Generator(device=device)
@@ -196,12 +210,18 @@ def make_train_step(state: TrainState, loss_cfg: LossConfig, seed: int,
     shared = torch.Generator(device=device) if rank is not None else None
     use_generator(model, generator, shared)
 
+    def seeded_loss(step, batch):
+        generator.manual_seed(step_seed(seed, step, rank))
+        if shared is not None:
+            shared.manual_seed(step_seed(seed, step))
+        return dual_view_loss(model, batch, loss_cfg, axis)
+
     def train_step(batch):
         model.train()
-        generator.manual_seed(step_seed(seed, state.step, rank))
-        if shared is not None:
-            shared.manual_seed(step_seed(seed, state.step))
-        loss, metrics = dual_view_loss(model, batch, loss_cfg, axis)
+        if remat:
+            loss, metrics = checkpoint(seeded_loss, state.step, batch, use_reentrant=False)
+        else:
+            loss, metrics = seeded_loss(state.step, batch)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         if rank is not None:

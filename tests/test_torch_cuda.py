@@ -1847,3 +1847,107 @@ def test_four_rank_hierarchical_sum_and_pipeline_on_card(cuda, tmp_path):
             torch.testing.assert_close(got[str(dtype)], y, **tol)
         torch.testing.assert_close(got["last"], ref["last_hidden_state"], rtol=RTOL, atol=ATOL)
         torch.testing.assert_close(got["taps"][0], ref["hidden_states"][7], rtol=RTOL, atol=ATOL)
+
+
+def _op_cases(dev):
+    """(name, kernel path, plain version, inputs on `dev`, launch counter) of
+    each custom op at the card's shapes: the fusion op at D = 256, Q = 7
+    and Q = 1, f32 and bf16 x; the WavLM op at hd = 16 and 64, f32 and bf16;
+    its block instance."""
+    cases = []
+    for Q in (7, 1):
+        x, w, b, q, ctx = (t.to(dev) for t in _inputs(4, 70, Q, seed=30 + Q))
+        t_max = torch.tensor([70, 1, 33, 64], device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            if Q == 7:
+                args = (q, x.to(dtype), w, b, t_max)
+                pair = fused_cross.fused_cross_attention, fused_cross.fused_cross_attention_plain
+            else:
+                args = (x.to(dtype), w, b, ctx, t_max)
+                pair = fused_pool.fused_attention_pool, fused_pool.fused_attention_pool_plain
+            counts = fused_cross.LAUNCHES if dtype == torch.float32 else fused_cross.LAUNCHES_BF16
+            cases.append((f"fusion Q={Q} {dtype}", *pair, args,
+                          lambda c=counts, Q=Q: c[Q]))
+    kw = dict(num_buckets=NB, max_distance=MD)
+    for hd in (16, 64):
+        q, k, v, gate, rel, kvalid = (t.to(dev) for t in _flash_inputs(2, 130, 4, hd, "prefix"))
+        diag = flash_wavlm.bias_diag_for(rel, 130, NB, MD)
+        for dtype in (torch.float32, torch.bfloat16):
+            args = (q.to(dtype), k.to(dtype), v.to(dtype), gate, None, kvalid, diag)
+            name = "LAUNCHES" if dtype == torch.float32 else "LAUNCHES_BF16"
+            cases.append((f"flash hd={hd} {dtype}",
+                          lambda *a: flash_wavlm.flash_gated_attention(*a, **kw),
+                          lambda *a: flash_wavlm.flash_gated_attention_plain(*a, **kw), args,
+                          lambda name=name: getattr(flash_wavlm, name)))
+    q, k, v, gate, rel, kvalid = (t.to(dev) for t in _flash_inputs(2, 200, 4, 64, "scattered"))
+    diag = flash_wavlm.bias_diag_for(rel, 200, NB, MD, offset=200)
+    cases.append(("flash block", flash_wavlm.flash_block, flash_wavlm.flash_block_plain,
+                  (q, k, v, gate, diag, kvalid), lambda: flash_wavlm.LAUNCHES_BLOCK))
+    return cases
+
+
+@pytest.mark.cuda
+def test_op_flop_formulas_count_the_plain_products_on_card(cuda):
+    """utils.roofline on the card: each op, launched once (its counter rises
+    by one), counts by its formula the flops that its plain version's
+    products count at the same shapes, and no aten product besides."""
+    from sdumc_tpu_torch.utils.roofline import CostMode
+
+    for name, kern, plain, args, launches in _op_cases(cuda):
+        before = launches()
+        with CostMode() as got:
+            kern(*args)
+        assert launches() == before + 1, name
+        with CostMode() as ref:
+            plain(*args)
+        assert got.flops == ref.flops > 0, name
+        assert len(got.flops_by_op) == 1 and next(iter(got.flops_by_op)).startswith("sdumc."), name
+
+
+@pytest.mark.cuda
+def test_remat_step_on_card_equals_the_default_step(cuda):
+    """Two train steps of the tiny fusion net on the card with the live
+    dropouts, remat against the default step from the same weights: each
+    loss and every gradient within 1e-5 max |grad| + 1e-6 (chip_smoke.py's
+    GRAD_RTOL / GRAD_ATOL; the same kernels on the same inputs, so equal to
+    the bit is expected); remat launches each forward kernel twice a step
+    (the backward's recompute)."""
+    from sdumc_tpu_torch.cli.common import set_matmul_precision
+    from sdumc_tpu_torch.core.config import LossConfig, ModelConfig, TrainConfig
+    from sdumc_tpu_torch.models.fusion import SDUMCFusion
+    from sdumc_tpu_torch.train.state import create_train_state
+    from sdumc_tpu_torch.train.step import make_train_step
+
+    set_matmul_precision("highest")
+    dims = (32, 64, 32)
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(2):
+        b = {k: torch.from_numpy(rng.normal(size=(3, n, d)).astype(np.float32)).to(cuda)
+             for k, n, d in (("audio", 70, dims[0]), ("text", 20, dims[1]),
+                             ("video", 40, dims[2]), ("feat4", 12, dims[1]))}
+        b["vals"] = torch.from_numpy(rng.uniform(-3, 3, size=3).astype(np.float32)).to(cuda)
+        b["t_max"] = (65, 17, 33, 12)
+        batches.append(b)
+    runs = {}
+    for remat in (False, True):
+        model = SDUMCFusion(ModelConfig(input_dims=dims), torch.Generator().manual_seed(0))
+        model.to(cuda)
+        assert model.cfg.dropout > 0
+        step = make_train_step(create_train_state(model, TrainConfig(), 4), LossConfig(),
+                               seed=0, remat=remat)
+        out = []
+        for b in batches:
+            fused_cross.reset_launches()
+            loss = step(b)["loss"].item()
+            out.append((loss, dict(fused_cross.LAUNCHES),
+                        {k: p.grad.cpu() for k, p in model.named_parameters()
+                         if p.grad is not None}))
+        runs[remat] = out
+    for (loss, launches, grads), (rloss, rlaunches, rgrads) in zip(runs[True], runs[False]):
+        assert rlaunches == {1: 3, 7: 3} and launches == {1: 6, 7: 6}
+        assert abs(loss - rloss) <= 1e-4 * abs(rloss)
+        assert grads.keys() == rgrads.keys()
+        for k, ref in rgrads.items():
+            err = (grads[k] - ref).abs().max().item()
+            assert err <= 1e-5 * ref.abs().max().item() + 1e-6, (k, err)
