@@ -11,7 +11,9 @@
 
 Phases, each fatal on failure (non-zero exit, no result line):
   1. environment: the card's name and power limit, then the kernel build
-     from the sources in this checkout (all sources compile in parallel);
+     from the sources in this checkout (all sources compile in parallel,
+     the data plane's C++ with g++ beside the kernels' nvcc; its seconds
+     printed);
   2. the fusion kernel against its plain PyTorch version on the card, at the
      shapes of the inference path's first dual batch (B = 64 rows, D = 256,
      the audio / text / video buckets), once with mixed per-row t_max and
@@ -118,10 +120,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
  18. the production store: seeded MOSEI-like clips at the published widths
      (the synthetic store's clips, 128 / 32 / 32 for train / val / test)
      packed by ``cli.extract pack`` at float32, bfloat16 and int8 (bytes and
-     seconds); ``cli.train --feature_dtype bfloat16`` for one epoch on the
+     seconds); the data plane: one epoch of the train split through
+     BatchIterator as cli.train reads it (page-locked), the C++ fill
+     (data/native.py) against the plain numpy fill in lockstep over the
+     .npy directories and each store, every batch held equal (FILL_RTOL /
+     FILL_ATOL for pooled f32 rows) and each fill's seconds and GB/s
+     printed; the ring (reuse_buffers) on the bf16 store, each batch copied
+     by batch_to_device_dict behind torch.cuda._sleep, every batch on the
+     card equal to the plain fill's, with a control that skips the wait
+     before a refill and must show another batch's bytes;
+     ``cli.train --feature_dtype bfloat16`` for one epoch on the
      bf16 store, then on the int8 store (dequantised on the card), with the
      launch counters around each run (the bf16 instance launches, the f32
-     one does not), finite losses, best_full.pt through cli.infer
+     one does not) and the C++ fills counted (4 a batch; cli.infer's too),
+     finite losses, best_full.pt through cli.infer
      reproducing the logged MAE, and the first eval batch's first rows card
      against CPU (the predictions, and the text representations, with a
      control run of the card's streams in f32 that their check must
@@ -386,7 +398,7 @@ T_START = time.perf_counter()
 # SCRIPT_DEADLINE since the start, is stopped by a watchdog that prints every thread's
 # stack and exits non-zero.
 PHASE_BUDGET = {2: 18, 3: 1, 4: 5, 5: 17, 7: 18, 8: 5, 9: 9, 10: 16, 11: 35, 12: 25, 13: 5,
-                14: 6, 15: 44, 16: 16, 17: 2, 18: 33, 19: 3, 20: 1, 21: 15, 22: 32, 23: 74,
+                14: 6, 15: 44, 16: 16, 17: 2, 18: 43, 19: 3, 20: 1, 21: 15, 22: 32, 23: 74,
                 24: 170, 25: 45, 26: 75, 27: 180, 28: 8, 29: 30, 30: 25}
 PHASE_MIN_BOUND = 120
 SCRIPT_DEADLINE = 1180
@@ -457,6 +469,17 @@ STORE_SPLITS = (("train", 128), ("val", 32), ("test", 32))
 STORE_DTYPES = ("float32", "bfloat16", "int8")
 STORE_ARGV = ["--device", "cuda", "--batch_size", "32", "--feature_dtype", "bfloat16"]
 STORE_CPU_ROWS = 8
+# the data plane (phase 18): one epoch of the train split through BatchIterator at the
+# main path's batch, page-locked as cli.train reads it, the C++ fill against the plain one.
+# Every batch equal, save the rows of a clip mean-pooled into the last bucket: f32 there to
+# FILL_RTOL / FILL_ATOL (the JAX package's rule for its two fills, tests/test_native.py:
+# numpy's mean divides, the C++ multiplies by 1 / pool), bf16 and int8 to one unit in the
+# last place (that last bit of the f32 mean can move the cast)
+FILL_RTOL, FILL_ATOL = 1e-6, 1e-7
+# the ring on the bf16 store: each batch's copy to the card held back behind
+# torch.cuda._sleep (about 0.2 s at up to 2 GHz, longer than the producer takes to refill
+# the ring's next slots at this width), over RING_EPOCHS epochs
+RING_PREFETCH, RING_EPOCHS, RING_SLEEP_CYCLES = 1, 2, 4 * 10**8
 # card vs CPU at bf16 streams, the same bf16 roundings in another summation order:
 # the predictions to max |diff| <= BF16_REL max |pred| (sound runs read <= 4.2e-6 of
 # it; streams in f32 read 1.4e-6-4.6e-5 there too, so it cannot tell them apart), and
@@ -2550,9 +2573,8 @@ def write_store_datasets(torch, root: str) -> dict:
     4-96 of 4096, video 8-300 of 1024, feat4 4-64 of 4096), STORE_SPLITS
     of them, as .npy directories; then ``cli.extract pack`` of each at each
     STORE_DTYPES into a dataset root of its own (features/CMU-MOSEI/{name}
-    .bin / .json, labels/CMU-MOSEI.npz). Returns {dtype: root}."""
-    import shutil
-
+    .bin / .json, labels/CMU-MOSEI.npz). Returns ({dtype: root}, the
+    directory of the .npy directories)."""
     import numpy as np
 
     from sdumc_tpu_torch.cli import extract
@@ -2592,8 +2614,158 @@ def write_store_datasets(torch, root: str) -> dict:
         nbytes = dir_bytes(os.path.join(features, f) for f in os.listdir(features))
         print(f"cli.extract pack --dtype {dtype}: {nbytes!r} bytes ({nbytes / raw!r} of the "
               f".npy), {seconds!r} s for the 4 streams")
-    shutil.rmtree(npy)
-    return roots
+    return roots, npy
+
+
+def store_train_split(cfg, sources: dict):
+    """The store's train split (STORE_SPLITS' first) over `sources`."""
+    from sdumc_tpu_torch.data.pipeline import MoseiDataset
+
+    names = [f"train_{i}" for i in range(STORE_SPLITS[0][1])]
+    return MoseiDataset(names, [{"val": 0.5}] * len(names), sources)
+
+
+def store_sources(cfg, npy: str, roots: dict, kind: str) -> dict:
+    """{modality: source} of the .npy directories (kind "npy") or of the
+    packed store at dtype `kind`."""
+    from sdumc_tpu_torch.data.feature_store import NpyDirSource
+    from sdumc_tpu_torch.data.packed import PackedSource
+
+    names = {"audio": cfg.data.audio_feature, "text": cfg.data.text_feature,
+             "video": cfg.data.video_feature, "feat4": cfg.data.feat4_feature}
+    if kind == "npy":
+        return {k: NpyDirSource(npy, v) for k, v in names.items()}
+    features = os.path.join(roots[kind], "features", cfg.data.dataset)
+    return {k: PackedSource(os.path.join(features, v), v) for k, v in names.items()}
+
+
+def hold_fill(native, plain, sources) -> tuple:
+    """(pooled rows, elements that differ) of one batch of the C++ fill
+    against the plain fill's; raises where they disagree past FILL_RTOL /
+    FILL_ATOL or one unit in the last place (pooled rows), or at all."""
+    import numpy as np
+
+    if native.names != plain.names or native.t_max != plain.t_max or not np.array_equal(
+            native.lengths, plain.lengths):
+        raise AssertionError("the C++ and the plain fill give other clips, t_max or lengths")
+    pooled = differ = 0
+    for key in ("audio", "text", "video", "feat4"):
+        a, b = getattr(native, key), getattr(plain, key)
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{key}: {a.dtype} {a.shape} against {b.dtype} {b.shape}")
+        rows = np.array([sources[key].length_of(n) > a.shape[1] for n in native.names])
+        if not np.array_equal(a[~rows], b[~rows]):
+            raise AssertionError(f"{key}: the C++ fill differs from the plain fill")
+        if rows.any():
+            if a.dtype == np.float32:
+                np.testing.assert_allclose(a[rows], b[rows], rtol=FILL_RTOL, atol=FILL_ATOL)
+            elif np.abs(a[rows].astype(np.int64) - b[rows].astype(np.int64)).max() > 1:
+                raise AssertionError(f"{key}: pooled rows differ by more than one unit")
+            pooled += int(rows.sum())
+            differ += int((a[rows] != b[rows]).sum())
+    return pooled, differ
+
+
+def producer_epoch(torch, cfg, ds, label: str) -> dict:
+    """One epoch of `ds` through BatchIterator as cli.train reads it
+    (shuffled, whole batches, page-locked), the C++ fill and the plain fill
+    in lockstep with no prefetch (each next() is the producer's own time):
+    every batch held (hold_fill), and each fill's seconds and GB/s of batch
+    bytes printed. Returns {"native"|"plain": seconds, "bytes": ...}."""
+    from sdumc_tpu_torch.data.pipeline import BatchIterator
+
+    kw = dict(shuffle=True, seed=cfg.data.shuffle_seed, buckets=cfg.data.length_buckets,
+              pin_memory=True, drop_remainder=True, prefetch=0)
+    its = {"native": iter(BatchIterator(ds, cfg.data.batch_size, **kw)),
+           "plain": iter(BatchIterator(ds, cfg.data.batch_size, plain=True, **kw))}
+    per_batch = {path: [] for path in its}
+    nbytes = pooled = differ = 0
+    while True:
+        got = {}
+        for path, it in its.items():
+            t0 = time.perf_counter()
+            got[path] = next(it, None)
+            per_batch[path].append(time.perf_counter() - t0)
+        if got["native"] is None or got["plain"] is None:
+            if got["native"] is not got["plain"]:
+                raise AssertionError(f"{label}: the two fills give other batch counts")
+            break
+        p, d = hold_fill(got["native"], got["plain"], ds.sources)
+        pooled, differ = pooled + p, differ + d
+        nbytes += sum(getattr(got["native"], k).nbytes for k in ("audio", "text", "video", "feat4"))
+    out = {path: sum(v) for path, v in per_batch.items()}
+    out["bytes"] = nbytes
+    print(f"  {label}: {len(per_batch['native']) - 1} batches of {cfg.data.batch_size}, "
+          f"{nbytes!r} bytes; C++ fill {out['native']!r} s ({nbytes / out['native'] / 1e9!r} "
+          f"GB/s), plain fill {out['plain']!r} s ({nbytes / out['plain'] / 1e9!r} GB/s); per "
+          f"batch C++ {per_batch['native']!r}, plain {per_batch['plain']!r}; {pooled} pooled "
+          f"rows, {differ} elements of them differ")
+    return out
+
+
+def ring_check(torch, cfg, ds) -> None:
+    """The ring on the bf16 store: BatchIterator(reuse_buffers=RING_PREFETCH
+    + 2, pin_memory=True) over RING_EPOCHS epochs at the main path's batch,
+    each batch copied by batch_to_device_dict (the train loop's copy, to
+    bf16 streams, non_blocking) behind torch.cuda._sleep; every batch on the
+    card equal to the plain fill's. The control drops each batch's event
+    before its copy (nothing is recorded, so a refill does not wait): some
+    batch on the card must then hold another batch's bytes."""
+    import numpy as np
+
+    from sdumc_tpu_torch.data.pipeline import BatchIterator
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    kw = dict(shuffle=True, seed=cfg.data.shuffle_seed, buckets=cfg.data.length_buckets,
+              drop_remainder=True)
+    refs = [list(BatchIterator(ds, cfg.data.batch_size, plain=True, prefetch=0, epoch=e, **kw))
+            for e in range(RING_EPOCHS)]
+    for wait in (True, False):
+        ring = BatchIterator(ds, cfg.data.batch_size, pin_memory=True, prefetch=RING_PREFETCH,
+                             reuse_buffers=RING_PREFETCH + 2, **kw)
+        pending = []
+        t0 = time.perf_counter()
+        for epoch in range(RING_EPOCHS):
+            ring.epoch = epoch
+            for batch in ring:
+                if not wait:
+                    batch.copied = None
+                torch.cuda._sleep(RING_SLEEP_CYCLES)
+                pending.append(batch_to_device_dict(batch, "cuda", "bfloat16"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        flat = [r for epoch in refs for r in epoch]
+        equal = [all(np.array_equal(d[k].cpu().view(torch.int16).numpy().view(np.uint16),
+                                    getattr(r, k)) for k in ("audio", "text", "video", "feat4"))
+                 for d, r in zip(pending, flat)]
+        turns = max(r[0] for r in ring._rings.values())
+        print(f"  ring of {RING_PREFETCH + 2} on the bf16 store ({'each refill waits for its '
+              f'copy' if wait else 'control: no wait'}), {len(pending)} batches over "
+              f"{RING_EPOCHS} epochs behind {RING_SLEEP_CYCLES} cycles of sleep each, "
+              f"{seconds!r} s: {sum(equal)} equal to the plain fill; a ring's slots filled "
+              f"{turns} times")
+        if len(pending) != len(flat) or turns <= RING_PREFETCH + 2:
+            raise AssertionError("the ring ran other batches, or reused no slot")
+        if wait and not all(equal):
+            raise AssertionError(f"ring batches on the card differ from the plain fill: {equal}")
+        if not wait and all(equal):
+            raise AssertionError("the ring's control shows no race: the check cannot see one")
+        del pending
+        torch.cuda.empty_cache()
+
+
+def data_plane_checks(torch, npy: str, roots: dict) -> None:
+    """Phase 18's data plane: producer_epoch over the .npy directories and
+    each packed store, then ring_check on the bf16 store."""
+    cfg = main_path_config(STORE_ARGV)
+    t0 = time.perf_counter()
+    print("the data plane: one epoch of the train split, C++ fill against plain fill "
+          "(page-locked, no prefetch; the files just written, so warm in the page cache)")
+    for kind in ("npy",) + STORE_DTYPES:
+        producer_epoch(torch, cfg, store_train_split(cfg, store_sources(cfg, npy, roots, kind)),
+                       ".npy directories" if kind == "npy" else f"{kind} store")
+    ring_check(torch, cfg, store_train_split(cfg, store_sources(cfg, npy, roots, "bfloat16")))
+    print(f"the data plane's checks: {time.perf_counter() - t0!r} s")
 
 
 def store_step(torch, cfg, store: str, feature_dtype: str):
@@ -2666,9 +2838,17 @@ def store_phase(torch, fused_cross, work: str):
     from sdumc_tpu_torch.data.pipeline import BatchIterator, get_loaders
     from sdumc_tpu_torch.train.step import batch_to_device_dict, dequant_features, make_eval_step
 
-    roots = write_store_datasets(torch, os.path.join(work, "store"))
+    import shutil
+
+    from sdumc_tpu_torch.data import native
+
+    roots, npy = write_store_datasets(torch, os.path.join(work, "store"))
+    data_plane_checks(torch, npy, roots)
+    shutil.rmtree(npy)
     before = os.environ.get("SDUMC_DATA_DIR")
     launches = {}
+    fill, fills = native.fill_batch_packed, []
+    native.fill_batch_packed = lambda *a, **k: fills.append(1) or fill(*a, **k)
     try:
         for dtype in ("bfloat16", "int8"):
             os.environ["SDUMC_DATA_DIR"] = roots[dtype]
@@ -2679,12 +2859,16 @@ def store_phase(torch, fused_cross, work: str):
                          + math.ceil(len(test_ds) / bs))
             ck = os.path.join(work, f"ck_{dtype}")
             reset_counts()
+            fills.clear()
             t0 = time.perf_counter()
             result = train.main(STORE_ARGV + ["--epochs", "1", "--checkpoint_dir", ck,
                                               "--save_root", ck])
             torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
             counts = read_counts()
+            if len(fills) != 4 * per_epoch:
+                raise AssertionError(f"{dtype} store: cli.train filled {len(fills)} streams by "
+                                     f"the C++ fill, expected 4 x {per_epoch} batches")
             for q_count in REPLACES:
                 got, f32 = fused_cross.LAUNCHES_BF16[q_count], fused_cross.LAUNCHES[q_count]
                 if got != 3 * per_epoch or f32:
@@ -2704,7 +2888,11 @@ def store_phase(torch, fused_cross, work: str):
                   f"{h['test']['full']['mae']!r} {h['clips_per_sec']!r} clips/s; launches {counts}")
 
             best = os.path.join(ck, "best_full.pt")
+            fills.clear()
             out = infer.main(STORE_ARGV + ["--checkpoint", best])
+            if len(fills) != 4 * math.ceil(len(test_ds) / bs):
+                raise AssertionError(f"{dtype} store: cli.infer filled {len(fills)} streams by "
+                                     f"the C++ fill")
             mae, logged = out["full"]["mae"], result["best_full"]["mae"]
             print(f"  best_full.pt through cli.infer: test MAE {mae!r}, logged {logged!r} "
                   f"(tolerance rtol={CKPT_MAE_RTOL}: the same kernels on the same batches)")
@@ -2760,6 +2948,7 @@ def store_phase(torch, fused_cross, work: str):
             store_step(torch, main_path_config(STORE_ARGV), dtype,
                        "float32" if dtype == "float32" else "bfloat16")
     finally:
+        native.fill_batch_packed = fill
         if before is None:
             os.environ.pop("SDUMC_DATA_DIR", None)
         else:
@@ -7195,8 +7384,11 @@ def main() -> int:
     build_s = max((rep["seconds"] for rep in report.values()), default=0.0)
     print(f"kernel build: {build_s!r} s for {sorted(report) or 'cached'}, begun before torch's "
           f"import, ready {time.perf_counter() - T_START!r} s after the start")
+    if "sdumc_data" in report:
+        print(f"the data plane's library (g++): built in {report['sdumc_data']['seconds']!r} s")
     for name, rep in report.items():
-        print(f"--- nvcc {name} ---\n{rep['log'].strip()}")
+        compiler = "g++" if name in build.HOST_SOURCES else "nvcc"
+        print(f"--- {compiler} {name} ---\n{rep['log'].strip()}")
 
     seconds, heartbeats = {}, []
 

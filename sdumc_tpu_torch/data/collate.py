@@ -74,6 +74,11 @@ class Batch:
     # int8 store only: {"audio": [B, Da] f32, ...} per-clip per-channel
     # scales; the steps dequantise on the device (train/step.py)
     scales: Optional[dict] = None
+    # a ring buffer's batch on a card (BatchIterator reuse_buffers with
+    # pin_memory): the CUDA event that the copy of its arrays records
+    # (train/step.py batch_to_device_dict); the ring waits on it before it
+    # refills the buffers
+    copied: Optional[object] = None
 
     @property
     def size(self) -> int:

@@ -20,7 +20,9 @@ bf16 type; the JAX package's ``ml_dtypes`` is not a dependency of the
 port). Converting to it rounds f32 to nearest even, through torch, the cast
 the card makes too. ``get`` widens such a clip to f32 (exact) and
 dequantises an int8 clip to f32, for the generic consumers; the batch fill
-(``fill_batch_from_packed``) keeps the payload as it is.
+(``fill_batch_from_packed``, the C++ fill of data/native.py over the
+memory-mapped blob) keeps the payload as it is. ``fill_batch_from_packed_plain``
+is its plain numpy version, which the tests hold it to.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
+from sdumc_tpu_torch.data import native
 from sdumc_tpu_torch.data.collate import mapping_feature
 
 
@@ -121,7 +124,8 @@ class PackedSource:
         self._index = meta["index"]
         self.dtype_name = meta.get("dtype", "float32")
         self.payload_dtype = payload_dtype(self.dtype_name)
-        self._blob = np.memmap(prefix + ".bin", dtype=self.payload_dtype, mode="r")
+        self.bin_path = prefix + ".bin"
+        self._blob = np.memmap(self.bin_path, dtype=self.payload_dtype, mode="r")
         self._scales = (np.memmap(prefix + ".scales.bin", dtype=np.float32, mode="r")
                         if self.dtype_name == "int8" else None)
         self._scales_mat = None
@@ -190,11 +194,24 @@ def _pool_into(raw: np.ndarray, bucket: int, dtype_name: str) -> np.ndarray:
 
 
 def fill_batch_from_packed(src: PackedSource, names, bucket: int, dim: Optional[int] = None,
-                           alloc: Optional[Callable[[tuple, np.dtype], np.ndarray]] = None):
+                           out=None, prev_lengths: Optional[np.ndarray] = None):
     """[B, bucket, dim] batch of the store's payload, and the [B] int64
     lengths: each clip zero-padded to `bucket`, or mean-pooled into it when
-    longer (collate.mapping_feature's semantics). ``alloc(shape, dtype)``
-    returns the zeroed buffer (e.g. a view of page-locked memory)."""
+    longer (collate.mapping_feature's semantics, summed in f32 and scaled
+    by 1 / pool), by the C++ fill (``native.fill_batch_packed``; ``out``
+    and ``prev_lengths`` as there)."""
+    dim = dim or src.dim
+    return native.fill_batch_packed(src.bin_path, tuple(src.entry_arrays(names)[:3]), bucket,
+                                    dim, src.dtype_name, out=out, prev_lengths=prev_lengths)
+
+
+def fill_batch_from_packed_plain(src: PackedSource, names, bucket: int,
+                                 dim: Optional[int] = None,
+                                 alloc: Optional[Callable[[tuple, np.dtype], np.ndarray]] = None):
+    """``fill_batch_from_packed``'s plain numpy version: the same batch and
+    lengths, an overlong f32 clip averaged by numpy's mean (so its pooled
+    rows may differ from the C++ fill's in the last bit). ``alloc(shape,
+    dtype)`` returns the zeroed buffer (e.g. a view of page-locked memory)."""
     dim = dim or src.dim
     shape = (len(names), bucket, dim)
     out = alloc(shape, src.payload_dtype) if alloc else np.zeros(shape, src.payload_dtype)

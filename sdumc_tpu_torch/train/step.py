@@ -269,11 +269,13 @@ def batch_to_device_dict(batch, device, feature_dtype: str = "float32") -> Dict:
     them on the device). ``feature_dtype="bfloat16"`` casts an f32 batch to
     bf16 on `device` after the copy, rounding to nearest even.
 
-    On a card the copies are asynchronous and read only page-locked memory
-    that torch's host allocator owns: the batch's own page-locked tensors
-    (BatchIterator ``pin_memory``) where they still hold its arrays, else a
-    page-locked copy. The allocator keeps each such buffer from reuse until
-    its copy has completed, so `batch` may be dropped at once."""
+    On a card the copies are asynchronous and read only page-locked memory:
+    the batch's own page-locked tensors (BatchIterator ``pin_memory``) where
+    they still hold its arrays, else a page-locked copy. torch's host
+    allocator keeps a buffer that is freed from reuse until its copy has
+    completed, so `batch` may be dropped at once. A ring buffer is not
+    freed but refilled: the batch's ``copied`` event is recorded behind the
+    copies, and the ring waits on it before the refill."""
     device = torch.device(device)
     cuda = device.type == "cuda"
     pinned = dict(zip(FEATURES, batch.pinned))
@@ -301,4 +303,6 @@ def batch_to_device_dict(batch, device, feature_dtype: str = "float32") -> Dict:
         d[name + "_scale"] = put(s)
     d["vals"] = put(batch.vals)
     d["t_max"] = tuple(int(t) for t in batch.t_max)
+    if cuda and batch.copied is not None:
+        batch.copied.record(torch.cuda.current_stream(device))
     return d

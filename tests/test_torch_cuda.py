@@ -26,7 +26,10 @@ MANet and one MANet train step (float64). The fusion kernel's bf16 instance
 to its plain version to one bf16 ulp of the output plus the f32 tolerance,
 at the tile edges and with rows that end in different tiles, and to the
 f32 instance rounded to bf16; with it the page-locked batches of a packed
-store and a bf16 dual-view forward, card against CPU. The WavLM kernel's
+store (and a ring of them refilled while their copies wait behind
+torch.cuda._sleep: each refill waits for the slot's last copy, and a control
+that skips the wait must show another batch's bytes) and a bf16 dual-view
+forward, card against CPU. The WavLM kernel's
 bf16 instance is held to its plain version to ``flash_wavlm.bf16_tolerance``
 and ``flash_wavlm.BF16_MISMATCH_LIMIT`` (both round p against the running max
 of 128-key tiles), its gradient (the autograd.Function's
@@ -361,6 +364,64 @@ def test_pinned_packed_batches_keep_the_store_dtype(cuda, tmp_path, dtype):
             if dtype == "int8":
                 np.testing.assert_array_equal(d[name + "_scale"].cpu().numpy(),
                                               batch.scales[name])
+
+
+# about 50 ms of torch.cuda._sleep at up to 2 GHz: longer than the producer takes to
+# fill the ring's next few batches at these sizes
+RING_SLEEP_CYCLES = 10**8
+
+
+def _ring_bits(t: torch.Tensor) -> np.ndarray:
+    return t.cpu().view(torch.int16).numpy().view(np.uint16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wait", [True, False])
+def test_ring_slots_wait_for_their_copies(cuda, tmp_path, wait):
+    """BatchIterator(reuse_buffers=3, prefetch=1, pin_memory=True) on a
+    bf16 store: the ring's page-locked slots, each batch copied
+    non_blocking by batch_to_device_dict behind torch.cuda._sleep, which
+    holds the stream back while the producer moves on. Over 3 epochs every
+    batch on the card equals a fresh batch. The control drops each batch's
+    event before the copy (nothing recorded, so a refill does not wait):
+    some batch on the card then holds a later occupant's bytes, which shows
+    that the check can see the race."""
+    from sdumc_tpu_torch.data.packed import PackedSource, pack_features
+    from sdumc_tpu_torch.data.pipeline import BatchIterator, MoseiDataset
+    from sdumc_tpu_torch.train.step import batch_to_device_dict
+
+    rng = np.random.default_rng(11)
+    names = [f"c{i}" for i in range(24)]
+    sources = {}
+    for key, d in (("audio", 8), ("text", 16), ("video", 8), ("feat4", 16)):
+        (tmp_path / key).mkdir()
+        for n in names:
+            np.save(tmp_path / key / f"{n}.npy",
+                    rng.normal(size=(int(rng.integers(2, 46)), d)).astype(np.float32))
+        sources[key] = PackedSource(pack_features(str(tmp_path / key), str(tmp_path / f"{key}_bf16"),
+                                                  dtype="bfloat16"), key)
+    ds = MoseiDataset(names, [{"val": 0.5}] * len(names), sources)
+    kw = dict(shuffle=True, seed=3, buckets=(32,))     # one bucket: each slot refilled
+    ring = BatchIterator(ds, 4, pin_memory=True, prefetch=1, reuse_buffers=3, **kw)
+    got, want = [], []
+    for epoch in range(3):
+        ring.epoch = epoch
+        fresh = BatchIterator(ds, 4, prefetch=0, epoch=epoch, **kw)
+        for batch, ref in zip(ring, fresh):
+            assert len(batch.pinned) == 4 and all(t.is_pinned() for t in batch.pinned)
+            if not wait:
+                batch.copied = None
+            torch.cuda._sleep(RING_SLEEP_CYCLES)
+            got.append(batch_to_device_dict(batch, cuda))
+            want.append(ref)
+    torch.cuda.synchronize()
+    assert len(got) == 18 and max(r[0] for r in ring._rings.values()) == 18
+    equal = [all(np.array_equal(_ring_bits(d[k]), getattr(r, k))
+                 for k in ("audio", "text", "video", "feat4")) for d, r in zip(got, want)]
+    if wait:
+        assert all(equal), equal
+    else:
+        assert not all(equal), "the control shows no race: the check cannot see one"
 
 
 @pytest.mark.cuda

@@ -6,7 +6,10 @@ all-zero channel, bf16 rounding ties) go through the JAX function and the
 port's: ``pack_features`` writes byte-identical stores at each dtype, and
 each package reads the other's; the batch fill and the int8 scales, the
 all-packed ``BatchIterator``, ``dequant_features`` and the bf16 cast of
-``batch_to_device_dict`` are equal to the bit. Eval on an int8 store tracks
+``batch_to_device_dict`` are equal to the bit. The port's C++ fill is held
+to the JAX package's C++ fill (built into a temporary directory: the
+``jax_cpp`` fixture), its plain fill to JAX's Python gather (``jax_python``),
+whichever the JAX package would pick by itself. Eval on an int8 store tracks
 the f32 store at the JAX package's bound; a last eval batch of 2 at batch 4
 on an int8 store runs in the port and raises in the JAX package. Last, the
 CLI: ``cli.extract pack`` then ``cli.train`` and ``cli.infer --savewhole``
@@ -15,6 +18,8 @@ with ``--device cpu`` on a tiny packed dataset.
 
 import dataclasses
 import json
+import subprocess
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +29,7 @@ import torch
 from sdumc_tpu.core.config import DataConfig as JaxDataConfig
 from sdumc_tpu.core.config import ExperimentConfig as JaxExperimentConfig
 from sdumc_tpu.core.config import ModelConfig as JaxModelConfig
+from sdumc_tpu.data import native as jax_native
 from sdumc_tpu.data.packed import PackedSource as JaxPackedSource
 from sdumc_tpu.data.packed import batch_scales as jax_batch_scales
 from sdumc_tpu.data.packed import fill_batch_from_packed as jax_fill
@@ -40,7 +46,8 @@ from sdumc_tpu_torch.convert import state_dict_from_flax
 from sdumc_tpu_torch.core.config import DataConfig, ExperimentConfig, ModelConfig
 from sdumc_tpu_torch.data.collate import Batch
 from sdumc_tpu_torch.data.packed import (PackedSource, batch_scales, bf16_bits,
-                                         fill_batch_from_packed, pack_features)
+                                         fill_batch_from_packed, fill_batch_from_packed_plain,
+                                         pack_features)
 from sdumc_tpu_torch.data.pipeline import BatchIterator, MoseiDataset, build_sources
 from sdumc_tpu_torch.models.fusion import SDUMCFusion
 from sdumc_tpu_torch.train import loop
@@ -48,6 +55,39 @@ from sdumc_tpu_torch.train.step import batch_to_device_dict, dequant_features, m
 
 # several test workers share the machine's cores: one torch thread each
 torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+# native/build.sh's compile line
+JAX_NATIVE_BUILD = ("g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+
+
+@pytest.fixture(scope="module")
+def jax_library(tmp_path_factory) -> str:
+    """The JAX package's native/sdumc_data.cc, built by native/build.sh's
+    command into a temporary directory (nothing is written under native/)."""
+    out = tmp_path_factory.mktemp("jax_native") / "libsdumc_data.so"
+    subprocess.run([*JAX_NATIVE_BUILD, str(REPO / "native" / "sdumc_data.cc"), "-o", str(out)],
+                   check=True, capture_output=True, timeout=300)
+    return str(out)
+
+
+@pytest.fixture
+def jax_cpp(jax_library, monkeypatch):
+    """The JAX package's data plane on its C++ fill (the temporary build),
+    whatever native/ holds."""
+    monkeypatch.setattr(jax_native, "_LIB_PATH", jax_library)
+    monkeypatch.setattr(jax_native, "_lib", None)
+    assert jax_native.available()
+    return jax_native
+
+
+@pytest.fixture
+def jax_python(tmp_path, monkeypatch):
+    """The JAX package's data plane on its Python gather (no library)."""
+    monkeypatch.setattr(jax_native, "_LIB_PATH", str(tmp_path / "absent.so"))
+    monkeypatch.setattr(jax_native, "_lib", None)
+    assert not jax_native.available()
+    return jax_native
 
 DTYPES = ("float32", "bfloat16", "int8")
 MODALITIES = ("audio", "text", "video", "feat4")
@@ -138,16 +178,22 @@ def test_stores_read_across_packages(stores, dtype):
             assert port_src.scales_matrix() is None
 
 
+@pytest.mark.parametrize("path", ["native", "plain"])
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bucket", [16, 32])
-def test_fill_batch_and_scales_match_jax(stores, dtype, bucket):
+def test_fill_batch_and_scales_match_jax(stores, request, dtype, bucket, path):
     """The batch fill in the store's dtype, clips longer than the bucket
     mean-pooled in f32 and cast back (bf16 to nearest even, int8 toward
-    zero), and the int8 scales: equal to JAX's."""
+    zero), and the int8 scales: equal to JAX's. Each fill is held to the
+    JAX path of its own arithmetic: the port's C++ fill to JAX's C++ fill
+    (built into a temporary directory), the port's plain fill to JAX's
+    Python gather (no library)."""
+    request.getfixturevalue("jax_cpp" if path == "native" else "jax_python")
     names, out = stores
     jax_src, src = JaxPackedSource(out[dtype][0]), PackedSource(out[dtype][1])
     pick = names[::-1][:7]
-    got, lens = fill_batch_from_packed(src, pick, bucket)
+    fill = fill_batch_from_packed if path == "native" else fill_batch_from_packed_plain
+    got, lens = fill(src, pick, bucket)
     ref, ref_lens = jax_fill(jax_src, pick, bucket)
     assert got.dtype == src.payload_dtype and got.shape == (7, bucket, 24)
     np.testing.assert_array_equal(got, _payload(ref))
@@ -179,16 +225,21 @@ def _port_sources(root):
     return {k: PackedSource(str(root / FEATURES[k]), FEATURES[k]) for k in MODALITIES}
 
 
+@pytest.mark.parametrize("path", ["native", "plain"])
 @pytest.mark.parametrize("dtype", DTYPES)
-def test_batch_iterator_on_packed_store_matches_jax(tmp_path, dtype):
+def test_batch_iterator_on_packed_store_matches_jax(tmp_path, request, dtype, path):
     """An all-packed dataset through both BatchIterators (shuffled, buckets
     8 / 16, batches of 4, 4 and 2): arrays in the store's dtype, t_max,
-    lengths, labels, names and the int8 scales equal."""
+    lengths, labels, names and the int8 scales equal. The port's C++ path
+    is held to JAX's C++ path, its plain path (plain=True) to JAX's Python
+    gather."""
+    request.getfixturevalue("jax_cpp" if path == "native" else "jax_python")
     names = _write_store(tmp_path, dtype)
     labels = _labels(names)
     kw = dict(shuffle=True, seed=3, epoch=1, buckets=(8, 16), prefetch=0)
     ref = list(JaxBatchIterator(JaxDataset(names, labels, _jax_sources(tmp_path)), 4, **kw))
-    got = list(BatchIterator(MoseiDataset(names, labels, _port_sources(tmp_path)), 4, **kw))
+    got = list(BatchIterator(MoseiDataset(names, labels, _port_sources(tmp_path)), 4,
+                             plain=path == "plain", **kw))
     assert [b.size for b in got] == [4, 4, 2]
     for g, r in zip(got, ref):
         for key in MODALITIES:
